@@ -1,0 +1,118 @@
+"""TTQ core: the quantized weight type and the linear that consumes it.
+
+    y = deq(W_int) · (x / D) [+ B(Ax)]
+
+``QuantizedTensor`` holds the same seven tensor fields as the reference
+(``wint``/``packed``/``scale``/``zero``/``dinv``/``B``/``A``) plus the
+static ``bits``/``group_size``/``out_features``/``in_features``.  A stacked
+weight (leading layer dim) is one ``QuantizedTensor`` whose tensors carry
+that dim; :func:`qt_index` slices one layer out.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .awq import awq_quantize
+from .policy import QuantPolicy
+from .qdq import QuantConfig, dequantize, pack_bits, unpack_bits
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    wint: Optional[torch.Tensor]      # (d', d) uint8 | None
+    packed: Optional[torch.Tensor]    # (d', d*bits//32) int32 | None
+    scale: torch.Tensor               # (d', d//g) f32
+    zero: torch.Tensor                # (d', d//g) f32
+    dinv: torch.Tensor                # (d,) f32 — activation prescale 1/D
+    B: Optional[torch.Tensor]         # (d', r) | None
+    A: Optional[torch.Tensor]         # (r, d) | None
+    bits: int = 4
+    group_size: int = 32
+    out_features: int = 0
+    in_features: int = 0
+
+    @property
+    def qcfg(self) -> QuantConfig:
+        return QuantConfig(bits=self.bits, group_size=self.group_size,
+                           layout="row")
+
+
+_QT_TENSORS = ("wint", "packed", "scale", "zero", "dinv", "B", "A")
+
+
+def qt_index(qt: QuantizedTensor, i) -> QuantizedTensor:
+    """One layer (or any leading-dim index) of a stacked QuantizedTensor."""
+    return dataclasses.replace(qt, **{
+        f: (None if getattr(qt, f) is None else getattr(qt, f)[i])
+        for f in _QT_TENSORS})
+
+
+def quantize_weight(W: torch.Tensor, D: torch.Tensor, policy: QuantPolicy,
+                    B: Optional[torch.Tensor] = None,
+                    A: Optional[torch.Tensor] = None) -> QuantizedTensor:
+    """Quantize one (d', d) weight given its activation diagonal D."""
+    qcfg = policy.qcfg
+    if qcfg.layout != "row":
+        qcfg = dataclasses.replace(qcfg, layout="row")
+    Wf = W.float()
+    if B is not None and A is not None and policy.rank > 0:
+        Wf = Wf - B.float() @ A.float()
+    else:
+        B = A = None
+    wint, S, Z = awq_quantize(Wf, D, qcfg)
+    dinv = (1.0 / D).float()
+    packed = wint_out = None
+    if (policy.packed and 32 % qcfg.bits == 0
+            and W.shape[1] % (32 // qcfg.bits) == 0):
+        packed = pack_bits(wint, qcfg.bits)
+    else:
+        wint_out = wint
+    return QuantizedTensor(
+        wint=wint_out, packed=packed, scale=S, zero=Z, dinv=dinv, B=B, A=A,
+        bits=qcfg.bits, group_size=qcfg.group_size,
+        out_features=W.shape[0], in_features=W.shape[1])
+
+
+def dequant(qt: QuantizedTensor) -> torch.Tensor:
+    """Effective fp weight Ŵ = deq(Wint)∘D⁻¹ [+ BA] (f32)."""
+    wint = qt.wint
+    if wint is None:
+        wint = unpack_bits(qt.packed, qt.in_features, qt.bits)
+    W = dequantize(wint, qt.scale, qt.zero, qt.qcfg) * qt.dinv[None, :]
+    if qt.B is not None:
+        W = W + qt.B.float() @ qt.A.float()
+    return W
+
+
+def ttq_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
+               kcfg=None) -> torch.Tensor:
+    """y = x @ Ŵᵀ for x (..., d).  With ``kcfg.use_pallas`` a packed weight
+    goes through the ``ttq_gemm`` kernel, the D⁻¹ prescale fused into its
+    prologue; otherwise the plain path prescales x∘D⁻¹ in f32 and multiplies
+    the dequantized f32 weight.  The low-rank branch runs on the unscaled x
+    either way."""
+    if kcfg is not None and kcfg.use_pallas and qt.packed is not None:
+        from repro_torch.kernels import ops as kops
+        y = kops.ttq_gemm(x, qt.packed, qt.scale, qt.zero, qt.dinv,
+                          bits=qt.bits, group_size=qt.group_size)
+    else:
+        lead = x.shape[:-1]
+        xs = x.reshape(-1, x.shape[-1]).float() * qt.dinv
+        wint = qt.wint
+        if wint is None:
+            wint = unpack_bits(qt.packed, qt.in_features, qt.bits)
+        Wd = dequantize(wint, qt.scale, qt.zero, qt.qcfg)
+        y = (xs @ Wd.T).reshape(*lead, -1).to(x.dtype)
+    if qt.B is not None:
+        y = y + (x @ qt.A.to(x.dtype).T) @ qt.B.to(x.dtype).T
+    return y
+
+
+def ttq_linear(x: torch.Tensor, w, **kw) -> torch.Tensor:
+    """fp weight (d', d) → plain matmul; QuantizedTensor → ttq path."""
+    if isinstance(w, QuantizedTensor):
+        return ttq_matmul(x, w, **kw)
+    return x @ w.T

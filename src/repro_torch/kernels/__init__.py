@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels of the serving path and their plain versions.
+
+* ``ttq_quantize``         — online scaled groupwise quantize + pack;
+* ``ttq_gemm``             — fused dequant GEMM with the D⁻¹ prologue;
+* ``kv_decode_attention``  — decode attention over an int8/int4 KV cache.
+
+``ops`` dispatches, ``ref`` holds the plain PyTorch versions, ``build``
+compiles ``csrc/`` with nvcc at first use and counts launches.
+"""
+from .ops import kv_decode_attention, ttq_gemm, ttq_quantize
+
+__all__ = ["kv_decode_attention", "ttq_gemm", "ttq_quantize"]

@@ -1,0 +1,78 @@
+"""Plain PyTorch versions of the three kernels on the serving path.
+
+Each repeats its kernel's arithmetic in f32 with PyTorch ops.  The kernel
+wrappers use them for CPU tensors; the tests and ``chip_smoke.py`` hold
+the kernels against them.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.kvquant import dequantize_kv
+from repro_torch.core.qdq import pack_bits, unpack_bits
+
+NEG_INF = -1e30
+
+
+def ttq_gemm_ref(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                 zero: torch.Tensor, *, bits: int, group_size: int,
+                 dinv: torch.Tensor | None = None) -> torch.Tensor:
+    """y (T, d') f32 = x (T, d) [∘dinv] @ deq(packed (d', d·bits/32), S, Z)ᵀ."""
+    d = x.shape[-1]
+    wint = unpack_bits(packed, d, bits).float()
+    g = group_size
+    s = torch.repeat_interleave(scale.float(), g, dim=1)
+    z = torch.repeat_interleave(zero.float(), g, dim=1)
+    W = wint * s + z
+    xf = x.float()
+    if dinv is not None:
+        xf = xf * dinv[None, :].float()
+    return xf @ W.T
+
+
+def kv_attn_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                vq: torch.Tensor, vs: torch.Tensor, cur_pos: torch.Tensor, *,
+                bits: int = 8, group_size: int = 0,
+                scale: float | None = None, soft_cap: float = 0.0,
+                window: int = 0) -> torch.Tensor:
+    """Decode attention over a quantized cache: dequantize, then grouped-query
+    attention with an f32 softmax.  q (B,H,1,Dh); kq/vq (B,Hkv,S,Dc); ks/vs
+    (B,Hkv,S,Dh//g); cur_pos (B,) → (B,H,1,Dh) in q's dtype."""
+    B, H, _, Dh = q.shape
+    Hkv, S = kq.shape[1], kq.shape[2]
+    G = H // Hkv
+    sc = scale if scale is not None else Dh ** -0.5
+    k = dequantize_kv(kq, ks, torch.float32, bits=bits, group_size=group_size)
+    v = dequantize_kv(vq, vs, torch.float32, bits=bits, group_size=group_size)
+    qg = (q[:, :, 0].float() * sc).reshape(B, Hkv, G, Dh)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k)
+    if soft_cap > 0:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    ki = torch.arange(S, device=q.device)
+    mask = ki[None, :] <= cur_pos[:, None]
+    if window > 0:
+        mask &= ki[None, :] > cur_pos[:, None] - window
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v)
+    return o.reshape(B, H, 1, Dh).to(q.dtype)
+
+
+def ttq_quantize_ref(W: torch.Tensor, D: torch.Tensor, *, bits: int,
+                     group_size: int):
+    """W (..., d', d) ∘ D (..., d) → packed (..., d', d·bits/32) int32,
+    S (..., d', d/g) f32, Z (..., d', d/g) f32.  Leading dims batch (the
+    fused requant passes a layer stack)."""
+    qmax = (1 << bits) - 1
+    g = group_size
+    dp, d = W.shape[-2:]
+    lead = W.shape[:-2]
+    Ws = W.float() * D.float().unsqueeze(-2)
+    Wg = Ws.reshape(*lead, dp, d // g, g)
+    wmax = Wg.amax(dim=-1)
+    wmin = Wg.amin(dim=-1)
+    S = torch.clamp((wmax - wmin) / qmax, min=1e-12)
+    Z = wmin
+    wint = torch.clamp(torch.round((Wg - Z[..., None]) / S[..., None]), 0, qmax)
+    wint = wint.reshape(*lead, dp, d).to(torch.int32)
+    return pack_bits(wint, bits), S, Z

@@ -1,0 +1,155 @@
+"""Shared model blocks — linear with the stats tap, norm, RoPE, attention,
+GLU MLP, sampling.  Plain PyTorch; the reference's layouts and dtypes.
+
+* Linear weights are (out_features, in_features); :func:`linear` dispatches
+  on plain tensors vs ``QuantizedTensor`` and optionally taps the TTQ
+  statistic Σ_t x_t² per input feature.
+* Activations are bf16; norms, softmax and RoPE run in f32.
+* ``stats`` is a flat dict {projection_name: (d_in,) f32}.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.ttq import QuantizedTensor, ttq_matmul
+
+NEG_INF = -1e30
+
+ACT = {"silu": F.silu,
+       "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu default
+       "relu": F.relu}
+
+
+def linear(x: torch.Tensor, w, stats: Optional[dict] = None, name: str = "",
+           kcfg=None) -> torch.Tensor:
+    """y = x @ wᵀ (w: (out,in) tensor or QuantizedTensor); taps Σx² into
+    ``stats[name]`` when a stats dict is given.  ``kcfg`` selects the
+    ``ttq_gemm`` kernel for packed QuantizedTensors."""
+    if stats is not None:
+        xf = x.float()
+        s = (xf * xf).sum(dim=tuple(range(x.dim() - 1)))
+        stats[name] = stats[name] + s if name in stats else s
+    if isinstance(w, QuantizedTensor):
+        return ttq_matmul(x, w, kcfg=kcfg).to(x.dtype)
+    return x @ w.to(x.dtype).T
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm in the (1 + gamma) form, f32 inside."""
+    xf = x.float()
+    nx = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (nx * (1.0 + gamma.float())).to(x.dtype)
+
+
+def norm(x: torch.Tensor, p: dict) -> torch.Tensor:
+    if "beta" in p:
+        raise NotImplementedError("LayerNorm families come in a later slice")
+    return rmsnorm(x, p["gamma"])
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    dh = x.shape[-1]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf = x.float()
+    x1, x2 = xf[..., : dh // 2], xf[..., dh // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float = 10000.0):
+    """x (..., S, Dh); pos (S,) absolute positions."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, pos[..., :, None].float() * freqs)
+
+
+def rope_decode(x: torch.Tensor, pos: torch.Tensor, theta: float = 10000.0):
+    """Single-token RoPE with per-batch positions. x (B,H,1,Dh), pos (B,)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, pos.float()[:, None, None, None] * freqs)
+
+
+def cache_update_batched(cache: torch.Tensor, new: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """cache (B,Hkv,Smax,D·) ← new (B,Hkv,1,D·) at per-batch row pos (B,).
+    Updates ``cache`` in place (a scatter: no host sync) and returns it."""
+    B, Hkv, _, Dc = new.shape
+    idx = pos.long().view(B, 1, 1, 1).expand(B, Hkv, 1, Dc)
+    return cache.scatter_(2, idx, new.to(cache.dtype))
+
+
+def full_attention(q, k, v, *, causal: bool = True,
+                   soft_cap: float = 0.0) -> torch.Tensor:
+    """Grouped-query attention.  q (B,H,S,Dh), k/v (B,Hkv,Sk,Dh) →
+    (B,H,S,Dh).  q is scaled in f32 and cast to k's dtype; both products
+    accumulate in f32 (the reference's preferred_element_type)."""
+    B, H, S, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = Dh ** -0.5
+    qi = torch.arange(S, device=q.device)
+    ki = torch.arange(Sk, device=q.device)
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi[:, None] >= ki[None, :]
+    qg = (q.float() * scale).to(k.dtype).reshape(B, Hkv, G, S, Dh)
+    s = torch.einsum("bhgsd,bhkd->bhgsk", qg.float(), k.float())
+    if soft_cap > 0:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgsk,bhkd->bhgsd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, H, S, -1).to(q.dtype)
+
+
+def attention(q, k, v, *, causal=True, soft_cap=0.0):
+    """Prefill attention: plain PyTorch math (the reference leaves it to XLA;
+    its chunked long-context form is the same function)."""
+    return full_attention(q, k, v, causal=causal, soft_cap=soft_cap)
+
+
+def decode_attention(q, k_cache, v_cache, cur_pos, *, soft_cap: float = 0.0):
+    """Single-token attention over a bf16 (B,Hkv,Smax,Dh) cache; rows past
+    ``cur_pos`` masked.  q (B,H,1,Dh) → (B,H,1,Dh)."""
+    B, H, _, Dh = q.shape
+    Hkv, Smax = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    scale = Dh ** -0.5
+    ki = torch.arange(Smax, device=q.device)
+    mask = ki[None, :] <= cur_pos[:, None]
+    qg = (q[:, :, 0].float() * scale).to(k_cache.dtype).reshape(B, Hkv, G, Dh)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float())
+    if soft_cap > 0:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, H, -1)[:, :, None].to(q.dtype)
+
+
+def glu_mlp(x, p, stats=None, prefix="mlp", act="silu", kcfg=None):
+    """Gated MLP (SwiGLU/GeGLU): (act(x@Wg) * (x@Wu)) @ Wd."""
+    g = linear(x, p["wg"], stats, f"{prefix}.wg", kcfg)
+    u = linear(x, p["wu"], None, kcfg=kcfg)   # same input as wg — tap once
+    h = ACT[act](g.float()).to(x.dtype) * u
+    return linear(h, p["wd"], stats, f"{prefix}.wd", kcfg)
+
+
+def sample_logits(logits: torch.Tensor, generator=None,
+                  temperature: float = 0.0) -> torch.Tensor:
+    """logits (B, V) → (B,) int32; temperature 0 → greedy.  Sampling uses
+    the Gumbel-max trick (a categorical draw with no host sync)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = torch.clamp(u, min=1e-20, max=1.0 - 1e-7)
+    return torch.argmax(logits / temperature - torch.log(-torch.log(u)),
+                        dim=-1).to(torch.int32)

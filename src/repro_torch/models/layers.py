@@ -1,0 +1,154 @@
+"""Attention layer (the ``attn`` kind) — init, sequence mode, decode.
+
+  init_attn(gen, cfg, n, device)             → stacked param dict (n layers)
+  attn_apply(cfg, p, x, stats, prefix, ...)  → prefill output [, (k, v)]
+  attn_decode(cfg, p, x, state, pos, ...)    → (y, state) single token
+  attn_init_state / build_kv_state           → one layer's decode cache
+
+Stats taps use parameter-path names (``prefix + "wq"``) so the quantizer
+joins statistics to weights by path.  Decode writes the new token's k/v
+into the cache in place (a scatter per slot): the cache is the largest
+decode state, and the reference's functional update would copy it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.kvquant import dequantize_kv, quantize_kv
+
+from .common import (apply_rope, attention, cache_update_batched,
+                     decode_attention, linear, rope_decode)
+from .config import ModelConfig
+
+DTYPE = torch.bfloat16
+
+
+def init_linear(gen, n: int, d_out: int, d_in: int, device,
+                dtype=DTYPE) -> torch.Tensor:
+    """n stacked (d_out, d_in) weights ~ N(0, 1/d_in), drawn layer by layer
+    so a full-width init never holds an f32 copy of a whole stack."""
+    w = torch.empty((n, d_out, d_in), dtype=dtype, device=device)
+    for i in range(n):
+        w[i] = (torch.randn((d_out, d_in), generator=gen, device=device)
+                * d_in ** -0.5).to(dtype)
+    return w
+
+
+def init_attn(gen, cfg: ModelConfig, n: int, device):
+    if cfg.qk_norm:
+        raise NotImplementedError("qk_norm families come in a later slice")
+    D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"wq": init_linear(gen, n, H * hd, D, device),
+            "wk": init_linear(gen, n, Hkv * hd, D, device),
+            "wv": init_linear(gen, n, Hkv * hd, D, device),
+            "wo": init_linear(gen, n, D, H * hd, device)}
+
+
+def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None):
+    B = x.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = linear(x, p["wq"], stats, prefix + "wq", kcfg).reshape(B, -1, H, hd)
+    k = linear(x, p["wk"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
+    v = linear(x, p["wv"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
+               causal: bool = True, return_kv: bool = False, kvcfg=None,
+               kcfg=None):
+    """Sequence-mode attention, x (B,S,D).  With a quantized ``kvcfg`` the
+    attention reads the quantize→dequantize of k/v: exactly the values the
+    cache will hold and every later decode step will read."""
+    q, k, v = _qkv(cfg, p, x, stats, prefix, kcfg)
+    S = x.shape[1]
+    if cfg.pos != "rope":
+        raise NotImplementedError("non-RoPE families come in a later slice")
+    pos = torch.arange(S, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    kf, vf = k, v
+    if kvcfg is not None and kvcfg.quantized:
+        kf, vf = (dequantize_kv(*quantize_kv(t, bits=kvcfg.bits,
+                                             group_size=kvcfg.group_size),
+                                torch.float32, bits=kvcfg.bits,
+                                group_size=kvcfg.group_size) for t in (k, v))
+    o = attention(q, kf, vf, causal=causal, soft_cap=cfg.attn_soft_cap)
+    y = linear(o.transpose(1, 2).reshape(x.shape[0], S, -1), p["wo"], stats,
+               prefix + "wo", kcfg)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attn_init_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
+                    device="cuda"):
+    """One layer's dense decode cache: bf16 {'k','v'} (B,Hkv,Smax,Dh), or
+    {'k_q','k_s','v_q','v_s'} int8 / packed-int4 codes + f32 scales."""
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    lead = (batch, Hkv, max_len)
+    if kvcfg is None or not kvcfg.quantized:
+        return {"k": torch.zeros((*lead, hd), dtype=DTYPE, device=device),
+                "v": torch.zeros((*lead, hd), dtype=DTYPE, device=device)}
+    cz = (*lead, kvcfg.code_shape(hd))
+    sz = (*lead, kvcfg.groups(hd))
+    return {"k_q": torch.zeros(cz, dtype=kvcfg.code_dtype, device=device),
+            "k_s": torch.zeros(sz, dtype=torch.float32, device=device),
+            "v_q": torch.zeros(cz, dtype=kvcfg.code_dtype, device=device),
+            "v_s": torch.zeros(sz, dtype=torch.float32, device=device)}
+
+
+def build_kv_state(cfg: ModelConfig, batch: int, max_len: int, k, v,
+                   kvcfg=None):
+    """Prefill write point: the decode cache from sequence-mode k/v
+    (B,Hkv,S,Dh), quantized at the cache's storage dtype."""
+    z = attn_init_state(cfg, batch, max_len, kvcfg, device=k.device)
+    S = k.shape[2]
+    if kvcfg is None or not kvcfg.quantized:
+        z["k"][:, :, :S] = k.to(DTYPE)
+        z["v"][:, :, :S] = v.to(DTYPE)
+        return z
+    for name, t in (("k", k), ("v", v)):
+        codes, scales = quantize_kv(t, bits=kvcfg.bits,
+                                    group_size=kvcfg.group_size)
+        z[name + "_q"][:, :, :S] = codes
+        z[name + "_s"][:, :, :S] = scales
+    return z
+
+
+def _kv_append(state, k, v, pos, kvcfg):
+    """Quantize one token's k/v and write codes and scales at ``pos``."""
+    for name, t in (("k", k), ("v", v)):
+        codes, scales = quantize_kv(t, bits=kvcfg.bits,
+                                    group_size=kvcfg.group_size)
+        cache_update_batched(state[name + "_q"], codes, pos)
+        cache_update_batched(state[name + "_s"], scales, pos)
+    return state
+
+
+def _kv_attention(q, state, cur, kvcfg, *, soft_cap: float = 0.0):
+    """The quantized-cache read: the ``ttq_decode_attention`` kernel."""
+    from repro_torch.kernels import ops as kops
+    return kops.kv_decode_attention(
+        q, state["k_q"], state["k_s"], state["v_q"], state["v_s"], cur,
+        bits=kvcfg.bits, group_size=kvcfg.group_size, soft_cap=soft_cap,
+        use_pallas=kvcfg.use_pallas)
+
+
+def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
+                kcfg=None):
+    """x (B,1,D); state bf16 {'k','v'} or quantized caches (``kvcfg``
+    selects), updated in place; pos (B,) int32 per-slot positions."""
+    q, k, v = _qkv(cfg, p, x, None, "", kcfg)
+    q = rope_decode(q, pos, cfg.rope_theta)
+    k = rope_decode(k, pos, cfg.rope_theta)
+    if kvcfg is not None and kvcfg.quantized:
+        st = _kv_append(state, k, v, pos, kvcfg)
+        o = _kv_attention(q, st, pos, kvcfg, soft_cap=cfg.attn_soft_cap)
+    else:
+        cache_update_batched(state["k"], k, pos)
+        cache_update_batched(state["v"], v, pos)
+        st = state
+        o = decode_attention(q, st["k"], st["v"], pos,
+                             soft_cap=cfg.attn_soft_cap)
+    y = linear(o.reshape(x.shape[0], 1, -1), p["wo"], kcfg=kcfg)
+    return y, st

@@ -1,0 +1,121 @@
+"""Language model entry points — embed → stack → norm → tied vocab head.
+
+    init_params(cfg, generator, device)            → params tree
+    init_decode_state(cfg, batch, max_len, kvcfg)  → decode state
+    prefill(cfg, params, batch, max_len, ...)      → (logits, state, stats)
+    decode_step(cfg, params, state, token, pos)    → (logits, state)
+    decode_many(cfg, params, state, token, pos, done, remaining, gen, K=...)
+                                                   → ((tokens, valid), carry)
+
+``batch`` is a dict {'tokens': (B,S) int}.  Decode updates the KV caches of
+``state`` in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import resolve_device
+
+from . import stack as S
+from .common import linear, norm, sample_logits
+from .config import ModelConfig
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device="cuda") -> dict:
+    """Seeded random init at the config's shapes (bf16 weights, f32 norms).
+    Runs on the card unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    S.stack_spec(cfg)                       # rejects families not ported
+    if not cfg.tie_embeddings or cfg.pos != "rope":
+        raise NotImplementedError("untied heads / learned positions: later slice")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    D = cfg.d_model
+    embed = torch.empty((cfg.vocab, D), dtype=torch.bfloat16, device=dev)
+    rows = max(1, (1 << 26) // D)           # draw ≤ 256 MB of f32 at a time
+    for r0 in range(0, cfg.vocab, rows):
+        n = min(rows, cfg.vocab - r0)
+        embed[r0:r0 + n] = (torch.randn((n, D), generator=generator,
+                                        device=dev) * D ** -0.5).to(embed.dtype)
+    return {"embed": embed,
+            "stack": S.init_stack(generator, cfg, S.stack_spec(cfg), dev),
+            "final_norm": {"gamma": torch.zeros((D,), dtype=torch.float32,
+                                                device=dev)}}
+
+
+def _head(cfg, params, x, kcfg=None):
+    return linear(x, params["embed"], kcfg=kcfg).float()
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
+                      device="cuda"):
+    dev = resolve_device(device)
+    return {"stack": S.init_stack_state(cfg, S.stack_spec(cfg), batch,
+                                        max_len, kvcfg, dev)}
+
+
+def prefill(cfg: ModelConfig, params, batch, max_len: int, *,
+            collect_stats=True, full_logits=False, kvcfg=None):
+    """Run the prompt in full precision: decode state + TTQ statistics.
+
+    Returns (logits, state, stats): logits (B, V) for the last position, or
+    (B, S, V) with ``full_logits``; stats {'stack': [per-run dict of (L, d)
+    Σx² leaves]} keyed by parameter path."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()]
+    x, run_stats, states = S.apply_stack_seq(
+        cfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
+        want_state=True, max_len=max_len, kvcfg=kvcfg)
+    x = norm(x, params["final_norm"])
+    logits = _head(cfg, params, x if full_logits else x[:, -1:])
+    if not full_logits:
+        logits = logits[:, 0]
+    stats = {"stack": run_stats} if collect_stats else None
+    return logits, {"stack": states}, stats
+
+
+def decode_step(cfg: ModelConfig, params, state, token, pos, *, kvcfg=None,
+                kcfg=None):
+    """token (B,1) int; pos (B,) int32 per-slot positions → (logits (B,V)
+    f32, state).  The state's caches are written in place."""
+    pos = pos.to(torch.int32).expand(token.shape[0])
+    x = params["embed"][token.long()]
+    x, _ = S.apply_stack_decode(cfg, params["stack"], S.stack_spec(cfg),
+                                state["stack"], x, pos, kvcfg=kvcfg,
+                                kcfg=kcfg)
+    x = norm(x, params["final_norm"])
+    return _head(cfg, params, x, kcfg)[:, 0], state
+
+
+def decode_many(cfg: ModelConfig, params, state, token, pos, done, remaining,
+                generator=None, *, K: int, max_len: int,
+                temperature: float = 0.0, eos_token: int = -1, kvcfg=None,
+                kcfg=None):
+    """K fused decode steps with sampling, EOS, per-slot done masking, budget
+    accounting and position advance on the device: nothing inside reads a
+    value back to the host, so a K-token block costs one host transfer.
+
+    token (B,1) int32; pos (B,) int32; done (B,) bool (True = inactive
+    lane: it computes but emits nothing, pos/token held); remaining (B,)
+    int32.  A live slot finishes on ``eos_token``, an exhausted budget, or a
+    full cache.  Returns ((tokens (B,K) int32, valid (B,K) bool),
+    (state, token, pos, done, remaining, generator))."""
+    toks, valids = [], []
+    tok, p, dn, rem = token, pos, done, remaining
+    for _ in range(K):
+        p_in = torch.clamp(p, max=max_len - 1)   # done lanes: in-bounds writes
+        logits, state = decode_step(cfg, params, state, tok, p_in,
+                                    kvcfg=kvcfg, kcfg=kcfg)
+        live = ~dn
+        nxt = sample_logits(logits, generator, temperature)
+        nxt = torch.where(live, nxt, tok[:, 0])
+        rem = rem - live.to(torch.int32)
+        p = p + live.to(torch.int32)
+        stop = (nxt == eos_token) | (p >= max_len) | (rem <= 0)
+        dn = dn | (live & stop)
+        tok = nxt[:, None]
+        toks.append(nxt)
+        valids.append(live)
+    return ((torch.stack(toks, dim=1), torch.stack(valids, dim=1)),
+            (state, tok, p, dn, rem, generator))

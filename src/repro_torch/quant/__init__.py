@@ -1,0 +1,16 @@
+"""repro_torch.quant — method registry, calibration session, requantization."""
+from repro_torch.core.kvquant import BF16_KV, KVCacheConfig
+from repro_torch.core.policy import (FUSED_KERNELS, KernelConfig, NO_QUANT,
+                                     QuantPolicy, override, ttq_policy)
+
+from .api import FusedRequantPlan, quantize_params
+from .model import QuantizedModel
+from .registry import get_quantizer, register_quantizer, registered_methods
+from .session import CalibrationSession
+
+__all__ = [
+    "BF16_KV", "CalibrationSession", "FUSED_KERNELS", "FusedRequantPlan",
+    "KVCacheConfig", "KernelConfig", "NO_QUANT", "QuantPolicy",
+    "QuantizedModel", "get_quantizer", "override", "quantize_params",
+    "register_quantizer", "registered_methods", "ttq_policy",
+]

@@ -1,0 +1,60 @@
+"""CalibrationSession — owns the additive activation statistics.
+
+``update`` folds one prefill's Σx² tree in (with exponential decay when
+``halflife`` > 0, in updates); ``as_calib`` hands (stats, count) to the
+requantization.  The reference's guards (quarantine, rollback) come in a
+later slice.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+
+def _tree_map(fn, *trees):
+    a = trees[0]
+    if isinstance(a, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in a}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _tree_add(a: Any, b: Any) -> Any:
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return _tree_map(lambda x, y: x + y, a, b)
+
+
+class CalibrationSession:
+    def __init__(self, halflife: float = 0.0, stats: Any = None,
+                 count: float = 0.0, n_updates: int = 0):
+        self.halflife = float(halflife)
+        self.stats = stats
+        self.count = float(count)
+        self.n_updates = int(n_updates)
+
+    def update(self, stats: Any, tokens: float) -> "CalibrationSession":
+        """Fold one prefill's statistics in (decayed when halflife > 0)."""
+        if self.halflife > 0 and self.stats is not None:
+            decay = 0.5 ** (1.0 / self.halflife)
+            self.stats = _tree_map(lambda x: x * decay, self.stats)
+            self.count *= decay
+        self.stats = _tree_add(self.stats, stats)
+        self.count += float(tokens)
+        self.n_updates += 1
+        return self
+
+    @property
+    def calibrated(self) -> bool:
+        return self.stats is not None
+
+    def as_calib(self) -> tuple:
+        """(stats, count) for the requantization."""
+        return self.stats, max(self.count, 1.0)
+
+    def __repr__(self) -> str:
+        return (f"CalibrationSession(count={self.count:.0f}, "
+                f"n_updates={self.n_updates}, halflife={self.halflife}, "
+                f"calibrated={self.calibrated})")

@@ -1,0 +1,186 @@
+"""TTQEngine — continuous-batching serving with online test-time quantization.
+
+  submit → [queue] → admit: PREFILL in full precision, stats tap on
+                     → CALIBRATE (CalibrationSession)
+                     → REQUANTIZE: D = f(stats); W_int,S,Z = G[W∘D] — one
+                       ``ttq_quantize`` launch per weight stack
+                     → DECODE in fused K-step blocks; every packed-weight
+                       matmul runs ``ttq_gemm`` and every int8/int4 KV read
+                       ``ttq_decode_attention``
+
+A facade over the :class:`Scheduler` (host policy), the
+:class:`DeviceRunner` (device execution) and :class:`QuantizedModel` (TTQ
+state).  ``EngineConfig`` keeps the reference's field names and defaults;
+options whose machinery is not ported yet raise ``NotImplementedError``
+naming the slice that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+from repro_torch._device import resolve_device
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.stack import stack_spec
+from repro_torch.quant import CalibrationSession, QuantizedModel
+
+from .runner import DeviceRunner
+from .scheduler import GenResult, Scheduler, pick_decode_chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_slots: int = 4
+    max_len: int = 256
+    decode_chunk: int = 1           # K fused decode steps per host sync;
+                                    # 0 → auto via pick_decode_chunk(slots)
+    recalibrate_every: int = 1      # requantize after every N admissions
+    recalibrate_tokens: int = 0     # >0: token-budget cadence instead
+    stats_halflife: int = 0         # >0: exponential decay of stats (updates)
+    temperature: float = 0.0
+    eos_token: int = -1             # -1 → run to max_new
+    prompt_buckets: tuple = (16, 32, 64, 128, 256)
+    kv_dtype: str = ""              # "" → policy.kvcache; else bf16|int8|int4
+    use_kernels: Optional[bool] = None  # None → policy.kernel.use_pallas;
+                                    # flips only the decode GEMM dispatch
+    # ---- fields of the reference whose machinery comes in later slices;
+    # a non-default value raises NotImplementedError ----
+    requant_threshold: float = -1.0  # delta gate
+    double_buffer: bool = False
+    kv_paged: Optional[bool] = None  # paged KV pool
+    kv_block_size: int = 0
+    kv_pool_blocks: int = 0
+    prefix_cache: bool = True
+    speculate_k: int = 0            # self-speculative decoding
+    guards: bool = True             # guards and faults (this slice: False)
+    guard_cfg: object = None
+    deadline_s: float = 0.0
+    prefill_chunk: int = 0          # chunked prefill / streaming server
+    prefill_budget: int = 0
+    max_queue: int = 0
+
+
+_LATER = [  # (field, value that keeps it off, slice that brings it)
+    ("requant_threshold", -1.0, "the delta gate and double buffer"),
+    ("double_buffer", False, "the delta gate and double buffer"),
+    ("kv_paged", None, "paged KV"), ("kv_paged", False, "paged KV"),
+    ("kv_block_size", 0, "paged KV"), ("kv_pool_blocks", 0, "paged KV"),
+    ("speculate_k", 0, "speculation"),
+    ("guards", False, "guards and faults"),
+    ("guard_cfg", None, "guards and faults"),
+    ("deadline_s", 0.0, "guards and faults"),
+    ("prefill_chunk", 0, "chunked prefill and the server"),
+    ("prefill_budget", 0, "chunked prefill and the server"),
+    ("max_queue", 0, "chunked prefill and the server"),
+]
+
+
+def _check_slice(ecfg: EngineConfig):
+    for field in {f for f, _, _ in _LATER}:
+        val = getattr(ecfg, field)
+        offs = [v for f, v, _ in _LATER if f == field]
+        if val not in offs:
+            later = next(s for f, _, s in _LATER if f == field)
+            raise NotImplementedError(
+                f"EngineConfig.{field}={val!r}: {later} is ported in a later "
+                f"slice (set {field}={offs[0]!r})")
+
+
+class TTQEngine:
+    def __init__(self, cfg: ModelConfig, params, policy: QuantPolicy,
+                 ecfg: EngineConfig = EngineConfig(), *, device="cuda",
+                 generator=None):
+        _check_slice(ecfg)
+        stack_spec(cfg)                       # rejects families not ported
+        self.device = resolve_device(device)
+        if ecfg.decode_chunk <= 0:
+            ecfg = dataclasses.replace(
+                ecfg, decode_chunk=pick_decode_chunk(ecfg.max_slots))
+        self.cfg, self.params, self.policy, self.ecfg = cfg, params, policy, ecfg
+        self.kvcfg = policy.kvcache
+        if ecfg.kv_dtype:
+            self.kvcfg = dataclasses.replace(self.kvcfg, dtype=ecfg.kv_dtype)
+        self.kncfg = policy.kernel
+        if ecfg.use_kernels is not None:
+            self.kncfg = dataclasses.replace(self.kncfg,
+                                             use_pallas=ecfg.use_kernels)
+        self.runner = DeviceRunner(cfg, ecfg, self.kvcfg, kncfg=self.kncfg,
+                                   device=self.device, generator=generator)
+        self.qmodel = QuantizedModel(
+            params, policy,
+            session=CalibrationSession(halflife=ecfg.stats_halflife))
+        self.scheduler = Scheduler(ecfg)
+        self.requant_wall_s = 0.0
+
+    def _requantize(self):
+        t0 = time.perf_counter()
+        tree = self.qmodel.requantize()
+        self.requant_wall_s += time.perf_counter() - t0
+        if tree is not None:
+            self.scheduler.note_requant()
+
+    @property
+    def decode_params(self):
+        return self.qmodel.decode_params
+
+    @property
+    def qparams(self):
+        return self.qmodel.qparams
+
+    @property
+    def n_requants(self) -> int:
+        return self.qmodel.n_requants
+
+    @property
+    def host_syncs(self) -> int:
+        return self.runner.host_syncs
+
+    def submit(self, prompt, max_new: int = 16) -> int:
+        return self.scheduler.submit(prompt, max_new)
+
+    def _flush_releases(self):
+        if self.scheduler.pending_releases:
+            self.runner.release_slots(self.scheduler.pending_releases)
+            self.scheduler.pending_releases = []
+
+    def admit(self):
+        """Admit queued requests into free slots (one prefill per bucket
+        group), calibrate on their stats, requantize per cadence."""
+        while True:
+            groups = self.scheduler.plan_admissions()
+            if not groups:
+                break
+            for group in groups:
+                first, fin, stats = self.runner.admit_group(self.params, group)
+                self.qmodel.calibrate(stats, tokens=group.tokens)
+                self.scheduler.note_admitted(len(group.requests), group.tokens)
+                for i, (slot, req) in enumerate(zip(group.slots,
+                                                    group.requests)):
+                    req.out.append(int(first[i]))
+                    if fin[i]:
+                        self.scheduler.finish(slot)
+        self._flush_releases()
+        if self.scheduler.should_requant():
+            self._requantize()
+
+    def step(self) -> bool:
+        """Admit, then decode one fused block over the active slots."""
+        self.admit()
+        if not self.scheduler.active_slots():
+            return False
+        toks, valid, done = self.runner.decode_block(self.decode_params)
+        self.scheduler.record_block(toks, valid, done)
+        self._flush_releases()
+        if self.scheduler.should_requant():
+            self._requantize()
+        return True
+
+    def run_all(self, max_iters: int = 10_000) -> Dict[int, GenResult]:
+        it = 0
+        while self.scheduler.has_work() and it < max_iters:
+            if not self.step():
+                break
+            it += 1
+        return self.scheduler.results()

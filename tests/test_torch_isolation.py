@@ -1,0 +1,111 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and no line of
+``chip_smoke.py`` imports JAX or the JAX package, and its entry points
+refuse to drop to the CPU when a card is asked for and missing."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              == "import_module" and node.args
+              and isinstance(node.args[0], (ast.Constant, ast.JoinedStr))):
+            arg = node.args[0]
+            yield (arg.value if isinstance(arg, ast.Constant)
+                   else "".join(v.value for v in arg.values
+                                if isinstance(v, ast.Constant)))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_reference(path):
+    assert path.exists(), path
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusals cannot show")
+
+
+def test_entry_points_refuse_missing_card(no_card):
+    from repro_torch.configs import get
+    from repro_torch.core import ttq_policy
+    from repro_torch.models import lm
+    from repro_torch.serving import EngineConfig, TTQEngine
+    cfg = get("gemma_7b", smoke=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_params(cfg)                          # device defaults to cuda
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TTQEngine(cfg, params, ttq_policy(rank=0),
+                  EngineConfig(guards=False))
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_decode_state(cfg, 2, 16)
+
+
+def test_kernel_wrappers_never_compute_off_card(no_card):
+    """A tensor that is not on the CPU goes to the kernel or raises; it is
+    never computed by the plain version."""
+    from repro_torch.kernels import build, ops
+    m = dict(device="meta")
+    x = torch.empty((4, 256), dtype=torch.bfloat16, **m)
+    pk = torch.empty((64, 32), dtype=torch.int32, **m)
+    sz = torch.empty((64, 8), dtype=torch.float32, **m)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ttq_gemm(x, pk, sz, sz, bits=4, group_size=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ttq_quantize(torch.empty((64, 256), **m),
+                         torch.empty((256,), **m), bits=4, group_size=32)
+    q = torch.empty((1, 2, 1, 32), **m)
+    kq = torch.empty((1, 2, 8, 32), dtype=torch.int8, **m)
+    ks = torch.empty((1, 2, 8, 1), **m)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.kv_decode_attention(q, kq, ks, kq, ks,
+                                torch.empty((1,), dtype=torch.int32, **m))
+    before = dict(build.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        build.lib()                                  # no nvcc / no card here
+    assert build.LAUNCHES == before
+
+
+def test_engine_options_of_later_slices_raise():
+    from repro_torch.configs import get
+    from repro_torch.core import ttq_policy
+    from repro_torch.models import lm
+    from repro_torch.serving import EngineConfig, TTQEngine
+    cfg = get("gemma_7b", smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    for kw in ({}, dict(guards=False, kv_paged=True),
+               dict(guards=False, speculate_k=2),
+               dict(guards=False, requant_threshold=0.1),
+               dict(guards=False, prefill_chunk=16)):
+        with pytest.raises(NotImplementedError):
+            TTQEngine(cfg, params, ttq_policy(rank=0), EngineConfig(**kw),
+                      device="cpu")
+    # the low-rank SVD init comes later: a rank > 0 policy refuses to requant
+    from repro_torch.quant import QuantizedModel
+    _, _, stats = lm.prefill(cfg, params,
+                             {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+                             8)
+    qm = QuantizedModel(params, ttq_policy(rank=8)).calibrate(stats, 4.0)
+    with pytest.raises(NotImplementedError):
+        qm.requantize()

@@ -1,0 +1,225 @@
+"""The port's kernel plain versions against the JAX package's kernels, and
+(on a card) each CUDA kernel against its plain version.
+
+JAX side: ``repro.kernels.ops`` as the JAX tests run it on the CPU (Pallas
+in interpret mode).  Port side: ``device="cpu"``, so every wrapper uses its
+plain version.  Inputs come from numpy with a seed."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.kvquant import quantize_kv as t_quantize_kv
+from repro_torch.core.qdq import unpack_bits as t_unpack
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+# the SWEEP of tests/test_kernels.py: (T, d, dp, bits, g)
+SWEEP = [
+    (16, 256, 128, 4, 32),
+    (1, 512, 384, 4, 128),
+    (9, 256, 256, 8, 32),
+    (32, 512, 256, 2, 64),
+    (200, 1024, 512, 4, 256),
+    (4, 256, 64, 4, 256),
+]
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops, ref
+    from repro.core.qdq import unpack_bits
+    from repro.core.kvquant import quantize_kv
+    return dict(jax=jax, jnp=jnp, ops=ops, ref=ref, unpack=unpack_bits,
+                quantize_kv=quantize_kv)
+
+
+def _data(seed, T, d, dp):
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((dp, d)).astype("float32")
+    D = np.exp(rng.standard_normal(d) * 0.3).astype("float32")
+    x = rng.standard_normal((T, d)).astype("float32")
+    return W, D, x
+
+
+def _codes_close(a, b, frac=2e-3):
+    """Codes equal except ±1 at round-half ties (an f32 reassociation flips a
+    tie), on at most ``frac`` of the codes."""
+    a, b = np.asarray(a).astype(np.int64), np.asarray(b).astype(np.int64)
+    assert np.abs(a - b).max() <= 1
+    assert (a != b).mean() <= frac
+
+
+@pytest.mark.parametrize("T,d,dp,bits,g", SWEEP)
+def test_quantize_plain_matches_jax(jx, T, d, dp, bits, g):
+    W, D, _ = _data(0, T, d, dp)
+    pk_j, S_j, Z_j = jx["ops"].ttq_quantize(jx["jnp"].asarray(W),
+                                            jx["jnp"].asarray(D), bits=bits,
+                                            group_size=g)
+    pk_t, S_t, Z_t = tops.ttq_quantize(torch.from_numpy(W),
+                                       torch.from_numpy(D), bits=bits,
+                                       group_size=g)
+    _codes_close(jx["unpack"](pk_j, d, bits), t_unpack(pk_t, d, bits))
+    # S and Z: same f32 min/max/divide; rtol 1e-5 is the JAX kernel test's
+    np.testing.assert_allclose(S_t.numpy(), np.asarray(S_j), rtol=1e-5)
+    np.testing.assert_allclose(Z_t.numpy(), np.asarray(Z_j), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("T,d,dp,bits,g", SWEEP)
+def test_gemm_plain_matches_jax(jx, T, d, dp, bits, g):
+    W, D, x = _data(1, T, d, dp)
+    jnp = jx["jnp"]
+    pk, S, Z = jx["ref"].ttq_quantize_ref(jnp.asarray(W), jnp.asarray(D),
+                                          bits=bits, group_size=g)
+    y_j = jx["ops"].ttq_gemm(jnp.asarray(x), pk, S, Z,
+                             dinv=jnp.asarray(1.0 / D), bits=bits,
+                             group_size=g)
+    y_t = tops.ttq_gemm(torch.from_numpy(x),
+                        torch.from_numpy(np.array(pk)),
+                        torch.from_numpy(np.array(S)),
+                        torch.from_numpy(np.array(Z)),
+                        torch.from_numpy(1.0 / D), bits=bits, group_size=g)
+    # f32 accumulation in another order: the JAX kernel test's tolerance
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=2e-5,
+                               atol=2e-4)
+
+
+def _cache(seed, B, Hkv, S, Dh, H):
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((B, Hkv, S, Dh)).astype("float32")
+    v = rng.standard_normal((B, Hkv, S, Dh)).astype("float32")
+    q = rng.standard_normal((B, H, 1, Dh)).astype("float32")
+    return k, v, q
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("group_size", [0, 16])
+@pytest.mark.parametrize("cur", [[37, 99], [0, 5], [99, 99]],
+                         ids=["mixed", "short", "full"])
+def test_attention_plain_matches_jax(jx, bits, group_size, cur):
+    B, Hkv, S, Dh, H = 2, 2, 100, 32, 4
+    k, v, q = _cache(2, B, Hkv, S, Dh, H)
+    jnp = jx["jnp"]
+    pos = np.asarray(cur, np.int32)
+    kq, ks = jx["quantize_kv"](jnp.asarray(k), bits=bits, group_size=group_size)
+    vq, vs = jx["quantize_kv"](jnp.asarray(v), bits=bits, group_size=group_size)
+    o_j = jx["ops"].kv_decode_attention(jnp.asarray(q), kq, ks, vq, vs,
+                                        jnp.asarray(pos), bits=bits,
+                                        group_size=group_size, bs=32)
+    tq, tk = torch.from_numpy(q), lambda a: torch.from_numpy(np.array(a))
+    tkq, tks = t_quantize_kv(torch.from_numpy(k), bits=bits,
+                             group_size=group_size)
+    tvq, tvs = t_quantize_kv(torch.from_numpy(v), bits=bits,
+                             group_size=group_size)
+    # the port's KV codes are the reference's codes
+    np.testing.assert_array_equal(tkq.numpy(), np.asarray(kq))
+    np.testing.assert_allclose(tks.numpy(), np.asarray(ks), rtol=1e-6)
+    o_t = tops.kv_decode_attention(tq, tk(kq), tk(ks), tk(vq), tk(vs),
+                                   torch.from_numpy(pos), bits=bits,
+                                   group_size=group_size)
+    # f32 softmax over the same dequantized values: the JAX test's 1e-5
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_attention_plain_soft_cap_matches_jax(jx):
+    B, Hkv, S, Dh, H = 1, 2, 48, 16, 4
+    k, v, q = _cache(3, B, Hkv, S, Dh, H)
+    jnp = jx["jnp"]
+    kq, ks = jx["quantize_kv"](jnp.asarray(k))
+    vq, vs = jx["quantize_kv"](jnp.asarray(v))
+    pos = np.asarray([20], np.int32)
+    o_j = jx["ops"].kv_decode_attention(jnp.asarray(q), kq, ks, vq, vs,
+                                        jnp.asarray(pos), soft_cap=30.0,
+                                        bs=64)
+    tk = lambda a: torch.from_numpy(np.array(a))
+    o_t = tops.kv_decode_attention(torch.from_numpy(q), tk(kq), tk(ks),
+                                   tk(vq), tk(vs), torch.from_numpy(pos),
+                                   soft_cap=30.0)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------- on a card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    kbuild.lib()
+    print(kbuild.build_log)
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (2, 128, 256, 4, 32), (3, 64, 512, 8, 32), (1, 96, 1024, 2, 64),
+    (2, 128, 256, 4, 256), (1, 4096, 3072, 4, 32), (1, 3072, 24576, 4, 32),
+    (1, 24576, 3072, 8, 32), (28, 4096, 3072, 4, 32)])
+def test_quantize_kernel_matches_plain(cuda, case):
+    n, dp, d, bits, g = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    W = torch.randn((n, dp, d), generator=gen, device=cuda).to(torch.bfloat16)
+    D = torch.exp(0.3 * torch.randn((n, d), generator=gen, device=cuda))
+    pk, S, Z = tops.ttq_quantize(W, D, bits=bits, group_size=g)
+    pk_r, S_r, Z_r = tref.ttq_quantize_ref(W, D, bits=bits, group_size=g)
+    torch.cuda.synchronize()
+    _codes_close(t_unpack(pk, d, bits).cpu(), t_unpack(pk_r, d, bits).cpu())
+    torch.testing.assert_close(S, S_r, rtol=1e-5, atol=0)
+    torch.testing.assert_close(Z, Z_r, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 3, 4, 16, 37])
+@pytest.mark.parametrize("shape", [(128, 256, 4, 32), (384, 512, 8, 32),
+                                   (256, 512, 2, 64), (4096, 3072, 4, 32),
+                                   (3072, 24576, 4, 32)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gemm_kernel_matches_plain(cuda, T, shape, dtype):
+    dp, d, bits, g = shape
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    W = torch.randn((dp, d), generator=gen, device=cuda)
+    D = torch.exp(0.3 * torch.randn((d,), generator=gen, device=cuda))
+    x = torch.randn((T, d), generator=gen, device=cuda).to(dtype)
+    pk, S, Z = tref.ttq_quantize_ref(W, D, bits=bits, group_size=g)
+    y = tops.ttq_gemm(x, pk, S, Z, 1.0 / D, bits=bits, group_size=g)
+    y_r = tref.ttq_gemm_ref(x, pk, S, Z, bits=bits, group_size=g,
+                            dinv=1.0 / D).to(dtype)
+    torch.cuda.synchronize()
+    # f32 sums in another order; the JAX kernel test's tolerance, scaled by
+    # sqrt(d/256) for the longer sums, plus one bf16 rounding of the output
+    scale = (d / 256) ** 0.5
+    tol = dict(rtol=2e-5 * scale, atol=2e-4 * scale)
+    if dtype == torch.bfloat16:
+        tol = dict(rtol=1e-2, atol=1e-2 * scale)
+    torch.testing.assert_close(y.float(), y_r.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("geom", [(2, 2, 4, 100, 32, 16), (4, 16, 16, 256, 256, 0),
+                                  (2, 2, 4, 64, 16, 0)])
+def test_attention_kernel_matches_plain(cuda, bits, geom):
+    B, Hkv, H, S, Dh, gsz = geom
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    k = torch.randn((B, Hkv, S, Dh), generator=gen, device=cuda)
+    v = torch.randn((B, Hkv, S, Dh), generator=gen, device=cuda)
+    q = torch.randn((B, H, 1, Dh), generator=gen, device=cuda).to(torch.bfloat16)
+    kq, ks = t_quantize_kv(k, bits=bits, group_size=gsz)
+    vq, vs = t_quantize_kv(v, bits=bits, group_size=gsz)
+    for cur in ([0] * B, [S - 1] * B, list(range(3, 3 + 7 * B, 7))):
+        pos = torch.tensor(cur, dtype=torch.int32, device=cuda)
+        o = tops.kv_decode_attention(q.float(), kq, ks, vq, vs, pos,
+                                     bits=bits, group_size=gsz, soft_cap=0.0)
+        o_r = tref.kv_attn_ref(q.float(), kq, ks, vq, vs, pos, bits=bits,
+                               group_size=gsz)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
+    o = tops.kv_decode_attention(q, kq, ks, vq, vs, pos, bits=bits,
+                                 group_size=gsz, soft_cap=30.0)
+    o_r = tref.kv_attn_ref(q, kq, ks, vq, vs, pos, bits=bits, group_size=gsz,
+                           soft_cap=30.0)
+    torch.testing.assert_close(o.float(), o_r.float(), rtol=1e-2, atol=1e-2)
