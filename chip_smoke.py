@@ -7,13 +7,25 @@
    ``src/repro_torch/kernels/csrc/`` with nvcc (sm_90a) into ``build/``.
 2. Each kernel against its plain PyTorch version at gemma-7b's main-path
    shapes, with its median time, its bound, the plain version's time and
-   (for the GEMM) one PyTorch call of the same function.
+   (for the GEMM) one PyTorch call of the same function; the paged
+   attention kernel also bit for bit against the dense one on the gathered
+   cache.
 3. The main path: ``TTQEngine`` on full-width gemma-7b (random weights from
-   a seed) serves 8 requests through the three kernels; every kernel must
-   have launched, and decode must not sync the host inside a block.  Then
-   one kernel-path ``decode_step`` on 1, 7 and 28 layers is held against
-   the plain-version one and against a kernel-free witness, with every
-   kernel call of the 28-layer step held against its plain version.
+   a seed) serves 8 requests through the three kernels of the dense slab;
+   every kernel must have launched, and decode must not sync the host
+   inside a block.  Then one kernel-path ``decode_step`` on 1, 7 and 28
+   layers is held against the plain-version one and against a kernel-free
+   witness, with every kernel call of the 28-layer step held against its
+   plain version.
+3b. The paged main path: the same weights, policy and traffic through
+   ``EngineConfig(kv_paged=True)`` (block 16, default pool): decode
+   attention runs ``ttq_paged_decode_attention``, and the greedy tokens
+   must equal 3's.
+3c. Prefix cache and preemption at full width: full-precision weights,
+   int8 KV, 8 prompts sharing a 32-token prefix, a pool small enough to
+   preempt; then the same traffic on an unconstrained pool without the
+   prefix cache, for a reading of how many leading tokens agree; and the
+   same pair on the first layer alone, as its witness.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -22,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -50,6 +63,16 @@ GEMM_SHAPES = {                # name: (d', d, launches per layer)
 # (3x its reading), and full depth is held to the kernel-free witness
 # (reading 1.03x) and to twice its reading.
 DEPTHS = (1, 7, 28)
+# phase 3c: a 32-token shared prefix (2 blocks of 16) with tails of 16-48
+# tokens, and a pool of POOL_3C blocks (17 allocatable).  The scheduler is
+# host-only and eos_token=-1 runs every request to max_new, so its
+# preemptions and prefix hits do not depend on the model: on the CPU, with
+# a tiny model of the same geometry, this traffic preempts 24 times with 72
+# prefix-block hits and 61 misses, and pools of 20 blocks or more never
+# preempt (tests/test_torch_paged.py::test_smoke_prefix_traffic_preempts).
+BLOCK = 16
+POOL_3C = 18
+SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clock (time_ms)
 REL_L2_ONE_LAYER = 1e-2
 WITNESS_RATIO = 1.5
 REL_L2_BOUND = 3e-2
@@ -72,9 +95,14 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, iters=15, warmup=2, flush=None):
-    """Median CUDA-event time of ``fn`` over ``iters`` calls; ``flush``
-    (a buffer larger than L2) is rewritten before each call so weights are
-    read from device memory, as in the decode loop."""
+    """Median CUDA-event time of ``fn``'s device work over ``iters`` calls;
+    ``flush`` (a buffer larger than L2) is rewritten before each call so
+    weights are read from device memory, as in the decode loop.  A device
+    spin of SPIN_CYCLES follows the flush, so the host has enqueued all of
+    ``fn``'s launches (a wrapper's checks and argument casts included)
+    before the start event fires: the window holds ``fn``'s device work
+    back to back, not the host's enqueue time.  The wrapper's own small
+    launches (a cast of q, say) stay inside it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -82,6 +110,7 @@ def time_ms(torch, fn, iters=15, warmup=2, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -251,6 +280,63 @@ def kernel_attention(torch, dev, flush, cur_main):
                 bound_ms=28 * b, library_ms=None, bound_by="bytes")
 
 
+def kernel_paged_attention(torch, dev, flush, cur_main):
+    """``ttq_paged_decode_attention`` at the main path's shapes: 4 slots of
+    16 heads of 256, block 16, a pool of 65 blocks under a seeded random
+    block table.  Within 1e-5 of its plain version and bit for bit the
+    dense kernel on the gathered cache; timed beside that dense launch."""
+    from repro_torch.core.kvquant import quantize_kv
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ttq_attn import (ttq_decode_attention,
+                                              ttq_paged_decode_attention)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    B, H, Dh, nblk = 4, 16, 256, 256 // BLOCK
+    NB = B * nblk + 1
+    pk = torch.randn((NB, H, BLOCK, Dh), generator=gen, device=dev)
+    pv = torch.randn((NB, H, BLOCK, Dh), generator=gen, device=dev)
+    q = torch.randn((B, H, 1, Dh), generator=gen, device=dev)
+    perm = np.random.default_rng(SEED + 3).permutation(np.arange(1, NB))
+    bt = torch.from_numpy(perm.reshape(B, nblk).astype(np.int32)).to(dev)
+    worst = 0.0
+    out = {}
+    for bits in (8, 4):
+        kq, ks = quantize_kv(pk, bits=bits)
+        vq, vs = quantize_kv(pv, bits=bits)
+        gathered = [ref.gather_paged_kv(t, bt) for t in (kq, ks, vq, vs)]
+        for cur in ([0, 37, 128, 200], [255] * B, cur_main):
+            pos = torch.tensor(cur, dtype=torch.int32, device=dev)
+            o = ttq_paged_decode_attention(q, kq, ks, vq, vs, bt, pos,
+                                           bits=bits)
+            o_r = ref.kv_paged_attn_ref(q, kq, ks, vq, vs, bt, pos, bits=bits)
+            o_d = ttq_decode_attention(q, *gathered, pos, bits=bits)
+            # the dense kernel's tolerance against the same plain math
+            torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
+            check(torch.equal(o, o_d), f"paged int{bits} at {cur} is not "
+                  f"bit for bit the dense kernel on the gathered cache")
+            worst = max(worst, float((o - o_r).abs().max()))
+        pos = torch.tensor(cur_main, dtype=torch.int32, device=dev)
+        qb = q.to(torch.bfloat16)
+        t_k = time_ms(torch, lambda: ttq_paged_decode_attention(
+            qb, kq, ks, vq, vs, bt, pos, bits=bits), flush=flush)
+        t_d = time_ms(torch, lambda: ttq_decode_attention(
+            qb, *gathered, pos, bits=bits), flush=flush)
+        t_p = time_ms(torch, lambda: ref.kv_paged_attn_ref(
+            qb, kq, ks, vq, vs, bt, pos, bits=bits), flush=flush)
+        row = Dh * bits // 8 + 4                    # codes + one f32 scale
+        moved = 2 * H * row * sum(c + 1 for c in cur_main) + 2 * nbytes(qb) \
+            + nbytes(pos, bt)
+        ops = 4 * H * Dh * sum(c + 1 for c in cur_main)
+        b = max(moved / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
+        print(f"  ttq_paged_decode_attention int{bits} cur_pos={cur_main}: "
+              f"{t_k * 1e3:.1f} us (dense kernel on the gathered cache "
+              f"{t_d * 1e3:.1f} us), bound {b * 1e3:.2f} us, plain "
+              f"{t_p * 1e3:.1f} us; bit for bit the dense kernel")
+        out[bits] = (t_k, t_p, b)
+    t_k, t_p, b = out[8]                              # the main path: int8
+    return dict(max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
+                bound_ms=28 * b, library_ms=None, bound_by="bytes")
+
+
 # --------------------------------------------------------------- phase 3
 
 def clone_tree(torch, tree):
@@ -268,14 +354,19 @@ def make_prompts() -> list[list[int]]:
             for n in rng.integers(16, 65, size=N_REQUESTS)]
 
 
-def build_engine(torch, dev):
-    """``TTQEngine`` on full-width gemma-7b (random weights, seed 0), int4
-    g32 packed weights through the kernels, int8 KV, 4 slots x 256."""
-    from repro_torch.configs import get
-    from repro_torch.core import KernelConfig, KVCacheConfig, ttq_policy
-    from repro_torch.models import lm
-    from repro_torch.serving import EngineConfig, TTQEngine
+def prefix_prompts() -> list[list[int]]:
+    """Phase 3c's traffic: N_REQUESTS prompts, a shared 32-token prefix and
+    seeded tails of 16-48 tokens."""
+    rng = np.random.default_rng(SEED + 1)
+    sysp = rng.integers(0, 256000, size=2 * BLOCK).tolist()
+    return [sysp + rng.integers(0, 256000, size=int(n)).tolist()
+            for n in rng.integers(16, 49, size=N_REQUESTS)]
 
+
+def init_gemma(torch, dev):
+    """Full-width gemma-7b, random weights from seed 0."""
+    from repro_torch.configs import get
+    from repro_torch.models import lm
     cfg = get("gemma_7b")
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -283,12 +374,64 @@ def build_engine(torch, dev):
     torch.cuda.synchronize()
     print(f"  init gemma-7b full width: {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    policy = ttq_policy(bits=4, group_size=32, rank=0, packed=True,
-                        kvcache=KVCacheConfig(dtype="int8"),
-                        kernel=KernelConfig(use_pallas=True))
+    return cfg, params
+
+
+def build_engine(torch, dev, cfg=None, params=None, policy=None, **ecfg_kw):
+    """``TTQEngine`` on full-width gemma-7b (random weights, seed 0; or the
+    given ones), by default int4 g32 packed weights through the kernels,
+    int8 KV, 4 slots x 256; ``ecfg_kw`` adds to the ``EngineConfig``."""
+    from repro_torch.core import KernelConfig, KVCacheConfig, ttq_policy
+    from repro_torch.serving import EngineConfig, TTQEngine
+
+    if params is None:
+        cfg, params = init_gemma(torch, dev)
+    if policy is None:
+        policy = ttq_policy(bits=4, group_size=32, rank=0, packed=True,
+                            kvcache=KVCacheConfig(dtype="int8"),
+                            kernel=KernelConfig(use_pallas=True))
     ecfg = EngineConfig(max_slots=4, max_len=256, decode_chunk=0,
-                        guards=False)
+                        guards=False, **ecfg_kw)
     return cfg, ecfg, TTQEngine(cfg, params, policy, ecfg, device=dev)
+
+
+def serve(torch, eng, prompts):
+    """Submit ``prompts`` (max_new=MAX_NEW), run them all; (outputs in
+    order, wall seconds)."""
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new=MAX_NEW) for p in prompts]
+    out = eng.run_all()
+    torch.cuda.synchronize()
+    return [out[r] for r in rids], time.perf_counter() - t0
+
+
+def check_outputs(cfg, outs, what):
+    check(all(len(o) == MAX_NEW and not o.unfinished for o in outs),
+          f"{what}: not every request produced {MAX_NEW} tokens")
+    check(all(0 <= t < cfg.vocab for o in outs for t in o),
+          f"{what}: token out of the vocabulary")
+
+
+def block_syncs_nothing(torch, cfg, eng, prompts):
+    """Admit 4 prompts, then run one fused decode block on a copy of the
+    live state under ``set_sync_debug_mode("error")``: it must not sync
+    the host (the one transfer comes after the block)."""
+    from repro_torch.models import lm
+    for p in prompts[:4]:
+        eng.submit(p, max_new=MAX_NEW)
+    eng.admit()
+    r = eng.runner
+    st = clone_tree(torch, r.state)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (toks, _), _ = lm.decode_many(
+            cfg, eng.decode_params, st, r.cur_tok.clone(), r.pos.clone(),
+            r.done.clone(), r.remaining.clone(), None, K=r.K,
+            max_len=eng.ecfg.max_len, kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(toks.shape == (4, r.K), f"decode_many tokens {tuple(toks.shape)}")
+    return r
 
 
 def split_sum_gemm(x, packed, scale, zero, dinv, *, bits, group_size):
@@ -398,38 +541,9 @@ def depth_witness(torch, cfg, eng, r):
     return out, gaps
 
 
-def main_path(torch, dev, prompts):
-    from repro_torch.kernels import build
-    from repro_torch.models import lm
-
-    cfg, ecfg, eng = build_engine(torch, dev)
-    build.reset_launches()
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new=MAX_NEW) for p in prompts]
-    out = eng.run_all()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
-    n_tok = sum(len(out[r]) for r in rids)
-    check(all(len(out[r]) == MAX_NEW and not out[r].unfinished for r in rids),
-          f"not every request produced {MAX_NEW} tokens")
-    check(all(0 <= t < cfg.vocab for r in rids for t in out[r]),
-          "token out of the vocabulary")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
-    res = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
-               requants=eng.n_requants, requant_dispatch_s=eng.requant_wall_s,
-               host_syncs=eng.host_syncs,
-               syncs_per_token=eng.host_syncs / n_tok, launches=launches,
-               decode_chunk=eng.ecfg.decode_chunk,
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"  served {len(rids)} requests, {n_tok} tokens in {wall:.2f} s: "
-          f"{n_tok / wall:.1f} tok/s; requants {eng.n_requants} (dispatch "
-          f"{eng.requant_wall_s * 1e3:.1f} ms); host syncs {eng.host_syncs} "
-          f"({res['syncs_per_token']:.4f}/token); launches {launches}")
-
-    # a second, warm run of the same traffic with each phase timed (a
-    # synchronize around each call): where the wall time goes
+def warm_phases(torch, eng, prompts, n_tok):
+    """A second, warm run of the same traffic with each phase timed (a
+    synchronize around each call): where the wall time goes."""
     phase = {"prefill": 0.0, "requant": 0.0, "decode": 0.0}
 
     def timed(fn, key):
@@ -444,21 +558,46 @@ def main_path(torch, dev, prompts):
     eng.runner.admit_group = timed(eng.runner.admit_group, "prefill")
     eng.runner.decode_block = timed(eng.runner.decode_block, "decode")
     eng._requantize = timed(eng._requantize, "requant")
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new=MAX_NEW) for p in prompts]
-    out = eng.run_all()
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
-    res.update(warm_wall_s=wall2, warm_tok_per_s=n_tok / wall2,
+    try:
+        _, wall2 = serve(torch, eng, prompts)
+    finally:
+        del eng.runner.admit_group, eng.runner.decode_block, eng._requantize
+    K = eng.ecfg.decode_chunk
+    res = dict(warm_wall_s=wall2, warm_tok_per_s=n_tok / wall2,
                warm_phase_s=phase,
                decode_ms_per_step=phase["decode"] * 1e3 / (
-                   N_REQUESTS // ecfg.max_slots
-                   * -(-(MAX_NEW - 1) // eng.ecfg.decode_chunk)
-                   * eng.ecfg.decode_chunk))
+                   N_REQUESTS // eng.ecfg.max_slots
+                   * -(-(MAX_NEW - 1) // K) * K))
     print(f"  warm run: {n_tok / wall2:.1f} tok/s; phases (synced) "
           + ", ".join(f"{k} {v:.3f} s" for k, v in phase.items())
           + f"; decode {res['decode_ms_per_step']:.2f} ms per step")
-    del eng.runner.admit_group, eng.runner.decode_block, eng._requantize
+    return res
+
+
+def main_path(torch, dev, prompts, cfg, params):
+    from repro_torch.kernels import build
+
+    cfg, ecfg, eng = build_engine(torch, dev, cfg, params)
+    build.reset_launches()
+    outs, wall = serve(torch, eng, prompts)
+    launches = dict(build.LAUNCHES)
+    n_tok = sum(len(o) for o in outs)
+    check_outputs(cfg, outs, "dense main path")
+    on_path = ("ttq_quantize", "ttq_gemm", "ttq_decode_attention")
+    check(all(launches[k] > 0 for k in on_path),
+          f"a kernel of the main path never launched: {launches}")
+    res = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+               requants=eng.n_requants, requant_dispatch_s=eng.requant_wall_s,
+               host_syncs=eng.host_syncs,
+               syncs_per_token=eng.host_syncs / n_tok, launches=launches,
+               decode_chunk=eng.ecfg.decode_chunk,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"  served {len(prompts)} requests, {n_tok} tokens in {wall:.2f} s: "
+          f"{n_tok / wall:.1f} tok/s; requants {eng.n_requants} (dispatch "
+          f"{eng.requant_wall_s * 1e3:.1f} ms); host syncs {eng.host_syncs} "
+          f"({res['syncs_per_token']:.4f}/token); launches {launches}")
+
+    res.update(warm_phases(torch, eng, prompts, n_tok))
 
     # one synced requant: its device time on the card
     torch.cuda.synchronize()
@@ -469,22 +608,7 @@ def main_path(torch, dev, prompts):
     print(f"  requant (synced): {res['requant_synced_s'] * 1e3:.1f} ms")
 
     # fresh admission of 4 prompts: a live decode state to check against
-    for p in prompts[:4]:
-        eng.submit(p, max_new=MAX_NEW)
-    eng.admit()
-    r = eng.runner
-    # one fused block must not sync the host (the one transfer comes after)
-    st = clone_tree(torch, r.state)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        (toks, _), _ = lm.decode_many(
-            cfg, eng.decode_params, st, r.cur_tok.clone(), r.pos.clone(),
-            r.done.clone(), r.remaining.clone(), None, K=r.K,
-            max_len=ecfg.max_len, kvcfg=eng.kvcfg, kcfg=eng.kncfg)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    check(toks.shape == (4, r.K), f"decode_many tokens {tuple(toks.shape)}")
-    del st
+    r = block_syncs_nothing(torch, cfg, eng, prompts)
 
     wit, gaps = depth_witness(torch, cfg, eng, r)
     res["decode_step_rel_l2"] = wit
@@ -497,7 +621,123 @@ def main_path(torch, dev, prompts):
           f"kernel vs plain decode_step on {DEPTHS[-1]} layers: rel-L2 "
           f"{full['kernels']}, kernel-free witness {full['split-sum plain']}")
     check(full["plain again"] == 0.0, "the plain path is not deterministic")
+    return res, [list(o) for o in outs]
+
+
+def paged_path(torch, dev, prompts, cfg, params, dense):
+    """Phase 3b: the main path with a paged KV pool (block 16, default
+    pool): the same tokens as the dense run, through the paged kernel."""
+    from repro_torch.kernels import build
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ecfg, eng = build_engine(torch, dev, cfg, params, kv_paged=True,
+                                  kv_block_size=BLOCK)
+    build.reset_launches()
+    outs, wall = serve(torch, eng, prompts)
+    launches = dict(build.LAUNCHES)
+    n_tok = sum(len(o) for o in outs)
+    check_outputs(cfg, outs, "paged main path")
+    on_path = ("ttq_quantize", "ttq_gemm", "ttq_paged_decode_attention")
+    check(all(launches[k] > 0 for k in on_path)
+          and launches["ttq_decode_attention"] == 0,
+          f"paged path launches {launches}")
+    check([list(o) for o in outs] == dense["outputs"],
+          f"paged greedy tokens differ from the dense run's: leading tokens "
+          f"equal per request "
+          f"{[leading_equal(o, d) for o, d in zip(outs, dense['outputs'])]}")
+    check(eng.host_syncs == dense["host_syncs"],
+          f"host syncs {eng.host_syncs} vs dense {dense['host_syncs']}")
+    res = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+               num_blocks=eng.num_blocks, host_syncs=eng.host_syncs,
+               syncs_per_token=eng.host_syncs / n_tok, launches=launches,
+               requants=eng.n_requants, preemptions=eng.preemptions,
+               kv_pool_utilization=eng.kv_pool_utilization)
+    print(f"  served {len(prompts)} requests, {n_tok} tokens in {wall:.2f} s: "
+          f"{n_tok / wall:.1f} tok/s; greedy tokens equal to the dense run's; "
+          f"{eng.num_blocks} blocks, pool use {eng.kv_pool_utilization:.3f}; "
+          f"host syncs {eng.host_syncs}; launches {launches}")
+    res.update(warm_phases(torch, eng, prompts, n_tok))
+    eng.allocator.assert_quiescent()
+    block_syncs_nothing(torch, cfg, eng, prompts)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  one fused paged block syncs nothing; peak "
+          f"{res['peak_gb']:.2f} GB")
     return res
+
+
+def leading_equal(a, b) -> int:
+    """How many leading elements ``a`` and ``b`` share."""
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def prefix_and_preemption(torch, dev, cfg, params):
+    """Phase 3c: full-precision weights (no calibration can move them
+    between runs), int8 KV through the paged kernel, 8 prompts sharing a
+    32-token prefix, a pool of POOL_3C blocks.  Checks preemption, prefix
+    hits, a quiescent allocator and complete requests; then reads how many
+    leading tokens each request shares with an unconstrained,
+    prefix-cache-free run of the same traffic.  Tail prefill and re-prefill
+    change GEMM shapes, and at 28 layers the random weights amplify any
+    rounding change (phase 3's witness), so this is a reading, not a check;
+    the same pair of runs on the first layer alone is its witness."""
+    from repro_torch.core import KVCacheConfig, NO_QUANT
+    from repro_torch.kernels import build
+    from repro_torch.models.stack import layer_slice
+
+    prompts = prefix_prompts()
+    policy = NO_QUANT.with_(kvcache=KVCacheConfig(dtype="int8"))
+    one = (dataclasses.replace(cfg, n_layers=1),
+           dict(params, stack=[layer_slice(run, slice(0, 1))
+                               for run in params["stack"]]))
+    runs = {}
+    for depth, (cfg_d, params_d) in ((cfg.n_layers, (cfg, params)), (1, one)):
+        for name, kw in (("constrained", dict(kv_pool_blocks=POOL_3C)),
+                         ("unconstrained", dict(prefix_cache=False))):
+            _, _, eng = build_engine(torch, dev, cfg_d, params_d, policy,
+                                     kv_paged=True, kv_block_size=BLOCK, **kw)
+            build.reset_launches()
+            outs, wall = serve(torch, eng, prompts)
+            check_outputs(cfg, outs, f"3c {name}, {depth} layers")
+            eng.allocator.assert_quiescent()
+            key = f"{name}, {depth} layers"
+            runs[key] = dict(outs=[list(o) for o in outs], wall_s=wall,
+                             num_blocks=eng.num_blocks,
+                             preemptions=eng.preemptions,
+                             prefix_hits=eng.allocator.prefix_hits,
+                             prefix_misses=eng.allocator.prefix_misses,
+                             prefix_hit_rate=eng.prefix_hit_rate,
+                             kv_pool_utilization=eng.kv_pool_utilization,
+                             prefill_tokens=eng.prefill_tokens,
+                             paged_launches=build.LAUNCHES[
+                                 "ttq_paged_decode_attention"])
+            print(f"  {key}: " + ", ".join(
+                f"{k} {v}" for k, v in runs[key].items() if k != "outs"))
+            del eng
+        con = runs[f"constrained, {depth} layers"]
+        check(con["preemptions"] > 0 and con["prefix_hit_rate"] > 0
+              and con["paged_launches"] > 0,
+              f"3c at {depth} layers: preemptions {con['preemptions']}, "
+              f"prefix hit rate {con['prefix_hit_rate']}, paged launches "
+              f"{con['paged_launches']}")
+        agree = [leading_equal(a, b) for a, b in zip(
+            con["outs"], runs[f"unconstrained, {depth} layers"]["outs"])]
+        runs[f"leading tokens equal, {depth} layers"] = agree
+        print(f"  {depth} layers: leading tokens equal to the unconstrained "
+              f"run, per request: {agree} of {MAX_NEW}")
+    # the schedule is host-only: the same at every depth
+    sched = ("preemptions", "prefix_hits", "prefix_misses", "prefill_tokens")
+    check(all(runs[f"constrained, {cfg.n_layers} layers"][k]
+              == runs["constrained, 1 layers"][k] for k in sched),
+          "3c: the schedule depends on the model's depth")
+    for r in runs.values():
+        if isinstance(r, dict):
+            del r["outs"]
+    return runs
 
 
 def main() -> int:
@@ -538,6 +778,10 @@ def main() -> int:
         "ttq_decode_attention": ("src/repro_torch/kernels/csrc/ttq_attn.cu",
                                  "src/repro/kernels/ttq_attn.py:254",
                                  kernel_attention(torch, dev, flush, cur_main)),
+        "ttq_paged_decode_attention": (
+            "src/repro_torch/kernels/csrc/ttq_attn.cu",
+            "src/repro/kernels/ttq_attn.py:203",
+            kernel_paged_attention(torch, dev, flush, cur_main)),
     }
     del flush
     torch.cuda.empty_cache()
@@ -545,16 +789,33 @@ def main() -> int:
 
     print("[3] main path: TTQEngine, gemma-7b full width, int4 g32 weights, "
           "int8 KV")
-    res = main_path(torch, dev, prompts)
+    cfg, params = init_gemma(torch, dev)
+    res, outs = main_path(torch, dev, prompts, cfg, params)
     print("    main path: " + json.dumps(res))
+    gc.collect()                        # the dense engine goes before 3b's
+    torch.cuda.empty_cache()
+
+    print("[3b] paged main path: the same, with kv_paged=True (block 16, "
+          "default pool)")
+    paged = paged_path(torch, dev, prompts, cfg, params,
+                       dict(outputs=outs, host_syncs=res["host_syncs"]))
+    print("    paged main path: " + json.dumps(paged))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[3c] prefix cache and preemption: NO_QUANT weights, int8 KV, "
+          f"pool of {POOL_3C} blocks")
+    pre = prefix_and_preemption(torch, dev, cfg, params)
+    print("    prefix cache and preemption: " + json.dumps(pre))
 
     kernels = []
     for name, (src, replaces, m) in rows.items():
+        launches = (paged if name == "ttq_paged_decode_attention"
+                    else res)["launches"][name]
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces,
-                            launches=res["launches"][name], **m))
+                            replaces=replaces, launches=launches, **m))
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
-          "requant (quantize)")
+          "requant (quantize); paged launches from 3b")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

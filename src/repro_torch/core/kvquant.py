@@ -19,8 +19,11 @@ class KVCacheConfig:
     → one scale per (head, token) row; ``use_pallas`` routes the quantized
     read through the fused attention kernel (False → plain PyTorch, the
     reference's escape hatch; the field keeps the reference's name).
-    ``paged``/``block_size`` name the paged pool, which a later slice of
-    the port brings; ``paged=True`` raises here."""
+    ``paged``: one (num_blocks, Hkv, block_size, ·) pool per attention
+    layer plus per-slot block tables instead of the dense (max_slots, Hkv,
+    max_len, ·) slab; physical block 0 is the write sink for done and empty
+    lanes and is never allocated.  ``block_size`` (paged only) must divide
+    max_len, which is checked where the state is built."""
 
     dtype: str = "bf16"
     group_size: int = 0
@@ -31,10 +34,8 @@ class KVCacheConfig:
     def __post_init__(self):
         if self.dtype not in _KV_BITS:
             raise ValueError(f"kv dtype {self.dtype!r} not in {sorted(_KV_BITS)}")
-        if self.paged:
-            raise NotImplementedError(
-                "paged KV cache (ttq_paged_decode_attention, serving/blocks.py)"
-                " is ported in the next slice")
+        if self.paged and self.block_size <= 0:
+            raise ValueError("paged cache needs block_size > 0")
 
     @property
     def bits(self) -> int:

@@ -37,10 +37,15 @@ SIGNATURES = {
     # soft_cap, stream
     "ttq_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _P],
+    # qg, kq, ks, vq, vs, block_table, cur_pos, out, B, Hkv, G, bs, nblk,
+    # Dh, n_groups, bits, soft_cap, stream
+    "ttq_paged_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 # launches per kernel, counted by the wrappers where they launch
-LAUNCHES = {"ttq_quantize": 0, "ttq_gemm": 0, "ttq_decode_attention": 0}
+LAUNCHES = {"ttq_quantize": 0, "ttq_gemm": 0, "ttq_decode_attention": 0,
+            "ttq_paged_decode_attention": 0}
 
 _lib = None
 build_seconds = 0.0

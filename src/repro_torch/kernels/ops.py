@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from . import ref as _ref
 from .ttq_attn import ttq_decode_attention as _attn_kernel
+from .ttq_attn import ttq_paged_decode_attention as _paged_attn_kernel
 from .ttq_gemm import ttq_gemm as _gemm_kernel
 from .ttq_quantize import ttq_quantize as _quantize_kernel
 
@@ -36,6 +37,20 @@ def kv_decode_attention(q, kq, ks, vq, vs, cur_pos, *, bits=8, group_size=0,
     return _ref.kv_attn_ref(q, kq, ks, vq, vs, cur_pos, bits=bits,
                             group_size=group_size, scale=scale,
                             soft_cap=soft_cap, window=window)
+
+
+def kv_paged_decode_attention(q, kq, ks, vq, vs, block_table, cur_pos, *,
+                              bits=8, group_size=0, scale=None, soft_cap=0.0,
+                              use_pallas=True):
+    """Decode attention over the (NB, Hkv, block_size, ·) pools through the
+    (B, nblk) block table."""
+    if use_pallas and bits in _KV_BITS:
+        return _paged_attn_kernel(q, kq, ks, vq, vs, block_table, cur_pos,
+                                  bits=bits, group_size=group_size,
+                                  scale=scale, soft_cap=soft_cap)
+    return _ref.kv_paged_attn_ref(q, kq, ks, vq, vs, block_table, cur_pos,
+                                  bits=bits, group_size=group_size,
+                                  scale=scale, soft_cap=soft_cap)
 
 
 def ttq_quantize(W, D, *, bits=4, group_size=32, use_pallas=True):

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels on the serving path.
+"""Plain PyTorch versions of the four kernels on the serving path.
 
 Each repeats its kernel's arithmetic in f32 with PyTorch ops.  The kernel
 wrappers use them for CPU tensors; the tests and ``chip_smoke.py`` hold
@@ -56,6 +56,31 @@ def kv_attn_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bhkd->bhgd", p, v)
     return o.reshape(B, H, 1, Dh).to(q.dtype)
+
+
+def gather_paged_kv(pool: torch.Tensor,
+                    block_table: torch.Tensor) -> torch.Tensor:
+    """A per-slot contiguous view of a paged pool: pool (NB, Hkv, bs, D·)
+    indexed by block_table (B, nblk) → (B, Hkv, nblk·bs, D·).  Unallocated
+    entries point at the sink block 0; its rows land past ``cur_pos`` and
+    the attention read masks them."""
+    g = pool[block_table.long()]                       # (B, nblk, Hkv, bs, D)
+    B, nblk, Hkv, bs, D = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(B, Hkv, nblk * bs, D)
+
+
+def kv_paged_attn_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                      vq: torch.Tensor, vs: torch.Tensor,
+                      block_table: torch.Tensor, cur_pos: torch.Tensor, *,
+                      bits: int = 8, group_size: int = 0,
+                      scale: float | None = None,
+                      soft_cap: float = 0.0) -> torch.Tensor:
+    """Paged decode attention: gather the block table's view of each
+    (NB, Hkv, bs, ·) pool into the contiguous layout, then exactly
+    :func:`kv_attn_ref`."""
+    g = [gather_paged_kv(t, block_table) for t in (kq, ks, vq, vs)]
+    return kv_attn_ref(q, *g, cur_pos, bits=bits, group_size=group_size,
+                       scale=scale, soft_cap=soft_cap)
 
 
 def ttq_quantize_ref(W: torch.Tensor, D: torch.Tensor, *, bits: int,

@@ -85,16 +85,17 @@ def cache_update_batched(cache: torch.Tensor, new: torch.Tensor,
     return cache.scatter_(2, idx, new.to(cache.dtype))
 
 
-def full_attention(q, k, v, *, causal: bool = True,
+def full_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                    soft_cap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention.  q (B,H,S,Dh), k/v (B,Hkv,Sk,Dh) →
     (B,H,S,Dh).  q is scaled in f32 and cast to k's dtype; both products
-    accumulate in f32 (the reference's preferred_element_type)."""
+    accumulate in f32 (the reference's preferred_element_type).  The
+    queries sit at positions ``q_offset + i`` of the key axis."""
     B, H, S, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
     scale = Dh ** -0.5
-    qi = torch.arange(S, device=q.device)
+    qi = torch.arange(S, device=q.device) + q_offset
     ki = torch.arange(Sk, device=q.device)
     mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -109,10 +110,13 @@ def full_attention(q, k, v, *, causal: bool = True,
     return o.reshape(B, H, S, -1).to(q.dtype)
 
 
-def attention(q, k, v, *, causal=True, soft_cap=0.0):
+def attention(q, k, v, *, causal=True, soft_cap=0.0, q_offset: int = 0):
     """Prefill attention: plain PyTorch math (the reference leaves it to XLA;
-    its chunked long-context form is the same function)."""
-    return full_attention(q, k, v, causal=causal, soft_cap=soft_cap)
+    its chunked long-context form is the same function).  A nonzero
+    ``q_offset`` is tail prefill over a cached prefix: the queries start at
+    that position of the keys."""
+    return full_attention(q, k, v, causal=causal, q_offset=q_offset,
+                          soft_cap=soft_cap)
 
 
 def decode_attention(q, k_cache, v_cache, cur_pos, *, soft_cap: float = 0.0):

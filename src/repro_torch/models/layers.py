@@ -4,11 +4,13 @@
   attn_apply(cfg, p, x, stats, prefix, ...)  → prefill output [, (k, v)]
   attn_decode(cfg, p, x, state, pos, ...)    → (y, state) single token
   attn_init_state / build_kv_state           → one layer's decode cache
+  build_kv_compact                           → prefill rows for the pool
 
 Stats taps use parameter-path names (``prefix + "wq"``) so the quantizer
 joins statistics to weights by path.  Decode writes the new token's k/v
-into the cache in place (a scatter per slot): the cache is the largest
-decode state, and the reference's functional update would copy it.
+into the cache in place (a scatter per slot, or per pool row when the
+cache is paged): the cache is the largest decode state, and the
+reference's functional update would copy it.
 """
 from __future__ import annotations
 
@@ -54,16 +56,21 @@ def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None):
 
 
 def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
-               causal: bool = True, return_kv: bool = False, kvcfg=None,
-               kcfg=None):
-    """Sequence-mode attention, x (B,S,D).  With a quantized ``kvcfg`` the
-    attention reads the quantize→dequantize of k/v: exactly the values the
-    cache will hold and every later decode step will read."""
+               causal: bool = True, pos0: int = 0, return_kv: bool = False,
+               kv_prefix=None, kvcfg=None, kcfg=None):
+    """Sequence-mode attention, x (B,S,D) at absolute positions pos0.. .
+    With a quantized ``kvcfg`` the attention reads the quantize→dequantize
+    of k/v: exactly the values the cache will hold and every later decode
+    step will read (so a re-prefill after preemption resumes on the same
+    numbers).  ``kv_prefix`` = (k, v) each (B, Hkv, P, Dh): cached context
+    (post-RoPE, e.g. a shared prompt prefix gathered from the paged pool)
+    in front of this call's keys; the queries then start at ``pos0 == P``.
+    ``return_kv`` returns only this call's k/v."""
     q, k, v = _qkv(cfg, p, x, stats, prefix, kcfg)
     S = x.shape[1]
     if cfg.pos != "rope":
         raise NotImplementedError("non-RoPE families come in a later slice")
-    pos = torch.arange(S, device=x.device)
+    pos = torch.arange(S, device=x.device) + pos0
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     kf, vf = k, v
@@ -72,7 +79,14 @@ def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
                                              group_size=kvcfg.group_size),
                                 torch.float32, bits=kvcfg.bits,
                                 group_size=kvcfg.group_size) for t in (k, v))
-    o = attention(q, kf, vf, causal=causal, soft_cap=cfg.attn_soft_cap)
+    q_off = 0
+    if kv_prefix is not None:
+        pk, pv = kv_prefix
+        kf = torch.cat([pk.to(kf.dtype), kf], dim=2)
+        vf = torch.cat([pv.to(vf.dtype), vf], dim=2)
+        q_off = pk.shape[2]
+    o = attention(q, kf, vf, causal=causal, soft_cap=cfg.attn_soft_cap,
+                  q_offset=q_off)
     y = linear(o.transpose(1, 2).reshape(x.shape[0], S, -1), p["wo"], stats,
                prefix + "wo", kcfg)
     if return_kv:
@@ -81,11 +95,17 @@ def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
 
 
 def attn_init_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
-                    device="cuda"):
-    """One layer's dense decode cache: bf16 {'k','v'} (B,Hkv,Smax,Dh), or
-    {'k_q','k_s','v_q','v_s'} int8 / packed-int4 codes + f32 scales."""
+                    device="cuda", num_blocks: int = 0):
+    """One layer's decode cache: bf16 {'k','v'} (B,Hkv,Smax,Dh), or
+    {'k_q','k_s','v_q','v_s'} int8 / packed-int4 codes + f32 scales.  A
+    paged ``kvcfg`` makes the same leaves one shared pool (num_blocks, Hkv,
+    block_size, ·); the per-slot block tables live at the top of the decode
+    state."""
     Hkv, hd = cfg.n_kv_heads, cfg.hd
-    lead = (batch, Hkv, max_len)
+    if kvcfg is not None and kvcfg.paged:
+        lead = (num_blocks, Hkv, kvcfg.block_size)
+    else:
+        lead = (batch, Hkv, max_len)
     if kvcfg is None or not kvcfg.quantized:
         return {"k": torch.zeros((*lead, hd), dtype=DTYPE, device=device),
                 "v": torch.zeros((*lead, hd), dtype=DTYPE, device=device)}
@@ -125,6 +145,68 @@ def _kv_append(state, k, v, pos, kvcfg):
     return state
 
 
+def build_kv_compact(k, v, kvcfg):
+    """Paged prefill write point: this call's k/v (B,Hkv,S,Dh) at the
+    cache's storage dtype, with no max_len slab; the runner scatters the
+    rows into the slot's pool blocks."""
+    if kvcfg is None or not kvcfg.quantized:
+        return {"k": k.to(DTYPE), "v": v.to(DTYPE)}
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        out[name + "_q"], out[name + "_s"] = quantize_kv(
+            t, bits=kvcfg.bits, group_size=kvcfg.group_size)
+    return out
+
+
+def _pool_row_write(pool, row, idx):
+    """pool (NB,Hkv,bs,D·) ← row (B,Hkv,1,D·) at the pool rows ``idx``
+    (B·Hkv,), in place: a scatter, no host sync.  Live slots own distinct
+    blocks, so the only duplicate index is the sink block 0 of done and
+    empty lanes, where any write order will do."""
+    D = pool.shape[-1]
+    pool.view(-1, D).scatter_(0, idx[:, None].expand(-1, D),
+                              row.reshape(-1, D).to(pool.dtype))
+
+
+def _kv_append_paged(state, k, v, pos, block_table, kvcfg):
+    """Paged decode append: one token's k/v row lands in pool block
+    ``block_table[b, pos // block_size]`` at offset ``pos % block_size``
+    (one row index per (slot, head), shared by the four leaves)."""
+    bs = kvcfg.block_size
+    Hkv = k.shape[1]
+    blk = torch.clamp(pos // bs, 0, block_table.shape[1] - 1)
+    phys = block_table.gather(1, blk.long()[:, None])
+    h = torch.arange(Hkv, device=pos.device)
+    idx = ((phys * Hkv + h) * bs + (pos % bs).long()[:, None]).reshape(-1)
+    if not kvcfg.quantized:
+        _pool_row_write(state["k"], k, idx)
+        _pool_row_write(state["v"], v, idx)
+        return state
+    for name, t in (("k", k), ("v", v)):
+        codes, scales = quantize_kv(t, bits=kvcfg.bits,
+                                    group_size=kvcfg.group_size)
+        _pool_row_write(state[name + "_q"], codes, idx)
+        _pool_row_write(state[name + "_s"], scales, idx)
+    return state
+
+
+def _kv_attention_paged(q, state, block_table, cur, kvcfg, *,
+                        soft_cap: float = 0.0):
+    """The read over the paged pool: quantized pools go through the
+    ``ttq_paged_decode_attention`` kernel; the bf16 pool gathers its
+    block-table view and reuses the dense ``decode_attention``."""
+    if kvcfg.quantized:
+        from repro_torch.kernels import ops as kops
+        return kops.kv_paged_decode_attention(
+            q, state["k_q"], state["k_s"], state["v_q"], state["v_s"],
+            block_table, cur, bits=kvcfg.bits, group_size=kvcfg.group_size,
+            soft_cap=soft_cap, use_pallas=kvcfg.use_pallas)
+    from repro_torch.kernels.ref import gather_paged_kv
+    return decode_attention(q, gather_paged_kv(state["k"], block_table),
+                            gather_paged_kv(state["v"], block_table), cur,
+                            soft_cap=soft_cap)
+
+
 def _kv_attention(q, state, cur, kvcfg, *, soft_cap: float = 0.0):
     """The quantized-cache read: the ``ttq_decode_attention`` kernel."""
     from repro_torch.kernels import ops as kops
@@ -135,13 +217,18 @@ def _kv_attention(q, state, cur, kvcfg, *, soft_cap: float = 0.0):
 
 
 def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
-                kcfg=None):
+                kcfg=None, block_table=None):
     """x (B,1,D); state bf16 {'k','v'} or quantized caches (``kvcfg``
-    selects), updated in place; pos (B,) int32 per-slot positions."""
+    selects), updated in place; pos (B,) int32 per-slot positions.
+    ``block_table`` (B, nblk) addresses the paged pool layout."""
     q, k, v = _qkv(cfg, p, x, None, "", kcfg)
     q = rope_decode(q, pos, cfg.rope_theta)
     k = rope_decode(k, pos, cfg.rope_theta)
-    if kvcfg is not None and kvcfg.quantized:
+    if kvcfg is not None and kvcfg.paged:
+        st = _kv_append_paged(state, k, v, pos, block_table, kvcfg)
+        o = _kv_attention_paged(q, st, block_table, pos, kvcfg,
+                                soft_cap=cfg.attn_soft_cap)
+    elif kvcfg is not None and kvcfg.quantized:
         st = _kv_append(state, k, v, pos, kvcfg)
         o = _kv_attention(q, st, pos, kvcfg, soft_cap=cfg.attn_soft_cap)
     else:

@@ -1,14 +1,15 @@
 """Language model entry points — embed → stack → norm → tied vocab head.
 
     init_params(cfg, generator, device)            → params tree
-    init_decode_state(cfg, batch, max_len, kvcfg)  → decode state
+    init_decode_state(cfg, batch, max_len, kvcfg, num_blocks=)
+                                                   → decode state
     prefill(cfg, params, batch, max_len, ...)      → (logits, state, stats)
     decode_step(cfg, params, state, token, pos)    → (logits, state)
     decode_many(cfg, params, state, token, pos, done, remaining, gen, K=...)
                                                    → ((tokens, valid), carry)
 
 ``batch`` is a dict {'tokens': (B,S) int}.  Decode updates the KV caches of
-``state`` in place.
+``state`` in place; a paged state's ``block_table`` addresses its pools.
 """
 from __future__ import annotations
 
@@ -49,24 +50,49 @@ def _head(cfg, params, x, kcfg=None):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
-                      device="cuda"):
+                      device="cuda", num_blocks: int = 0):
+    """``kvcfg`` selects the cache layout: bf16 slabs, or int8/int4 codes +
+    f32 scales.  With ``kvcfg.paged`` the caches are shared pools of
+    ``num_blocks`` blocks and the state carries ``block_table`` (B,
+    max_len/block_size) int32, each row a slot's logical → physical block
+    map; 0 is the sink block for unallocated entries and done-lane
+    writes."""
     dev = resolve_device(device)
-    return {"stack": S.init_stack_state(cfg, S.stack_spec(cfg), batch,
-                                        max_len, kvcfg, dev)}
+    paged = kvcfg is not None and kvcfg.paged
+    if paged:
+        if max_len % kvcfg.block_size:
+            raise ValueError(f"max_len={max_len} must divide by "
+                             f"block_size={kvcfg.block_size}")
+        if num_blocks < 2:
+            raise ValueError("paged cache needs num_blocks >= 2 "
+                             "(block 0 is the reserved sink)")
+    st = {"stack": S.init_stack_state(cfg, S.stack_spec(cfg), batch,
+                                      max_len, kvcfg, dev, num_blocks)}
+    if paged:
+        st["block_table"] = torch.zeros(
+            (batch, max_len // kvcfg.block_size), dtype=torch.int32,
+            device=dev)
+    return st
 
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int, *,
-            collect_stats=True, full_logits=False, kvcfg=None):
+            collect_stats=True, full_logits=False, kvcfg=None,
+            prefix_kv=None, pos0: int = 0):
     """Run the prompt in full precision: decode state + TTQ statistics.
 
     Returns (logits, state, stats): logits (B, V) for the last position, or
     (B, S, V) with ``full_logits``; stats {'stack': [per-run dict of (L, d)
-    Σx² leaves]} keyed by parameter path."""
+    Σx² leaves]} keyed by parameter path.  ``prefix_kv``/``pos0`` (paged
+    prefix-cache hits): the tokens are the prompt's tail, attending to the
+    cached prefix k/v (per run, (k, v) with a leading layer dim, post-RoPE)
+    at offset ``pos0``.  A paged state holds this call's rows only, at the
+    storage dtype."""
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
     x, run_stats, states = S.apply_stack_seq(
         cfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
-        want_state=True, max_len=max_len, kvcfg=kvcfg)
+        want_state=True, max_len=max_len, kvcfg=kvcfg, pos0=pos0,
+        prefix_kv=prefix_kv)
     x = norm(x, params["final_norm"])
     logits = _head(cfg, params, x if full_logits else x[:, -1:])
     if not full_logits:
@@ -83,7 +109,8 @@ def decode_step(cfg: ModelConfig, params, state, token, pos, *, kvcfg=None,
     x = params["embed"][token.long()]
     x, _ = S.apply_stack_decode(cfg, params["stack"], S.stack_spec(cfg),
                                 state["stack"], x, pos, kvcfg=kvcfg,
-                                kcfg=kcfg)
+                                kcfg=kcfg,
+                                block_table=state.get("block_table"))
     x = norm(x, params["final_norm"])
     return _head(cfg, params, x, kcfg)[:, 0], state
 

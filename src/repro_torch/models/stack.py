@@ -58,13 +58,26 @@ def init_stack(gen, cfg: ModelConfig, spec, device):
              for j, kind in enumerate(kinds)} for kinds, n in spec]
 
 
+def layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                kvcfg=None, num_blocks: int = 0, device="cuda"):
+    """One layer's decode state.  A paged cache holds plain attention
+    layers only (windowed, latent and recurrent states stay dense)."""
+    if kvcfg is not None and kvcfg.paged and kind != "attn":
+        raise ValueError(f"paged KV cache supports plain attention layers "
+                         f"only, got {kind!r}")
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r}: later slice")
+    return L.attn_init_state(cfg, batch, max_len, kvcfg, device, num_blocks)
+
+
 def init_stack_state(cfg: ModelConfig, spec, batch: int, max_len: int,
-                     kvcfg=None, device="cuda"):
+                     kvcfg=None, device="cuda", num_blocks: int = 0):
     out = []
     for kinds, n in spec:
         unit = {}
         for j, kind in enumerate(kinds):
-            one = L.attn_init_state(cfg, batch, max_len, kvcfg, device)
+            one = layer_state(cfg, kind, batch, max_len, kvcfg, num_blocks,
+                              device)
             unit[f"u{j}"] = {k: torch.zeros((n, *v.shape), dtype=v.dtype,
                                             device=v.device)
                              for k, v in one.items()}
@@ -79,49 +92,62 @@ def _mlp_apply(cfg, p, x, stats, prefix, kcfg=None):
 
 def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
                     want_state: bool = False, max_len: int = 0, kvcfg=None,
-                    kcfg=None):
-    """Prefill through one layer.  Returns (x, state|None)."""
+                    kcfg=None, pos0: int = 0, kv_prefix=None):
+    """Prefill through one layer.  Returns (x, state|None).  ``kv_prefix``
+    (k, v) is cached context in front of this call's tokens, which start at
+    ``pos0``.  A paged cache returns this call's
+    k/v rows at the storage dtype instead of a max_len slab; the runner
+    writes them into the pool."""
     h = norm(x, p["ln1"])
     st = None
     if want_state:
         y, (k, v) = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                                 return_kv=True, kvcfg=kvcfg, kcfg=kcfg)
-        S = min(k.shape[2], max_len)
-        st = L.build_kv_state(cfg, x.shape[0], max_len, k[:, :, -S:],
-                              v[:, :, -S:], kvcfg)
+                                 pos0=pos0, return_kv=True,
+                                 kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg)
+        if kvcfg is not None and kvcfg.paged:
+            st = L.build_kv_compact(k, v, kvcfg)
+        else:
+            S = min(k.shape[2], max_len)
+            st = L.build_kv_state(cfg, x.shape[0], max_len, k[:, :, -S:],
+                                  v[:, :, -S:], kvcfg)
     else:
-        y = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                         kvcfg=kvcfg, kcfg=kcfg)
+        y = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.", pos0=pos0,
+                         kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg)
     x = x + y
     return _mlp_apply(cfg, p, x, stats, prefix, kcfg), st
 
 
 def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
-                       kvcfg=None, kcfg=None):
+                       kvcfg=None, kcfg=None, block_table=None):
     """One token through one layer; ``state`` is updated in place."""
     h = norm(x, p["ln1"])
     y, st = L.attn_decode(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
-                          kcfg=kcfg)
+                          kcfg=kcfg, block_table=block_table)
     x = x + y
     return _mlp_apply(cfg, p, x, None, "", kcfg), st
 
 
 def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
-                    want_state=False, max_len=0, kvcfg=None, kcfg=None):
+                    want_state=False, max_len=0, kvcfg=None, kcfg=None,
+                    pos0: int = 0, prefix_kv=None):
     """Prefill over all runs.  Returns (x, stats_list, state_list) with
-    stats and states stacked over each run's layers."""
+    stats and states stacked over each run's layers.  ``prefix_kv`` (tail
+    prefill over a cached prefix of ``pos0`` tokens): per run, (k, v) with
+    a leading layer dim; layer i attends to (k[i], v[i])."""
     all_stats, all_states = [], []
-    for (kinds, n), rp in zip(spec, run_params):
+    for ri, ((kinds, n), rp) in enumerate(zip(spec, run_params)):
+        pk = None if prefix_kv is None else prefix_kv[ri]
         per_layer_stats, per_layer_states = [], []
         for i in range(n):
             up = layer_slice(rp, i)
+            kvp = None if pk is None else (pk[0][i], pk[1][i])
             stats = {} if stats_on else None
             states = {}
             for j, kind in enumerate(kinds):
                 x, st = apply_layer_seq(cfg, kind, up[f"u{j}"], x, stats,
                                         f"u{j}.", want_state=want_state,
                                         max_len=max_len, kvcfg=kvcfg,
-                                        kcfg=kcfg)
+                                        kcfg=kcfg, pos0=pos0, kv_prefix=kvp)
                 if st is not None:
                     states[f"u{j}"] = st
             per_layer_stats.append(stats)
@@ -137,14 +163,15 @@ def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
 
 
 def apply_stack_decode(cfg: ModelConfig, run_params, spec, run_states, x, pos,
-                       *, kvcfg=None, kcfg=None):
+                       *, kvcfg=None, kcfg=None, block_table=None):
     """One decode token over all runs; the stacked caches are updated in
-    place (each layer's slice is a view of its run's stack)."""
+    place (each layer's slice is a view of its run's stack).
+    ``block_table`` (B, nblk) addresses a paged cache in every layer."""
     for (kinds, n), rp, rs in zip(spec, run_params, run_states):
         for i in range(n):
             up, st = layer_slice(rp, i), layer_slice(rs, i)
             for j, kind in enumerate(kinds):
                 x, _ = apply_layer_decode(cfg, kind, up[f"u{j}"], x,
                                           st[f"u{j}"], pos, kvcfg=kvcfg,
-                                          kcfg=kcfg)
+                                          kcfg=kcfg, block_table=block_table)
     return x, run_states

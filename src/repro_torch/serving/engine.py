@@ -6,7 +6,8 @@
                        ``ttq_quantize`` launch per weight stack
                      → DECODE in fused K-step blocks; every packed-weight
                        matmul runs ``ttq_gemm`` and every int8/int4 KV read
-                       ``ttq_decode_attention``
+                       ``ttq_decode_attention`` (dense slab) or
+                       ``ttq_paged_decode_attention`` (paged pool)
 
 A facade over the :class:`Scheduler` (host policy), the
 :class:`DeviceRunner` (device execution) and :class:`QuantizedModel` (TTQ
@@ -45,14 +46,18 @@ class EngineConfig:
     kv_dtype: str = ""              # "" → policy.kvcache; else bf16|int8|int4
     use_kernels: Optional[bool] = None  # None → policy.kernel.use_pallas;
                                     # flips only the decode GEMM dispatch
+    # ---- paged KV pool ----
+    kv_paged: Optional[bool] = None  # None → policy.kvcache.paged
+    kv_block_size: int = 0          # tokens per pool block; 0 → policy
+    kv_pool_blocks: int = 0         # physical blocks per layer incl. the
+                                    # sink; 0 → max_slots·max_len/block_size
+                                    # + 1, which never preempts; smaller
+                                    # pools oversubscribe and preempt
+    prefix_cache: bool = True       # share quantized prompt-prefix blocks
     # ---- fields of the reference whose machinery comes in later slices;
     # a non-default value raises NotImplementedError ----
     requant_threshold: float = -1.0  # delta gate
     double_buffer: bool = False
-    kv_paged: Optional[bool] = None  # paged KV pool
-    kv_block_size: int = 0
-    kv_pool_blocks: int = 0
-    prefix_cache: bool = True
     speculate_k: int = 0            # self-speculative decoding
     guards: bool = True             # guards and faults (this slice: False)
     guard_cfg: object = None
@@ -65,8 +70,6 @@ class EngineConfig:
 _LATER = [  # (field, value that keeps it off, slice that brings it)
     ("requant_threshold", -1.0, "the delta gate and double buffer"),
     ("double_buffer", False, "the delta gate and double buffer"),
-    ("kv_paged", None, "paged KV"), ("kv_paged", False, "paged KV"),
-    ("kv_block_size", 0, "paged KV"), ("kv_pool_blocks", 0, "paged KV"),
     ("speculate_k", 0, "speculation"),
     ("guards", False, "guards and faults"),
     ("guard_cfg", None, "guards and faults"),
@@ -102,16 +105,32 @@ class TTQEngine:
         self.kvcfg = policy.kvcache
         if ecfg.kv_dtype:
             self.kvcfg = dataclasses.replace(self.kvcfg, dtype=ecfg.kv_dtype)
+        if ecfg.kv_paged is not None:
+            self.kvcfg = dataclasses.replace(self.kvcfg, paged=ecfg.kv_paged)
+        if ecfg.kv_block_size:
+            self.kvcfg = dataclasses.replace(self.kvcfg,
+                                             block_size=ecfg.kv_block_size)
+        # paged pool geometry: blocks per layer, block 0 the sink.  The
+        # default holds every slot at max_len, so it never preempts.
+        self.num_blocks = 0
+        if self.kvcfg.paged:
+            if ecfg.max_len % self.kvcfg.block_size:
+                raise ValueError(
+                    f"max_len={ecfg.max_len} must divide by "
+                    f"kv block_size={self.kvcfg.block_size}")
+            self.num_blocks = (ecfg.kv_pool_blocks or ecfg.max_slots
+                               * (ecfg.max_len // self.kvcfg.block_size) + 1)
         self.kncfg = policy.kernel
         if ecfg.use_kernels is not None:
             self.kncfg = dataclasses.replace(self.kncfg,
                                              use_pallas=ecfg.use_kernels)
         self.runner = DeviceRunner(cfg, ecfg, self.kvcfg, kncfg=self.kncfg,
-                                   device=self.device, generator=generator)
+                                   device=self.device, generator=generator,
+                                   num_blocks=self.num_blocks)
         self.qmodel = QuantizedModel(
             params, policy,
             session=CalibrationSession(halflife=ecfg.stats_halflife))
-        self.scheduler = Scheduler(ecfg)
+        self.scheduler = Scheduler(ecfg, self.kvcfg, self.num_blocks)
         self.requant_wall_s = 0.0
 
     def _requantize(self):
@@ -137,10 +156,51 @@ class TTQEngine:
     def host_syncs(self) -> int:
         return self.runner.host_syncs
 
+    @property
+    def state(self):
+        return self.runner.state
+
+    # ------------------------------------------------- paged-pool metrics
+
+    @property
+    def allocator(self):
+        """The paged pool's ``BlockAllocator`` (None on the dense slab)."""
+        return self.scheduler.allocator
+
+    @property
+    def kv_pool_utilization(self) -> float:
+        """Peak fraction of allocatable pool blocks ever in use."""
+        a = self.allocator
+        return a.peak_in_use / max(a.capacity, 1) if a else 0.0
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        a = self.allocator
+        return a.prefix_hit_rate() if a else 0.0
+
+    @property
+    def preemptions(self) -> int:
+        return self.scheduler.preemptions
+
+    @property
+    def prefill_tokens(self) -> float:
+        """Padded tokens dispatched to prefill (prefix hits shrink this)."""
+        return self.scheduler.prefill_tokens
+
     def submit(self, prompt, max_new: int = 16) -> int:
         return self.scheduler.submit(prompt, max_new)
 
+    def cancel(self, rid: int) -> bool:
+        """Abort a queued or running request: its slot and (paged) blocks
+        free at once, and ``results()`` returns its partial output flagged
+        ``cancelled``.  False for an unknown or finished rid."""
+        ok = self.scheduler.cancel(rid)
+        self._flush_releases()
+        return ok
+
     def _flush_releases(self):
+        """Deactivate on the device the slots the scheduler freed (finish,
+        preempt, cancel) before their blocks can be handed out again."""
         if self.scheduler.pending_releases:
             self.runner.release_slots(self.scheduler.pending_releases)
             self.scheduler.pending_releases = []
@@ -150,6 +210,7 @@ class TTQEngine:
         group), calibrate on their stats, requantize per cadence."""
         while True:
             groups = self.scheduler.plan_admissions()
+            self._flush_releases()   # preempted slots → sink before prefill
             if not groups:
                 break
             for group in groups:

@@ -1,12 +1,16 @@
 """Scheduler — the host half of the engine: requests, slots, cadence.
 
-FIFO intake; each round's admissions are grouped by padded prompt bucket
-so every group is ONE batched prefill.  Requantization cadence: with
-``recalibrate_tokens > 0`` once that many prefill + generated tokens have
-passed since the last requant and fresh statistics arrived, otherwise
-after every ``recalibrate_every`` admissions.  No tensors live here.
-(Priorities, deadlines, chunked prefill, the paged pool and fault
-isolation of the reference come in later slices.)
+FIFO intake; each round's admissions are grouped by (padded prompt
+bucket, cached prefix length) so every group is ONE batched prefill.
+Requantization cadence: with ``recalibrate_tokens > 0`` once that many
+prefill + generated tokens have passed since the last requant and fresh
+statistics arrived, otherwise after every ``recalibrate_every``
+admissions.  With a paged KV cache the scheduler owns the
+:class:`~repro_torch.serving.blocks.BlockAllocator`: each admission
+reserves its blocks upfront, and pool exhaustion preempts the youngest
+running admission.  No tensors live here.  (Priorities, deadlines,
+retries, chunked prefill and fault isolation of the reference come in
+later slices.)
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import dataclasses
 import itertools
 from collections import deque
 from typing import Dict, List, Optional
+
+from .blocks import BlockAllocator
 
 
 def pick_decode_chunk(slots: int) -> int:
@@ -26,10 +32,19 @@ def pick_decode_chunk(slots: int) -> int:
 @dataclasses.dataclass
 class Request:
     rid: int
-    prompt: list
-    max_new: int
+    prompt: list                    # grows on preemption: orig + generated
+    max_new: int                    # original budget
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
+    cancelled: bool = False
+    blocks: list = dataclasses.field(default_factory=list)  # paged: owned
+    prefix_len: int = 0             # paged: cached-prefix tokens this admission
+    admit_seq: int = -1             # admission order (preemption victim pick)
+    orig_len: int = 0               # submitted prompt length
+
+    def __post_init__(self):
+        if not self.orig_len:
+            self.orig_len = len(self.prompt)
 
     @property
     def remaining(self) -> int:
@@ -37,16 +52,22 @@ class Request:
 
 
 class GenResult(list):
-    """A request's generated tokens; ``unfinished`` marks a partial output."""
+    """A request's generated tokens; ``unfinished`` marks a partial output
+    (still queued or running, or cancelled — ``cancelled``)."""
 
-    def __init__(self, tokens=(), unfinished: bool = False):
+    def __init__(self, tokens=(), unfinished: bool = False,
+                 cancelled: bool = False):
         super().__init__(tokens)
         self.unfinished = unfinished
+        self.cancelled = cancelled
 
 
 @dataclasses.dataclass
 class AdmissionGroup:
+    """One bucketed prefill.  A nonzero ``prefix_len`` (paged prefix-cache
+    hits) pads the prompt tails, which attend to the cached prefix."""
     bucket: int
+    prefix_len: int = 0
     slots: List[int] = dataclasses.field(default_factory=list)
     requests: List[Request] = dataclasses.field(default_factory=list)
 
@@ -56,7 +77,7 @@ class AdmissionGroup:
 
 
 class Scheduler:
-    def __init__(self, ecfg):
+    def __init__(self, ecfg, kvcfg=None, num_blocks: int = 0):
         self.ecfg = ecfg
         self.queue: deque = deque()
         self.slot_req: List[Optional[Request]] = [None] * ecfg.max_slots
@@ -65,8 +86,15 @@ class Scheduler:
         self.admits_since_cal = 0
         self.tokens_since_cal = 0.0
         self._fresh_stats = False
-        self.prefill_tokens = 0.0
-        self.pending_releases: List[int] = []
+        self.prefill_tokens = 0.0       # padded tokens dispatched to prefill
+        self.pending_releases: List[int] = []   # slots to release on device
+        self.allocator = None
+        if kvcfg is not None and kvcfg.paged:
+            self.allocator = BlockAllocator(num_blocks, kvcfg.block_size,
+                                            prefix_cache=ecfg.prefix_cache)
+        self._admit_seq = itertools.count()
+        self.preemptions = 0
+        self._recent_victims: set = set()       # no re-preemption until decode
 
     @property
     def max_prompt_len(self) -> int:
@@ -82,6 +110,14 @@ class Scheduler:
                 f"{max(self.ecfg.prompt_buckets)})")
         if max_new < 1:
             raise ValueError(f"max_new={max_new} must be >= 1")
+        if self.allocator is not None:
+            need = self.allocator.blocks_needed(len(prompt), max_new,
+                                                self.ecfg.max_len)
+            if need > self.allocator.capacity:
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool holds "
+                    f"{self.allocator.capacity}; raise kv_pool_blocks or "
+                    f"shrink the prompt/max_new")
         rid = next(self._rid)
         self.queue.append(Request(rid, prompt, max_new))
         return rid
@@ -101,20 +137,92 @@ class Scheduler:
                 return min(b, self.ecfg.max_len)
         return self.ecfg.max_len
 
+    def _evict(self, slot: int, req: Request, finished: bool):
+        """Clear the slot, free its (paged) blocks and queue the device
+        release; ``finished`` lands the request in the results."""
+        self.slot_req[slot] = None
+        if self.allocator is not None:
+            self.allocator.free_request(req.blocks)
+            req.blocks = []
+        self.pending_releases.append(slot)
+        if finished:
+            self.finished[req.rid] = req
+
+    def _pick_victim(self, exclude) -> Optional[int]:
+        """The youngest running admission outside ``exclude`` (older work
+        keeps running; the victim's re-prefill is cheap, because its own
+        prompt blocks stay in the prefix cache)."""
+        cands = [(self.slot_req[s].admit_seq, s) for s in self.active_slots()
+                 if s not in exclude]
+        return max(cands)[1] if cands else None
+
+    def _preempt(self, slot: int) -> Request:
+        """Evict a running slot: free its blocks and fold the generated
+        tokens into the prompt, so a later re-prefill resumes the greedy
+        stream exactly (per-token KV quantization makes the re-prefilled
+        rows the evicted ones; ``len(prompt) + remaining`` stays
+        ``orig_len + max_new``).  The caller requeues the request once the
+        round's planning is done."""
+        req = self.slot_req[slot]
+        req.prompt = list(req.prompt[:req.orig_len]) + list(req.out)
+        self._evict(slot, req, finished=False)
+        self.preemptions += 1
+        self._recent_victims.add(req.rid)
+        return req
+
     def plan_admissions(self) -> List[AdmissionGroup]:
-        """Pop queued requests into free slots (FIFO) and group them by
-        padded bucket: one prefill dispatch per group."""
-        groups: Dict[int, AdmissionGroup] = {}
-        for slot in self.free_slots():
-            if not self.queue:
-                break
-            req = self.queue.popleft()
-            self.slot_req[slot] = req
-            b = self.bucket(len(req.prompt))
-            g = groups.setdefault(b, AdmissionGroup(b))
+        """Pop queued requests into free slots in FIFO (rid) order and group
+        the round's admissions by (bucket of the uncached tail, prefix_len):
+        one prefill dispatch per group.
+
+        Paged: each admission reserves its blocks upfront (prompt +
+        generation budget, less prefix-cache hits).  On pool exhaustion the
+        youngest running slot is preempted (blocks freed, its slot handed
+        to the admission) instead of stalling; victims are held out of the
+        queue until planning ends, then requeued at the front, and resume by
+        re-prefill in a later round.  A fresh victim may not preempt in turn
+        until decode has progressed, which breaks admit-round ping-pong.
+        Each MemoryError preempts a slot not picked this round, so the
+        retry loop ends: with every slot preempted no request holds a
+        block, and ``submit``'s capacity check makes the allocation fit."""
+        picked: List[tuple] = []
+        victims: List[Request] = []
+        free = self.free_slots()
+        while free and self.queue:
+            req = min(self.queue, key=lambda r: r.rid)
+            if self.allocator is not None:
+                try:
+                    req.blocks, req.prefix_len = self.allocator.allocate(
+                        req.prompt, req.remaining, self.ecfg.max_len)
+                except MemoryError:
+                    victim = self._pick_victim({s for s, _ in picked})
+                    if victim is None or req.rid in self._recent_victims:
+                        break               # nothing evictable: wait
+                    victims.append(self._preempt(victim))
+                    free = self.free_slots()
+                    continue                # retry with the freed blocks
+            self.queue.remove(req)
+            req.admit_seq = next(self._admit_seq)
+            slot = free.pop(0)
+            self.slot_req[slot] = req       # claimed now: a later preemption
+            picked.append((slot, req))      # in this round must not free it
+        for req in reversed(victims):       # oldest victim resumes first
+            self.queue.appendleft(req)
+        groups: Dict[tuple, AdmissionGroup] = {}
+        for slot, req in picked:
+            key = (self.bucket(len(req.prompt) - req.prefix_len),
+                   req.prefix_len)
+            g = groups.setdefault(key, AdmissionGroup(*key))
             g.slots.append(slot)
             g.requests.append(req)
-        return list(groups.values())
+        # dispatch in ascending prefix_len: a same-round prefix hit on a
+        # sibling's freshly registered blocks reads blocks that the writer
+        # prefills, and along one hash chain the reader's match extends
+        # past the writer's own prefix, so reader prefix_len > writer
+        # prefix_len.  The sort is a topological order of same-round
+        # dependencies: every group's gather runs after the scatters it
+        # reads.
+        return sorted(groups.values(), key=lambda g: g.prefix_len)
 
     def note_admitted(self, n: int, tokens: float):
         self.admits_since_cal += n
@@ -124,6 +232,7 @@ class Scheduler:
 
     def note_decoded(self, tokens: int):
         self.tokens_since_cal += tokens
+        self._recent_victims.clear()    # decode progressed: preemption rearmed
 
     def should_requant(self) -> bool:
         if self.ecfg.recalibrate_tokens > 0:
@@ -139,9 +248,24 @@ class Scheduler:
     def finish(self, slot: int):
         req = self.slot_req[slot]
         req.done = True
-        self.slot_req[slot] = None
-        self.pending_releases.append(slot)
-        self.finished[req.rid] = req
+        self._evict(slot, req, finished=True)
+
+    def cancel(self, rid: int) -> bool:
+        """Abort a queued or running request: its slot and (paged) blocks
+        free at once and its partial output lands as ``cancelled``.
+        Returns False for an unknown or already finished rid."""
+        for req in list(self.queue):
+            if req.rid == rid:
+                self.queue.remove(req)
+                req.cancelled = True
+                self.finished[rid] = req
+                return True
+        for slot, req in enumerate(self.slot_req):
+            if req is not None and req.rid == rid:
+                req.cancelled = True
+                self._evict(slot, req, finished=True)
+                return True
+        return False
 
     def record_block(self, tokens, valid, done) -> int:
         """Fold one decode block's host copies ((B, K) tokens/valid, (B,)
@@ -159,7 +283,9 @@ class Scheduler:
         return accepted
 
     def results(self) -> Dict[int, GenResult]:
-        out = {rid: GenResult(req.out) for rid, req in self.finished.items()}
+        out = {rid: GenResult(req.out, unfinished=req.cancelled,
+                              cancelled=req.cancelled)
+               for rid, req in self.finished.items()}
         for req in [r for r in self.slot_req if r is not None] + list(self.queue):
             out[req.rid] = GenResult(req.out, unfinished=True)
         return out

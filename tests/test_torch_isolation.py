@@ -80,6 +80,10 @@ def test_kernel_wrappers_never_compute_off_card(no_card):
     with pytest.raises(ValueError, match="CUDA"):
         ops.kv_decode_attention(q, kq, ks, kq, ks,
                                 torch.empty((1,), dtype=torch.int32, **m))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.kv_paged_decode_attention(
+            q, kq, ks, kq, ks, torch.empty((1, 1), dtype=torch.int32, **m),
+            torch.empty((1,), dtype=torch.int32, **m))
     before = dict(build.LAUNCHES)
     with pytest.raises(RuntimeError):
         build.lib()                                  # no nvcc / no card here
@@ -94,8 +98,7 @@ def test_engine_options_of_later_slices_raise():
     cfg = get("gemma_7b", smoke=True)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    for kw in ({}, dict(guards=False, kv_paged=True),
-               dict(guards=False, speculate_k=2),
+    for kw in ({}, dict(guards=False, speculate_k=2),
                dict(guards=False, requant_threshold=0.1),
                dict(guards=False, prefill_chunk=16)):
         with pytest.raises(NotImplementedError):
