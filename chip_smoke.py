@@ -187,8 +187,9 @@ def kernel_quantize(torch, dev, flush):
 def kernel_gemm(torch, dev, flush):
     from repro_torch.core.qdq import unpack_bits
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ttq_gemm import ttq_gemm
+    from repro_torch.kernels.ttq_gemm import ROW_TILE, gemm_splits, ttq_gemm
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     ms = plain = lib = bound = 0.0
     for name, (dp, d, per_layer) in GEMM_SHAPES.items():
@@ -219,6 +220,10 @@ def kernel_gemm(torch, dev, flush):
         xb = torch.randn((4, d), generator=gen, device=dev).to(torch.bfloat16)
         w_lib = ((unpack_bits(pk, d, 4).float() * S.repeat_interleave(32, 1)
                   + Z.repeat_interleave(32, 1)) * dinv).to(torch.bfloat16)
+        # the cluster adds its partial sums in rank order: bitwise repeatable
+        y1 = ttq_gemm(xb, pk, S, Z, dinv, bits=4, group_size=32)
+        y2 = ttq_gemm(xb, pk, S, Z, dinv, bits=4, group_size=32)
+        check(torch.equal(y1, y2), f"ttq_gemm {name}: two calls differ")
         t_k = time_ms(torch, lambda: ttq_gemm(xb, pk, S, Z, dinv, bits=4,
                                               group_size=32), flush=flush)
         t_p = time_ms(torch, lambda: ref.ttq_gemm_ref(
@@ -226,9 +231,12 @@ def kernel_gemm(torch, dev, flush):
         t_l = time_ms(torch, lambda: torch.matmul(xb, w_lib.T), flush=flush)
         moved = nbytes(pk, S, Z, dinv, xb) + 4 * dp * 2
         b = max(moved / HBM_BYTES_PER_S, 2 * 4 * dp * d / F32_FLOP_PER_S) * 1e3
+        split = gemm_splits(dp, d, 4, 4, 32, n_sm)
         print(f"  ttq_gemm {name} T=4 int4: {t_k * 1e3:.1f} us, bound "
-              f"{b * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, torch.matmul "
-              f"bf16 {t_l * 1e3:.1f} us")
+              f"{b * 1e3:.1f} us ({b / t_k:.1%} of it reached), plain "
+              f"{t_p * 1e3:.1f} us, torch.matmul bf16 {t_l * 1e3:.1f} us; "
+              f"split {split}, {-(-dp // ROW_TILE) * split} blocks; two "
+              f"calls bitwise equal")
         n = 28 * per_layer
         ms, plain, lib, bound = (ms + n * t_k, plain + n * t_p,
                                  lib + n * t_l, bound + n * b)

@@ -31,8 +31,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # W, w_is_bf16, D, packed, S, Z, n, dp, d, bits, g, stream
     "ttq_quantize_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, x_is_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, stream
-    "ttq_gemm_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, x_is_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, split, stream
+    "ttq_gemm_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
     # qg, kq, ks, vq, vs, cur_pos, out, B, Hkv, G, S, Dh, n_groups, bits,
     # soft_cap, stream
     "ttq_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

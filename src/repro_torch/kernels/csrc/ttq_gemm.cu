@@ -1,4 +1,5 @@
-// ttq_gemm — fused dequant GEMM for the decode shape (T <= 16 tokens).
+// ttq_gemm — fused dequant GEMM for the decode shape, K split across a
+// thread-block cluster and reduced in distributed shared memory.
 //
 // Replaces: src/repro/kernels/ttq_gemm.py:ttq_gemm (Pallas body _gemm_kernel).
 // Computes y (T, d') = (x∘D⁻¹)(T, d) · (code·s + z)ᵀ with codes unpacked from
@@ -8,48 +9,82 @@
 // Bound on the card: bytes.  At decode T is 1-16, so each weight byte feeds
 // at most 2·T·(8/bits) flops, far below the ~295 flop/byte where the H100
 // stops being memory bound; the time floor is packed codes + S/Z over
-// 3.35 TB/s.  Design: every weight byte is read exactly once, as coalesced
-// 16-byte loads.  A block of 4 warps owns 16 output rows (4 per warp); x∘D⁻¹
-// is staged once per block in shared memory in f32, in chunks along d (a
-// whole row of x at d = 24576, T = 4 would be 393 KB, over the 227 KB
-// limit), so the D⁻¹ prologue costs nothing per weight.  Each lane streams
-// uint4 words of its warp's 4 rows at once (4 loads in flight), unpacks
-// them with shift/mask, dequantizes with each group's s and z, and
-// multiplies against the staged x for all T tokens: every x value read from
-// shared memory serves 4 rows, a quarter of the shared-memory traffic of one
-// row at a time.  A warp-shuffle reduction closes each output.  The staged
-// x is XOR-swizzled by 16-byte chunk so the lanes of a quarter-warp, which read
-// addresses 128 B apart, hit distinct banks.  T > 16 runs more token tiles
-// on the grid's y axis, so the kernel is right at every T.
+// 3.35 TB/s.  Every weight byte is read exactly once, as coalesced 16-byte
+// loads, and the design is about keeping enough of them in flight.
+//
+// Tile: a block of 8 warps owns 32 output rows (4 per warp) and one slice of
+// K.  Each lane streams uint4 words of its warp's 4 rows at once, unpacks
+// them with shift/mask, dequantizes with each group's s and z, and multiplies
+// against x∘D⁻¹ staged in shared memory in f32, for all T tokens: every
+// staged x value serves 4 rows.  32 rows (not 16) halve the staging of x per
+// weight byte; 4 rows per warp keep acc[4][16] in registers with no spills.
+//
+// Split: the S blocks of one cluster (S in {1, 2, 4, 8}; 8 is the portable
+// cluster limit, set at launch, never changed here) share a row tile, and
+// rank r takes the contiguous K slice [r·d/S, (r+1)·d/S).  So a block stages
+// only its slice of x∘D⁻¹: T·d/S floats, once where it fits in kStageBytes,
+// in chunks along K otherwise (XOR-swizzled by 16-byte chunk, so the lanes of
+// a quarter-warp, which read addresses 128 B apart, hit distinct banks).  A
+// narrow row count (d' = 3072 is 96 tiles) still fills the 132 SMs, and no
+// block walks all of a wide d (24576) alone.  The wrapper picks S
+// (kernels/ttq_gemm.py:gemm_splits); a split whose slice is not a whole
+// number of groups and of uint4 words is refused with cudaErrorInvalidValue.
+//
+// Reduction, in one launch and deterministic: each warp closes its rows with
+// a shuffle tree into the block's part[32][TT] in shared memory; a cluster
+// barrier; then rank 0 reads part of ranks 0, 1, …, S−1 through distributed
+// shared memory and adds them in that fixed order, casts and stores; a second
+// cluster barrier keeps every rank's shared memory alive until rank 0 has read
+// it.  No atomics and no workspace: for a given shape and S the sum order is
+// fixed, so two calls are bitwise equal.  T > 16 runs more token tiles on the
+// grid's y axis, so the kernel is right at every T.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 4;
-constexpr int kStageFloats = 8192;  // 32 KB of staged x per block
+constexpr int kRows = kWarps * kRowsPerWarp;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStageBytes = 96 * 1024;  // staged x∘D⁻¹ per block, at most
+constexpr int kMaxSplit = 8;
 
 __device__ __forceinline__ int swz(int c) { return c ^ ((c >> 3) & 7); }
 
+// float4 row stride of the staged x for chunks of kc floats: a multiple of 8,
+// so the swizzle stays inside the row.
+__host__ __device__ __forceinline__ int stage_stride4(int kc) {
+  return (kc / 4 + 7) & ~7;
+}
+
 template <int TT, int BITS, typename TX>
-__global__ void __launch_bounds__(kWarps * 32) gemm_kernel(
+__global__ void __launch_bounds__(kThreads) gemm_kernel(
     const TX* __restrict__ x, const int32_t* __restrict__ packed,
     const float* __restrict__ S, const float* __restrict__ Z,
     const float* __restrict__ dinv, TX* __restrict__ y, int T, int dp, int d,
-    int g) {
+    int gshift, int ks, int kc) {
   constexpr int R = kRowsPerWarp;
   constexpr int PER = 32 / BITS;
   constexpr int EPV = 4 * PER;            // elements per uint4 of codes
-  constexpr int KC = kStageFloats / TT;   // staged chunk length along d
-  constexpr int KC4 = KC / 4;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
-  __shared__ float4 xs[kStageFloats / 4];
+  extern __shared__ float4 xs[];          // TT rows of kc4 float4
+  __shared__ float part[kRows * TT];      // this block's partial sums
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile0 = (blockIdx.x / split) * kRows;
+  const int row0 = tile0 + warp * R;
   const int t0 = blockIdx.y * TT;
-  const int row0 = (blockIdx.x * kWarps + warp) * R;
+  const int kc4 = stage_stride4(kc);
+  const int k_lo = rank * ks, k_hi = k_lo + ks;
   const int wpr = d / PER;                // int32 words per row
-  const int gpr = d / g;
+  const int gpr = d >> gshift;
   bool live[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) live[r] = row0 + r < dp;
@@ -60,11 +95,11 @@ __global__ void __launch_bounds__(kWarps * 32) gemm_kernel(
 #pragma unroll
     for (int t = 0; t < TT; ++t) acc[r][t] = 0.0f;
 
-  for (int c0 = 0; c0 < d; c0 += KC) {
-    const int clen = min(KC, d - c0);
+  for (int c0 = k_lo; c0 < k_hi; c0 += kc) {
+    const int clen = min(kc, k_hi - c0);
     const int n4 = clen / 4;
     __syncthreads();                      // the previous chunk is consumed
-    for (int i = threadIdx.x; i < TT * n4; i += blockDim.x) {
+    for (int i = threadIdx.x; i < TT * n4; i += kThreads) {
       const int t = i / n4, c = i - t * n4;
       const int k = c0 + 4 * c;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -77,7 +112,7 @@ __global__ void __launch_bounds__(kWarps * 32) gemm_kernel(
           for (int e = 0; e < 4; ++e) v[e] *= dv[e];
         }
       }
-      xs[t * KC4 + swz(c)] = make_float4(v[0], v[1], v[2], v[3]);
+      xs[t * kc4 + swz(c)] = make_float4(v[0], v[1], v[2], v[3]);
     }
     __syncthreads();
     const int nvec = clen / EPV;
@@ -93,7 +128,7 @@ __global__ void __launch_bounds__(kWarps * 32) gemm_kernel(
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         const int kloc = vi * EPV + w * PER;
-        const int grp = (c0 + kloc) / g;
+        const int grp = (c0 + kloc) >> gshift;
         float s[R], z[R];
         uint32_t wd[R];
 #pragma unroll
@@ -116,7 +151,7 @@ __global__ void __launch_bounds__(kWarps * 32) gemm_kernel(
           const int c = kloc / 4 + h;
 #pragma unroll
           for (int t = 0; t < TT; ++t) {
-            const float4 xv = xs[t * KC4 + swz(c)];
+            const float4 xv = xs[t * kc4 + swz(c)];
 #pragma unroll
             for (int r = 0; r < R; ++r) {
               float a = acc[r][t];
@@ -132,41 +167,78 @@ __global__ void __launch_bounds__(kWarps * 32) gemm_kernel(
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int t = 0; t < TT; ++t) {
       const float v = ttq::warp_sum(acc[r][t]);
-      if (lane == 0 && live[r] && t0 + t < T)
-        ttq::store1(y + (size_t)(t0 + t) * dp + row0 + r, v);
+      if (lane == 0) part[(warp * R + r) * TT + t] = v;
+    }
+  cluster.sync();                         // every rank's part is written
+  if (rank == 0) {
+    for (int i = threadIdx.x; i < kRows * TT; i += kThreads) {
+      float p[kMaxSplit];
+#pragma unroll
+      for (int r = 0; r < kMaxSplit; ++r)
+        p[r] = r < split ? cluster.map_shared_rank(&part[0], r)[i] : 0.0f;
+      float v = p[0];
+#pragma unroll
+      for (int r = 1; r < kMaxSplit; ++r)
+        if (r < split) v += p[r];         // ranks in order: deterministic
+      const int row = tile0 + i / TT, t = t0 + i % TT;
+      if (row < dp && t < T) ttq::store1(y + (size_t)t * dp + row, v);
     }
   }
+  cluster.sync();                         // rank 0 has read every part
 }
 
-template <int TT, int BITS>
-void launch(const void* x, int x_bf16, const int32_t* packed, const float* S,
-            const float* Z, const float* dinv, void* y, int T, int dp, int d,
-            int g, cudaStream_t stream) {
-  const int rows_per_block = kWarps * kRowsPerWarp;
-  dim3 block(kWarps * 32);
-  dim3 grid((dp + rows_per_block - 1) / rows_per_block, (T + TT - 1) / TT);
-  if (x_bf16)
-    gemm_kernel<TT, BITS, __nv_bfloat16><<<grid, block, 0, stream>>>(
-        (const __nv_bfloat16*)x, packed, S, Z, dinv, (__nv_bfloat16*)y, T,
-        dp, d, g);
-  else
-    gemm_kernel<TT, BITS, float><<<grid, block, 0, stream>>>(
-        (const float*)x, packed, S, Z, dinv, (float*)y, T, dp, d, g);
+template <int TT, int BITS, typename TX>
+int launch(const void* x, const int32_t* packed, const float* S,
+           const float* Z, const float* dinv, void* y, int T, int dp, int d,
+           int gshift, int split, cudaStream_t stream) {
+  constexpr int EPV = 4 * (32 / BITS);
+  auto kern = gemm_kernel<TT, BITS, TX>;
+  const int ks = d / split;
+  // the largest chunk of whole uint4 words whose TT staged rows fit
+  const int cap = kStageBytes / (TT * 4) / 64 * 64;
+  const int kc = ks <= cap ? ks : cap / EPV * EPV;
+  const size_t smem = (size_t)TT * stage_stride4(kc) * sizeof(float4);
+  if (smem + kRows * TT * sizeof(float) > 48 * 1024) {  // with part[]
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((dp + kRows - 1) / kRows) * split, (T + TT - 1) / TT);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, (const TX*)x, packed, S, Z, dinv, (TX*)y, T, dp, d, gshift,
+      ks, kc);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 template <int TT>
 int by_bits(const void* x, int x_bf16, const int32_t* packed, const float* S,
             const float* Z, const float* dinv, void* y, int T, int dp, int d,
-            int bits, int g, cudaStream_t stream) {
-  if (bits == 2) launch<TT, 2>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, g, stream);
-  else if (bits == 4) launch<TT, 4>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, g, stream);
-  else if (bits == 8) launch<TT, 8>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, g, stream);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+            int bits, int gshift, int split, cudaStream_t stream) {
+#define TTQ_GEMM_LAUNCH(B)                                                  \
+  return x_bf16 ? launch<TT, B, __nv_bfloat16>(x, packed, S, Z, dinv, y, T, \
+                                               dp, d, gshift, split, stream) \
+                : launch<TT, B, float>(x, packed, S, Z, dinv, y, T, dp, d,   \
+                                       gshift, split, stream)
+  if (bits == 2) TTQ_GEMM_LAUNCH(2);
+  if (bits == 4) TTQ_GEMM_LAUNCH(4);
+  TTQ_GEMM_LAUNCH(8);
+#undef TTQ_GEMM_LAUNCH
 }
 
 }  // namespace
@@ -174,14 +246,27 @@ int by_bits(const void* x, int x_bf16, const int32_t* packed, const float* S,
 extern "C" int ttq_gemm_launch(const void* x, int x_bf16, const int32_t* packed,
                                const float* S, const float* Z,
                                const float* dinv, void* y, int T, int dp,
-                               int d, int bits, int g, void* stream_ptr) {
+                               int d, int bits, int g, int split,
+                               void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (bits != 2 && bits != 4 && bits != 8) return (int)cudaErrorInvalidValue;
   const int per = 32 / bits;
-  if (T <= 0 || dp <= 0 || d % (4 * per) || d % g || g % per)
+  if (T <= 0 || dp <= 0 || g < per || (g & (g - 1)))
     return (int)cudaErrorInvalidValue;
-  if (T <= 1) return by_bits<1>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, stream);
-  if (T <= 2) return by_bits<2>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, stream);
-  if (T <= 4) return by_bits<4>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, stream);
-  if (T <= 8) return by_bits<8>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, stream);
-  return by_bits<16>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, stream);
+  if ((split != 1 && split != 2 && split != 4 && split != kMaxSplit) ||
+      d % split)
+    return (int)cudaErrorInvalidValue;
+  const int ks = d / split;
+  if (ks <= 0 || ks % (4 * per) || ks % g) return (int)cudaErrorInvalidValue;
+  int gshift = 0;
+  while ((1 << gshift) < g) ++gshift;
+#define TTQ_GEMM_TT(TT)                                                   \
+  return by_bits<TT>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, bits,     \
+                     gshift, split, stream)
+  if (T <= 1) TTQ_GEMM_TT(1);
+  if (T <= 2) TTQ_GEMM_TT(2);
+  if (T <= 4) TTQ_GEMM_TT(4);
+  if (T <= 8) TTQ_GEMM_TT(8);
+  TTQ_GEMM_TT(16);
+#undef TTQ_GEMM_TT
 }

@@ -5,19 +5,53 @@ ttq_gemm_ref`); CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build, ref
 from ._checks import aligned, dtype_in, on_cuda
 
 NAME = "ttq_gemm"
+ROW_TILE = 32           # output rows per block (csrc/ttq_gemm.cu: kRows)
+TOKEN_TILE = 16         # tokens per block at most (the kernel's largest TT)
+SPLITS = (1, 2, 4, 8)   # blocks per cluster; 8 is the portable cluster limit
+MIN_SLICE = 512         # fewest K elements a split block takes
+BLOCKS_PER_SM = 4       # blocks to aim for on each SM
+
+
+def gemm_splits(dp: int, d: int, T: int, bits: int, g: int, n_sm: int) -> int:
+    """The kernel's K split S: how many blocks of one cluster share a row tile.
+
+    Allowed: S in SPLITS whose slice d/S is a whole number of groups (g) and
+    of uint4 code words (4·32/bits elements) and, for S > 1, at least
+    MIN_SLICE long.  Taken: the smallest allowed S that gives the grid
+    (row tiles × token tiles × S blocks) at least BLOCKS_PER_SM × n_sm
+    blocks, else the largest allowed.  At gemma-7b int4 g32, T = 4, 132 SMs:
+    wq/wk/wv (4096 × 3072) 4, wo (3072 × 4096) 8, wg/wu (24576 × 3072) 1,
+    wd (3072 × 24576) 8."""
+    epv = 4 * (32 // bits)
+    allowed = [s for s in SPLITS
+               if d % s == 0 and (d // s) % g == 0 and (d // s) % epv == 0
+               and (s == 1 or d // s >= MIN_SLICE)]
+    blocks = -(-dp // ROW_TILE) * -(-T // TOKEN_TILE)
+    for s in allowed:
+        if blocks * s >= BLOCKS_PER_SM * n_sm:
+            return s
+    return allowed[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
              zero: torch.Tensor, dinv: torch.Tensor | None = None, *,
              bits: int = 4, group_size: int = 32) -> torch.Tensor:
     """x (..., d) → (..., d') in x's dtype.  packed (d', d·bits/32) int32;
-    scale, zero (d', d/g) f32; dinv (d,) f32 or None."""
+    scale, zero (d', d/g) f32; dinv (d,) f32 or None.  On the card the group
+    size is a power of two (as ``ttq_quantize`` makes it)."""
     lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)
     if x.device.type == "cpu":
@@ -40,10 +74,11 @@ def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(
             f"{NAME}: shapes x {tuple(x.shape)}, packed {tuple(packed.shape)},"
             f" scale {tuple(scale.shape)}, zero {tuple(zero.shape)} disagree")
-    if d % (4 * per) or d % g or g % per:
+    if d % (4 * per) or d % g or g < per or g & (g - 1):
         raise ValueError(f"{NAME}: d={d} must divide by {4 * per} and by "
-                         f"group_size={g}, and g by {per}")
+                         f"group_size={g}, a power of two >= {per}")
     T = x2.shape[0]
+    split = gemm_splits(dp, d, T, bits, g, _n_sm(x.device))
     x2, packed, scale, zero = map(aligned, (x2, packed, scale, zero))
     dinv = None if dinv is None else aligned(dinv)
     y = torch.empty((T, dp), dtype=x.dtype, device=x.device)
@@ -51,7 +86,8 @@ def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         x2.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
         scale.data_ptr(), zero.data_ptr(),
         None if dinv is None else dinv.data_ptr(), y.data_ptr(),
-        T, dp, d, bits, g, torch.cuda.current_stream(x.device).cuda_stream)
+        T, dp, d, bits, g, split,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     return y.reshape(*lead, dp)

@@ -13,6 +13,7 @@ from repro_torch.core.qdq import unpack_bits as t_unpack
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ttq_gemm import gemm_splits
 
 # the SWEEP of tests/test_kernels.py: (T, d, dp, bits, g)
 SWEEP = [
@@ -85,6 +86,32 @@ def test_gemm_plain_matches_jax(jx, T, d, dp, bits, g):
     # f32 accumulation in another order: the JAX kernel test's tolerance
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=2e-5,
                                atol=2e-4)
+
+
+# gemma-7b's decode GEMMs at int4 g32, T = 4, and the split each gets on
+# 132 SMs: name → (d', d, S)
+GEMMA_SPLITS = {"wq/wk/wv": (4096, 3072, 4), "wo": (3072, 4096, 8),
+                "wg/wu": (24576, 3072, 1), "wd": (3072, 24576, 8)}
+# test_gemm_kernel_matches_plain's shapes: (d', d, bits, g)
+GEMM_KERNEL_SHAPES = [(128, 256, 4, 32), (384, 512, 8, 32), (256, 512, 2, 64),
+                      (4096, 3072, 4, 32), (3072, 24576, 4, 32)]
+
+
+@pytest.mark.parametrize("shape", [(dp, d, 4, 32) for dp, d, _ in
+                                   GEMMA_SPLITS.values()] + GEMM_KERNEL_SHAPES)
+@pytest.mark.parametrize("T", [1, 4, 37])
+def test_gemm_splits_divide_k(shape, T):
+    dp, d, bits, g = shape
+    s = gemm_splits(dp, d, T, bits, g, n_sm=132)
+    assert s in (1, 2, 4, 8)
+    assert d % s == 0 and (d // s) % g == 0 and (d // s) % (4 * 32 // bits) == 0
+    assert s == 1 or d // s >= 512
+
+
+@pytest.mark.parametrize("name", GEMMA_SPLITS)
+def test_gemm_splits_pinned_for_gemma(name):
+    dp, d, s = GEMMA_SPLITS[name]
+    assert gemm_splits(dp, d, 4, 4, 32, n_sm=132) == s
 
 
 def _cache(seed, B, Hkv, S, Dh, H):
@@ -196,6 +223,90 @@ def test_gemm_kernel_matches_plain(cuda, T, shape, dtype):
     if dtype == torch.bfloat16:
         tol = dict(rtol=1e-2, atol=1e-2 * scale)
     torch.testing.assert_close(y.float(), y_r.float(), **tol)
+
+
+def _gemm_case(dev, dp, d, bits, g, T, dtype, seed=1):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    W = torch.randn((dp, d), generator=gen, device=dev)
+    D = torch.exp(0.3 * torch.randn((d,), generator=gen, device=dev))
+    x = torch.randn((T, d), generator=gen, device=dev).to(dtype)
+    pk, S, Z = tref.ttq_quantize_ref(W, D, bits=bits, group_size=g)
+    return x, pk, S, Z, 1.0 / D
+
+
+def _gemm_tol(d, dtype):
+    """test_gemm_kernel_matches_plain's tolerance."""
+    scale = (d / 256) ** 0.5
+    if dtype == torch.bfloat16:
+        return dict(rtol=1e-2, atol=1e-2 * scale)
+    return dict(rtol=2e-5 * scale, atol=2e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3072, 24576), (4096, 3072)],
+                         ids=["wd", "wq"])
+def test_gemm_kernel_is_deterministic(cuda, shape):
+    """The cluster's partial sums are added in rank order: two calls on the
+    same inputs are bitwise equal."""
+    dp, d = shape
+    x, pk, S, Z, dinv = _gemm_case(cuda, dp, d, 4, 32, 4, torch.bfloat16)
+    assert gemm_splits(dp, d, 4, 4, 32, torch.cuda.get_device_properties(
+        cuda).multi_processor_count) > 1
+    y1 = tops.ttq_gemm(x, pk, S, Z, dinv, bits=4, group_size=32)
+    y2 = tops.ttq_gemm(x, pk, S, Z, dinv, bits=4, group_size=32)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (4100, 3072, 4, 32, 1, True), (4100, 3072, 4, 32, 5, True),
+    (4100, 3072, 4, 32, 37, True), (256, 4096, 8, 32, 4, True),
+    (256, 4096, 2, 64, 4, True), (256, 4096, 2, 32, 5, True),
+    (4100, 3072, 4, 32, 4, False), (256, 4096, 8, 32, 3, False)],
+    ids=["ragged-T1", "ragged-T5", "ragged-T37", "bits8-split",
+         "bits2-split", "bits2-g32-split", "no-dinv", "bits8-no-dinv"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gemm_kernel_split_cases(cuda, case, dtype):
+    """Ragged row tiles (d' not a multiple of 32), odd T, bits 2 and 8 under
+    a split, and no D⁻¹: the kernel against its plain version."""
+    dp, d, bits, g, T, with_dinv = case
+    x, pk, S, Z, dinv = _gemm_case(cuda, dp, d, bits, g, T, dtype)
+    if not with_dinv:
+        dinv = None
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert dp % 32 or gemm_splits(dp, d, T, bits, g, n_sm) > 1
+    y = tops.ttq_gemm(x, pk, S, Z, dinv, bits=bits, group_size=g)
+    y_r = tref.ttq_gemm_ref(x, pk, S, Z, bits=bits, group_size=g,
+                            dinv=dinv).to(dtype)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_r.float(), **_gemm_tol(d, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 3, 16])
+def test_gemm_kernel_every_split(cuda, split):
+    """The C entry at each split the kernel takes, against the plain
+    version; a split it does not take (3, 16, or a slice that is not whole
+    groups) is refused with cudaErrorInvalidValue (1), never changed."""
+    dp, d, T = 96, 4096, 4
+    x, pk, S, Z, dinv = _gemm_case(cuda, dp, d, 4, 128, T, torch.float32)
+    y = torch.empty((T, dp), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def launch(s, g=128):
+        return kbuild.lib().ttq_gemm_launch(
+            x.data_ptr(), 0, pk.data_ptr(), S.data_ptr(), Z.data_ptr(),
+            dinv.data_ptr(), y.data_ptr(), T, dp, d, 4, g, s, stream)
+    if split not in (1, 2, 4, 8):
+        assert launch(split) == 1
+        return
+    assert launch(split) == 0
+    y_r = tref.ttq_gemm_ref(x, pk, S, Z, bits=4, group_size=128, dinv=dinv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_r, **_gemm_tol(d, torch.float32))
+    if split == 8:                  # 4096 / 8 = 512 is not whole groups of 1024
+        assert launch(8, g=1024) == 1
 
 
 @pytest.mark.gpu
