@@ -2,42 +2,45 @@
 // thread-block cluster and reduced in distributed shared memory.
 //
 // Replaces: src/repro/kernels/ttq_gemm.py:ttq_gemm (Pallas body _gemm_kernel).
-// Computes y (T, d') = (x∘D⁻¹)(T, d) · (code·s + z)ᵀ with codes unpacked from
-// int32 words (32/bits per word, low bits first), per-(row, group) f32 scale
-// s and zero z, f32 accumulation, output in x's dtype.
+// Computes y (T, d') = (x∘D⁻¹)(T, d) · (code·s + z)ᵀ with codes unpacked
+// from int32 words (32/bits per word, low bits first), per-(row, group) f32
+// scale s and zero z, f32 accumulation, output in x's dtype.
 //
-// Bound on the card: bytes.  At decode T is 1-16, so each weight byte feeds
-// at most 2·T·(8/bits) flops, far below the ~295 flop/byte where the H100
-// stops being memory bound; the time floor is packed codes + S/Z over
-// 3.35 TB/s.  Every weight byte is read exactly once, as coalesced 16-byte
-// loads, and the design is about keeping enough of them in flight.
+// Bound on the card: bytes.  At decode T is 1-8 per block, so each weight
+// byte feeds at most 2·T·(8/bits) flops, far below the ~295 flop/byte where
+// the H100 stops being memory bound; the floor is packed codes + S/Z over
+// 3.35 TB/s.  Every weight byte is read once, as coalesced 16-byte loads.
 //
 // Tile: a block of 8 warps owns 32 output rows (4 per warp) and one slice of
-// K.  Each lane streams uint4 words of its warp's 4 rows at once, unpacks
-// them with shift/mask, dequantizes with each group's s and z, and multiplies
-// against x∘D⁻¹ staged in shared memory in f32, for all T tokens: every
-// staged x value serves 4 rows.  32 rows (not 16) halve the staging of x per
-// weight byte; 4 rows per warp keep acc[4][16] in registers with no spills.
+// K.  Each lane streams uint4 words of its warp's 4 rows, unpacks them with
+// shift/mask, dequantizes with its group's s and z (loaded once per group:
+// NG groups per uint4, g a power of two, so the group index is a shift), and
+// multiplies against x∘D⁻¹ staged in shared memory in f32 for all tokens:
+// every staged x value serves 4 rows.  The next uint4 words (and, with one
+// or two groups per uint4, their s and z) are loaded before the current
+// ones' FMAs, so a lane keeps 2·4 uint4 loads in flight.  32 rows (not 16)
+// halve the staging of x per weight byte; 4 rows and at most 8 tokens per
+// block keep acc[4][8] in registers without spilling on the main path.
 //
 // Split: the S blocks of one cluster (S in {1, 2, 4, 8}; 8 is the portable
-// cluster limit, set at launch, never changed here) share a row tile, and
+// cluster limit, set at launch and never changed here) share a row tile, and
 // rank r takes the contiguous K slice [r·d/S, (r+1)·d/S).  So a block stages
-// only its slice of x∘D⁻¹: T·d/S floats, once where it fits in kStageBytes,
-// in chunks along K otherwise (XOR-swizzled by 16-byte chunk, so the lanes of
-// a quarter-warp, which read addresses 128 B apart, hit distinct banks).  A
-// narrow row count (d' = 3072 is 96 tiles) still fills the 132 SMs, and no
-// block walks all of a wide d (24576) alone.  The wrapper picks S
-// (kernels/ttq_gemm.py:gemm_splits); a split whose slice is not a whole
-// number of groups and of uint4 words is refused with cudaErrorInvalidValue.
+// only its slice of x∘D⁻¹: once where it fits in kStageBytes, in chunks along
+// K otherwise (XOR-swizzled by 16-byte chunk, so the lanes of a quarter-warp,
+// which read addresses 128 B apart, hit distinct banks).  A narrow row count
+// (d' = 3072 is 96 tiles) still puts a block on every SM, and no block walks
+// a wide d (24576) alone.  The wrapper picks S (kernels/ttq_gemm.py:
+// gemm_splits); a split whose slice is not whole groups and uint4 words is
+// refused with cudaErrorInvalidValue.
 //
 // Reduction, in one launch and deterministic: each warp closes its rows with
 // a shuffle tree into the block's part[32][TT] in shared memory; a cluster
-// barrier; then rank 0 reads part of ranks 0, 1, …, S−1 through distributed
-// shared memory and adds them in that fixed order, casts and stores; a second
-// cluster barrier keeps every rank's shared memory alive until rank 0 has read
-// it.  No atomics and no workspace: for a given shape and S the sum order is
-// fixed, so two calls are bitwise equal.  T > 16 runs more token tiles on the
-// grid's y axis, so the kernel is right at every T.
+// barrier; rank 0 reads part of ranks 0, 1, …, S−1 through distributed
+// shared memory, adds them in that fixed order, casts and stores; a second
+// cluster barrier keeps every rank's shared memory alive until rank 0 has
+// read it.  No atomics and no workspace: for a given shape and S the sum
+// order is fixed, so two calls are bitwise equal.  T > 8 runs more token
+// tiles on the grid's y axis, so the kernel is right at every T.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -61,11 +64,12 @@ __host__ __device__ __forceinline__ int stage_stride4(int kc) {
   return (kc / 4 + 7) & ~7;
 }
 
-template <int TT, int BITS, typename TX>
+// NG: groups per uint4 of codes (1, 2 or 4; g is a power of two >= 32/BITS)
+template <int TT, int BITS, int NG>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(
-    const TX* __restrict__ x, const int32_t* __restrict__ packed,
+    const void* __restrict__ x, int x_bf16, const int32_t* __restrict__ packed,
     const float* __restrict__ S, const float* __restrict__ Z,
-    const float* __restrict__ dinv, TX* __restrict__ y, int T, int dp, int d,
+    const float* __restrict__ dinv, void* __restrict__ y, int T, int dp, int d,
     int gshift, int ks, int kc) {
   constexpr int R = kRowsPerWarp;
   constexpr int PER = 32 / BITS;
@@ -95,49 +99,81 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
 #pragma unroll
     for (int t = 0; t < TT; ++t) acc[r][t] = 0.0f;
 
+  // the R rows' uint4 words at vector vi of the chunk at c0
+  auto fetch_words = [&](int c0, int nvec, int vi, uint4 (&u)[R]) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      u[r] = live[r] && vi < nvec
+                 ? __ldg(reinterpret_cast<const uint4*>(
+                             packed + (size_t)(row0 + r) * wpr + c0 / PER) +
+                         vi)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  };
+  // their groups' s and z, each loaded once: NG groups per vector
+  auto fetch_groups = [&](int c0, int nvec, int vi, float (&s)[R][NG],
+                          float (&z)[R][NG]) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool on = live[r] && vi < nvec;
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        const size_t gi = (size_t)(row0 + r) * gpr +
+                          ((c0 + vi * EPV + j * (EPV / NG)) >> gshift);
+        s[r][j] = on ? __ldg(S + gi) : 0.0f;
+        z[r][j] = on ? __ldg(Z + gi) : 0.0f;
+      }
+    }
+  };
+
   for (int c0 = k_lo; c0 < k_hi; c0 += kc) {
     const int clen = min(kc, k_hi - c0);
-    const int n4 = clen / 4;
+    const int n4 = clen / 4, nvec = clen / EPV;
     __syncthreads();                      // the previous chunk is consumed
-    for (int i = threadIdx.x; i < TT * n4; i += kThreads) {
-      const int t = i / n4, c = i - t * n4;
+    // a column of four k for all TT tokens per step: its TT + 1 loads (x
+    // rows and D⁻¹) are in flight together
+#pragma unroll (TT <= 4 ? 4 : 1)
+    for (int c = threadIdx.x; c < n4; c += kThreads) {
       const int k = c0 + 4 * c;
-      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (t0 + t < T) {
-        ttq::load4(x + (size_t)(t0 + t) * d + k, v);
-        if (dinv != nullptr) {
-          float dv[4];
-          ttq::load4(dinv + k, dv);
+      float dv[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+      if (dinv != nullptr) ttq::load4(dinv + k, dv);
+      float v[TT][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) v[e] *= dv[e];
+      for (int t = 0; t < TT; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[t][e] = 0.0f;
+        const size_t off = (size_t)(t0 + t) * d + k;
+        if (t0 + t < T) {
+          if (x_bf16)
+            ttq::load4(static_cast<const __nv_bfloat16*>(x) + off, v[t]);
+          else
+            ttq::load4(static_cast<const float*>(x) + off, v[t]);
         }
       }
-      xs[t * kc4 + swz(c)] = make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+      for (int t = 0; t < TT; ++t)
+        xs[t * kc4 + swz(c)] = make_float4(v[t][0] * dv[0], v[t][1] * dv[1],
+                                           v[t][2] * dv[2], v[t][3] * dv[3]);
     }
     __syncthreads();
-    const int nvec = clen / EPV;
+    uint4 u[R];
+    float s[R][NG], z[R][NG];
+    fetch_words(c0, nvec, lane, u);
+    fetch_groups(c0, nvec, lane, s, z);
     for (int vi = lane; vi < nvec; vi += 32) {
-      // the R rows' words at this position: R independent loads in flight,
-      // and every staged x value read below serves all R rows
-      uint4 u[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        u[r] = live[r] ? __ldg(reinterpret_cast<const uint4*>(
-                             packed + (size_t)(row0 + r) * wpr + c0 / PER) + vi)
-                       : make_uint4(0u, 0u, 0u, 0u);
+      // the next vector's words, and with one or two groups per vector its
+      // s and z, are loaded before this vector's FMAs: 2·R uint4 loads in
+      // flight per lane (four groups' s and z twice over would spill)
+      uint4 un[R];
+      float sn[R][NG], zn[R][NG];
+      fetch_words(c0, nvec, vi + 32, un);
+      if constexpr (NG < 4) fetch_groups(c0, nvec, vi + 32, sn, zn);
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
-        const int kloc = vi * EPV + w * PER;
-        const int grp = (c0 + kloc) >> gshift;
-        float s[R], z[R];
+        constexpr int WPG = 4 / NG;       // words per group in a vector
         uint32_t wd[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const size_t gi = (size_t)(live[r] ? row0 + r : 0) * gpr + grp;
-          s[r] = __ldg(S + gi);
-          z[r] = __ldg(Z + gi);
+        for (int r = 0; r < R; ++r)
           wd[r] = w == 0 ? u[r].x : w == 1 ? u[r].y : w == 2 ? u[r].z : u[r].w;
-        }
 #pragma unroll
         for (int h = 0; h < PER / 4; ++h) {
           float wv[R][4];
@@ -146,9 +182,9 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const uint32_t code = (wd[r] >> ((h * 4 + e) * BITS)) & MASK;
-              wv[r][e] = fmaf((float)code, s[r], z[r]);
+              wv[r][e] = fmaf((float)code, s[r][w / WPG], z[r][w / WPG]);
             }
-          const int c = kloc / 4 + h;
+          const int c = (vi * EPV + w * PER) / 4 + h;
 #pragma unroll
           for (int t = 0; t < TT; ++t) {
             const float4 xv = xs[t * kc4 + swz(c)];
@@ -163,6 +199,16 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
             }
           }
         }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) u[r] = un[r];
+      if constexpr (NG < 4) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int j = 0; j < NG; ++j) s[r][j] = sn[r][j], z[r][j] = zn[r][j];
+      } else {
+        fetch_groups(c0, nvec, vi + 32, s, z);
       }
     }
   }
@@ -185,18 +231,22 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
       for (int r = 1; r < kMaxSplit; ++r)
         if (r < split) v += p[r];         // ranks in order: deterministic
       const int row = tile0 + i / TT, t = t0 + i % TT;
-      if (row < dp && t < T) ttq::store1(y + (size_t)t * dp + row, v);
+      const size_t off = (size_t)t * dp + row;
+      if (row < dp && t < T) {
+        if (x_bf16) ttq::store1(static_cast<__nv_bfloat16*>(y) + off, v);
+        else ttq::store1(static_cast<float*>(y) + off, v);
+      }
     }
   }
   cluster.sync();                         // rank 0 has read every part
 }
 
-template <int TT, int BITS, typename TX>
-int launch(const void* x, const int32_t* packed, const float* S,
+template <int TT, int BITS, int NG>
+int launch(const void* x, int x_bf16, const int32_t* packed, const float* S,
            const float* Z, const float* dinv, void* y, int T, int dp, int d,
            int gshift, int split, cudaStream_t stream) {
   constexpr int EPV = 4 * (32 / BITS);
-  auto kern = gemm_kernel<TT, BITS, TX>;
+  auto kern = gemm_kernel<TT, BITS, NG>;
   const int ks = d / split;
   // the largest chunk of whole uint4 words whose TT staged rows fit
   const int cap = kStageBytes / (TT * 4) / 64 * 64;
@@ -220,25 +270,39 @@ int launch(const void* x, const int32_t* packed, const float* S,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kern, (const TX*)x, packed, S, Z, dinv, (TX*)y, T, dp, d, gshift,
-      ks, kc);
+      &cfg, kern, x, x_bf16, packed, S, Z, dinv, y, T, dp, d, gshift, ks, kc);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
+}
+
+template <int TT, int BITS>
+int by_groups(const void* x, int x_bf16, const int32_t* packed,
+              const float* S, const float* Z, const float* dinv, void* y,
+              int T, int dp, int d, int gshift, int split,
+              cudaStream_t stream) {
+  const int ng = (4 * (32 / BITS)) >> gshift;  // 0 where a group spans vectors
+  if (ng >= 4)
+    return launch<TT, BITS, 4>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
+                               gshift, split, stream);
+  if (ng == 2)
+    return launch<TT, BITS, 2>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
+                               gshift, split, stream);
+  return launch<TT, BITS, 1>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
+                             gshift, split, stream);
 }
 
 template <int TT>
 int by_bits(const void* x, int x_bf16, const int32_t* packed, const float* S,
             const float* Z, const float* dinv, void* y, int T, int dp, int d,
             int bits, int gshift, int split, cudaStream_t stream) {
-#define TTQ_GEMM_LAUNCH(B)                                                  \
-  return x_bf16 ? launch<TT, B, __nv_bfloat16>(x, packed, S, Z, dinv, y, T, \
-                                               dp, d, gshift, split, stream) \
-                : launch<TT, B, float>(x, packed, S, Z, dinv, y, T, dp, d,   \
-                                       gshift, split, stream)
-  if (bits == 2) TTQ_GEMM_LAUNCH(2);
-  if (bits == 4) TTQ_GEMM_LAUNCH(4);
-  TTQ_GEMM_LAUNCH(8);
-#undef TTQ_GEMM_LAUNCH
+  if (bits == 2)
+    return by_groups<TT, 2>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
+                            gshift, split, stream);
+  if (bits == 4)
+    return by_groups<TT, 4>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
+                            gshift, split, stream);
+  return by_groups<TT, 8>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, gshift,
+                          split, stream);
 }
 
 }  // namespace
@@ -266,7 +330,6 @@ extern "C" int ttq_gemm_launch(const void* x, int x_bf16, const int32_t* packed,
   if (T <= 1) TTQ_GEMM_TT(1);
   if (T <= 2) TTQ_GEMM_TT(2);
   if (T <= 4) TTQ_GEMM_TT(4);
-  if (T <= 8) TTQ_GEMM_TT(8);
-  TTQ_GEMM_TT(16);
+  TTQ_GEMM_TT(8);
 #undef TTQ_GEMM_TT
 }

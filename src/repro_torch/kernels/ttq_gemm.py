@@ -14,10 +14,10 @@ from ._checks import aligned, dtype_in, on_cuda
 
 NAME = "ttq_gemm"
 ROW_TILE = 32           # output rows per block (csrc/ttq_gemm.cu: kRows)
-TOKEN_TILE = 16         # tokens per block at most (the kernel's largest TT)
+TOKEN_TILE = 8          # tokens per block at most (the kernel's largest TT)
 SPLITS = (1, 2, 4, 8)   # blocks per cluster; 8 is the portable cluster limit
 MIN_SLICE = 512         # fewest K elements a split block takes
-BLOCKS_PER_SM = 4       # blocks to aim for on each SM
+BLOCKS_PER_SM = 1       # blocks to aim for on each SM
 
 
 def gemm_splits(dp: int, d: int, T: int, bits: int, g: int, n_sm: int) -> int:
@@ -27,9 +27,12 @@ def gemm_splits(dp: int, d: int, T: int, bits: int, g: int, n_sm: int) -> int:
     of uint4 code words (4·32/bits elements) and, for S > 1, at least
     MIN_SLICE long.  Taken: the smallest allowed S that gives the grid
     (row tiles × token tiles × S blocks) at least BLOCKS_PER_SM × n_sm
-    blocks, else the largest allowed.  At gemma-7b int4 g32, T = 4, 132 SMs:
-    wq/wk/wv (4096 × 3072) 4, wo (3072 × 4096) 8, wg/wu (24576 × 3072) 1,
-    wd (3072 × 24576) 8."""
+    blocks, else the largest allowed.  BLOCKS_PER_SM = 1 was tuned on an
+    H100 (132 SMs; PERF.md): past one block per SM, more splits only add
+    blocks whose staging and cluster reduction cost more than they bring
+    (gemma-7b's wg/wu took 3× as long at S = 8 as at S = 1).  At gemma-7b
+    int4 g32, T = 4, 132 SMs: wq/wk/wv (4096 × 3072) 2, wo (3072 × 4096) 2,
+    wg/wu (24576 × 3072) 1, wd (3072 × 24576) 2."""
     epv = 4 * (32 // bits)
     allowed = [s for s in SPLITS
                if d % s == 0 and (d // s) % g == 0 and (d // s) % epv == 0

@@ -90,8 +90,8 @@ def test_gemm_plain_matches_jax(jx, T, d, dp, bits, g):
 
 # gemma-7b's decode GEMMs at int4 g32, T = 4, and the split each gets on
 # 132 SMs: name → (d', d, S)
-GEMMA_SPLITS = {"wq/wk/wv": (4096, 3072, 4), "wo": (3072, 4096, 8),
-                "wg/wu": (24576, 3072, 1), "wd": (3072, 24576, 8)}
+GEMMA_SPLITS = {"wq/wk/wv": (4096, 3072, 2), "wo": (3072, 4096, 2),
+                "wg/wu": (24576, 3072, 1), "wd": (3072, 24576, 2)}
 # test_gemm_kernel_matches_plain's shapes: (d', d, bits, g)
 GEMM_KERNEL_SHAPES = [(128, 256, 4, 32), (384, 512, 8, 32), (256, 512, 2, 64),
                       (4096, 3072, 4, 32), (3072, 24576, 4, 32)]
@@ -263,13 +263,16 @@ def test_gemm_kernel_is_deterministic(cuda, shape):
     (4100, 3072, 4, 32, 1, True), (4100, 3072, 4, 32, 5, True),
     (4100, 3072, 4, 32, 37, True), (256, 4096, 8, 32, 4, True),
     (256, 4096, 2, 64, 4, True), (256, 4096, 2, 32, 5, True),
-    (4100, 3072, 4, 32, 4, False), (256, 4096, 8, 32, 3, False)],
+    (256, 4096, 4, 8, 4, True), (4100, 3072, 4, 32, 4, False),
+    (256, 4096, 8, 32, 3, False)],
     ids=["ragged-T1", "ragged-T5", "ragged-T37", "bits8-split",
-         "bits2-split", "bits2-g32-split", "no-dinv", "bits8-no-dinv"])
+         "bits2-split", "bits2-g32-split", "g8-split", "no-dinv",
+         "bits8-no-dinv"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gemm_kernel_split_cases(cuda, case, dtype):
     """Ragged row tiles (d' not a multiple of 32), odd T, bits 2 and 8 under
-    a split, and no D⁻¹: the kernel against its plain version."""
+    a split, one to four groups per uint4 of codes, and no D⁻¹: the kernel
+    against its plain version."""
     dp, d, bits, g, T, with_dinv = case
     x, pk, S, Z, dinv = _gemm_case(cuda, dp, d, bits, g, T, dtype)
     if not with_dinv:
