@@ -187,7 +187,7 @@ def kernel_quantize(torch, dev, flush):
 
 def kernel_gemm(torch, dev, flush):
     from repro_torch.core.qdq import unpack_bits
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels.ttq_gemm import ROW_TILE, gemm_splits, ttq_gemm
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -237,7 +237,9 @@ def kernel_gemm(torch, dev, flush):
               f"{b * 1e3:.1f} us ({b / t_k:.1%} of it reached), plain "
               f"{t_p * 1e3:.1f} us, torch.matmul bf16 {t_l * 1e3:.1f} us; "
               f"split {split}, {-(-dp // ROW_TILE) * split} blocks; two "
-              f"calls bitwise equal")
+              f"calls bitwise equal; at every split (us): " + ", ".join(
+                  f"{s} {t * 1e3:.1f}" for s, t in gemm_at_splits(
+                      torch, build.lib(), xb, pk, S, Z, dinv, flush).items()))
         n = 28 * per_layer
         ms, plain, lib, bound = (ms + n * t_k, plain + n * t_p,
                                  lib + n * t_l, bound + n * b)
@@ -245,6 +247,25 @@ def kernel_gemm(torch, dev, flush):
         torch.cuda.empty_cache()
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound,
                 library_ms=lib, bound_by="bytes")
+
+
+def gemm_at_splits(torch, lib, xb, pk, S, Z, dinv, flush):
+    """``ttq_gemm``'s C entry at each split of SPLITS that divides K into
+    whole groups of 32, int4, timed as ``time_ms`` does: what the wrapper's
+    choice (``gemm_splits``) is held against.  Not counted as launches."""
+    from repro_torch.kernels.ttq_gemm import SPLITS
+    T, d = xb.shape
+    dp = pk.shape[0]
+    y = torch.empty((T, dp), dtype=xb.dtype, device=xb.device)
+    stream = torch.cuda.current_stream(xb.device).cuda_stream
+
+    def launch(s):
+        check(lib.ttq_gemm_launch(
+            xb.data_ptr(), 1, pk.data_ptr(), S.data_ptr(), Z.data_ptr(),
+            dinv.data_ptr(), y.data_ptr(), T, dp, d, 4, 32, s, stream) == 0,
+            f"ttq_gemm at split {s} refused")
+    return {s: time_ms(torch, lambda: launch(s), flush=flush)
+            for s in SPLITS if d % (32 * s) == 0}
 
 
 def kernel_attention(torch, dev, flush, cur_main):

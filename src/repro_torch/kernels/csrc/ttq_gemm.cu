@@ -16,8 +16,8 @@
 // shift/mask, dequantizes with its group's s and z (loaded once per group:
 // NG groups per uint4, g a power of two, so the group index is a shift), and
 // multiplies against x∘D⁻¹ staged in shared memory in f32 for all tokens:
-// every staged x value serves 4 rows.  The next uint4 words (and, with one
-// or two groups per uint4, their s and z) are loaded before the current
+// every staged x value serves 4 rows.  With one or two groups per uint4,
+// the next uint4 words and their s and z are loaded before the current
 // ones' FMAs, so a lane keeps 2·4 uint4 loads in flight.  32 rows (not 16)
 // halve the staging of x per weight byte; 4 rows and at most 8 tokens per
 // block keep acc[4][8] in registers without spilling on the main path.
@@ -160,13 +160,15 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
     fetch_words(c0, nvec, lane, u);
     fetch_groups(c0, nvec, lane, s, z);
     for (int vi = lane; vi < nvec; vi += 32) {
-      // the next vector's words, and with one or two groups per vector its
-      // s and z, are loaded before this vector's FMAs: 2·R uint4 loads in
-      // flight per lane (four groups' s and z twice over would spill)
+      // the next vector's words and their s and z are loaded before this
+      // vector's FMAs: 2·R uint4 loads in flight per lane.  With four groups
+      // per vector, two vectors' s and z would spill: load after the FMAs.
       uint4 un[R];
       float sn[R][NG], zn[R][NG];
-      fetch_words(c0, nvec, vi + 32, un);
-      if constexpr (NG < 4) fetch_groups(c0, nvec, vi + 32, sn, zn);
+      if constexpr (NG < 4) {
+        fetch_words(c0, nvec, vi + 32, un);
+        fetch_groups(c0, nvec, vi + 32, sn, zn);
+      }
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         constexpr int WPG = 4 / NG;       // words per group in a vector
@@ -200,14 +202,15 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
           }
         }
       }
-#pragma unroll
-      for (int r = 0; r < R; ++r) u[r] = un[r];
       if constexpr (NG < 4) {
 #pragma unroll
-        for (int r = 0; r < R; ++r)
+        for (int r = 0; r < R; ++r) {
+          u[r] = un[r];
 #pragma unroll
           for (int j = 0; j < NG; ++j) s[r][j] = sn[r][j], z[r][j] = zn[r][j];
+        }
       } else {
+        fetch_words(c0, nvec, vi + 32, u);
         fetch_groups(c0, nvec, vi + 32, s, z);
       }
     }

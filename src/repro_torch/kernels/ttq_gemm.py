@@ -20,6 +20,7 @@ MIN_SLICE = 512         # fewest K elements a split block takes
 BLOCKS_PER_SM = 1       # blocks to aim for on each SM
 
 
+@functools.lru_cache(maxsize=None)      # called per decode linear: host time
 def gemm_splits(dp: int, d: int, T: int, bits: int, g: int, n_sm: int) -> int:
     """The kernel's K split S: how many blocks of one cluster share a row tile.
 
@@ -28,9 +29,9 @@ def gemm_splits(dp: int, d: int, T: int, bits: int, g: int, n_sm: int) -> int:
     MIN_SLICE long.  Taken: the smallest allowed S that gives the grid
     (row tiles × token tiles × S blocks) at least BLOCKS_PER_SM × n_sm
     blocks, else the largest allowed.  BLOCKS_PER_SM = 1 was tuned on an
-    H100 (132 SMs; PERF.md): past one block per SM, more splits only add
-    blocks whose staging and cluster reduction cost more than they bring
-    (gemma-7b's wg/wu took 3× as long at S = 8 as at S = 1).  At gemma-7b
+    H100 (132 SMs) from ``chip_smoke.py``'s timings of the kernel at every
+    split: past one block per SM, more splits only add blocks whose staging
+    and cluster reduction cost more than they bring.  At gemma-7b
     int4 g32, T = 4, 132 SMs: wq/wk/wv (4096 × 3072) 2, wo (3072 × 4096) 2,
     wg/wu (24576 × 3072) 1, wd (3072 × 24576) 2."""
     epv = 4 * (32 // bits)
