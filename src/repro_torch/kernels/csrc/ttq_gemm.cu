@@ -16,8 +16,8 @@
 // shift/mask, dequantizes with its group's s and z (loaded once per group:
 // NG groups per uint4, g a power of two, so the group index is a shift), and
 // multiplies against x∘D⁻¹ staged in shared memory in f32 for all tokens:
-// every staged x value serves 4 rows.  With one or two groups per uint4,
-// the next uint4 words and their s and z are loaded before the current
+// every staged x value serves 4 rows.  The next uint4 words (and, with one
+// or two groups per uint4, their s and z) are loaded before the current
 // ones' FMAs, so a lane keeps 2·4 uint4 loads in flight.  32 rows (not 16)
 // halve the staging of x per weight byte; 4 rows and at most 8 tokens per
 // block keep acc[4][8] in registers without spilling on the main path.
@@ -109,19 +109,27 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
                          vi)
                  : make_uint4(0u, 0u, 0u, 0u);
   };
-  // their groups' s and z, each loaded once: NG groups per vector
-  auto fetch_groups = [&](int c0, int nvec, int vi, float (&s)[R][NG],
-                          float (&z)[R][NG]) {
+  // group j of vector vi's NG groups: its s and z for the R rows, loaded once
+  auto fetch_group = [&](int c0, int nvec, int vi, int j, float (&s)[R][NG],
+                         float (&z)[R][NG]) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const bool on = live[r] && vi < nvec;
+      const size_t gi = (size_t)(row0 + r) * gpr +
+                        ((c0 + vi * EPV + j * (EPV / NG)) >> gshift);
+      s[r][j] = on ? __ldg(S + gi) : 0.0f;
+      z[r][j] = on ? __ldg(Z + gi) : 0.0f;
+    }
+  };
+  // With one or two groups per vector, a vector's s and z are loaded with
+  // its words, one vector ahead.  With four (a group per word), two vectors'
+  // s and z would spill: each word's are loaded just before its FMAs.
+  constexpr bool kGroupsAhead = NG < 4;
+  auto fetch_groups = [&](int c0, int nvec, int vi, float (&s)[R][NG],
+                          float (&z)[R][NG]) {
+    if constexpr (kGroupsAhead) {
 #pragma unroll
-      for (int j = 0; j < NG; ++j) {
-        const size_t gi = (size_t)(row0 + r) * gpr +
-                          ((c0 + vi * EPV + j * (EPV / NG)) >> gshift);
-        s[r][j] = on ? __ldg(S + gi) : 0.0f;
-        z[r][j] = on ? __ldg(Z + gi) : 0.0f;
-      }
+      for (int j = 0; j < NG; ++j) fetch_group(c0, nvec, vi, j, s, z);
     }
   };
 
@@ -160,18 +168,16 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
     fetch_words(c0, nvec, lane, u);
     fetch_groups(c0, nvec, lane, s, z);
     for (int vi = lane; vi < nvec; vi += 32) {
-      // the next vector's words and their s and z are loaded before this
-      // vector's FMAs: 2·R uint4 loads in flight per lane.  With four groups
-      // per vector, two vectors' s and z would spill: load after the FMAs.
+      // the next vector is loaded before this vector's FMAs: 2·R uint4
+      // loads in flight per lane
       uint4 un[R];
       float sn[R][NG], zn[R][NG];
-      if constexpr (NG < 4) {
-        fetch_words(c0, nvec, vi + 32, un);
-        fetch_groups(c0, nvec, vi + 32, sn, zn);
-      }
+      fetch_words(c0, nvec, vi + 32, un);
+      fetch_groups(c0, nvec, vi + 32, sn, zn);
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         constexpr int WPG = 4 / NG;       // words per group in a vector
+        if constexpr (!kGroupsAhead) fetch_group(c0, nvec, vi, w, s, z);
         uint32_t wd[R];
 #pragma unroll
         for (int r = 0; r < R; ++r)
@@ -202,16 +208,13 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
           }
         }
       }
-      if constexpr (NG < 4) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          u[r] = un[r];
+      for (int r = 0; r < R; ++r) {
+        u[r] = un[r];
+        if constexpr (kGroupsAhead) {
 #pragma unroll
           for (int j = 0; j < NG; ++j) s[r][j] = sn[r][j], z[r][j] = zn[r][j];
         }
-      } else {
-        fetch_words(c0, nvec, vi + 32, u);
-        fetch_groups(c0, nvec, vi + 32, s, z);
       }
     }
   }
