@@ -8,9 +8,9 @@
 2. Each kernel against its plain PyTorch version at gemma-7b's main-path
    shapes, with its median time, its bound, the plain version's time and
    (for the GEMM) one PyTorch call of the same function; the GEMM also
-   prints its K split and block count per shape and must give bitwise
-   equal results on two calls; the paged attention kernel also bit for
-   bit against the dense one on the gathered cache.
+   prints its K split, block count and time at every split per shape and
+   must give bitwise equal results on two calls; the paged attention
+   kernel also bit for bit against the dense one on the gathered cache.
 3. The main path: ``TTQEngine`` on full-width gemma-7b (random weights from
    a seed) serves 8 requests through the three kernels of the dense slab;
    every kernel must have launched, and decode must not sync the host
