@@ -4,24 +4,32 @@
     python3 chip_smoke.py
 
 1. Device: the card's name and power limit; builds the CUDA kernels of
-   ``src/repro_torch/kernels/csrc/`` with nvcc (sm_90a) into ``build/``.
+   ``src/repro_torch/kernels/csrc/`` with nvcc (sm_90a) into ``build/``;
+   prints each attention instantiation's registers and spills, and fails
+   if one that the main path runs spills.
 2. Each kernel against its plain PyTorch version at gemma-7b's main-path
    shapes, with its median time, its bound, the plain version's time and
-   (for the GEMM) one PyTorch call of the same function; the GEMM also
-   prints its K split, block count and time at every split per shape and
-   must give bitwise equal results on two calls; the paged attention
-   kernel also bit for bit against the dense one on the gathered cache.
+   one PyTorch call of the same function (``torch.matmul`` for the GEMM,
+   ``scaled_dot_product_attention`` on the dequantized bf16 cache for
+   both attention kernels); the GEMM also prints its K split, block count
+   and time at every split per shape and must give bitwise equal results
+   on two calls.  Both attention kernels are checked at every split C
+   (within 1e-5 of the plain version, paged bit for bit dense on the
+   gathered cache, two calls bitwise equal) and print their time at every
+   C beside the rule's; then the same at gemma-7b's own context (S = 8192,
+   cur_pos = LONG_CUR), with the byte bound and the share of it reached.
 3. The main path: ``TTQEngine`` on full-width gemma-7b (random weights from
    a seed) serves 8 requests through the three kernels of the dense slab;
    every kernel must have launched, and decode must not sync the host
-   inside a block.  Then one kernel-path ``decode_step`` on 1, 7 and 28
-   layers is held against the plain-version one and against a kernel-free
-   witness, with every kernel call of the 28-layer step held against its
-   plain version.
+   inside a block; one decode block under the profiler gives the device
+   launches per decode step.  Then one kernel-path ``decode_step`` on 1, 7
+   and 28 layers is held against the plain-version one and against a
+   kernel-free witness, with every kernel call of the 28-layer step held
+   against its plain version.
 3b. The paged main path: the same weights, policy and traffic through
    ``EngineConfig(kv_paged=True)`` (block 16, default pool): decode
    attention runs ``ttq_paged_decode_attention``, and the greedy tokens
-   must equal 3's.
+   must equal 3's; device launches per decode step as in 3.
 3c. Prefix cache and preemption at full width: full-precision weights,
    int8 KV, 8 prompts sharing a 32-token prefix, a pool small enough to
    preempt; then the same traffic on an unconstrained pool without the
@@ -37,6 +45,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -73,6 +82,10 @@ DEPTHS = (1, 7, 28)
 # preempt (tests/test_torch_paged.py::test_smoke_prefix_traffic_preempts).
 BLOCK = 16
 POOL_3C = 18
+LONG_CUR = [8191, 6143, 4095, 2047]   # phase 2's long-context attention
+# the attention instantiations gemma-7b's int8 KV runs (G = 1, Dh 256, one
+# scale group per row)
+MAIN_PATH_ATTN = ("attn_kernel<1,1,8,1>", "paged_attn_kernel<1,1,8,1>")
 SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clock (time_ms)
 REL_L2_ONE_LAYER = 1e-2
 WITNESS_RATIO = 1.5
@@ -124,6 +137,37 @@ def time_ms(torch, fn, iters=15, warmup=2, flush=None):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def demangle(sym: str) -> str:
+    """``_ZN<n><namespace><m><name>I<Li..E...>E...`` → ``name<args>``
+    (the kernels' symbols: one namespace, int or bool template
+    arguments)."""
+    m = re.match(r"_ZN(\d+)", sym)
+    if not m:
+        return sym
+    rest = sym[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return sym
+    name = rest[m.end():m.end() + int(m.group(1))]
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest[m.end() + len(name):])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[ib](-?\d+)E",
+                                          args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    ``-Xptxas -v`` log, names demangled to ``name<template args>``."""
+    out = {}
+    for m in re.finditer(r"Function properties for (\S+)\n\s*\d+ bytes stack "
+                         r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                         r"loads\n.*?Used (\d+) registers", log):
+        name = demangle(m.group(1))
+        out[name] = (int(m.group(4)), int(m.group(2)), int(m.group(3)))
+    return out
 
 
 # --------------------------------------------------------------- phase 2
@@ -268,103 +312,191 @@ def gemm_at_splits(torch, lib, xb, pk, S, Z, dinv, flush):
             for s in SPLITS if d % (32 * s) == 0}
 
 
-def kernel_attention(torch, dev, flush, cur_main):
-    from repro_torch.core.kvquant import quantize_kv
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ttq_attn import ttq_decode_attention
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    B, H, S, Dh = 4, 16, 256, 256
-    k = torch.randn((B, H, S, Dh), generator=gen, device=dev)
-    v = torch.randn((B, H, S, Dh), generator=gen, device=dev)
-    q = torch.randn((B, H, 1, Dh), generator=gen, device=dev)
-    worst = 0.0
-    out = {}
-    for bits in (8, 4):
-        kq, ks = quantize_kv(k, bits=bits)
-        vq, vs = quantize_kv(v, bits=bits)
-        for cur in ([0, 37, 128, 200], [S - 1] * B):   # empty tail / full
-            pos = torch.tensor(cur, dtype=torch.int32, device=dev)
-            o = ttq_decode_attention(q, kq, ks, vq, vs, pos, bits=bits)
-            o_r = ref.kv_attn_ref(q, kq, ks, vq, vs, pos, bits=bits)
-            # f32 softmax over the same dequantized values: 1e-5, as the
-            # JAX package's kernel test (tests/test_kvquant.py:104)
-            torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
-            worst = max(worst, float((o - o_r).abs().max()))
-        pos = torch.tensor(cur_main, dtype=torch.int32, device=dev)
-        qb = q.to(torch.bfloat16)
-        t_k = time_ms(torch, lambda: ttq_decode_attention(
-            qb, kq, ks, vq, vs, pos, bits=bits), flush=flush)
-        t_p = time_ms(torch, lambda: ref.kv_attn_ref(
-            qb, kq, ks, vq, vs, pos, bits=bits), flush=flush)
-        row = Dh * bits // 8 + 4                    # codes + one f32 scale
-        moved = 2 * H * row * sum(c + 1 for c in cur_main) + 2 * nbytes(qb) \
-            + nbytes(pos)
-        ops = 4 * H * Dh * sum(c + 1 for c in cur_main)
-        b = max(moved / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
-        print(f"  ttq_decode_attention int{bits} cur_pos={cur_main}: "
-              f"{t_k * 1e3:.1f} us, bound {b * 1e3:.2f} us, plain "
-              f"{t_p * 1e3:.1f} us")
-        out[bits] = (t_k, t_p, b)
-    t_k, t_p, b = out[8]                              # the main path: int8
-    return dict(max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
-                bound_ms=28 * b, library_ms=None, bound_by="bytes")
+def attn_bound_ms(H, Dh, bits, cur, *small) -> float:
+    """Least time of one decode-attention launch: each live cached row's
+    codes and one f32 scale, for k and v, read once; ``small`` (q, the
+    output, cur_pos, a block table) once; or its f32 operations."""
+    row = Dh * bits // 8 + 4
+    moved = 2 * H * row * sum(c + 1 for c in cur) + nbytes(*small)
+    ops = 4 * H * Dh * sum(c + 1 for c in cur)
+    return max(moved / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
 
 
-def kernel_paged_attention(torch, dev, flush, cur_main):
-    """``ttq_paged_decode_attention`` at the main path's shapes: 4 slots of
-    16 heads of 256, block 16, a pool of 65 blocks under a seeded random
-    block table.  Within 1e-5 of its plain version and bit for bit the
-    dense kernel on the gathered cache; timed beside that dense launch."""
-    from repro_torch.core.kvquant import quantize_kv
+def sdpa_ms(torch, qb, kq, ks, vq, vs, pos, bits, flush):
+    """One ``scaled_dot_product_attention`` call on the same inputs: the
+    cache dequantized to bf16 and sliced to max(cur_pos) + 1 rows, and a
+    boolean mask from ``cur_pos``, both made outside the timer.  Returns
+    (its median ms, its output); the port never calls it."""
+    from repro_torch.core.kvquant import dequantize_kv
+    F = torch.nn.functional
+    n = int(pos.max()) + 1
+    k, v = (dequantize_kv(c[:, :, :n], s_[:, :, :n], torch.bfloat16,
+                          bits=bits).contiguous()
+            for c, s_ in ((kq, ks), (vq, vs)))
+    mask = (torch.arange(n, device=pos.device)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    t = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qb, k, v, attn_mask=mask), flush=flush)
+    return t, F.scaled_dot_product_attention(qb, k, v, attn_mask=mask)
+
+
+def attn_checked(torch, q, dense, pool, bt, pos, bits, what):
+    """Both attention kernels at every split C of SPLITS on f32 q: within
+    1e-5 of the plain version (as the JAX package's kernel test,
+    tests/test_kvquant.py:104), the paged kernel bit for bit the dense one
+    on the gathered cache ``dense``, and two calls at the rule's C bitwise
+    equal.  Returns the largest |difference| from the plain version."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ttq_attn import (ttq_decode_attention,
+    from repro_torch.kernels.ttq_attn import (SPLITS, ttq_decode_attention,
                                               ttq_paged_decode_attention)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    B, H, Dh, nblk = 4, 16, 256, 256 // BLOCK
+    o_r = ref.kv_attn_ref(q, *dense, pos, bits=bits)
+    worst = 0.0
+    for c in SPLITS:
+        o = ttq_decode_attention(q, *dense, pos, bits=bits, splits=c)
+        o_p = ttq_paged_decode_attention(q, *pool, bt, pos, bits=bits,
+                                         splits=c)
+        torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
+        check(torch.equal(o_p, o), f"{what} int{bits} at C = {c}: paged is "
+              f"not bit for bit the dense kernel on the gathered cache")
+        worst = max(worst, float((o - o_r).abs().max()))
+    for run in (lambda: ttq_decode_attention(q, *dense, pos, bits=bits),
+                lambda: ttq_paged_decode_attention(q, *pool, bt, pos,
+                                                   bits=bits)):
+        check(torch.equal(run(), run()), f"{what} int{bits}: two calls "
+              f"differ")
+    return worst
+
+
+def attn_case(torch, dev, seed, nblk, cur, bits_list=(8, 4)):
+    """4 slots × 16 heads of 256 in a pool of blocks of BLOCK rows under a
+    seeded permuted block table (nblk blocks per slot), and the same cache
+    gathered into the dense (4, 16, nblk·BLOCK, ·) layout; yields per bits
+    (bits, f32 q, dense leaves, pool leaves, table, cur_pos)."""
+    from repro_torch.core.kvquant import quantize_kv
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, H, Dh = 4, 16, 256
     NB = B * nblk + 1
     pk = torch.randn((NB, H, BLOCK, Dh), generator=gen, device=dev)
     pv = torch.randn((NB, H, BLOCK, Dh), generator=gen, device=dev)
     q = torch.randn((B, H, 1, Dh), generator=gen, device=dev)
-    perm = np.random.default_rng(SEED + 3).permutation(np.arange(1, NB))
+    perm = np.random.default_rng(seed).permutation(np.arange(1, NB))
     bt = torch.from_numpy(perm.reshape(B, nblk).astype(np.int32)).to(dev)
+    pos = torch.tensor(cur, dtype=torch.int32, device=dev)
+    for bits in bits_list:
+        pool = [*quantize_kv(pk, bits=bits), *quantize_kv(pv, bits=bits)]
+        dense = [ref.gather_paged_kv(t, bt) for t in pool]
+        yield bits, q, dense, pool, bt, pos
+        del pool, dense
+    del pk, pv
+    torch.cuda.empty_cache()
+
+
+def attn_timed(torch, qb, dense, pool, bt, pos, bits, flush):
+    """Median times (ms) of both kernels at the rule's C and at every C,
+    through the wrappers (the folded q scale and output cast included)."""
+    from repro_torch.kernels.ttq_attn import (SPLITS, ttq_decode_attention,
+                                              ttq_paged_decode_attention)
+    t = {}
+    for c in (None, *SPLITS):
+        t["dense", c] = time_ms(torch, lambda: ttq_decode_attention(
+            qb, *dense, pos, bits=bits, splits=c), flush=flush)
+        t["paged", c] = time_ms(torch, lambda: ttq_paged_decode_attention(
+            qb, *pool, bt, pos, bits=bits, splits=c), flush=flush)
+    return t
+
+
+def at_every_c(t, kind) -> str:
+    from repro_torch.kernels.ttq_attn import SPLITS
+    return ", ".join(f"{c} {t[kind, c] * 1e3:.1f}" for c in SPLITS)
+
+
+def kernel_attention(torch, dev, flush, cur_main):
+    """Both attention kernels at the main path's shapes: 4 slots of 16
+    heads of 256, capacity 256 (16 blocks of 16 under a seeded permuted
+    table, and the same cache gathered dense).  Checked at every C on an
+    empty tail, full slots and the main path's ``cur_pos``; timed at the
+    main path's ``cur_pos`` with bf16 q, beside the plain version and one
+    ``scaled_dot_product_attention`` call.  Returns the dense and the
+    paged kernel's rows of the kernels line (int8, the main path's)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ttq_attn import attn_splits
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblk = 256 // BLOCK
+    c_rule = attn_splits(4, 16, nblk * BLOCK, n_sm)
     worst = 0.0
-    out = {}
-    for bits in (8, 4):
-        kq, ks = quantize_kv(pk, bits=bits)
-        vq, vs = quantize_kv(pv, bits=bits)
-        gathered = [ref.gather_paged_kv(t, bt) for t in (kq, ks, vq, vs)]
-        for cur in ([0, 37, 128, 200], [255] * B, cur_main):
-            pos = torch.tensor(cur, dtype=torch.int32, device=dev)
-            o = ttq_paged_decode_attention(q, kq, ks, vq, vs, bt, pos,
-                                           bits=bits)
-            o_r = ref.kv_paged_attn_ref(q, kq, ks, vq, vs, bt, pos, bits=bits)
-            o_d = ttq_decode_attention(q, *gathered, pos, bits=bits)
-            # the dense kernel's tolerance against the same plain math
-            torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
-            check(torch.equal(o, o_d), f"paged int{bits} at {cur} is not "
-                  f"bit for bit the dense kernel on the gathered cache")
-            worst = max(worst, float((o - o_r).abs().max()))
-        pos = torch.tensor(cur_main, dtype=torch.int32, device=dev)
+    rows = {}
+    for cur in ([0, 37, 128, 200], [255] * 4):
+        for bits, q, dense, pool, bt, pos in attn_case(torch, dev, SEED + 2,
+                                                       nblk, cur):
+            worst = max(worst, attn_checked(torch, q, dense, pool, bt, pos,
+                                            bits, f"attention {cur}"))
+    for bits, q, dense, pool, bt, pos in attn_case(torch, dev, SEED + 2, nblk,
+                                                   cur_main):
+        worst = max(worst, attn_checked(torch, q, dense, pool, bt, pos, bits,
+                                        "attention main"))
         qb = q.to(torch.bfloat16)
-        t_k = time_ms(torch, lambda: ttq_paged_decode_attention(
-            qb, kq, ks, vq, vs, bt, pos, bits=bits), flush=flush)
-        t_d = time_ms(torch, lambda: ttq_decode_attention(
-            qb, *gathered, pos, bits=bits), flush=flush)
-        t_p = time_ms(torch, lambda: ref.kv_paged_attn_ref(
-            qb, kq, ks, vq, vs, bt, pos, bits=bits), flush=flush)
-        row = Dh * bits // 8 + 4                    # codes + one f32 scale
-        moved = 2 * H * row * sum(c + 1 for c in cur_main) + 2 * nbytes(qb) \
-            + nbytes(pos, bt)
-        ops = 4 * H * Dh * sum(c + 1 for c in cur_main)
-        b = max(moved / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
-        print(f"  ttq_paged_decode_attention int{bits} cur_pos={cur_main}: "
-              f"{t_k * 1e3:.1f} us (dense kernel on the gathered cache "
-              f"{t_d * 1e3:.1f} us), bound {b * 1e3:.2f} us, plain "
-              f"{t_p * 1e3:.1f} us; bit for bit the dense kernel")
-        out[bits] = (t_k, t_p, b)
-    t_k, t_p, b = out[8]                              # the main path: int8
-    return dict(max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
-                bound_ms=28 * b, library_ms=None, bound_by="bytes")
+        t = attn_timed(torch, qb, dense, pool, bt, pos, bits, flush)
+        t_pd = time_ms(torch, lambda: ref.kv_attn_ref(
+            qb, *dense, pos, bits=bits), flush=flush)
+        t_pp = time_ms(torch, lambda: ref.kv_paged_attn_ref(
+            qb, *pool, bt, pos, bits=bits), flush=flush)
+        t_l, o_l = sdpa_ms(torch, qb, *dense, pos, bits, flush)
+        o = ref.kv_attn_ref(qb, *dense, pos, bits=bits)
+        b_d = attn_bound_ms(16, 256, bits, cur_main, qb, qb, pos)
+        b_p = attn_bound_ms(16, 256, bits, cur_main, qb, qb, pos, bt)
+        for kind, t_p, b in (("dense", t_pd, b_d), ("paged", t_pp, b_p)):
+            print(f"  ttq_{'paged_' if kind == 'paged' else ''}decode_attention"
+                  f" int{bits} cur_pos={cur_main}: {t[kind, None] * 1e3:.1f} "
+                  f"us at C = {c_rule} ({4 * 16 * c_rule} blocks), bound "
+                  f"{b * 1e3:.2f} us, plain {t_p * 1e3:.1f} us, "
+                  f"scaled_dot_product_attention bf16 {t_l * 1e3:.1f} us "
+                  f"(its max |diff| from the plain version "
+                  f"{float((o_l.float() - o.float()).abs().max()):.3g}); at "
+                  f"every C (us): {at_every_c(t, kind)}")
+            rows[kind, bits] = (t[kind, None], t_p, b, t_l)
+    print(f"  both kernels at every C within 1e-5 of the plain version; "
+          f"paged bit for bit dense; two calls bitwise equal")
+    out = []
+    for kind in ("dense", "paged"):
+        t_k, t_p, b, t_l = rows[kind, 8]                # the main path: int8
+        out.append(dict(max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
+                        bound_ms=28 * b, library_ms=28 * t_l,
+                        bound_by="bytes"))
+    return out
+
+
+def kernel_attention_long(torch, dev, flush):
+    """Both attention kernels at gemma-7b's own context: 4 slots × 16 heads
+    × S = 8192 × Dh 256 (512 blocks of 16 per slot under a seeded permuted
+    table, and the same cache gathered dense), cur_pos = LONG_CUR.  Checked
+    as at the main path's shape, at every C; timed with bf16 q at every C
+    beside its byte bound and one ``scaled_dot_product_attention`` call.
+    Returns {(kernel, bits): (ms at the rule's C, bound ms, sdpa ms)}."""
+    from repro_torch.kernels.ttq_attn import attn_splits
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblk = 8192 // BLOCK
+    c_rule = attn_splits(4, 16, nblk * BLOCK, n_sm)
+    res = {}
+    for bits, q, dense, pool, bt, pos in attn_case(torch, dev, SEED + 4, nblk,
+                                                   LONG_CUR):
+        worst = attn_checked(torch, q, dense, pool, bt, pos, bits,
+                             "attention long")
+        qb = q.to(torch.bfloat16)
+        t = attn_timed(torch, qb, dense, pool, bt, pos, bits, flush)
+        t_l, _ = sdpa_ms(torch, qb, *dense, pos, bits, flush)
+        for kind, extra in (("dense", ()), ("paged", (bt,))):
+            b = attn_bound_ms(16, 256, bits, LONG_CUR, qb, qb, pos, *extra)
+            t_k = t[kind, None]
+            print(f"  long: ttq_{'paged_' if kind == 'paged' else ''}"
+                  f"decode_attention int{bits} S=8192 cur_pos={LONG_CUR}: "
+                  f"{t_k * 1e3:.1f} us at C = {c_rule}, bound {b * 1e3:.1f} "
+                  f"us ({b / t_k:.1%} of it reached), "
+                  f"scaled_dot_product_attention bf16 {t_l * 1e3:.1f} us; "
+                  f"max |diff| from the plain version {worst:.3g}; at every "
+                  f"C (us): {at_every_c(t, kind)}")
+            res[kind, bits] = (t_k, b, t_l)
+    return res
 
 
 # --------------------------------------------------------------- phase 3
@@ -445,23 +577,44 @@ def check_outputs(cfg, outs, what):
 def block_syncs_nothing(torch, cfg, eng, prompts):
     """Admit 4 prompts, then run one fused decode block on a copy of the
     live state under ``set_sync_debug_mode("error")``: it must not sync
-    the host (the one transfer comes after the block)."""
+    the host (the one transfer comes after the block).  Then the same block
+    on another copy under ``torch.profiler``: the device launches (kernels,
+    copies, memsets) per decode step, counted as ``tools/port_profile.py``
+    counts them.  Returns (the runner, launches per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.models import lm
     for p in prompts[:4]:
         eng.submit(p, max_new=MAX_NEW)
     eng.admit()
     r = eng.runner
-    st = clone_tree(torch, r.state)
+
+    def block():
+        st = clone_tree(torch, r.state)
+        args = (r.cur_tok.clone(), r.pos.clone(), r.done.clone(),
+                r.remaining.clone())
+        return lambda: lm.decode_many(
+            cfg, eng.decode_params, st, *args, None, K=r.K,
+            max_len=eng.ecfg.max_len, kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    run = block()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        (toks, _), _ = lm.decode_many(
-            cfg, eng.decode_params, st, r.cur_tok.clone(), r.pos.clone(),
-            r.done.clone(), r.remaining.clone(), None, K=r.K,
-            max_len=eng.ecfg.max_len, kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+        (toks, _), _ = run()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     check(toks.shape == (4, r.K), f"decode_many tokens {tuple(toks.shape)}")
-    return r
+    run = block()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and getattr(e, "self_device_time_total", 0.0) > 0)
+    check(n > 0, "the profiler recorded no device launch")
+    return r, n / r.K
 
 
 def split_sum_gemm(x, packed, scale, zero, dinv, *, bits, group_size):
@@ -638,7 +791,11 @@ def main_path(torch, dev, prompts, cfg, params):
     print(f"  requant (synced): {res['requant_synced_s'] * 1e3:.1f} ms")
 
     # fresh admission of 4 prompts: a live decode state to check against
-    r = block_syncs_nothing(torch, cfg, eng, prompts)
+    r, res["device_launches_per_step"] = block_syncs_nothing(torch, cfg, eng,
+                                                             prompts)
+    print(f"  one fused block syncs nothing; "
+          f"{res['device_launches_per_step']:.0f} device launches per decode "
+          f"step (profiler)")
 
     wit, gaps = depth_witness(torch, cfg, eng, r)
     res["decode_step_rel_l2"] = wit
@@ -688,10 +845,12 @@ def paged_path(torch, dev, prompts, cfg, params, dense):
           f"host syncs {eng.host_syncs}; launches {launches}")
     res.update(warm_phases(torch, eng, prompts, n_tok))
     eng.allocator.assert_quiescent()
-    block_syncs_nothing(torch, cfg, eng, prompts)
+    _, res["device_launches_per_step"] = block_syncs_nothing(torch, cfg, eng,
+                                                             prompts)
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    print(f"  one fused paged block syncs nothing; peak "
-          f"{res['peak_gb']:.2f} GB")
+    print(f"  one fused paged block syncs nothing; "
+          f"{res['device_launches_per_step']:.0f} device launches per decode "
+          f"step (profiler); peak {res['peak_gb']:.2f} GB")
     return res
 
 
@@ -787,11 +946,18 @@ def main() -> int:
     build.lib()
     log = build.BUILD_DIR / "build.log"
     log.write_text(build.build_log)
-    spills = [ln for ln in build.build_log.splitlines()
-              if "spill" in ln and not ln.strip().startswith("0 bytes")]
+    ptx = ptxas_report(build.build_log)
+    spilled = sorted(n for n, (_, st, ld) in ptx.items() if st or ld)
     print(f"    kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.build_seconds:.1f} s; ptxas log {log}, "
-          f"{len(spills)} kernels with spills)")
+          f"{len(spilled)} kernels with spills: {spilled})")
+    attn_ptx = {n: v for n, v in ptx.items() if "attn_kernel" in n}
+    print("    attention kernels (registers, spill stores, spill loads): "
+          + "; ".join(f"{n} {v}" for n, v in sorted(attn_ptx.items())))
+    check(len(attn_ptx) == 40, f"the ptxas log lists {len(attn_ptx)} "
+          f"attention kernels, not 40")
+    check(not any(n in spilled for n in MAIN_PATH_ATTN),
+          f"an attention instantiation of the main path spills: {spilled}")
 
     prompts = make_prompts()
     cur_main = [len(p) + MAX_NEW // 2 for p in prompts[:4]]
@@ -805,14 +971,15 @@ def main() -> int:
         "ttq_gemm": ("src/repro_torch/kernels/csrc/ttq_gemm.cu",
                      "src/repro/kernels/ttq_gemm.py:125",
                      kernel_gemm(torch, dev, flush)),
-        "ttq_decode_attention": ("src/repro_torch/kernels/csrc/ttq_attn.cu",
-                                 "src/repro/kernels/ttq_attn.py:254",
-                                 kernel_attention(torch, dev, flush, cur_main)),
-        "ttq_paged_decode_attention": (
-            "src/repro_torch/kernels/csrc/ttq_attn.cu",
-            "src/repro/kernels/ttq_attn.py:203",
-            kernel_paged_attention(torch, dev, flush, cur_main)),
     }
+    dense_row, paged_row = kernel_attention(torch, dev, flush, cur_main)
+    rows["ttq_decode_attention"] = (
+        "src/repro_torch/kernels/csrc/ttq_attn.cu",
+        "src/repro/kernels/ttq_attn.py:254", dense_row)
+    rows["ttq_paged_decode_attention"] = (
+        "src/repro_torch/kernels/csrc/ttq_attn.cu",
+        "src/repro/kernels/ttq_attn.py:203", paged_row)
+    kernel_attention_long(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

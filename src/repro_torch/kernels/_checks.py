@@ -1,5 +1,7 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and device facts shared by the kernel wrappers."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,3 +30,9 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     if t.data_ptr() % 16:
         t = t.clone()
     return t
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (what the split rules aim the grid at)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -34,14 +34,15 @@ SIGNATURES = {
     # x, x_is_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, split, stream
     "ttq_gemm_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
-    # qg, kq, ks, vq, vs, cur_pos, out, B, Hkv, G, S, Dh, n_groups, bits,
-    # soft_cap, stream
-    "ttq_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _I, _F, _P],
-    # qg, kq, ks, vq, vs, block_table, cur_pos, out, B, Hkv, G, bs, nblk,
-    # Dh, n_groups, bits, soft_cap, stream
-    "ttq_paged_decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, q_is_bf16, scale, kq, ks, vq, vs, cur_pos, out, B, Hkv, G, S, Dh,
+    # n_groups, bits, soft_cap, splits, stream
+    "ttq_decode_attention_launch": [_P, _I, _F, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, q_is_bf16, scale, kq, ks, vq, vs, block_table, cur_pos, out, B,
+    # Hkv, G, bs, nblk, Dh, n_groups, bits, soft_cap, splits, stream
+    "ttq_paged_decode_attention_launch": [_P, _I, _F, _P, _P, _P, _P, _P, _P,
+                                          _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                          _F, _I, _P],
 }
 
 # launches per kernel, counted by the wrappers where they launch
@@ -74,7 +75,9 @@ def _build() -> Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     lib_path = BUILD_DIR / f"libttq_kernels_{h.hexdigest()[:16]}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
+        build_log = log_path.read_text() if log_path.exists() else ""
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -104,6 +107,7 @@ def _build() -> Path:
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"link failed:\n{link.stdout}{link.stderr}")
+        log_path.write_text(build_log)
         os.replace(tmp_lib, lib_path)
     build_seconds = time.perf_counter() - t0
     return lib_path

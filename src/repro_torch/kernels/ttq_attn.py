@@ -7,23 +7,50 @@ tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build, ref
-from ._checks import aligned, dtype_in, on_cuda
+from ._checks import aligned, dtype_in, on_cuda, sm_count
 
 NAME = "ttq_decode_attention"
 PAGED_NAME = "ttq_paged_decode_attention"
+SPLITS = (1, 2, 4, 8)   # blocks per cluster; 8 is the portable cluster limit
+MIN_ROWS = 128          # fewest cache rows of capacity a rank is given
+BLOCKS_PER_SM = 2       # blocks to aim for on each SM
+
+
+@functools.lru_cache(maxsize=None)      # called per decode layer: host time
+def attn_splits(B: int, Hkv: int, capacity_rows: int, n_sm: int) -> int:
+    """The kernels' split C: how many blocks of one cluster share the rows
+    of one (slot, kv head).  From static shapes only (the rows in use,
+    ``cur_pos``, live on the device).
+
+    Allowed: C in SPLITS with, for C > 1, at least MIN_ROWS rows of the
+    capacity (S, or nblk·bs) per rank: two batches of 8 rows for each of a
+    block's 8 warps.  Taken: the smallest allowed C that gives the grid
+    (B·Hkv·C blocks) at least BLOCKS_PER_SM × n_sm blocks, else the largest
+    allowed.  Tuned on an H100 (132 SMs, two blocks resident per SM) from
+    ``chip_smoke.py``'s timings at every C: larger clusters cost a few µs
+    of launch and merge each, which only a long slot pays back.  At
+    gemma-7b (16 kv heads), 4 slots: capacity 256 → 2, 8192 → 8."""
+    allowed = [c for c in SPLITS if c == 1 or capacity_rows // c >= MIN_ROWS]
+    for c in allowed:
+        if B * Hkv * c >= BLOCKS_PER_SM * n_sm:
+            return c
+    return allowed[-1]
 
 
 def _prepare(name, q, kq, ks, vq, vs, cur_pos, bits, group_size, scale,
              rows: tuple):
     """Checks shared by both kernels; ``rows`` is the (lead, rows) shape of
     the code and scale tensors — (B, Hkv, S) dense, (NB, Hkv, bs) paged.
-    Returns (qg (B, Hkv, G, Dh) f32 pre-scaled, G, n_groups, f32 out)."""
+    Returns (q contiguous, G, n_groups, f32 scale, out in q's dtype)."""
     if bits not in (4, 8):
         raise ValueError(f"{name}: bits={bits} not in (4, 8)")
     code_t = torch.int8 if bits == 8 else torch.int32
+    dtype_in(name, "q", q, (torch.bfloat16, torch.float32))
     dtype_in(name, "kq", kq, (code_t,))
     dtype_in(name, "vq", vq, (code_t,))
     dtype_in(name, "ks", ks, (torch.float32,))
@@ -41,22 +68,28 @@ def _prepare(name, q, kq, ks, vq, vs, cur_pos, bits, group_size, scale,
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, codes "
                          f"{tuple(kq.shape)}, scales {tuple(ks.shape)}, "
                          f"cur_pos {tuple(cur_pos.shape)} disagree")
+    if rows[0] * rows[1] * rows[2] >= 2 ** 31:
+        raise ValueError(f"{name}: {rows} cache rows do not fit 32-bit "
+                         f"row indices")
     G = H // Hkv
     nch = -(-Dh // 256)
     if Dh % 8 or Dh % g or g % 8 or G not in (1, 2, 4) or G * nch > 4:
         raise ValueError(f"{name}: unsupported Dh={Dh}, group={g}, G={G}")
     sc = scale if scale is not None else Dh ** -0.5
-    qg = (q[:, :, 0].float() * sc).reshape(B, Hkv, G, Dh).contiguous()
-    out = torch.empty((B, Hkv, G, Dh), dtype=torch.float32, device=q.device)
-    return qg, G, ngr, out
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    return aligned(q), G, ngr, float(sc), out
 
 
 def ttq_decode_attention(q, kq, ks, vq, vs, cur_pos, *, bits: int = 8,
                          group_size: int = 0, scale: float | None = None,
-                         soft_cap: float = 0.0) -> torch.Tensor:
-    """q (B,H,1,Dh); kq/vq codes (B,Hkv,S,Dc) int8 or int32 (int4 packed);
-    ks/vs (B,Hkv,S,Dh//g) f32; cur_pos (B,) int32 → (B,H,1,Dh) in q's
-    dtype.  Rows past ``cur_pos`` are masked."""
+                         soft_cap: float = 0.0,
+                         splits: int | None = None) -> torch.Tensor:
+    """q (B,H,1,Dh) bf16 or f32; kq/vq codes (B,Hkv,S,Dc) int8 or int32
+    (int4 packed); ks/vs (B,Hkv,S,Dh//g) f32; cur_pos (B,) int32 →
+    (B,H,1,Dh) in q's dtype.  Rows past ``cur_pos`` are masked.  On the
+    card q is scaled (default Dh^-1/2) and the output cast inside the
+    kernel: one launch per call.  ``splits``: the kernel's C (None:
+    :func:`attn_splits`); the kernel refuses one not in SPLITS."""
     if q.device.type == "cpu":
         return ref.kv_attn_ref(q, kq, ks, vq, vs, cur_pos, bits=bits,
                                group_size=group_size, scale=scale,
@@ -64,29 +97,33 @@ def ttq_decode_attention(q, kq, ks, vq, vs, cur_pos, *, bits: int = 8,
     on_cuda(NAME, q, kq, ks, vq, vs, cur_pos)
     B, H, _, Dh = q.shape
     _, Hkv, S, _ = kq.shape
-    qg, G, ngr, out = _prepare(NAME, q, kq, ks, vq, vs, cur_pos, bits,
-                               group_size, scale, (B, Hkv, S))
+    q, G, ngr, sc, out = _prepare(NAME, q, kq, ks, vq, vs, cur_pos, bits,
+                                  group_size, scale, (B, Hkv, S))
+    if splits is None:
+        splits = attn_splits(B, Hkv, S, sm_count(q.device))
     kq, ks, vq, vs, cur_pos = map(aligned, (kq, ks, vq, vs, cur_pos))
     err = build.lib().ttq_decode_attention_launch(
-        qg.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), cur_pos.data_ptr(), out.data_ptr(), B, Hkv, G, S, Dh,
-        ngr, bits, float(soft_cap),
+        q.data_ptr(), int(q.dtype == torch.bfloat16), sc, kq.data_ptr(),
+        ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), cur_pos.data_ptr(),
+        out.data_ptr(), B, Hkv, G, S, Dh, ngr, bits, float(soft_cap), splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
-    return out.reshape(B, H, 1, Dh).to(q.dtype)
+    return out
 
 
 def ttq_paged_decode_attention(q, kq, ks, vq, vs, block_table, cur_pos, *,
                                bits: int = 8, group_size: int = 0,
                                scale: float | None = None,
-                               soft_cap: float = 0.0) -> torch.Tensor:
-    """q (B,H,1,Dh); kq/vq pool codes (NB,Hkv,bs,Dc) int8 or int32 (int4
-    packed); ks/vs (NB,Hkv,bs,Dh//g) f32; block_table (B, nblk) int32
-    physical block per logical block; cur_pos (B,) int32 → (B,H,1,Dh) in
-    q's dtype.  Rows past ``cur_pos`` are masked and never read.  The block
-    table's entries are not checked on the host (that would sync): they
-    must lie in [0, NB)."""
+                               soft_cap: float = 0.0,
+                               splits: int | None = None) -> torch.Tensor:
+    """q (B,H,1,Dh) bf16 or f32; kq/vq pool codes (NB,Hkv,bs,Dc) int8 or
+    int32 (int4 packed); ks/vs (NB,Hkv,bs,Dh//g) f32; block_table (B, nblk)
+    int32 physical block per logical block; cur_pos (B,) int32 →
+    (B,H,1,Dh) in q's dtype.  Rows past ``cur_pos`` are masked and never
+    read.  The block table's entries are not checked on the host (that
+    would sync): they must lie in [0, NB).  ``splits`` as for
+    :func:`ttq_decode_attention`."""
     if q.device.type == "cpu":
         return ref.kv_paged_attn_ref(q, kq, ks, vq, vs, block_table, cur_pos,
                                      bits=bits, group_size=group_size,
@@ -99,17 +136,21 @@ def ttq_paged_decode_attention(q, kq, ks, vq, vs, block_table, cur_pos, *,
         raise ValueError(f"{PAGED_NAME}: block_table "
                          f"{tuple(block_table.shape)} is not (B={B}, nblk)")
     nblk = block_table.shape[1]
-    if not 0 < nblk <= 2048:
-        raise ValueError(f"{PAGED_NAME}: nblk={nblk} not in 1..2048")
-    qg, G, ngr, out = _prepare(PAGED_NAME, q, kq, ks, vq, vs, cur_pos, bits,
-                               group_size, scale, (NB, Hkv, bs))
+    if not 0 < nblk <= 2048 or not 0 < bs <= 1024:
+        raise ValueError(f"{PAGED_NAME}: nblk={nblk} not in 1..2048 or "
+                         f"block size {bs} not in 1..1024")
+    q, G, ngr, sc, out = _prepare(PAGED_NAME, q, kq, ks, vq, vs, cur_pos,
+                                  bits, group_size, scale, (NB, Hkv, bs))
+    if splits is None:
+        splits = attn_splits(B, Hkv, nblk * bs, sm_count(q.device))
     kq, ks, vq, vs, block_table, cur_pos = map(
         aligned, (kq, ks, vq, vs, block_table, cur_pos))
     err = build.lib().ttq_paged_decode_attention_launch(
-        qg.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), block_table.data_ptr(), cur_pos.data_ptr(),
-        out.data_ptr(), B, Hkv, G, bs, nblk, Dh, ngr, bits, float(soft_cap),
+        q.data_ptr(), int(q.dtype == torch.bfloat16), sc, kq.data_ptr(),
+        ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), block_table.data_ptr(),
+        cur_pos.data_ptr(), out.data_ptr(), B, Hkv, G, bs, nblk, Dh, ngr,
+        bits, float(soft_cap), splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, PAGED_NAME)
     build.LAUNCHES[PAGED_NAME] += 1
-    return out.reshape(B, H, 1, Dh).to(q.dtype)
+    return out

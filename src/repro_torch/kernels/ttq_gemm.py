@@ -10,7 +10,7 @@ import functools
 import torch
 
 from . import build, ref
-from ._checks import aligned, dtype_in, on_cuda
+from ._checks import aligned, dtype_in, on_cuda, sm_count
 
 NAME = "ttq_gemm"
 ROW_TILE = 32           # output rows per block (csrc/ttq_gemm.cu: kRows)
@@ -45,11 +45,6 @@ def gemm_splits(dp: int, d: int, T: int, bits: int, g: int, n_sm: int) -> int:
     return allowed[-1]
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
              zero: torch.Tensor, dinv: torch.Tensor | None = None, *,
              bits: int = 4, group_size: int = 32) -> torch.Tensor:
@@ -82,7 +77,7 @@ def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"{NAME}: d={d} must divide by {4 * per} and by "
                          f"group_size={g}, a power of two >= {per}")
     T = x2.shape[0]
-    split = gemm_splits(dp, d, T, bits, g, _n_sm(x.device))
+    split = gemm_splits(dp, d, T, bits, g, sm_count(x.device))
     x2, packed, scale, zero = map(aligned, (x2, packed, scale, zero))
     dinv = None if dinv is None else aligned(dinv)
     y = torch.empty((T, dp), dtype=x.dtype, device=x.device)

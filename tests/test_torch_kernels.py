@@ -13,6 +13,9 @@ from repro_torch.core.qdq import unpack_bits as t_unpack
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ttq_attn import (MIN_ROWS, SPLITS, attn_splits,
+                                          ttq_decode_attention,
+                                          ttq_paged_decode_attention)
 from repro_torch.kernels.ttq_gemm import gemm_splits
 
 # the SWEEP of tests/test_kernels.py: (T, d, dp, bits, g)
@@ -112,6 +115,26 @@ def test_gemm_splits_divide_k(shape, T):
 def test_gemm_splits_pinned_for_gemma(name):
     dp, d, s = GEMMA_SPLITS[name]
     assert gemm_splits(dp, d, 4, 4, 32, n_sm=132) == s
+
+
+# gemma-7b's decode attention (4 slots, 16 kv heads) at its main-path
+# capacity (256 rows) and its own context (8192), and the split C each gets
+# on 132 SMs: capacity → C
+GEMMA_ATTN_SPLITS = {256: 2, 8192: 8}
+
+
+@pytest.mark.parametrize("capacity", GEMMA_ATTN_SPLITS)
+def test_attn_splits_pinned_for_gemma(capacity):
+    assert attn_splits(4, 16, capacity, n_sm=132) == GEMMA_ATTN_SPLITS[capacity]
+
+
+@pytest.mark.parametrize("B,Hkv,capacity", [(1, 1, 16), (1, 2, 100),
+                                            (2, 8, 256), (8, 32, 4096),
+                                            (64, 16, 8192), (1, 1, 131072)])
+def test_attn_splits_leave_each_rank_rows(B, Hkv, capacity):
+    c = attn_splits(B, Hkv, capacity, n_sm=132)
+    assert c in SPLITS
+    assert c == 1 or capacity // c >= MIN_ROWS
 
 
 def _cache(seed, B, Hkv, S, Dh, H):
@@ -376,3 +399,147 @@ def test_paged_attention_kernel_matches_plain(cuda, bits, geom):
             torch.cuda.synchronize()
             torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
             assert torch.equal(o, o_d)
+
+
+def _paged_case(dev, bits, B=3, Hkv=2, H=4, bs=16, nblk=12, Dh=64, gsz=16,
+                seed=5):
+    """A scrambled pool, its block table and the gathered dense cache."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    NB = B * nblk + 1
+    pk = torch.randn((NB, Hkv, bs, Dh), generator=gen, device=dev)
+    pv = torch.randn((NB, Hkv, bs, Dh), generator=gen, device=dev)
+    q = torch.randn((B, H, 1, Dh), generator=gen, device=dev)
+    kq, ks = t_quantize_kv(pk, bits=bits, group_size=gsz)
+    vq, vs = t_quantize_kv(pv, bits=bits, group_size=gsz)
+    perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(seed))
+    bt = (perm + 1).reshape(B, nblk).to(torch.int32).to(dev)
+    gathered = [tref.gather_paged_kv(t, bt) for t in (kq, ks, vq, vs)]
+    return q, (kq, ks, vq, vs), bt, gathered
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gsz", [0, 16], ids=["row-scale", "group-16"])
+@pytest.mark.parametrize("cap", [0.0, 30.0], ids=["no-cap", "soft-cap"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_attention_kernels_every_split(cuda, bits, splits, cap, gsz):
+    """Both kernels at every split C, with one scale per row or per group
+    of 16: within 1e-5 of the plain version, and the paged kernel bit for
+    bit the dense one on the gathered cache; one slot whose slice
+    boundaries fall inside pool blocks (70 rows in slices of 35, 18 or 9
+    at C = 2, 4, 8), one shorter than C."""
+    q, pool, bt, gathered = _paged_case(cuda, bits, gsz=gsz)
+    bs, S = pool[0].shape[2], bt.shape[1] * pool[0].shape[2]
+    cur = [69, 5, S - 1]
+    assert splits == 1 or -(-(cur[0] + 1) // splits) % bs
+    pos = torch.tensor(cur, dtype=torch.int32, device=cuda)
+    kw = dict(bits=bits, group_size=gsz, soft_cap=cap, splits=splits)
+    o_d = ttq_decode_attention(q, *gathered, pos, **kw)
+    o_p = ttq_paged_decode_attention(q, *pool, bt, pos, **kw)
+    o_r = tref.kv_attn_ref(q, *gathered, pos, bits=bits, group_size=gsz,
+                           soft_cap=cap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o_d, o_r, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o_p, o_d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [12, 6])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_paged_attention_odd_block_sizes(cuda, bs, splits):
+    """Block sizes 12 and 6 (G = 1, batches of 8 rows): a batch spans
+    pool blocks and slices end inside them; still within 1e-5 of the
+    plain version and bit for bit the dense kernel."""
+    q, pool, bt, gathered = _paged_case(cuda, 8, H=2, bs=bs, nblk=16,
+                                        gsz=0)
+    S = 16 * bs
+    pos = torch.tensor([S // 2 + 3, 1, S - 1], dtype=torch.int32,
+                       device=cuda)
+    o_d = ttq_decode_attention(q, *gathered, pos, splits=splits)
+    o_p = ttq_paged_decode_attention(q, *pool, bt, pos, splits=splits)
+    o_r = tref.kv_attn_ref(q, *gathered, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o_d, o_r, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o_p, o_d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_attention_kernels_are_deterministic(cuda, bits):
+    """gemma-7b's main-path geometry at the split the rule picks (C > 1):
+    the ranks are merged in rank order, so two calls are bitwise equal."""
+    q, pool, bt, gathered = _paged_case(cuda, bits, B=4, Hkv=16, H=16,
+                                        nblk=16, Dh=256, gsz=0)
+    assert attn_splits(4, 16, 256, torch.cuda.get_device_properties(
+        cuda).multi_processor_count) > 1
+    pos = torch.tensor([73, 63, 57, 45], dtype=torch.int32, device=cuda)
+    qb = q.to(torch.bfloat16)
+    for run in (lambda: ttq_decode_attention(qb, *gathered, pos, bits=bits),
+                lambda: ttq_paged_decode_attention(qb, *pool, bt, pos,
+                                                   bits=bits)):
+        o1, o2 = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gsz", [0, 16], ids=["row-scale", "group-16"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_attention_empty_ranks_add_nothing(cuda, bits, gsz):
+    """cur_pos = 0 at C = 8: one row, seven ranks with none.  The empty
+    ranks add exactly nothing: the result is bitwise the C = 1 one, and
+    within 1e-5 of the plain version."""
+    q, pool, bt, gathered = _paged_case(cuda, bits, gsz=gsz)
+    pos = torch.zeros((3,), dtype=torch.int32, device=cuda)
+    kw = dict(bits=bits, group_size=gsz)
+    o8 = ttq_decode_attention(q, *gathered, pos, splits=8, **kw)
+    o1 = ttq_decode_attention(q, *gathered, pos, splits=1, **kw)
+    p8 = ttq_paged_decode_attention(q, *pool, bt, pos, splits=8, **kw)
+    o_r = tref.kv_attn_ref(q, *gathered, pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o8, o_r, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o8, o1)
+    assert torch.equal(p8, o8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_q_dtype_folds_scale_and_cast(cuda, dtype, paged):
+    """q in bf16 or f32 is read as it is, scaled in f32 inside the kernel,
+    and the output comes back in q's dtype: bitwise the f32 prescale, the
+    kernel at scale 1 and a cast, and (f32) within 1e-5 or (bf16) one bf16
+    rounding of the plain version."""
+    q, pool, bt, gathered = _paged_case(cuda, 8)
+    q = q.to(dtype)
+    sc = q.shape[-1] ** -0.5
+    pos = torch.tensor([100, 5, 191], dtype=torch.int32, device=cuda)
+    if paged:
+        run = lambda x, **kw: ttq_paged_decode_attention(  # noqa: E731
+            x, *pool, bt, pos, bits=8, group_size=16, splits=4, **kw)
+    else:
+        run = lambda x, **kw: ttq_decode_attention(  # noqa: E731
+            x, *gathered, pos, bits=8, group_size=16, splits=4, **kw)
+    o = run(q)
+    o_pre = run(q.float() * sc, scale=1.0).to(dtype)
+    o_r = tref.kv_attn_ref(q, *gathered, pos, bits=8, group_size=16)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    assert torch.equal(o, o_pre)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=1e-5)
+    torch.testing.assert_close(o.float(), o_r.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [0, 3, 16])
+def test_attention_unsupported_split_refused(cuda, splits):
+    """A split the kernels do not take is refused by their C entry points
+    (cudaErrorInvalidValue), never changed, and the wrapper raises."""
+    q, pool, bt, gathered = _paged_case(cuda, 8)
+    pos = torch.tensor([100, 5, 191], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        ttq_decode_attention(q, *gathered, pos, group_size=16, splits=splits)
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        ttq_paged_decode_attention(q, *pool, bt, pos, group_size=16,
+                                   splits=splits)
