@@ -13,9 +13,10 @@
    ``scaled_dot_product_attention`` on the dequantized bf16 cache for
    both attention kernels); the GEMM also prints its K split, block count
    and time at every split per shape and must give bitwise equal results
-   on two calls.  Both attention kernels are checked at every split C
-   (within 1e-5 of the plain version, paged bit for bit dense on the
-   gathered cache, two calls bitwise equal) and print their time at every
+   on two calls.  Both attention kernels are checked at every split C on
+   f32 and bf16 q (within 1e-5 of the plain version, bf16 with one more
+   rounding; paged bit for bit dense on the gathered cache; two calls
+   bitwise equal) and print their time at every
    C beside the rule's; then the same at gemma-7b's own context (S = 8192,
    cur_pos = LONG_CUR), with the byte bound and the share of it reached.
 3. The main path: ``TTQEngine`` on full-width gemma-7b (random weights from
@@ -341,29 +342,37 @@ def sdpa_ms(torch, qb, kq, ks, vq, vs, pos, bits, flush):
 
 
 def attn_checked(torch, q, dense, pool, bt, pos, bits, what):
-    """Both attention kernels at every split C of SPLITS on f32 q: within
-    1e-5 of the plain version (as the JAX package's kernel test,
-    tests/test_kvquant.py:104), the paged kernel bit for bit the dense one
-    on the gathered cache ``dense``, and two calls at the rule's C bitwise
-    equal.  Returns the largest |difference| from the plain version."""
+    """Both attention kernels at every split C of SPLITS, on f32 q and on
+    bf16 q (the main path's: the kernels' bf16 load and store): within
+    1e-5 of the plain version on the same q (as the JAX package's kernel
+    test, tests/test_kvquant.py:104; bf16 adds one rounding of the output,
+    rtol 2^-7, as ``held_to_plain``), the paged kernel bit for bit the
+    dense one on the gathered cache ``dense``, and two calls of each
+    wrapper bitwise equal.  Returns the largest |difference| from the plain
+    version on f32 q."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ttq_attn import (SPLITS, ttq_decode_attention,
+    from repro_torch.kernels.ttq_attn import (SPLITS, _launch,
+                                              ttq_decode_attention,
                                               ttq_paged_decode_attention)
-    o_r = ref.kv_attn_ref(q, *dense, pos, bits=bits)
     worst = 0.0
-    for c in SPLITS:
-        o = ttq_decode_attention(q, *dense, pos, bits=bits, splits=c)
-        o_p = ttq_paged_decode_attention(q, *pool, bt, pos, bits=bits,
-                                         splits=c)
-        torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
-        check(torch.equal(o_p, o), f"{what} int{bits} at C = {c}: paged is "
-              f"not bit for bit the dense kernel on the gathered cache")
-        worst = max(worst, float((o - o_r).abs().max()))
-    for run in (lambda: ttq_decode_attention(q, *dense, pos, bits=bits),
-                lambda: ttq_paged_decode_attention(q, *pool, bt, pos,
-                                                   bits=bits)):
-        check(torch.equal(run(), run()), f"{what} int{bits}: two calls "
-              f"differ")
+    for x, tol in ((q, dict(rtol=1e-5, atol=1e-5)),
+                   (q.to(torch.bfloat16), dict(rtol=2 ** -7, atol=1e-5))):
+        o_r = ref.kv_attn_ref(x, *dense, pos, bits=bits)
+        for c in SPLITS:
+            o = _launch(x, *dense, None, pos, c, bits=bits)
+            o_p = _launch(x, *pool, bt, pos, c, bits=bits)
+            check(o.dtype == x.dtype, f"{what}: output {o.dtype}, q {x.dtype}")
+            torch.testing.assert_close(o.float(), o_r.float(), **tol)
+            check(torch.equal(o_p, o), f"{what} int{bits} {x.dtype} at C = "
+                  f"{c}: paged is not bit for bit the dense kernel on the "
+                  f"gathered cache")
+            if x.dtype == torch.float32:
+                worst = max(worst, float((o - o_r).abs().max()))
+        for run in (lambda: ttq_decode_attention(x, *dense, pos, bits=bits),
+                    lambda: ttq_paged_decode_attention(x, *pool, bt, pos,
+                                                       bits=bits)):
+            check(torch.equal(run(), run()), f"{what} int{bits} {x.dtype}: "
+                  f"two calls differ")
     return worst
 
 
@@ -393,16 +402,16 @@ def attn_case(torch, dev, seed, nblk, cur, bits_list=(8, 4)):
 
 
 def attn_timed(torch, qb, dense, pool, bt, pos, bits, flush):
-    """Median times (ms) of both kernels at the rule's C and at every C,
-    through the wrappers (the folded q scale and output cast included)."""
-    from repro_torch.kernels.ttq_attn import (SPLITS, ttq_decode_attention,
-                                              ttq_paged_decode_attention)
+    """Median times (ms) of both kernels at the rule's C (None) and at
+    every C, the wrapper's checks and the folded q scale and output cast
+    included."""
+    from repro_torch.kernels.ttq_attn import SPLITS, _launch
     t = {}
     for c in (None, *SPLITS):
-        t["dense", c] = time_ms(torch, lambda: ttq_decode_attention(
-            qb, *dense, pos, bits=bits, splits=c), flush=flush)
-        t["paged", c] = time_ms(torch, lambda: ttq_paged_decode_attention(
-            qb, *pool, bt, pos, bits=bits, splits=c), flush=flush)
+        t["dense", c] = time_ms(torch, lambda: _launch(
+            qb, *dense, None, pos, c, bits=bits), flush=flush)
+        t["paged", c] = time_ms(torch, lambda: _launch(
+            qb, *pool, bt, pos, c, bits=bits), flush=flush)
     return t
 
 
@@ -455,8 +464,9 @@ def kernel_attention(torch, dev, flush, cur_main):
                   f"{float((o_l.float() - o.float()).abs().max()):.3g}); at "
                   f"every C (us): {at_every_c(t, kind)}")
             rows[kind, bits] = (t[kind, None], t_p, b, t_l)
-    print(f"  both kernels at every C within 1e-5 of the plain version; "
-          f"paged bit for bit dense; two calls bitwise equal")
+    print(f"  both kernels at every C, f32 and bf16 q, within 1e-5 of the "
+          f"plain version (bf16: and one rounding); paged bit for bit "
+          f"dense; two calls bitwise equal")
     out = []
     for kind in ("dense", "paged"):
         t_k, t_p, b, t_l = rows[kind, 8]                # the main path: int8

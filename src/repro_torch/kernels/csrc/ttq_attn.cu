@@ -129,13 +129,14 @@ struct DenseRows {
 
 // logical row s of (b, h) → physical row of the (NB, Hkv, bs, ·) pool.
 // s / bs by a multiply-high with ceil(2^32 / bs): exact for s·bs < 2^32,
-// which nblk <= 2048 and bs <= 1024 guarantee.
+// which nblk <= 2048 and bs <= 1024 guarantee.  At bs = 1 the multiplier
+// (2^32) does not fit 32 bits: the block is s itself.
 struct PagedRows {
   const int32_t* bt;                    // logical blocks b0.. of slot b (shared)
   int b0, Hkv, h, bs;
-  uint32_t inv_bs;                      // 0xFFFFFFFF / bs + 1
+  uint32_t inv_bs;                      // 0xFFFFFFFF / bs + 1 (0 at bs = 1)
   __device__ __forceinline__ uint32_t operator()(int s) const {
-    const int blk = (int)__umulhi((uint32_t)s, inv_bs);
+    const int blk = bs == 1 ? s : (int)__umulhi((uint32_t)s, inv_bs);
     return ((uint32_t)bt[blk - b0] * Hkv + h) * bs + (s - blk * bs);
   }
 };

@@ -82,75 +82,79 @@ def _prepare(name, q, kq, ks, vq, vs, cur_pos, bits, group_size, scale,
 
 def ttq_decode_attention(q, kq, ks, vq, vs, cur_pos, *, bits: int = 8,
                          group_size: int = 0, scale: float | None = None,
-                         soft_cap: float = 0.0,
-                         splits: int | None = None) -> torch.Tensor:
+                         soft_cap: float = 0.0) -> torch.Tensor:
     """q (B,H,1,Dh) bf16 or f32; kq/vq codes (B,Hkv,S,Dc) int8 or int32
     (int4 packed); ks/vs (B,Hkv,S,Dh//g) f32; cur_pos (B,) int32 →
     (B,H,1,Dh) in q's dtype.  Rows past ``cur_pos`` are masked.  On the
     card q is scaled (default Dh^-1/2) and the output cast inside the
-    kernel: one launch per call.  ``splits``: the kernel's C (None:
-    :func:`attn_splits`); the kernel refuses one not in SPLITS."""
+    kernel: one launch per call, at the split :func:`attn_splits` picks."""
     if q.device.type == "cpu":
         return ref.kv_attn_ref(q, kq, ks, vq, vs, cur_pos, bits=bits,
                                group_size=group_size, scale=scale,
                                soft_cap=soft_cap)
-    on_cuda(NAME, q, kq, ks, vq, vs, cur_pos)
-    B, H, _, Dh = q.shape
-    _, Hkv, S, _ = kq.shape
-    q, G, ngr, sc, out = _prepare(NAME, q, kq, ks, vq, vs, cur_pos, bits,
-                                  group_size, scale, (B, Hkv, S))
-    if splits is None:
-        splits = attn_splits(B, Hkv, S, sm_count(q.device))
-    kq, ks, vq, vs, cur_pos = map(aligned, (kq, ks, vq, vs, cur_pos))
-    err = build.lib().ttq_decode_attention_launch(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), sc, kq.data_ptr(),
-        ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), cur_pos.data_ptr(),
-        out.data_ptr(), B, Hkv, G, S, Dh, ngr, bits, float(soft_cap), splits,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, NAME)
-    build.LAUNCHES[NAME] += 1
-    return out
+    return _launch(q, kq, ks, vq, vs, None, cur_pos, None, bits=bits,
+                   group_size=group_size, scale=scale, soft_cap=soft_cap)
 
 
 def ttq_paged_decode_attention(q, kq, ks, vq, vs, block_table, cur_pos, *,
                                bits: int = 8, group_size: int = 0,
                                scale: float | None = None,
-                               soft_cap: float = 0.0,
-                               splits: int | None = None) -> torch.Tensor:
+                               soft_cap: float = 0.0) -> torch.Tensor:
     """q (B,H,1,Dh) bf16 or f32; kq/vq pool codes (NB,Hkv,bs,Dc) int8 or
     int32 (int4 packed); ks/vs (NB,Hkv,bs,Dh//g) f32; block_table (B, nblk)
     int32 physical block per logical block; cur_pos (B,) int32 →
     (B,H,1,Dh) in q's dtype.  Rows past ``cur_pos`` are masked and never
     read.  The block table's entries are not checked on the host (that
-    would sync): they must lie in [0, NB).  ``splits`` as for
+    would sync): they must lie in [0, NB).  One launch per call, as for
     :func:`ttq_decode_attention`."""
     if q.device.type == "cpu":
         return ref.kv_paged_attn_ref(q, kq, ks, vq, vs, block_table, cur_pos,
                                      bits=bits, group_size=group_size,
                                      scale=scale, soft_cap=soft_cap)
-    on_cuda(PAGED_NAME, q, kq, ks, vq, vs, block_table, cur_pos)
-    dtype_in(PAGED_NAME, "block_table", block_table, (torch.int32,))
+    return _launch(q, kq, ks, vq, vs, block_table, cur_pos, None, bits=bits,
+                   group_size=group_size, scale=scale, soft_cap=soft_cap)
+
+
+def _launch(q, kq, ks, vq, vs, block_table, cur_pos, splits, *, bits=8,
+            group_size=0, scale=None, soft_cap=0.0) -> torch.Tensor:
+    """Launch the dense kernel (``block_table`` None) or the paged one on
+    CUDA tensors at split ``splits`` (None: :func:`attn_splits`); the
+    kernel refuses one not in SPLITS.  The wrappers pass None; the tests
+    and ``chip_smoke.py`` force each C through here."""
+    paged = block_table is not None
+    name = PAGED_NAME if paged else NAME
+    on_cuda(name, q, kq, ks, vq, vs, cur_pos,
+            *((block_table,) if paged else ()))
     B, H, _, Dh = q.shape
-    NB, Hkv, bs, _ = kq.shape
-    if block_table.dim() != 2 or block_table.shape[0] != B:
-        raise ValueError(f"{PAGED_NAME}: block_table "
-                         f"{tuple(block_table.shape)} is not (B={B}, nblk)")
-    nblk = block_table.shape[1]
-    if not 0 < nblk <= 2048 or not 0 < bs <= 1024:
-        raise ValueError(f"{PAGED_NAME}: nblk={nblk} not in 1..2048 or "
-                         f"block size {bs} not in 1..1024")
-    q, G, ngr, sc, out = _prepare(PAGED_NAME, q, kq, ks, vq, vs, cur_pos,
-                                  bits, group_size, scale, (NB, Hkv, bs))
+    lead, Hkv, rows, _ = kq.shape
+    nblk = 0
+    if paged:
+        dtype_in(name, "block_table", block_table, (torch.int32,))
+        if block_table.dim() != 2 or block_table.shape[0] != B:
+            raise ValueError(f"{name}: block_table "
+                             f"{tuple(block_table.shape)} is not (B={B}, nblk)")
+        nblk = block_table.shape[1]
+        if not 0 < nblk <= 2048 or not 0 < rows <= 1024:
+            raise ValueError(f"{name}: nblk={nblk} not in 1..2048 or "
+                             f"block size {rows} not in 1..1024")
+    q, G, ngr, sc, out = _prepare(name, q, kq, ks, vq, vs, cur_pos, bits,
+                                  group_size, scale, (lead, Hkv, rows))
     if splits is None:
-        splits = attn_splits(B, Hkv, nblk * bs, sm_count(q.device))
-    kq, ks, vq, vs, block_table, cur_pos = map(
-        aligned, (kq, ks, vq, vs, block_table, cur_pos))
-    err = build.lib().ttq_paged_decode_attention_launch(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), sc, kq.data_ptr(),
-        ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), block_table.data_ptr(),
-        cur_pos.data_ptr(), out.data_ptr(), B, Hkv, G, bs, nblk, Dh, ngr,
-        bits, float(soft_cap), splits,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, PAGED_NAME)
-    build.LAUNCHES[PAGED_NAME] += 1
+        splits = attn_splits(B, Hkv, nblk * rows if paged else rows,
+                             sm_count(q.device))
+    kq, ks, vq, vs, cur_pos = map(aligned, (kq, ks, vq, vs, cur_pos))
+    head = (q.data_ptr(), int(q.dtype == torch.bfloat16), sc, kq.data_ptr(),
+            ks.data_ptr(), vq.data_ptr(), vs.data_ptr())
+    tail = (Dh, ngr, bits, float(soft_cap), splits,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if paged:
+        block_table = aligned(block_table)
+        err = build.lib().ttq_paged_decode_attention_launch(
+            *head, block_table.data_ptr(), cur_pos.data_ptr(), out.data_ptr(),
+            B, Hkv, G, rows, nblk, *tail)
+    else:
+        err = build.lib().ttq_decode_attention_launch(
+            *head, cur_pos.data_ptr(), out.data_ptr(), B, Hkv, G, rows, *tail)
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
     return out

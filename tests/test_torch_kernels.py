@@ -13,8 +13,8 @@ from repro_torch.core.qdq import unpack_bits as t_unpack
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ttq_attn import (MIN_ROWS, SPLITS, attn_splits,
-                                          ttq_decode_attention,
+from repro_torch.kernels.ttq_attn import (MIN_ROWS, SPLITS, _launch,
+                                          attn_splits, ttq_decode_attention,
                                           ttq_paged_decode_attention)
 from repro_torch.kernels.ttq_gemm import gemm_splits
 
@@ -433,9 +433,9 @@ def test_attention_kernels_every_split(cuda, bits, splits, cap, gsz):
     cur = [69, 5, S - 1]
     assert splits == 1 or -(-(cur[0] + 1) // splits) % bs
     pos = torch.tensor(cur, dtype=torch.int32, device=cuda)
-    kw = dict(bits=bits, group_size=gsz, soft_cap=cap, splits=splits)
-    o_d = ttq_decode_attention(q, *gathered, pos, **kw)
-    o_p = ttq_paged_decode_attention(q, *pool, bt, pos, **kw)
+    kw = dict(bits=bits, group_size=gsz, soft_cap=cap)
+    o_d = _launch(q, *gathered, None, pos, splits, **kw)
+    o_p = _launch(q, *pool, bt, pos, splits, **kw)
     o_r = tref.kv_attn_ref(q, *gathered, pos, bits=bits, group_size=gsz,
                            soft_cap=cap)
     torch.cuda.synchronize()
@@ -444,19 +444,20 @@ def test_attention_kernels_every_split(cuda, bits, splits, cap, gsz):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bs", [12, 6])
+@pytest.mark.parametrize("bs", [12, 6, 1])
 @pytest.mark.parametrize("splits", [1, 2, 4, 8])
 def test_paged_attention_odd_block_sizes(cuda, bs, splits):
-    """Block sizes 12 and 6 (G = 1, batches of 8 rows): a batch spans
-    pool blocks and slices end inside them; still within 1e-5 of the
-    plain version and bit for bit the dense kernel."""
+    """Block sizes 12, 6 and 1 (G = 1, batches of 8 rows): a batch spans
+    pool blocks and slices end inside them (at 1, every row is a block of
+    its own); still within 1e-5 of the plain version and bit for bit the
+    dense kernel."""
     q, pool, bt, gathered = _paged_case(cuda, 8, H=2, bs=bs, nblk=16,
                                         gsz=0)
     S = 16 * bs
     pos = torch.tensor([S // 2 + 3, 1, S - 1], dtype=torch.int32,
                        device=cuda)
-    o_d = ttq_decode_attention(q, *gathered, pos, splits=splits)
-    o_p = ttq_paged_decode_attention(q, *pool, bt, pos, splits=splits)
+    o_d = _launch(q, *gathered, None, pos, splits)
+    o_p = _launch(q, *pool, bt, pos, splits)
     o_r = tref.kv_attn_ref(q, *gathered, pos)
     torch.cuda.synchronize()
     torch.testing.assert_close(o_d, o_r, rtol=1e-5, atol=1e-5)
@@ -492,9 +493,9 @@ def test_attention_empty_ranks_add_nothing(cuda, bits, gsz):
     q, pool, bt, gathered = _paged_case(cuda, bits, gsz=gsz)
     pos = torch.zeros((3,), dtype=torch.int32, device=cuda)
     kw = dict(bits=bits, group_size=gsz)
-    o8 = ttq_decode_attention(q, *gathered, pos, splits=8, **kw)
-    o1 = ttq_decode_attention(q, *gathered, pos, splits=1, **kw)
-    p8 = ttq_paged_decode_attention(q, *pool, bt, pos, splits=8, **kw)
+    o8 = _launch(q, *gathered, None, pos, 8, **kw)
+    o1 = _launch(q, *gathered, None, pos, 1, **kw)
+    p8 = _launch(q, *pool, bt, pos, 8, **kw)
     o_r = tref.kv_attn_ref(q, *gathered, pos, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(o8, o_r, rtol=1e-5, atol=1e-5)
@@ -514,12 +515,9 @@ def test_attention_q_dtype_folds_scale_and_cast(cuda, dtype, paged):
     q = q.to(dtype)
     sc = q.shape[-1] ** -0.5
     pos = torch.tensor([100, 5, 191], dtype=torch.int32, device=cuda)
-    if paged:
-        run = lambda x, **kw: ttq_paged_decode_attention(  # noqa: E731
-            x, *pool, bt, pos, bits=8, group_size=16, splits=4, **kw)
-    else:
-        run = lambda x, **kw: ttq_decode_attention(  # noqa: E731
-            x, *gathered, pos, bits=8, group_size=16, splits=4, **kw)
+    cache, table = (pool, bt) if paged else (gathered, None)
+    run = lambda x, **kw: _launch(  # noqa: E731
+        x, *cache, table, pos, 4, bits=8, group_size=16, **kw)
     o = run(q)
     o_pre = run(q.float() * sc, scale=1.0).to(dtype)
     o_r = tref.kv_attn_ref(q, *gathered, pos, bits=8, group_size=16)
@@ -535,11 +533,10 @@ def test_attention_q_dtype_folds_scale_and_cast(cuda, dtype, paged):
 @pytest.mark.parametrize("splits", [0, 3, 16])
 def test_attention_unsupported_split_refused(cuda, splits):
     """A split the kernels do not take is refused by their C entry points
-    (cudaErrorInvalidValue), never changed, and the wrapper raises."""
+    (cudaErrorInvalidValue), never changed, and the launch raises."""
     q, pool, bt, gathered = _paged_case(cuda, 8)
     pos = torch.tensor([100, 5, 191], dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="CUDA error 1 "):
-        ttq_decode_attention(q, *gathered, pos, group_size=16, splits=splits)
+        _launch(q, *gathered, None, pos, splits, group_size=16)
     with pytest.raises(RuntimeError, match="CUDA error 1 "):
-        ttq_paged_decode_attention(q, *pool, bt, pos, group_size=16,
-                                   splits=splits)
+        _launch(q, *pool, bt, pos, splits, group_size=16)

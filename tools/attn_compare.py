@@ -7,14 +7,13 @@ Each TREE is the root of a checkout (this one, or an older commit unpacked
 with ``git archive``).  In the order given, a subprocess imports that
 tree's ``repro_torch``, builds its kernels and times its
 ``ttq_decode_attention`` and ``ttq_paged_decode_attention`` wrappers (the
-split, if the tree has one, as its own rule picks it) at gemma-7b's
-main-path shape (4 slots × 16 heads × Dh 256, capacity 256, cur_pos
-MAIN_CUR) and at its own context (S = 8192, cur_pos LONG_CUR), int8 and
-int4, with bf16 q: a pool of 16-row blocks under a seeded permuted table
-for the paged kernel and the same cache gathered dense for the dense one.
-Times are ``chip_smoke.time_ms`` medians (L2 flushed before each call).
-Every reading is held against the tree's plain version (1e-5, f32 q).
-Give the trees as A B B A to read a change against its parent.
+split, if the tree has one, as its own rule picks it) on the cases of this
+tree's ``chip_smoke.py`` phase 2 (``attn_case``): gemma-7b's main path
+(capacity 256, cur_pos MAIN_CUR) and its own context (S = 8192, cur_pos
+``chip_smoke.LONG_CUR``), int8 and int4, with bf16 q.  Times are
+``chip_smoke.time_ms`` medians (L2 flushed before each call); every
+reading is held against the tree's plain version (1e-5, f32 q).  Give the
+trees as A B B A to read a change against its parent.
 """
 from __future__ import annotations
 
@@ -25,37 +24,25 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 MAIN_CUR = [73, 63, 57, 45]
-LONG_CUR = [8191, 6143, 4095, 2047]
 
 
 def run_tree(tree: str):
     """In this process: time ``tree``'s attention wrappers; prints a line
     per reading and one JSON line."""
-    import numpy as np
     import torch
     sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs                      # this tree's timer only
+    import chip_smoke as cs                      # imports repro_torch lazily
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
-    from repro_torch.core.kvquant import quantize_kv
     from repro_torch.kernels import ref
     from repro_torch.kernels.ttq_attn import (ttq_decode_attention,
                                               ttq_paged_decode_attention)
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     out = {}
-    for shape, nblk, cur in (("main", 16, MAIN_CUR), ("long", 512, LONG_CUR)):
-        gen = torch.Generator(device=dev).manual_seed(7)
-        NB = 4 * nblk + 1
-        pk = torch.randn((NB, 16, 16, 256), generator=gen, device=dev)
-        pv = torch.randn((NB, 16, 16, 256), generator=gen, device=dev)
-        q = torch.randn((4, 16, 1, 256), generator=gen, device=dev)
-        perm = np.random.default_rng(7).permutation(np.arange(1, NB))
-        bt = torch.from_numpy(perm.reshape(4, nblk).astype(np.int32)).to(dev)
-        pos = torch.tensor(cur, dtype=torch.int32, device=dev)
-        qb = q.to(torch.bfloat16)
-        for bits in (8, 4):
-            pool = [*quantize_kv(pk, bits=bits), *quantize_kv(pv, bits=bits)]
-            dense = [ref.gather_paged_kv(t, bt) for t in pool]
+    for shape, seed, cap, cur in (("main", cs.SEED + 2, 256, MAIN_CUR),
+                                  ("long", cs.SEED + 4, 8192, cs.LONG_CUR)):
+        for bits, q, dense, pool, bt, pos in cs.attn_case(
+                torch, dev, seed, cap // cs.BLOCK, cur):
             o_r = ref.kv_attn_ref(q, *dense, pos, bits=bits)
             for kind, fn in (
                     ("dense", lambda x: ttq_decode_attention(
@@ -64,13 +51,11 @@ def run_tree(tree: str):
                         x, *pool, bt, pos, bits=bits))):
                 torch.testing.assert_close(fn(q).float(), o_r, rtol=1e-5,
                                            atol=1e-5)
+                qb = q.to(torch.bfloat16)
                 t = cs.time_ms(torch, lambda: fn(qb), flush=flush)
                 out[f"{shape} {kind} int{bits}"] = t * 1e3
                 print(f"  {tree}: {shape} {kind} int{bits} {t * 1e3:.1f} us",
                       flush=True)
-            del pool, dense
-        del pk, pv
-        torch.cuda.empty_cache()
     print(json.dumps({"tree": tree, "us": out}))
 
 
