@@ -5,10 +5,13 @@
 
 1. Device: the card's name and power limit; builds the CUDA kernels of
    ``src/repro_torch/kernels/csrc/`` with nvcc (sm_90a) into ``build/``;
-   prints each attention instantiation's registers and spills, and fails
-   if one that the main path runs spills.
+   prints each attention and quantize instantiation's registers and
+   spills, and fails if an attention one that the main path runs, or any
+   quantize one, spills.
 2. Each kernel against its plain PyTorch version at gemma-7b's main-path
-   shapes, with its median time, its bound, the plain version's time and
+   shapes (``ttq_quantize`` bit for bit on whole 28-layer stacks, with its
+   grid and the share of its bound per family), with its median time, its
+   bound, the plain version's time and
    one PyTorch call of the same function (``torch.matmul`` for the GEMM,
    ``scaled_dot_product_attention`` on the dequantized bf16 cache for
    both attention kernels); the GEMM also prints its K split, block count
@@ -22,7 +25,8 @@
 3. The main path: ``TTQEngine`` on full-width gemma-7b (random weights from
    a seed) serves 8 requests through the three kernels of the dense slab;
    every kernel must have launched, and decode must not sync the host
-   inside a block; one decode block under the profiler gives the device
+   inside a block; one synced requant is split into its 7 ``ttq_quantize``
+   launches' device time and the rest; one decode block under the profiler gives the device
    launches per decode step.  Then one kernel-path ``decode_step`` on 1, 7
    and 28 layers is held against the plain-version one and against a
    kernel-free witness, with every kernel call of the 28-layer step held
@@ -87,6 +91,9 @@ LONG_CUR = [8191, 6143, 4095, 2047]   # phase 2's long-context attention
 # the attention instantiations gemma-7b's int8 KV runs (G = 1, Dh 256, one
 # scale group per row)
 MAIN_PATH_ATTN = ("attn_kernel<1,1,8,1>", "paged_attn_kernel<1,1,8,1>")
+# the quantize instantiation a requant runs: bits 4, one vector per lane
+# and group of 32 (four lanes), bf16 weights
+MAIN_PATH_QUANT = "quant_kernel<4,1,1,__nv_bfloat16>"
 SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clock (time_ms)
 REL_L2_ONE_LAYER = 1e-2
 WITNESS_RATIO = 1.5
@@ -141,9 +148,9 @@ def nbytes(*ts) -> int:
 
 
 def demangle(sym: str) -> str:
-    """``_ZN<n><namespace><m><name>I<Li..E...>E...`` → ``name<args>``
-    (the kernels' symbols: one namespace, int or bool template
-    arguments)."""
+    """``_ZN<n><namespace><m><name>I<args>E...`` → ``name<args>`` (the
+    kernels' symbols: one namespace; int or bool template arguments
+    ``L[ib]<v>E``, ``f`` for float, ``<len><name>`` for a named type)."""
     m = re.match(r"_ZN(\d+)", sym)
     if not m:
         return sym
@@ -152,11 +159,26 @@ def demangle(sym: str) -> str:
     if not m:
         return sym
     name = rest[m.end():m.end() + int(m.group(1))]
-    args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest[m.end() + len(name):])
-    if args:
-        name += "<" + ",".join(re.findall(r"L[ib](-?\d+)E",
-                                          args.group(1))) + ">"
-    return name
+    rest = rest[m.end() + len(name):]
+    if not rest.startswith("I"):
+        return name
+    args, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        lit = re.match(r"L[ib](-?\d+)E", rest[i:])
+        typ = re.match(r"(\d+)", rest[i:])
+        if lit:
+            args.append(lit.group(1))
+            i += lit.end()
+        elif rest[i] == "f":
+            args.append("float")
+            i += 1
+        elif typ:
+            j = i + typ.end()
+            args.append(rest[j:j + int(typ.group(1))])
+            i = j + int(typ.group(1))
+        else:
+            return name
+    return f"{name}<{','.join(args)}>"
 
 
 def ptxas_report(log: str) -> dict:
@@ -173,60 +195,74 @@ def ptxas_report(log: str) -> dict:
 
 # --------------------------------------------------------------- phase 2
 
-def kernel_quantize(torch, dev, flush):
+def quant_mismatch(torch, out, ref, d, bits) -> tuple[int, bool]:
+    """(codes that differ between two ``ttq_quantize`` results, S and Z
+    bit for bit equal); whole 28-layer stacks, unpacked a layer at a time
+    only where the packed words differ."""
     from repro_torch.core.qdq import unpack_bits
+    (pk, S, Z), (pk_r, S_r, Z_r) = out, ref
+    sz = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+             for a, b in ((S, S_r), (Z, Z_r)))
+    if torch.equal(pk, pk_r):
+        return 0, sz
+    off = sum(int((unpack_bits(pk[i], d, bits) != unpack_bits(pk_r[i], d, bits))
+                  .sum()) for i in range(pk.shape[0]))
+    return off, sz
+
+
+def quant_bound_ms(n, dp, d, bits, g=32) -> float:
+    """Least time of one ``ttq_quantize`` launch: the bf16 stack and D read
+    once, codes and f32 S and Z written once, over 3.35 TB/s; or its f32
+    operations (~6 per element) over 67 TFLOP/s, whichever is larger."""
+    moved = n * (dp * d * 2 + d * 4 + dp * (d * bits // 8 + 2 * (d // g) * 4))
+    return max(moved / HBM_BYTES_PER_S, n * dp * d * 6 / F32_FLOP_PER_S) * 1e3
+
+
+def kernel_quantize(torch, dev, flush):
+    """``ttq_quantize`` on whole 28-layer bf16 stacks, as one requant
+    launches it: the four gemma-7b families at int4 g32, then a bits-8
+    check.  Packed codes, S and Z must equal the plain version's bit for
+    bit.  Each family prints its grid (``quant_blocks``), its median time,
+    its bound and the share of it reached, and the plain version's time."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ttq_quantize import ttq_quantize
+    from repro_torch.kernels._checks import sm_count
+    from repro_torch.kernels.ttq_quantize import quant_blocks, ttq_quantize
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    worst = 0.0
     ms = plain = bound = 0.0
-    # whole 28-layer stacks, as one requant launches them: the four shapes
-    # at bits 4 g 32 (checked, then timed) plus one bits-8 check
     cases = [(name, dp, d, 4, per_layer)
              for name, (dp, d, per_layer) in GEMM_SHAPES.items()]
     cases.append(("wq/wk/wv", 4096, 3072, 8, 0))
     for name, dp, d, bits, per_layer in cases:
         W = torch.randn((28, dp, d), generator=gen, device=dev).to(torch.bfloat16)
         D = torch.exp(0.3 * torch.randn((28, d), generator=gen, device=dev))
-        pk, S, Z = ttq_quantize(W, D, bits=bits, group_size=32)
-        pk_r, S_r, Z_r = ref.ttq_quantize_ref(W, D, bits=bits, group_size=32)
-        torch.testing.assert_close(S, S_r, rtol=1e-5, atol=0)
-        torch.testing.assert_close(Z, Z_r, rtol=1e-5, atol=1e-6)
-        n_off = max_off = 0
-        for i in range(28):        # one layer at a time: codes are 4 B each
-            c, c_r = unpack_bits(pk[i], d, bits), unpack_bits(pk_r[i], d, bits)
-            diff = (c - c_r).abs()
-            n_off += int((diff > 0).sum())
-            max_off = max(max_off, int(diff.max()))
-            deq = c.float() * S[i].repeat_interleave(32, -1) \
-                + Z[i].repeat_interleave(32, -1)
-            deq_r = c_r.float() * S_r[i].repeat_interleave(32, -1) \
-                + Z_r[i].repeat_interleave(32, -1)
-            worst = max(worst, float((deq - deq_r).abs().max()))
-            del c, c_r, diff, deq, deq_r
-        share = n_off / (28 * dp * d)
-        check(max_off <= 1 and share <= 2e-3,
-              f"ttq_quantize codes (28,{dp},{d}) bits {bits}: max diff "
-              f"{max_off}, share {share}")
-        msg = (f"  ttq_quantize {name} (28,{dp},{d}) bits {bits}: codes off "
-               f"by one at {n_off} of {28 * dp * d} (ties)")
-        del pk, S, Z, pk_r, S_r, Z_r
+        off, sz = quant_mismatch(
+            torch, ttq_quantize(W, D, bits=bits, group_size=32),
+            ref.ttq_quantize_ref(W, D, bits=bits, group_size=32), d, bits)
+        check(off == 0 and sz, f"ttq_quantize (28,{dp},{d}) bits {bits}: "
+              f"{off} codes differ from the plain version's, S and Z bitwise "
+              f"equal: {sz}")
+        msg = (f"  ttq_quantize {name} (28,{dp},{d}) bits {bits}: codes, S "
+               f"and Z bit for bit the plain version's (0 codes differ)")
         if bits == 4:
             t_k = time_ms(torch, lambda: ttq_quantize(W, D, bits=4,
                                                       group_size=32), iters=7)
             t_p = time_ms(torch, lambda: ref.ttq_quantize_ref(
                 W, D, bits=4, group_size=32), iters=3, warmup=1)
-            moved = nbytes(W, D) + 28 * dp * (d // 8 * 4 + 2 * (d // 32) * 4)
-            b = max(moved / HBM_BYTES_PER_S,
-                    28 * dp * d * 6 / F32_FLOP_PER_S) * 1e3
-            msg += f"; {t_k:.3f} ms, bound {b:.3f} ms, plain {t_p:.3f} ms"
+            b = quant_bound_ms(28, dp, d, 4)
+            blocks = quant_blocks(28, dp, d, 2, sm_count(dev))
+            msg += (f"; {blocks} blocks, {t_k:.3f} ms, bound {b:.3f} ms "
+                    f"({b / t_k:.1%} of it reached), plain {t_p:.3f} ms")
             ms += per_layer * t_k
             plain += per_layer * t_p
             bound += per_layer * b
         print(msg)
         del W, D
         torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound,
+    print(f"  ttq_quantize per requant (7 launches): {ms:.3f} ms, bound "
+          f"{bound:.3f} ms ({bound / ms:.1%} of it reached)")
+    # codes, S and Z bit for bit (checked above): the dequantized weights
+    # differ by 0
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
                 library_ms=None, bound_by="bytes")
 
 
@@ -767,6 +803,40 @@ def warm_phases(torch, eng, prompts, n_tok):
     return res
 
 
+def requant_split(torch, eng):
+    """One synced ``QuantizedModel.requantize()``: its wall time, and the
+    device time of its ``ttq_quantize`` launches (CUDA events around each
+    call of the wrapper) apart from the rest (D from the stats, 1/D, the
+    Python around them)."""
+    from repro_torch.kernels import ops
+    saved, events = ops.ttq_quantize, []
+
+    def timed(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = saved(*a, **kw)
+        e.record()
+        events.append((s, e))
+        return out
+    ops.ttq_quantize = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.qmodel.requantize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.ttq_quantize = saved
+    check(len(events) == 7, f"a requant made {len(events)} ttq_quantize "
+          f"calls, not 7")
+    kern = sum(s.elapsed_time(e) for s, e in events) / 1e3
+    print(f"  requant (synced): {wall * 1e3:.1f} ms, of which ttq_quantize "
+          f"{kern * 1e3:.3f} ms on the device (7 launches) and the rest "
+          f"{(wall - kern) * 1e3:.1f} ms")
+    return dict(requant_synced_s=wall, requant_kernel_s=kern,
+                requant_rest_s=wall - kern)
+
+
 def main_path(torch, dev, prompts, cfg, params):
     from repro_torch.kernels import build
 
@@ -792,13 +862,7 @@ def main_path(torch, dev, prompts, cfg, params):
 
     res.update(warm_phases(torch, eng, prompts, n_tok))
 
-    # one synced requant: its device time on the card
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.qmodel.requantize()
-    torch.cuda.synchronize()
-    res["requant_synced_s"] = time.perf_counter() - t0
-    print(f"  requant (synced): {res['requant_synced_s'] * 1e3:.1f} ms")
+    res.update(requant_split(torch, eng))
 
     # fresh admission of 4 prompts: a live decode state to check against
     r, res["device_launches_per_step"] = block_syncs_nothing(torch, cfg, eng,
@@ -968,6 +1032,15 @@ def main() -> int:
           f"attention kernels, not 40")
     check(not any(n in spilled for n in MAIN_PATH_ATTN),
           f"an attention instantiation of the main path spills: {spilled}")
+    quant_ptx = {n: v for n, v in ptx.items() if n.startswith("quant_kernel")}
+    print("    quantize kernels (registers, spill stores, spill loads): "
+          + "; ".join(f"{n} {v}" for n, v in sorted(quant_ptx.items())))
+    check(len(quant_ptx) == 16, f"the ptxas log lists {len(quant_ptx)} "
+          f"quantize kernels, not 16")
+    check(MAIN_PATH_QUANT in quant_ptx
+          and not any(n in spilled for n in quant_ptx),
+          f"the main path's quantize instantiation {MAIN_PATH_QUANT} is "
+          f"missing, or a quantize instantiation spills: {spilled}")
 
     prompts = make_prompts()
     cur_main = [len(p) + MAX_NEW // 2 for p in prompts[:4]]

@@ -7,8 +7,8 @@ a hash of the sources and flags, so an edited source is never served from a
 stale build.  The library exposes a plain C interface (pointers, ints, the
 stream) and is loaded with ``ctypes``: no PyTorch headers are compiled.
 
-No ``--use_fast_math``: the quantizer's round-half-even ties depend on IEEE
-division.
+No ``--use_fast_math``: the quantizer's codes must be the plain version's
+bit for bit, which needs IEEE rounding (and division at near-ties).
 """
 from __future__ import annotations
 
@@ -29,8 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point → argtypes; each returns cudaError_t as int
 SIGNATURES = {
-    # W, w_is_bf16, D, packed, S, Z, n, dp, d, bits, g, stream
-    "ttq_quantize_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # W, w_is_bf16, D, packed, S, Z, n, dp, d, bits, g, blocks, stream
+    "ttq_quantize_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P],
     # x, x_is_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, split, stream
     "ttq_gemm_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],

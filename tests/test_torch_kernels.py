@@ -17,6 +17,9 @@ from repro_torch.kernels.ttq_attn import (MIN_ROWS, SPLITS, _launch,
                                           attn_splits, ttq_decode_attention,
                                           ttq_paged_decode_attention)
 from repro_torch.kernels.ttq_gemm import gemm_splits
+from repro_torch.kernels.ttq_quantize import (BLOCKS_PER_SM, MIN_ROWS, VECS,
+                                              WARPS, quant_blocks,
+                                              strip_count)
 
 # the SWEEP of tests/test_kernels.py: (T, d, dp, bits, g)
 SWEEP = [
@@ -70,6 +73,133 @@ def test_quantize_plain_matches_jax(jx, T, d, dp, bits, g):
     np.testing.assert_allclose(S_t.numpy(), np.asarray(S_j), rtol=1e-5)
     np.testing.assert_allclose(Z_t.numpy(), np.asarray(Z_j), rtol=1e-5,
                                atol=1e-6)
+
+
+def _tie_data(seed, n, dp, d, bits, g, bf16=False):
+    """W (n, dp, d) and D (n, d) f32 whose w = W∘D puts the quotient
+    (w − z)/s of the plain version on half-integers in every group.
+
+    D is a power of two per column, so w = W·D exactly.  Each group holds its
+    min z and max z + R at random places, with s = R/qmax the same whether
+    it is divided or multiplied by rn(1/qmax) (the plain version on the CPU
+    and on the card), and its other elements sit where rn((w − z)/s) is
+    k + 1/2 or one ulp beside it (``bf16=False``: s of a full mantissa,
+    where rn((w − z)·rn(1/s)) can fall on the other side of the tie), or
+    exactly on k + 1/2 or k (``bf16=True``: s a power of two and every W
+    exact in bf16).  Inputs from numpy with a seed."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    qmax = (1 << bits) - 1
+    shape = (n, dp, d // g)
+    inv = f32(f32(1) / f32(qmax))
+    if bf16:
+        s = np.ldexp(f32(1), rng.integers(-6, 1, shape)).astype(f32)
+        R = (s * f32(qmax)).astype(f32)
+        j = rng.integers(1, qmax, shape) if bits < 8 else \
+            rng.integers(127, 129, shape)
+        z = (-j * s).astype(f32)
+        t = rng.integers(0, 2 * qmax + 1, (*shape, g)) / 2
+        w = (z[..., None] + t * s[..., None]).astype(f32)
+    else:
+        s0 = (2.0 ** rng.uniform(-6, 1, shape)).astype(f32)
+        for _ in range(200):            # s on which both formulas agree
+            R = (s0 * f32(qmax)).astype(f32)
+            bad = (R / f32(qmax)).astype(f32) != (R * inv).astype(f32)
+            if not bad.any():
+                break
+            s0[bad] = (2.0 ** rng.uniform(-6, 1, int(bad.sum()))).astype(f32)
+        assert not bad.any()
+        s = (R / f32(qmax)).astype(f32)
+        ulp = np.spacing(R)
+        z = (np.round(-R * rng.uniform(0.2, 0.8, shape) / ulp) * ulp
+             ).astype(f32)
+        t = (rng.integers(0, qmax, (*shape, g)) + 0.5).astype(f32)
+        want = t + rng.integers(-1, 2, t.shape) * np.spacing(t)
+        w0 = (z[..., None] + t * s[..., None]).astype(f32)
+        cand = (w0.view(np.int32)[..., None] + np.arange(-8, 9, dtype=np.int32)
+                ).view(f32)
+        q = ((cand - z[..., None, None]).astype(f32)
+             / s[..., None, None]).astype(f32)
+        hit = q == want[..., None]
+        w = np.where(hit.any(-1), np.take_along_axis(
+            cand, hit.argmax(-1)[..., None], -1)[..., 0], w0).astype(f32)
+    w[..., 0], w[..., 1] = z, (z + R).astype(f32)
+    assert ((w[..., 1] - z).astype(f32) == R).all()
+    perm = np.argsort(rng.random(w.shape), axis=-1)
+    w = np.take_along_axis(w, perm, -1).reshape(n, dp, d)
+    D = np.ldexp(f32(1), rng.integers(-1, 2, (n, d))).astype(f32)
+    return (w / D[:, None, :]).astype(f32), D
+
+
+def _exact_ties(W, D, bits, g):
+    """Share of groups with an element whose f32 quotient (w − z)/s is
+    exactly a half-integer, s = max((max − min)/qmax, 1e-12)."""
+    f32 = np.float32
+    wg = (W * D[:, None, :]).astype(f32).reshape(*W.shape[:-1], -1, g)
+    z = wg.min(-1, keepdims=True)
+    s = np.maximum(((wg.max(-1, keepdims=True) - z) / f32((1 << bits) - 1)
+                    ).astype(f32), f32(1e-12))
+    q = ((wg - z).astype(f32) / s).astype(f32)
+    return (q - np.floor(q) == 0.5).any(-1).mean()
+
+
+@pytest.mark.parametrize("bits,g", [(4, 32), (8, 32), (2, 16), (4, 128),
+                                    (8, 4)])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_quantize_plain_matches_jax_at_ties(jx, bits, g, bf16):
+    """Ties built into the data: the plain version against the JAX kernel
+    in interpret mode on groups whose quotient lands on half-integers."""
+    d = max(256, 2 * g)
+    W, D = _tie_data(5, 1, 16, d, bits, g, bf16=bf16)
+    W, D = W[0], D[0]
+    assert _exact_ties(W[None], D[None], bits, g) >= 0.5
+    if bf16:
+        assert np.array_equal(torch.from_numpy(W).bfloat16().float().numpy(),
+                              W)
+    pk_j, S_j, Z_j = jx["ops"].ttq_quantize(jx["jnp"].asarray(W),
+                                            jx["jnp"].asarray(D), bits=bits,
+                                            group_size=g)
+    pk_t, S_t, Z_t = tops.ttq_quantize(torch.from_numpy(W),
+                                       torch.from_numpy(D), bits=bits,
+                                       group_size=g)
+    _codes_close(jx["unpack"](pk_j, d, bits), t_unpack(pk_t, d, bits))
+    np.testing.assert_allclose(S_t.numpy(), np.asarray(S_j), rtol=1e-5)
+    np.testing.assert_allclose(Z_t.numpy(), np.asarray(Z_j), rtol=1e-5,
+                               atol=1e-6)
+
+
+# gemma-7b's requant families (n = 28 layers, bf16 W) and the grid each
+# gets on 132 SMs: name → (d', d, blocks)
+GEMMA_QUANT_BLOCKS = {"wq/wk/wv": (4096, 3072, 264), "wo": (3072, 4096, 264),
+                      "wg/wu": (24576, 3072, 264), "wd": (3072, 24576, 264)}
+
+
+@pytest.mark.parametrize("name", GEMMA_QUANT_BLOCKS)
+def test_quant_blocks_pinned_for_gemma(name):
+    dp, d, blocks = GEMMA_QUANT_BLOCKS[name]
+    assert quant_blocks(28, dp, d, 2, n_sm=132) == blocks
+    assert strip_count(d, 2) == d // 1024
+
+
+@pytest.mark.parametrize("n,dp,d", [(1, 1, 8), (1, 37, 1028), (2, 96, 1024),
+                                    (28, 4096, 3072), (3, 5, 24576),
+                                    (28, 24576, 3072), (2, 3, 1088)])
+@pytest.mark.parametrize("wbytes", [2, 4])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_quant_blocks_invariants(n, dp, d, wbytes, n_sm):
+    """Every warp walks at least MIN_ROWS rows unless the grid is one block;
+    the grid never exceeds the blocks the card holds at once, and takes all
+    of them where the rows allow; strips of 2 KB of W cover d with less than
+    one strip to spare."""
+    width = 32 * VECS * (16 // wbytes)
+    strips = strip_count(d, wbytes)
+    assert strips * width >= d > (strips - 1) * width
+    b = quant_blocks(n, dp, d, wbytes, n_sm)
+    rows = n * strips * dp
+    assert 1 <= b <= BLOCKS_PER_SM * n_sm
+    assert b == 1 or rows // (b * WARPS) >= MIN_ROWS
+    if rows >= BLOCKS_PER_SM * n_sm * WARPS * MIN_ROWS:
+        assert b == BLOCKS_PER_SM * n_sm
 
 
 @pytest.mark.parametrize("T,d,dp,bits,g", SWEEP)
@@ -220,6 +350,44 @@ def test_quantize_kernel_matches_plain(cuda, case):
     _codes_close(t_unpack(pk, d, bits).cpu(), t_unpack(pk_r, d, bits).cpu())
     torch.testing.assert_close(S, S_r, rtol=1e-5, atol=0)
     torch.testing.assert_close(Z, Z_r, rtol=1e-5, atol=1e-6)
+
+
+# every (bits, g) the wrapper takes: g a power of two in [32/bits, 512]
+QUANT_BITS_G = [(bits, g) for bits in (2, 4, 8)
+                for g in (4, 8, 16, 32, 64, 128, 256, 512) if g >= 32 // bits]
+
+
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,g", QUANT_BITS_G)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernel_bitwise_at_ties(cuda, bits, g, dtype):
+    """Tie-built inputs (``_tie_data``), d' = 37 (a ragged batch of rows),
+    d = 1024 + g (a ragged strip where g < 256; at bits 8 g 4 in bf16 a row
+    of 8-byte multiples): packed, S and Z bit for bit the plain version's."""
+    d = 1024 + g
+    W, D = _tie_data(7, 2, 37, d, bits, g, bf16=dtype == torch.bfloat16)
+    W = torch.from_numpy(W).to(cuda, dtype)
+    D = torch.from_numpy(D).to(cuda)
+    out = tops.ttq_quantize(W, D, bits=bits, group_size=g)
+    ref = tref.ttq_quantize_ref(W, D, bits=bits, group_size=g)
+    torch.cuda.synchronize()
+    for x, y in zip(out, ref):
+        assert _bitwise(x, y)
+
+
+@pytest.mark.gpu
+def test_quantize_kernel_is_deterministic(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    W = torch.randn((4, 4096, 3072), generator=gen, device=cuda).bfloat16()
+    D = torch.exp(0.3 * torch.randn((4, 3072), generator=gen, device=cuda))
+    a = tops.ttq_quantize(W, D, bits=4, group_size=32)
+    b = tops.ttq_quantize(W, D, bits=4, group_size=32)
+    torch.cuda.synchronize()
+    assert all(_bitwise(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.gpu
