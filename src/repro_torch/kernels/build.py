@@ -29,9 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point → argtypes; each returns cudaError_t as int
 SIGNATURES = {
-    # W, w_is_bf16, D, packed, S, Z, n, dp, d, bits, g, blocks, stream
+    # W, w_is_bf16, D, packed, S, Z, n, dp, d, bits, g, blocks, warps,
+    # blocks_per_sm, strips, stream
     "ttq_quantize_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P],
+                            _I, _I, _I, _P],
     # x, x_is_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, split, stream
     "ttq_gemm_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],

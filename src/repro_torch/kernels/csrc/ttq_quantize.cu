@@ -12,9 +12,9 @@
 // Bound on the card: bytes.  Each weight is read once (2 B in bf16) and
 // bits/8 B of codes plus 8 B of S/Z per group are written: at gemma-7b's
 // int4 g32 families that is 2.75 B per element, 6.364 ms per requant at
-// 3.35 TB/s.  A kernel that moves the same bytes with no math reaches ~82%
-// of that on an H100 (tools/quant_ceiling.py); the design keeps the issue
-// slots under the memory time so that this one reaches it too:
+// 3.35 TB/s.  On an H100 80GB HBM3 at 700 W this kernel reaches 77-85% of
+// that bound per family (chip_smoke.py [2]).  The design keeps the issue
+// slots per element under the memory time and rows of loads in flight:
 //
 // * Long-lived warps that walk rows.  A strip is 2 KB of one row of W: a
 //   lane owns kVecs = 4 16-byte vectors of it (V = 8 bf16 or 4 f32
@@ -344,9 +344,8 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocksPerSm) quant_kernel(
 
 template <int BITS, int GPC, int CPG, typename T>
 int launch(const T* W, const float* D, int32_t* packed, float* S, float* Z,
-           int n, int dp, int d, int g, int blocks, cudaStream_t stream) {
-  constexpr int SW = 32 * kVecs * Vec<T>::V;
-  const int strips = (d + SW - 1) / SW;
+           int n, int dp, int d, int g, int blocks, int strips,
+           cudaStream_t stream) {
   const long long items = (long long)n * strips * dp;
   constexpr int smem = kWarps * kStages * kVecs * 32 * (int)sizeof(uint4);
   cudaFuncSetAttribute(quant_kernel<BITS, GPC, CPG, T>,
@@ -358,14 +357,18 @@ int launch(const T* W, const float* D, int32_t* packed, float* S, float* Z,
 
 template <typename T>
 int dispatch(const T* W, const float* D, int32_t* packed, float* S, float* Z,
-             int n, int dp, int d, int bits, int g, int blocks,
+             int n, int dp, int d, int bits, int g, int blocks, int strips,
              cudaStream_t stream) {
   constexpr int V = Vec<T>::V;
+  constexpr int SW = 32 * kVecs * V;         // strip width, columns
+  if (strips != (d + SW - 1) / SW)           // planned for another kVecs
+    return (int)cudaErrorInvalidValue;
   const int GPC = g < V ? V / g : 1;
   const int CPG = g > 32 * V ? g / (32 * V) : 1;
 #define TTQ_Q(B, GG, CC)                                                    \
   if (bits == B && GPC == GG && CPG == CC)                                  \
-    return launch<B, GG, CC, T>(W, D, packed, S, Z, n, dp, d, g, blocks, stream);
+    return launch<B, GG, CC, T>(W, D, packed, S, Z, n, dp, d, g, blocks,    \
+                                strips, stream);
   if constexpr (V == 8) {   // bf16: g in [32/bits, 512]
     TTQ_Q(8, 2, 1) TTQ_Q(8, 1, 1) TTQ_Q(8, 1, 2)
     TTQ_Q(4, 1, 1) TTQ_Q(4, 1, 2)
@@ -384,15 +387,20 @@ int dispatch(const T* W, const float* D, int32_t* packed, float* S, float* Z,
 extern "C" int ttq_quantize_launch(const void* W, int w_bf16, const float* D,
                                    int32_t* packed, float* S, float* Z, int n,
                                    int dp, int d, int bits, int g, int blocks,
+                                   int warps, int blocks_per_sm, int strips,
                                    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int V = w_bf16 ? 8 : 4;
+  // the wrapper's grid rule (kernels/ttq_quantize.py) sizes the grid for
+  // this geometry: refuse a launch planned for another one
+  if (warps != kWarps || blocks_per_sm != kMinBlocksPerSm)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0 || dp <= 0 || blocks <= 0 || (bits != 2 && bits != 4 && bits != 8)
       || g < 32 / bits || g > 512 || (g & (g - 1)) || d % g || d % V)
     return (int)cudaErrorInvalidValue;
   if (w_bf16)
     return dispatch((const __nv_bfloat16*)W, D, packed, S, Z, n, dp, d, bits,
-                    g, blocks, stream);
+                    g, blocks, strips, stream);
   return dispatch((const float*)W, D, packed, S, Z, n, dp, d, bits, g, blocks,
-                  stream);
+                  strips, stream);
 }

@@ -13,9 +13,12 @@ from . import build, ref
 from ._checks import aligned, dtype_in, on_cuda, sm_count
 
 NAME = "ttq_quantize"
-WARPS = 8               # warps per block (csrc/ttq_quantize.cu: kWarps)
-BLOCKS_PER_SM = 2       # blocks per SM, all resident (kMinBlocksPerSm)
-VECS = 4                # adjacent 16-byte vectors per lane and row (kVecs)
+# The kernel's geometry.  Each launch passes WARPS, BLOCKS_PER_SM and the
+# strip count, and the C entry refuses a launch whose geometry differs from
+# its own (csrc/ttq_quantize.cu: kWarps, kMinBlocksPerSm, kVecs).
+WARPS = 8               # warps per block
+BLOCKS_PER_SM = 2       # blocks per SM, all resident
+VECS = 4                # adjacent 16-byte vectors per lane and row
 MIN_ROWS = 8            # fewest rows a warp walks
 
 
@@ -69,11 +72,13 @@ def ttq_quantize(W: torch.Tensor, D: torch.Tensor, *, bits: int = 4,
     packed = torch.empty((n, dp, d // per), dtype=torch.int32, device=W.device)
     S = torch.empty((n, dp, d // g), dtype=torch.float32, device=W.device)
     Z = torch.empty_like(S)
-    blocks = quant_blocks(n, dp, d, W.element_size(), sm_count(W.device))
+    wbytes = W.element_size()
     err = build.lib().ttq_quantize_launch(
         W.data_ptr(), int(W.dtype == torch.bfloat16), D.data_ptr(),
         packed.data_ptr(), S.data_ptr(), Z.data_ptr(), n, dp, d, bits, g,
-        blocks, torch.cuda.current_stream(W.device).cuda_stream)
+        quant_blocks(n, dp, d, wbytes, sm_count(W.device)), WARPS,
+        BLOCKS_PER_SM, strip_count(d, wbytes),
+        torch.cuda.current_stream(W.device).cuda_stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     if squeeze:

@@ -17,9 +17,9 @@ from repro_torch.kernels.ttq_attn import (MIN_ROWS, SPLITS, _launch,
                                           attn_splits, ttq_decode_attention,
                                           ttq_paged_decode_attention)
 from repro_torch.kernels.ttq_gemm import gemm_splits
-from repro_torch.kernels.ttq_quantize import (BLOCKS_PER_SM, MIN_ROWS, VECS,
-                                              WARPS, quant_blocks,
-                                              strip_count)
+from repro_torch.kernels.ttq_quantize import (
+    BLOCKS_PER_SM as QUANT_BLOCKS_PER_SM, MIN_ROWS as QUANT_MIN_ROWS, VECS,
+    WARPS, quant_blocks, strip_count)
 
 # the SWEEP of tests/test_kernels.py: (T, d, dp, bits, g)
 SWEEP = [
@@ -187,19 +187,19 @@ def test_quant_blocks_pinned_for_gemma(name):
 @pytest.mark.parametrize("wbytes", [2, 4])
 @pytest.mark.parametrize("n_sm", [1, 132])
 def test_quant_blocks_invariants(n, dp, d, wbytes, n_sm):
-    """Every warp walks at least MIN_ROWS rows unless the grid is one block;
-    the grid never exceeds the blocks the card holds at once, and takes all
-    of them where the rows allow; strips of 2 KB of W cover d with less than
-    one strip to spare."""
+    """Every warp walks at least QUANT_MIN_ROWS rows unless the grid is one
+    block; the grid never exceeds the blocks the card holds at once, and
+    takes all of them where the rows allow; strips of 2 KB of W cover d with
+    less than one strip to spare."""
     width = 32 * VECS * (16 // wbytes)
     strips = strip_count(d, wbytes)
     assert strips * width >= d > (strips - 1) * width
     b = quant_blocks(n, dp, d, wbytes, n_sm)
     rows = n * strips * dp
-    assert 1 <= b <= BLOCKS_PER_SM * n_sm
-    assert b == 1 or rows // (b * WARPS) >= MIN_ROWS
-    if rows >= BLOCKS_PER_SM * n_sm * WARPS * MIN_ROWS:
-        assert b == BLOCKS_PER_SM * n_sm
+    assert 1 <= b <= QUANT_BLOCKS_PER_SM * n_sm
+    assert b == 1 or rows // (b * WARPS) >= QUANT_MIN_ROWS
+    if rows >= QUANT_BLOCKS_PER_SM * n_sm * WARPS * QUANT_MIN_ROWS:
+        assert b == QUANT_BLOCKS_PER_SM * n_sm
 
 
 @pytest.mark.parametrize("T,d,dp,bits,g", SWEEP)

@@ -42,7 +42,7 @@ def run_tree(tree: str):
         D = torch.exp(0.3 * torch.randn((28, d), generator=gen, device=dev))
         res, res_r = (f(W, D, bits=4, group_size=32)
                       for f in (ttq_quantize, ref.ttq_quantize_ref))
-        off, sz = cs.quant_mismatch(torch, res, res_r, d, 4)
+        off, sz, _ = cs.quant_mismatch(torch, res, res_r, d, 4)
         cs.check(off <= 2e-3 * W.numel(), f"{tree} {name}: {off} codes differ")
         for a, b in zip(res[1:], res_r[1:]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
