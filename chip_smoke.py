@@ -23,23 +23,32 @@
    C beside the rule's; then the same at gemma-7b's own context (S = 8192,
    cur_pos = LONG_CUR), with the byte bound and the share of it reached.
 3. The main path: ``TTQEngine`` on full-width gemma-7b (random weights from
-   a seed) serves 8 requests through the three kernels of the dense slab;
-   every kernel must have launched, and decode must not sync the host
-   inside a block; one synced requant is split into its 7 ``ttq_quantize``
-   launches' device time and the rest; one decode block under the profiler gives the device
-   launches per decode step.  Then one kernel-path ``decode_step`` on 1, 7
-   and 28 layers is held against the plain-version one and against a
-   kernel-free witness, with every kernel call of the 28-layer step held
-   against its plain version.
+   a seed) serves 8 requests through the three kernels of the dense slab,
+   each decode block one replay of a captured CUDA graph; every kernel
+   must have launched (counted per replay), and ``compiled_programs`` must
+   not change over a warm rerun of the traffic.  A third run holds every
+   graph block to an eager ``lm.decode_many`` on clones of the state it
+   started from (tokens bit for bit) and times both, eager and graph
+   blocks in turns.  One synced requant is split into its 7
+   ``ttq_quantize`` launches' device time and the rest, beside one that
+   builds a fresh tree instead of landing in place.  On 4 fresh
+   admissions, an eager block and a replay must not sync the host, and
+   one eager and one graph block under the profiler give device launches
+   per step, host-side launches per block and the device's busy share.
+   Then one kernel-path ``decode_step`` on 1, 7 and 28 layers is held
+   against the plain-version one and against a kernel-free witness, with
+   every kernel call of the 28-layer step held against its plain version.
 3b. The paged main path: the same weights, policy and traffic through
    ``EngineConfig(kv_paged=True)`` (block 16, default pool): decode
    attention runs ``ttq_paged_decode_attention``, and the greedy tokens
-   must equal 3's; device launches per decode step as in 3.
+   must equal 3's; the graph checks and readings of 3.
 3c. Prefix cache and preemption at full width: full-precision weights,
    int8 KV, 8 prompts sharing a 32-token prefix, a pool small enough to
    preempt; then the same traffic on an unconstrained pool without the
    prefix cache, for a reading of how many leading tokens agree; and the
-   same pair on the first layer alone, as its witness.
+   same pair on the first layer alone, as its witness.  A rerun of the
+   constrained traffic at full depth holds every graph block to the eager
+   loop, through preemption and prefix hits.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -95,6 +104,9 @@ MAIN_PATH_ATTN = ("attn_kernel<1,1,8,1>", "paged_attn_kernel<1,1,8,1>")
 # and group of 32 (four lanes), bf16 weights
 MAIN_PATH_QUANT = "quant_kernel<4,1,1,__nv_bfloat16>"
 SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clock (time_ms)
+# host-side CUDA API calls that put work on a stream, as the profiler
+# names them (with or without CUPTI's version suffix)
+HOST_LAUNCH = re.compile(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)\w*")
 REL_L2_ONE_LAYER = 1e-2
 WITNESS_RATIO = 1.5
 REL_L2_BOUND = 3e-2
@@ -628,47 +640,191 @@ def check_outputs(cfg, outs, what):
           f"{what}: token out of the vocabulary")
 
 
-def block_syncs_nothing(torch, cfg, eng, prompts):
-    """Admit 4 prompts, then run one fused decode block on a copy of the
-    live state under ``set_sync_debug_mode("error")``: it must not sync
-    the host (the one transfer comes after the block).  Then the same block
-    on another copy under ``torch.profiler``: the device launches (kernels,
-    copies, memsets) per decode step, counted as ``tools/port_profile.py``
-    counts them.  Returns (the runner, launches per step)."""
+def traced(torch, fn, top=0) -> dict:
+    """One call of ``fn`` (a decode block) under ``torch.profiler``: wall
+    ms, device ms and busy share (the device rows' summed time over the
+    wall: kernels and copies, never the host ops that launched them),
+    device launches, the host-side launch calls by API name, and the
+    ``top`` device rows by time as (name, µs, calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    dev = [e for e in rows if e.device_type == DeviceType.CUDA
+           and getattr(e, "self_device_time_total", 0.0) > 0]
+    host = {e.key: e.count for e in rows if e.device_type == DeviceType.CPU
+            and HOST_LAUNCH.fullmatch(e.key)}
+    dev_us = sum(e.self_device_time_total for e in dev)
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    return dict(wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
+                busy=dev_us / 1e6 / wall,
+                device_launches=sum(e.count for e in dev),
+                host_launches=sum(host.values()), host_apis=host,
+                top=[(e.key, e.self_device_time_total, e.count)
+                     for e in dev[:top]])
+
+
+def copy_tree(dst, src):
+    """Copy tree ``src`` into tree ``dst`` of the same structure, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_tree(dst[k], src[k])
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src):
+            copy_tree(d, s)
+    else:
+        dst.copy_(src)
+
+
+def snapshot(torch, r):
+    """Clones of what a decode block reads from runner ``r``: the eager
+    loop's inputs (state, token, pos, done, remaining)."""
+    return (clone_tree(torch, r.state), r.cur_tok.clone(), r.pos.clone(),
+            r.done.clone(), r.remaining.clone())
+
+
+def eager_block(torch, cfg, eng, params, snap):
+    """One eager ``lm.decode_many`` block on ``snap`` (its state is
+    consumed), with the runner's one transfer: the (B, 2K+1) host array."""
+    from repro_torch.models import lm
+    r = eng.runner
+    (toks, valid), (_, _, _, done, _, _) = lm.decode_many(
+        cfg, params, *snap, r.generator, K=r.K, max_len=eng.ecfg.max_len,
+        temperature=eng.ecfg.temperature, eos_token=eng.ecfg.eos_token,
+        kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    return torch.cat([toks, valid.to(torch.int32),
+                      done.to(torch.int32)[:, None]], dim=1).cpu().numpy()
+
+
+def block_syncs_nothing(torch, cfg, eng, prompts):
+    """Admit 4 prompts, then run one fused decode block on a copy of the
+    live state eagerly, and one replay of the runner's graph, each under
+    ``set_sync_debug_mode("error")``: neither may sync the host (the one
+    transfer comes after the block).  Then one eager block on another
+    copy and one graph block under ``torch.profiler`` (:func:`traced`).
+    The runner's state is then put back as admission left it, for the
+    checks that follow.  Returns (the runner, {"eager": ..., "graph": ...}),
+    launches per step and per block."""
     from repro_torch.models import lm
     for p in prompts[:4]:
         eng.submit(p, max_new=MAX_NEW)
     eng.admit()
     r = eng.runner
+    params = eng.decode_params
+    admitted = snapshot(torch, r)
 
     def block():
-        st = clone_tree(torch, r.state)
-        args = (r.cur_tok.clone(), r.pos.clone(), r.done.clone(),
-                r.remaining.clone())
+        st, *args = snapshot(torch, r)
         return lambda: lm.decode_many(
-            cfg, eng.decode_params, st, *args, None, K=r.K,
+            cfg, params, st, *args, None, K=r.K,
             max_len=eng.ecfg.max_len, kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    programs = eng.compiled_programs
     run = block()
     torch.cuda.set_sync_debug_mode("error")
     try:
         (toks, _), _ = run()
+        out = r.block(params)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    check(toks.shape == (4, r.K), f"decode_many tokens {tuple(toks.shape)}")
-    run = block()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
+    check(toks.shape == (4, r.K) and out.shape == (4, 2 * r.K + 1),
+          f"decode_many tokens {tuple(toks.shape)}, replay {tuple(out.shape)}")
+    check(eng.compiled_programs == programs, f"the replay captured a graph: "
+          f"{programs} → {eng.compiled_programs}")
+    res = {"eager": traced(torch, block()),
+           "graph": traced(torch, lambda: r.decode_block(params))}
+    for k, t in res.items():
+        check(t["device_launches"] > 0, f"the profiler recorded no device "
+              f"launch in the {k} block")
+        t["device_launches_per_step"] = t["device_launches"] / r.K
+        print(f"  traced {k} block (K = {r.K}): wall {t['wall_ms']:.2f} ms, "
+              f"device {t['device_ms']:.2f} ms, busy {t['busy']:.1%}; "
+              f"{t['device_launches_per_step']:.2f} device launches per "
+              f"step; host launch calls per block {t['host_launches']} "
+              f"{t['host_apis']}")
+    for dst, src in zip((r.state, r.cur_tok, r.pos, r.done, r.remaining),
+                        admitted):
+        copy_tree(dst, src)
+    return r, res
+
+
+def graph_vs_eager(torch, cfg, eng, prompts):
+    """Serve ``prompts`` with every decode block held to an eager
+    ``lm.decode_many`` on clones of the state the block started from
+    (tokens, valid and done flags bit for bit; requants land in the tree
+    between blocks), each synced and timed: the graph block, then the eager
+    one.  Blocks that captured a graph (their warm block runs eagerly) are
+    counted apart.  Returns ms per decode step of each, block counts and
+    the outputs."""
+    r = eng.runner
+    real = r.decode_block
+    t = {"graph": 0.0, "eager": 0.0, "blocks": 0, "capture_blocks": 0}
+
+    def run(params):
+        snap = snapshot(torch, r)
+        programs = r.compiled_programs
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and getattr(e, "self_device_time_total", 0.0) > 0)
-    check(n > 0, "the profiler recorded no device launch")
-    return r, n / r.K
+        t0 = time.perf_counter()
+        toks, valid, done = real(params)
+        t1 = time.perf_counter()
+        want = eager_block(torch, cfg, eng, params, snap)
+        t2 = time.perf_counter()
+        K = r.K
+        check(np.array_equal(toks, want[:, :K])
+              and np.array_equal(valid, want[:, K:2 * K].astype(bool))
+              and np.array_equal(done, want[:, 2 * K].astype(bool)),
+              f"graph block {t['blocks'] + t['capture_blocks']}: tokens "
+              f"differ from the eager loop's")
+        if r.compiled_programs != programs:
+            t["capture_blocks"] += 1
+        else:
+            t["blocks"] += 1
+            t["graph"] += t1 - t0
+            t["eager"] += t2 - t1
+        return toks, valid, done
+    r.decode_block = run
+    try:
+        outs, _ = serve(torch, eng, prompts)
+    finally:
+        del r.decode_block
+    steps = max(t["blocks"], 1) * r.K
+    res = dict(graph_ms_per_step=t["graph"] * 1e3 / steps,
+               eager_ms_per_step=t["eager"] * 1e3 / steps,
+               blocks_timed=t["blocks"], capture_blocks=t["capture_blocks"])
+    print(f"  every graph block equal to the eager loop's, bit for bit "
+          f"({t['blocks']} replayed, {t['capture_blocks']} capturing); ms "
+          f"per decode step over the replayed blocks: graph "
+          f"{res['graph_ms_per_step']:.2f}, eager "
+          f"{res['eager_ms_per_step']:.2f}")
+    return res, outs
+
+
+def graph_phases(torch, cfg, eng, prompts, n_tok) -> dict:
+    """The graph readings shared by [3] and [3b], after the cold run:
+    compiled programs and capture time, a warm rerun (checked to add no
+    program), and the shadowed run of :func:`graph_vs_eager`."""
+    cold = eng.compiled_programs
+    res = dict(compiled_programs_cold=cold,
+               capture_s=eng.runner.capture_s)
+    res.update(warm_phases(torch, eng, prompts, n_tok))
+    res["compiled_programs_warm"] = eng.compiled_programs
+    check(eng.compiled_programs == cold == 1,
+          f"compiled programs {cold} after the cold run, "
+          f"{eng.compiled_programs} after the warm run (want 1, unchanged)")
+    shadow, _ = graph_vs_eager(torch, cfg, eng, prompts)
+    check(eng.compiled_programs == cold,
+          f"the shadowed run captured: {cold} → {eng.compiled_programs}")
+    res.update(shadow)
+    print(f"  captures: {eng.compiled_programs} program(s), warm block and "
+          f"capture {res['capture_s']:.3f} s; compiled programs {cold} "
+          f"before and {res['compiled_programs_warm']} after the warm run")
+    return res
 
 
 def split_sum_gemm(x, packed, scale, zero, dinv, *, bits, group_size):
@@ -838,11 +994,20 @@ def requant_split(torch, eng):
     check(len(events) == 7, f"a requant made {len(events)} ttq_quantize "
           f"calls, not 7")
     kern = sum(s.elapsed_time(e) for s, e in events) / 1e3
-    print(f"  requant (synced): {wall * 1e3:.1f} ms, of which ttq_quantize "
-          f"{kern * 1e3:.3f} ms on the device (7 launches) and the rest "
-          f"{(wall - kern) * 1e3:.1f} ms")
+    qm = eng.qmodel
+    stats, count = qm.session.as_calib()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = qm._plan.run(qm.params, stats, count)
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    del fresh
+    print(f"  requant (synced, landing in the captured tree): "
+          f"{wall * 1e3:.1f} ms, of which ttq_quantize {kern * 1e3:.3f} ms on "
+          f"the device (7 launches) and the rest {(wall - kern) * 1e3:.1f} "
+          f"ms; the same requant into a fresh tree {fresh_s * 1e3:.1f} ms")
     return dict(requant_synced_s=wall, requant_kernel_s=kern,
-                requant_rest_s=wall - kern)
+                requant_rest_s=wall - kern, requant_fresh_tree_s=fresh_s)
 
 
 def main_path(torch, dev, prompts, cfg, params):
@@ -868,16 +1033,14 @@ def main_path(torch, dev, prompts, cfg, params):
           f"{eng.requant_wall_s * 1e3:.1f} ms); host syncs {eng.host_syncs} "
           f"({res['syncs_per_token']:.4f}/token); launches {launches}")
 
-    res.update(warm_phases(torch, eng, prompts, n_tok))
+    res.update(graph_phases(torch, cfg, eng, prompts, n_tok))
 
     res.update(requant_split(torch, eng))
 
     # fresh admission of 4 prompts: a live decode state to check against
-    r, res["device_launches_per_step"] = block_syncs_nothing(torch, cfg, eng,
-                                                             prompts)
-    print(f"  one fused block syncs nothing; "
-          f"{res['device_launches_per_step']:.0f} device launches per decode "
-          f"step (profiler)")
+    r, res["traced"] = block_syncs_nothing(torch, cfg, eng, prompts)
+    res["device_launches_per_step"] = \
+        res["traced"]["graph"]["device_launches_per_step"]
 
     wit, gaps = depth_witness(torch, cfg, eng, r)
     res["decode_step_rel_l2"] = wit
@@ -925,14 +1088,13 @@ def paged_path(torch, dev, prompts, cfg, params, dense):
           f"{n_tok / wall:.1f} tok/s; greedy tokens equal to the dense run's; "
           f"{eng.num_blocks} blocks, pool use {eng.kv_pool_utilization:.3f}; "
           f"host syncs {eng.host_syncs}; launches {launches}")
-    res.update(warm_phases(torch, eng, prompts, n_tok))
+    res.update(graph_phases(torch, cfg, eng, prompts, n_tok))
     eng.allocator.assert_quiescent()
-    _, res["device_launches_per_step"] = block_syncs_nothing(torch, cfg, eng,
-                                                             prompts)
+    _, res["traced"] = block_syncs_nothing(torch, cfg, eng, prompts)
+    res["device_launches_per_step"] = \
+        res["traced"]["graph"]["device_launches_per_step"]
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    print(f"  one fused paged block syncs nothing; "
-          f"{res['device_launches_per_step']:.0f} device launches per decode "
-          f"step (profiler); peak {res['peak_gb']:.2f} GB")
+    print(f"  peak {res['peak_gb']:.2f} GB")
     return res
 
 
@@ -1000,6 +1162,16 @@ def prefix_and_preemption(torch, dev, cfg, params):
         runs[f"leading tokens equal, {depth} layers"] = agree
         print(f"  {depth} layers: leading tokens equal to the unconstrained "
               f"run, per request: {agree} of {MAX_NEW}")
+    _, _, eng = build_engine(torch, dev, cfg, params, policy, kv_paged=True,
+                             kv_block_size=BLOCK, kv_pool_blocks=POOL_3C)
+    shadow, outs = graph_vs_eager(torch, cfg, eng, prompts)
+    check_outputs(cfg, outs, "3c constrained, shadowed")
+    check(eng.preemptions > 0 and eng.compiled_programs == 1,
+          f"3c shadowed: preemptions {eng.preemptions}, compiled programs "
+          f"{eng.compiled_programs}")
+    eng.allocator.assert_quiescent()
+    runs["graph vs eager, constrained"] = shadow
+    del eng
     # the schedule is host-only: the same at every depth
     sched = ("preemptions", "prefix_hits", "prefix_misses", "prefill_tokens")
     check(all(runs[f"constrained, {cfg.n_layers} layers"][k]
@@ -1007,7 +1179,7 @@ def prefix_and_preemption(torch, dev, cfg, params):
           "3c: the schedule depends on the model's depth")
     for r in runs.values():
         if isinstance(r, dict):
-            del r["outs"]
+            r.pop("outs", None)
     return runs
 
 

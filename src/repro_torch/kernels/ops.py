@@ -53,7 +53,15 @@ def kv_paged_decode_attention(q, kq, ks, vq, vs, block_table, cur_pos, *,
                                   scale=scale, soft_cap=soft_cap)
 
 
-def ttq_quantize(W, D, *, bits=4, group_size=32, use_pallas=True):
+def ttq_quantize(W, D, *, bits=4, group_size=32, use_pallas=True, out=None):
+    """``out`` = (packed, S, Z): write the results there (see the kernel
+    wrapper)."""
     if use_pallas and bits in _PACKABLE:
-        return _quantize_kernel(W, D, bits=bits, group_size=group_size)
-    return _ref.ttq_quantize_ref(W, D, bits=bits, group_size=group_size)
+        return _quantize_kernel(W, D, bits=bits, group_size=group_size,
+                                out=out)
+    res = _ref.ttq_quantize_ref(W, D, bits=bits, group_size=group_size)
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return tuple(out)

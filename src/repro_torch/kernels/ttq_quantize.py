@@ -43,18 +43,44 @@ def quant_blocks(n: int, dp: int, d: int, wbytes: int, n_sm: int) -> int:
     return max(1, min(BLOCKS_PER_SM * n_sm, rows // (WARPS * MIN_ROWS)))
 
 
+def _outputs(out, n, dp, d, per, g, device):
+    """The kernel's outputs: new tensors, or the caller's ``out`` (packed,
+    S, Z) with leading dim n, checked, for a result that must land in
+    storage a captured decode graph reads.  A mismatch raises: copying
+    instead would leave that storage stale."""
+    want = (((n, dp, d // per), torch.int32), ((n, dp, d // g), torch.float32),
+            ((n, dp, d // g), torch.float32))
+    if out is None:
+        return tuple(torch.empty(s, dtype=t, device=device) for s, t in want)
+    for o, (s, t) in zip(out, want):
+        if (tuple(o.shape) != s or o.dtype != t or o.device != device
+                or not o.is_contiguous() or o.data_ptr() % 16):
+            raise ValueError(f"{NAME}: out {tuple(o.shape)} {o.dtype} on "
+                             f"{o.device} is not a contiguous, 16-byte "
+                             f"aligned {s} {t} on {device}")
+    return tuple(out)
+
+
 def ttq_quantize(W: torch.Tensor, D: torch.Tensor, *, bits: int = 4,
-                 group_size: int = 32):
+                 group_size: int = 32, out=None):
     """W (n, d', d) or (d', d), bf16 or f32; D (n, d) or (d,) f32 →
-    (packed int32 (..., d', d·bits/32), S, Z f32 (..., d', d/g))."""
+    (packed int32 (..., d', d·bits/32), S, Z f32 (..., d', d/g)).  With
+    ``out`` = (packed, S, Z) of those shapes the results are written there
+    and ``out`` is returned."""
     if W.device.type == "cpu":
-        return ref.ttq_quantize_ref(W, D, bits=bits, group_size=group_size)
+        res = ref.ttq_quantize_ref(W, D, bits=bits, group_size=group_size)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return tuple(out)
     on_cuda(NAME, W, D)
     dtype_in(NAME, "W", W, (torch.bfloat16, torch.float32))
     dtype_in(NAME, "D", D, (torch.float32,))
     squeeze = W.dim() == 2
     if squeeze:
         W, D = W[None], D[None]
+        out = None if out is None else tuple(o[None] for o in out)
     if W.dim() != 3 or D.shape != (W.shape[0], W.shape[2]):
         raise ValueError(f"{NAME}: W {tuple(W.shape)} / D {tuple(D.shape)} "
                          f"must be (n, d', d) / (n, d)")
@@ -69,9 +95,7 @@ def ttq_quantize(W: torch.Tensor, D: torch.Tensor, *, bits: int = 4,
     if W.dtype == torch.bfloat16 and d % 8:
         W = W.float()   # bf16 rows of 16-byte multiples only (bits 8, g 4)
     W, D = aligned(W), aligned(D)
-    packed = torch.empty((n, dp, d // per), dtype=torch.int32, device=W.device)
-    S = torch.empty((n, dp, d // g), dtype=torch.float32, device=W.device)
-    Z = torch.empty_like(S)
+    packed, S, Z = _outputs(out, n, dp, d, per, g, W.device)
     wbytes = W.element_size()
     err = build.lib().ttq_quantize_launch(
         W.data_ptr(), int(W.dtype == torch.bfloat16), D.data_ptr(),

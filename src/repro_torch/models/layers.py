@@ -168,25 +168,31 @@ def _pool_row_write(pool, row, idx):
                               row.reshape(-1, D).to(pool.dtype))
 
 
-def _kv_append_paged(state, k, v, pos, block_table, kvcfg):
-    """Paged decode append: one token's k/v row lands in pool block
-    ``block_table[b, pos // block_size]`` at offset ``pos % block_size``
-    (one row index per (slot, head), shared by the four leaves)."""
-    bs = kvcfg.block_size
-    Hkv = k.shape[1]
+def paged_rows(pos, block_table, Hkv: int, block_size: int) -> torch.Tensor:
+    """The pool row of each (slot, kv head) that one decode append writes,
+    (B·Hkv,) in the (NB·Hkv·bs) row view of a (NB, Hkv, bs, ·) pool: block
+    ``block_table[b, pos // block_size]`` at offset ``pos % block_size``.
+    Every layer writes the same rows, so a decode step computes them once
+    (:func:`repro_torch.models.stack.apply_stack_decode`)."""
+    bs = block_size
     blk = torch.clamp(pos // bs, 0, block_table.shape[1] - 1)
     phys = block_table.gather(1, blk.long()[:, None])
     h = torch.arange(Hkv, device=pos.device)
-    idx = ((phys * Hkv + h) * bs + (pos % bs).long()[:, None]).reshape(-1)
+    return ((phys * Hkv + h) * bs + (pos % bs).long()[:, None]).reshape(-1)
+
+
+def _kv_append_paged(state, k, v, rows, kvcfg):
+    """Paged decode append: one token's k/v row lands in the pool rows
+    ``rows`` (:func:`paged_rows`), shared by the four leaves."""
     if not kvcfg.quantized:
-        _pool_row_write(state["k"], k, idx)
-        _pool_row_write(state["v"], v, idx)
+        _pool_row_write(state["k"], k, rows)
+        _pool_row_write(state["v"], v, rows)
         return state
     for name, t in (("k", k), ("v", v)):
         codes, scales = quantize_kv(t, bits=kvcfg.bits,
                                     group_size=kvcfg.group_size)
-        _pool_row_write(state[name + "_q"], codes, idx)
-        _pool_row_write(state[name + "_s"], scales, idx)
+        _pool_row_write(state[name + "_q"], codes, rows)
+        _pool_row_write(state[name + "_s"], scales, rows)
     return state
 
 
@@ -217,15 +223,16 @@ def _kv_attention(q, state, cur, kvcfg, *, soft_cap: float = 0.0):
 
 
 def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
-                kcfg=None, block_table=None):
+                kcfg=None, block_table=None, rows=None):
     """x (B,1,D); state bf16 {'k','v'} or quantized caches (``kvcfg``
     selects), updated in place; pos (B,) int32 per-slot positions.
-    ``block_table`` (B, nblk) addresses the paged pool layout."""
+    ``block_table`` (B, nblk) addresses the paged pool layout, and
+    ``rows`` (:func:`paged_rows`) are the pool rows this token writes."""
     q, k, v = _qkv(cfg, p, x, None, "", kcfg)
     q = rope_decode(q, pos, cfg.rope_theta)
     k = rope_decode(k, pos, cfg.rope_theta)
     if kvcfg is not None and kvcfg.paged:
-        st = _kv_append_paged(state, k, v, pos, block_table, kvcfg)
+        st = _kv_append_paged(state, k, v, rows, kvcfg)
         o = _kv_attention_paged(q, st, block_table, pos, kvcfg,
                                 soft_cap=cfg.attn_soft_cap)
     elif kvcfg is not None and kvcfg.quantized:

@@ -118,11 +118,11 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
 
 
 def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
-                       kvcfg=None, kcfg=None, block_table=None):
+                       kvcfg=None, kcfg=None, block_table=None, rows=None):
     """One token through one layer; ``state`` is updated in place."""
     h = norm(x, p["ln1"])
     y, st = L.attn_decode(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
-                          kcfg=kcfg, block_table=block_table)
+                          kcfg=kcfg, block_table=block_table, rows=rows)
     x = x + y
     return _mlp_apply(cfg, p, x, None, "", kcfg), st
 
@@ -166,12 +166,18 @@ def apply_stack_decode(cfg: ModelConfig, run_params, spec, run_states, x, pos,
                        *, kvcfg=None, kcfg=None, block_table=None):
     """One decode token over all runs; the stacked caches are updated in
     place (each layer's slice is a view of its run's stack).
-    ``block_table`` (B, nblk) addresses a paged cache in every layer."""
+    ``block_table`` (B, nblk) addresses a paged cache in every layer; the
+    pool rows the token writes are computed once, here, for all of them."""
+    rows = None
+    if kvcfg is not None and kvcfg.paged:
+        rows = L.paged_rows(pos, block_table, cfg.n_kv_heads,
+                            kvcfg.block_size)
     for (kinds, n), rp, rs in zip(spec, run_params, run_states):
         for i in range(n):
             up, st = layer_slice(rp, i), layer_slice(rs, i)
             for j, kind in enumerate(kinds):
                 x, _ = apply_layer_decode(cfg, kind, up[f"u{j}"], x,
                                           st[f"u{j}"], pos, kvcfg=kvcfg,
-                                          kcfg=kcfg, block_table=block_table)
+                                          kcfg=kcfg, block_table=block_table,
+                                          rows=rows)
     return x, run_states

@@ -184,41 +184,58 @@ class FusedRequantPlan:
                 and self.policy.kernel.use_pallas and qcfg.bits in (2, 4, 8)
                 and not qcfg.symmetric and qcfg.nu == 1.0)
 
-    def _run_member(self, key, m: _Member, W, stat, count):
+    def _run_member(self, key, m: _Member, W, stat, count, into=None):
         """One member's layer stack: D, then quantize the stack — one
-        ``ttq_quantize`` launch on the kernel path."""
+        ``ttq_quantize`` launch on the kernel path.  ``into``: the member's
+        leaf of an earlier tree of this plan, overwritten in place and
+        returned (the kernel writes its codes, S and Z there; 1/D, and on
+        the plain path every field, is copied in)."""
         dp, d, qcfg, acfg, method, packed_on, _, _ = key
         qz = m.eff.quantizer
         W = W.reshape(-1, dp, d)                       # a view, no copy
+        n = W.shape[0]
         if stat is None:
-            stat = torch.zeros((W.shape[0], d), dtype=torch.float32,
-                               device=W.device)
+            stat = torch.zeros((n, d), dtype=torch.float32, device=W.device)
         D = qz.diag(stat.reshape(-1, d), count, acfg, d)          # (n, d)
         per = 32 // qcfg.bits if 32 % qcfg.bits == 0 else 0
         packable = packed_on and per > 0 and d % per == 0
+        flat = lambda x: x.reshape(n, *x.shape[len(m.lead):])
+        shaped = lambda x: None if x is None else x.reshape(*m.lead,
+                                                            *x.shape[1:])
         wint = pk = None
+        written = ()
         if self._kernel_ok(key):
             from repro_torch.kernels import ops as kops
+            out = None
+            if into is not None:
+                written = ("packed", "scale", "zero")
+                out = tuple(flat(getattr(into, f)) for f in written)
             pk, Sc, Z = kops.ttq_quantize(W, D, bits=qcfg.bits,
-                                          group_size=qcfg.group_size)
+                                          group_size=qcfg.group_size, out=out)
         else:
-            n = W.shape[0]
             Ws = (W.float() * D[:, None, :]).reshape(n * dp, d)
             wint, Sc, Z = quantize(Ws, qcfg)
             wint = wint.reshape(n, dp, d)
             Sc, Z = Sc.reshape(n, dp, -1), Z.reshape(n, dp, -1)
             if packable:
                 pk, wint = pack_bits(wint, qcfg.bits), None
-        shaped = lambda x: None if x is None else x.reshape(*m.lead,
-                                                            *x.shape[1:])
+        fields = dict(wint=wint, packed=pk, scale=Sc, zero=Z,
+                      dinv=(1.0 / D).float())
+        if into is not None:
+            for f, x in fields.items():
+                if x is not None and f not in written:
+                    getattr(into, f).copy_(shaped(x))
+            return into
         return QuantizedTensor(
-            wint=shaped(wint), packed=shaped(pk), scale=shaped(Sc),
-            zero=shaped(Z), dinv=shaped((1.0 / D).float()), B=None, A=None,
+            **{f: shaped(x) for f, x in fields.items()}, B=None, A=None,
             bits=qcfg.bits, group_size=qcfg.group_size, out_features=dp,
             in_features=d)
 
-    def run(self, params, stats, count):
-        """The quantized parameter tree (fp leaves shared, not copied)."""
+    def run(self, params, stats, count, into=None):
+        """The quantized parameter tree (fp leaves shared, not copied).
+        ``into``: a tree this plan returned earlier; its quantized leaves
+        are overwritten in place and it is returned, so its storage stays
+        where a captured decode graph reads it."""
         results = {}
         for key, members in self.families.items():
             for m in members:
@@ -226,5 +243,6 @@ class FusedRequantPlan:
                 if m.stat_key is not None:
                     stat = stats["stack"][m.stat_key[0]][m.stat_key[1]]
                 results[m.path_str] = self._run_member(
-                    key, m, _tree_get(params, m.path), stat, count)
-        return _replace(params, results)
+                    key, m, _tree_get(params, m.path), stat, count,
+                    None if into is None else _tree_get(into, m.path))
+        return into if into is not None else _replace(params, results)

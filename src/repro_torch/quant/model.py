@@ -2,6 +2,10 @@
 
 Owns the :class:`CalibrationSession`, the :class:`FusedRequantPlan` (built
 on the first requantize, reused after) and the current quantized tree.
+Each requant after the first lands in the previous tree's storage, where a
+captured decode graph reads it (``serving/runner.py``): a tree returned
+earlier changes with it.  A rebuilt plan (new statistics structure) makes
+a fresh tree.
 The reference's delta gate, double buffering, low-rank factors, draft tree
 and health gate come in later slices.
 """
@@ -63,11 +67,13 @@ class QuantizedModel:
             return None
         stats, count = self.session.as_calib()
         key = _structure(stats)
+        into = self.qparams
         if self._plan_key != key:
             self._plan = FusedRequantPlan(self.params, stats, self.policy,
                                           acfg=self.acfg)
             self._plan_key = key
-        self.qparams = self._plan.run(self.params, stats, count)
+            into = None
+        self.qparams = self._plan.run(self.params, stats, count, into=into)
         self.n_requants += 1
         return self.qparams
 

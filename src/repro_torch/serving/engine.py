@@ -4,7 +4,8 @@
                      → CALIBRATE (CalibrationSession)
                      → REQUANTIZE: D = f(stats); W_int,S,Z = G[W∘D] — one
                        ``ttq_quantize`` launch per weight stack
-                     → DECODE in fused K-step blocks; every packed-weight
+                     → DECODE in fused K-step blocks, each one replay of
+                       a CUDA graph on the card; every packed-weight
                        matmul runs ``ttq_gemm`` and every int8/int4 KV read
                        ``ttq_decode_attention`` (dense slab) or
                        ``ttq_paged_decode_attention`` (paged pool)
@@ -155,6 +156,15 @@ class TTQEngine:
     @property
     def host_syncs(self) -> int:
         return self.runner.host_syncs
+
+    @property
+    def compiled_programs(self) -> int:
+        """Programs resident on the device, the reference's count
+        (``src/repro/serving/engine.py:compiled_programs``): the runner's
+        decode graphs.  Prefill and requant run eagerly and hold none.
+        Bounded by construction (one graph per parameter-tree layout), so
+        it stays flat from the first decode block on."""
+        return self.runner.compiled_programs
 
     @property
     def state(self):

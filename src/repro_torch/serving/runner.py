@@ -15,14 +15,33 @@ prompt's tail, gathering the cached prefix from the pool), and
 ``release_slots`` points freed slots at the sink block 0, so their
 done-lane writes never reach blocks handed to someone else.
 
+On a CUDA device a decode block is a CUDA graph, the port's counterpart of
+the reference's ``jax.jit(lm.decode_many)``: the first block at a new
+layout (see :func:`_layout`) runs eagerly on a side stream (it warms
+cuBLAS and the kernel library), then ``decode_many``'s K steps are
+captured; every later block replays the graph, one launch.  A graph reads
+the addresses it captured, so everything a block reads keeps its storage:
+the decode state, ``cur_tok``/``pos``/``done``/``remaining`` (written in
+place; the block ends by copying its carry into them) and the parameter
+tree (a requant lands in place, ``quant/api.py:FusedRequantPlan.run``).
+A tree at new storage has a new layout and gets its own graph, so a
+replay never reads a stale tree.  On the CPU the block is the eager loop,
+the plain version.  There is no switch between the two and no fallback: a
+capture or replay that fails raises.
+
 ``host_syncs`` counts blocking device→host transfers.
 """
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.core.kvquant import dequantize_kv
+from repro_torch.core.ttq import QuantizedTensor
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import gather_paged_kv
 from repro_torch.models import lm
 from repro_torch.models.common import sample_logits
@@ -87,6 +106,31 @@ def _gather_prefix(stack_state, ptab: torch.Tensor, kvcfg):
     return out
 
 
+def _layout(tree):
+    """What a captured graph bakes in about a tree of tensors: each tensor's
+    address, shape, strides and dtype, and each quantized leaf's static
+    fields.  Equal layouts are read at the same addresses in the same way,
+    so a graph captured on one replays correctly on the other."""
+    if isinstance(tree, dict):
+        return tuple((k, _layout(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_layout(v) for v in tree)
+    if isinstance(tree, QuantizedTensor):
+        return (tree.bits, tree.group_size, *(
+            _layout(getattr(tree, f)) for f in ("wint", "packed", "scale",
+                                                "zero", "dinv", "B", "A")))
+    if isinstance(tree, torch.Tensor):
+        return (tree.data_ptr(), tuple(tree.shape), tree.stride(), tree.dtype)
+    return tree
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: "torch.cuda.CUDAGraph"
+    out: torch.Tensor               # the packed block result, overwritten
+    launches: dict                  # kernel launches per replay
+
+
 class DeviceRunner:
     def __init__(self, cfg, ecfg, kvcfg, *, kncfg=None, device="cuda",
                  generator=None, num_blocks: int = 0):
@@ -105,6 +149,9 @@ class DeviceRunner:
         self.done = torch.ones((B,), dtype=torch.bool, device=dev)
         self.remaining = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.host_syncs = 0
+        self._graphs: dict = {}         # layout → _Graph (CUDA only)
+        self._stream = None             # the side stream of warm + capture
+        self.capture_s = 0.0            # wall time of warm blocks + captures
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -182,33 +229,91 @@ class DeviceRunner:
         writes land in its last row, which the next admission overwrites
         with the whole slab — or, paged, the slot's block-table row pointed
         at the sink, so those writes never reach blocks the allocator has
-        handed to someone else."""
+        handed to someone else.  In place: a decode graph reads these
+        tensors where it captured them."""
         mask_h = np.zeros((self.ecfg.max_slots,), bool)
         mask_h[list(slots)] = True
         mask = torch.from_numpy(mask_h).to(self.device)
         self.done |= mask
-        self.remaining = torch.where(mask, torch.zeros_like(self.remaining),
-                                     self.remaining)
-        self.pos = torch.where(mask, torch.full_like(self.pos,
-                                                     self.ecfg.max_len),
-                               self.pos)
+        self.remaining.masked_fill_(mask, 0)
+        self.pos.masked_fill_(mask, self.ecfg.max_len)
         if self.paged:
             self.state["block_table"].masked_fill_(mask[:, None], SINK)
 
-    def decode_block(self, params):
-        """One fused block of ``decode_chunk`` steps over every slot.
-        Returns host copies (tokens (B,K), valid (B,K), done (B,))."""
+    @property
+    def compiled_programs(self) -> int:
+        """Decode graphs held (one per parameter-tree layout: the
+        full-precision tree before the first requant, then the quantized
+        one); 0 on the CPU.  Prefill runs eagerly and holds none."""
+        return len(self._graphs)
+
+    def _eager_block(self, params) -> torch.Tensor:
+        """``decode_chunk`` steps of ``lm.decode_many`` from the runner's
+        state; the carry is copied back into the same tensors.  Returns
+        (B, 2K+1) int32: tokens, valid flags, done flags."""
         ecfg = self.ecfg
-        (toks, valid), carry = lm.decode_many(
+        (toks, valid), (_, tok, pos, done, rem, _) = lm.decode_many(
             self.cfg, params, self.state, self.cur_tok, self.pos, self.done,
             self.remaining, self.generator, K=self.K, max_len=ecfg.max_len,
             temperature=ecfg.temperature, eos_token=ecfg.eos_token,
             kvcfg=self.kvcfg, kcfg=self.kncfg)
-        (self.state, self.cur_tok, self.pos, self.done, self.remaining,
-         self.generator) = carry
-        packed = torch.cat([toks, valid.to(torch.int32),
-                            self.done.to(torch.int32)[:, None]], dim=1)
-        out = packed.cpu().numpy()             # the ONE sync per block
+        for dst, src in ((self.cur_tok, tok), (self.pos, pos),
+                         (self.done, done), (self.remaining, rem)):
+            dst.copy_(src)
+        return torch.cat([toks, valid.to(torch.int32),
+                          self.done.to(torch.int32)[:, None]], dim=1)
+
+    def _capture(self, params, key) -> torch.Tensor:
+        """Run one block eagerly on the side stream (the warm block: cuBLAS
+        handles and workspaces, the kernel library and the split rules'
+        caches are set up outside the capture), then capture the next
+        block's work as a graph without running it.  Returns the warm
+        block's result."""
+        t0 = time.perf_counter()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            warm = self._eager_block(params)
+        cur.wait_stream(self._stream)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None and self.ecfg.temperature > 0:
+            graph.register_generator_state(self.generator)
+        before = dict(build.LAUNCHES)
+        with torch.cuda.graph(graph, stream=self._stream):
+            out = self._eager_block(params)
+        launches = {k: build.LAUNCHES[k] - n for k, n in before.items()}
+        build.LAUNCHES.update(before)   # captured, not launched
+        self._graphs[key] = _Graph(graph, out, launches)
+        self.capture_s += time.perf_counter() - t0
+        return warm
+
+    def _key(self, params):
+        return _layout((params, self.state, self.cur_tok, self.pos,
+                        self.done, self.remaining))
+
+    def block(self, params) -> torch.Tensor:
+        """Enqueue one fused block of ``decode_chunk`` steps over every slot
+        and return its (B, 2K+1) int32 result on the device (tokens, valid
+        flags, done flags); reads nothing back.  CUDA: a replay of the
+        graph captured at this layout (captured first if there is none);
+        CPU: the eager loop."""
+        if self.device.type != "cuda":
+            return self._eager_block(params)
+        key = self._key(params)
+        g = self._graphs.get(key)
+        if g is None:
+            return self._capture(params, key)
+        g.graph.replay()
+        for k, n in g.launches.items():
+            build.LAUNCHES[k] += n
+        return g.out
+
+    def decode_block(self, params):
+        """One fused block over every slot.  Returns host copies (tokens
+        (B,K), valid (B,K), done (B,))."""
+        out = self.block(params).cpu().numpy()  # the ONE sync per block
         self.host_syncs += 1
         K = self.K
         return out[:, :K], out[:, K:2 * K].astype(bool), out[:, 2 * K].astype(bool)

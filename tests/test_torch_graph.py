@@ -1,0 +1,466 @@
+"""The compiled decode block: ``DeviceRunner`` replays ``lm.decode_many``'s
+K steps as one captured CUDA graph on the card (the reference's
+``jax.jit(lm.decode_many)``), and runs them as the eager loop on the CPU.
+
+On the CPU (``device="cpu"``, 2 layers, narrow widths) each precondition of
+a replay that the CPU can check:
+
+* the runner's decode inputs and every state leaf keep their storage
+  through admission, decode, release and slot reuse;
+* a requant lands in the previous tree's storage and holds exactly what a
+  fresh ``FusedRequantPlan.run`` returns;
+* the paged row index, now computed once per step, equals the per-layer
+  formula it replaces;
+* a block leaves the runner's state where ``lm.decode_many`` leaves it;
+* ``compiled_programs`` is 0 where nothing is captured.
+
+On the card (``gpu`` marker) the graph's tokens are held bitwise to the
+eager ``lm.decode_many``'s on clones of the same state, block by block.
+Inputs come from numpy or torch generators with a seed."""
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import KernelConfig, KVCacheConfig, ttq_policy
+from repro_torch.core.ttq import QuantizedTensor
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.ttq_quantize import _outputs
+from repro_torch.kernels.ttq_quantize import ttq_quantize as quantize_kernel
+from repro_torch.models import layers as tlayers
+from repro_torch.models import lm as tlm
+from repro_torch.models.config import ModelConfig
+from repro_torch.quant import FusedRequantPlan, QuantizedModel
+from repro_torch.serving import EngineConfig, TTQEngine
+from repro_torch.serving.blocks import SINK
+from repro_torch.serving.runner import _layout
+
+CPU_CFG = ModelConfig(name="graph-t", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=96, vocab=128)
+# on the card: shapes the kernels take (G = 2, head 64, d and d_ff whole
+# int4 g32 code vectors)
+GPU_CFG = ModelConfig(name="graph-gpu", family="dense", n_layers=2,
+                      d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                      vocab=512)
+FIELDS = ("wint", "packed", "scale", "zero", "dinv")
+
+
+def _prompts(seed, n, vocab, lo=3, hi=12):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(k)).tolist()
+            for k in rng.integers(lo, hi, size=n)]
+
+
+def _policy(bits=4, kv="int8", use_kernels=True, **kv_kw):
+    return ttq_policy(bits=bits, group_size=32, rank=0, packed=True,
+                      kvcache=KVCacheConfig(dtype=kv, **kv_kw),
+                      kernel=KernelConfig(use_pallas=use_kernels))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, QuantizedTensor):
+        yield from (getattr(tree, f) for f in FIELDS
+                    if getattr(tree, f) is not None)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _ptrs(runner):
+    return ([t.data_ptr() for t in (runner.cur_tok, runner.pos, runner.done,
+                                    runner.remaining)]
+            + [t.data_ptr() for t in _leaves(runner.state)])
+
+
+def _qts(tree):
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        elif isinstance(t, QuantizedTensor):
+            out[path] = t
+    walk(tree, ())
+    return out
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
+def _copy_into(dst, src):
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        d.copy_(s)
+
+
+def _snapshot(r):
+    """Clones of everything a block reads from the runner (and the
+    generator's state)."""
+    gen = None
+    if r.generator is not None:
+        gen = torch.Generator(device=r.device)
+        gen.set_state(r.generator.get_state())
+    return (_clone(r.state), r.cur_tok.clone(), r.pos.clone(),
+            r.done.clone(), r.remaining.clone(), gen)
+
+
+def _eager(eng, params, snap, carry=False):
+    """One eager ``lm.decode_many`` block from ``snap`` (its state and
+    generator are consumed): the (B, 2K+1) host array the runner's block
+    returns [, and the carry (token, pos, done, remaining)]."""
+    r, e = eng.runner, eng.ecfg
+    st, tok, pos, done, rem, gen = snap
+    (toks, valid), (_, *rest, _) = tlm.decode_many(
+        eng.cfg, params, st, tok, pos, done, rem, gen, K=r.K,
+        max_len=e.max_len, temperature=e.temperature, eos_token=e.eos_token,
+        kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    out = torch.cat([toks, valid.to(torch.int32),
+                     rest[2].to(torch.int32)[:, None]], dim=1).cpu().numpy()
+    return (out, rest) if carry else out
+
+
+def _engine(cfg, params, policy, device, generator=None, **kw):
+    base = dict(max_slots=2, max_len=64, decode_chunk=4, guards=False,
+                prompt_buckets=(16, 32, 64))
+    return TTQEngine(cfg, params, policy, EngineConfig(**{**base, **kw}),
+                     device=device, generator=generator)
+
+
+# ---------------------------------------------------------------- on the CPU
+
+@pytest.fixture(scope="module")
+def cpu_params():
+    return tlm.init_params(CPU_CFG, torch.Generator().manual_seed(0),
+                           device="cpu")
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_runner_inputs_keep_their_storage(cpu_params, paged):
+    """admit → decode_block → release_slots → admit into a reused slot: the
+    decode inputs and every state leaf stay where they were allocated."""
+    kw = dict(kv_paged=True, kv_block_size=8) if paged else {}
+    eng = _engine(CPU_CFG, cpu_params, _policy(), "cpu", **kw)
+    r = eng.runner
+    before = _ptrs(r)
+    rids = [eng.submit(p, max_new=6) for p in _prompts(1, 5, CPU_CFG.vocab)]
+    steps = 0
+    while eng.scheduler.has_work() and eng.step():
+        assert _ptrs(r) == before
+        steps += 1
+    out = eng.scheduler.results()
+    assert all(len(out[i]) == 6 and not out[i].unfinished for i in rids)
+    assert steps >= 3                         # 5 requests through 2 slots
+    assert eng.n_requants >= 3
+    assert r.compiled_programs == eng.compiled_programs == 0
+
+
+def _requant_in_place(cfg, params, pol, device):
+    """Two requants on different statistics: the second writes into the
+    first's storage and holds exactly what a fresh plan returns."""
+    qm = QuantizedModel(params, pol)
+    stats = []
+    for seed in (2, 3):
+        toks = torch.from_numpy(np.asarray(_prompts(seed, 2, cfg.vocab, 8, 9),
+                                           np.int64)).to(device)
+        stats.append(tlm.prefill(cfg, params, {"tokens": toks}, 16)[2])
+    first = qm.calibrate(stats[0], 16.0).requantize()
+    ptrs = [t.data_ptr() for t in _leaves(first)]
+    lay = _layout(first)
+    old = {k: q.dinv.clone() for k, q in _qts(first).items()}
+    second = qm.calibrate(stats[1], 16.0).requantize()
+    assert second is first and qm.decode_params is first
+    assert [t.data_ptr() for t in _leaves(second)] == ptrs
+    assert _layout(second) == lay
+    s, count = qm.session.as_calib()
+    fresh = _qts(FusedRequantPlan(params, s, pol).run(params, s, count))
+    got = _qts(second)
+    assert got.keys() == fresh.keys() and len(got) == 7
+    for k, q in got.items():
+        for f in FIELDS:
+            a, b = getattr(q, f), getattr(fresh[k], f)
+            assert (a is None) == (b is None), (k, f)
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a, b), (k, f)
+    assert any(not torch.equal(old[k], q.dinv) for k, q in got.items())
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_requant_lands_in_the_previous_tree(cpu_params, use_kernels):
+    _requant_in_place(CPU_CFG, cpu_params, _policy(use_kernels=use_kernels),
+                      "cpu")
+
+
+def test_quantize_out_is_written_and_checked():
+    """The quantize wrapper's ``out``: written in place and returned; on the
+    card a mismatched ``out`` raises rather than being copied."""
+    g = torch.Generator().manual_seed(4)
+    W = torch.randn((2, 16, 64), generator=g).to(torch.bfloat16)
+    D = torch.rand((2, 64), generator=g) + 0.5
+    want = quantize_kernel(W, D, bits=4, group_size=32)
+    out = tuple(torch.full_like(t, 7) for t in want)
+    got = quantize_kernel(W, D, bits=4, group_size=32, out=out)
+    assert all(a is b for a, b in zip(got, out))
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    cpu = torch.device("cpu")
+    assert all(a is b for a, b in
+               zip(_outputs(out, 2, 16, 64, 8, 32, cpu), out))
+    with pytest.raises(ValueError):
+        _outputs(out, 2, 16, 64, 8, 16, cpu)        # S of another group
+    with pytest.raises(ValueError):
+        _outputs((out[0].transpose(1, 2), *out[1:]), 2, 16, 64, 8, 32, cpu)
+
+
+@pytest.mark.parametrize("bs", [1, 16])
+def test_paged_rows_equal_the_per_layer_formula(bs):
+    """``layers.paged_rows`` (once per step) against the per-layer formula
+    it replaces, with two done lanes pointed at the sink block 0 at their
+    clamped position max_len − 1."""
+    rng = np.random.default_rng(bs)
+    B, Hkv, ML = 6, 2, 32
+    nblk, NB = ML // bs, 6 * (ML // bs) + 1
+    bt = rng.permutation(np.arange(1, NB))[:B * nblk].reshape(B, nblk)
+    pos = rng.integers(0, ML, size=B)
+    bt[4:], pos[4:] = SINK, ML - 1
+    bt, pos = torch.from_numpy(bt.astype(np.int32)), torch.from_numpy(
+        pos.astype(np.int32))
+    blk = torch.clamp(pos // bs, 0, bt.shape[1] - 1)        # layers.py, PR 16
+    phys = bt.gather(1, blk.long()[:, None])
+    h = torch.arange(Hkv)
+    want = ((phys * Hkv + h) * bs + (pos % bs).long()[:, None]).reshape(-1)
+    got = tlayers.paged_rows(pos, bt, Hkv, bs)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert bool((got[4 * Hkv:] < Hkv * bs).all())          # the sink block
+    assert len(set(got[:4 * Hkv].tolist())) == 4 * Hkv
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("paged", [False, True])
+def test_block_leaves_the_state_where_decode_many_does(cpu_params, paged,
+                                                       temperature):
+    """A runner block (the eager loop on the CPU) against ``decode_many`` on
+    clones of the same state and generator: the same tokens, and the carry
+    copied back into the runner's own tensors."""
+    kw = dict(kv_paged=True, kv_block_size=8) if paged else {}
+    eng = _engine(CPU_CFG, cpu_params, _policy(), "cpu",
+                  temperature=temperature,
+                  generator=torch.Generator().manual_seed(5), **kw)
+    for p in _prompts(6, 2, CPU_CFG.vocab):
+        eng.submit(p, max_new=12)
+    eng.admit()
+    r = eng.runner
+    for _ in range(2):
+        snap = _snapshot(r)
+        want, carry = _eager(eng, eng.decode_params, snap, carry=True)
+        got = r.block(eng.decode_params).numpy()
+        assert np.array_equal(got, want)
+        st, gen = snap[0], snap[-1]
+        for a, b in zip((r.cur_tok, r.pos, r.done, r.remaining), carry):
+            assert torch.equal(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(r.state),
+                                                     _leaves(st)))
+        assert torch.equal(r.generator.get_state(), gen.get_state())
+    assert r.compiled_programs == 0
+
+
+# -------------------------------------------------------------- on a card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph is captured only there")
+    kbuild.lib()
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def gpu_params(cuda):
+    return tlm.init_params(GPU_CFG, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+
+
+@contextlib.contextmanager
+def _shadowed(eng):
+    """Hold every ``decode_block`` of ``eng`` to an eager ``decode_many`` on
+    clones of the state it started from: the same tokens, valid and done
+    flags, bit for bit.  Yields the count of blocks held."""
+    r = eng.runner
+    real = r.decode_block
+    seen = {"blocks": 0}
+
+    def run(params):
+        snap = _snapshot(r)
+        toks, valid, done = real(params)
+        want = _eager(eng, params, snap)
+        K = r.K
+        assert np.array_equal(toks, want[:, :K])
+        assert np.array_equal(valid, want[:, K:2 * K].astype(bool))
+        assert np.array_equal(done, want[:, 2 * K].astype(bool))
+        seen["blocks"] += 1
+        return toks, valid, done
+    r.decode_block = run
+    try:
+        yield seen
+    finally:
+        del r.decode_block
+
+
+CASES = {
+    "int8 KV": dict(policy=dict(kv="int8")),
+    "int4 KV": dict(policy=dict(kv="int4")),
+    "paged pool": dict(policy=dict(kv="int8"),
+                       engine=dict(kv_paged=True, kv_block_size=16)),
+    "temperature 0.7": dict(policy=dict(kv="int8"),
+                            engine=dict(temperature=0.7), generator=7),
+    "preemption": dict(policy=dict(kv="int8"),
+                       engine=dict(kv_paged=True, kv_block_size=16,
+                                   kv_pool_blocks=7)),
+}
+
+
+@pytest.mark.gpu
+def test_requant_lands_in_the_previous_tree_on_the_card(gpu_params, cuda):
+    """The same through the ``ttq_quantize`` kernel, writing its codes, S and
+    Z into the earlier tree's storage."""
+    kbuild.reset_launches()
+    _requant_in_place(GPU_CFG, gpu_params, _policy(), cuda)
+    assert kbuild.LAUNCHES["ttq_quantize"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_graph_tokens_equal_eager(gpu_params, cuda, case):
+    c = CASES[case]
+    kw = dict(c.get("engine", {}))
+    if "generator" in c:
+        kw["generator"] = torch.Generator(device=cuda).manual_seed(
+            c["generator"])
+    eng = _engine(GPU_CFG, gpu_params, _policy(**c["policy"]), cuda,
+                  max_slots=3, **kw)
+    rids = [eng.submit(p, max_new=20)
+            for p in _prompts(8, 6, GPU_CFG.vocab, 5, 30)]
+    with _shadowed(eng) as seen:
+        out = eng.run_all()
+    assert all(len(out[i]) == 20 and not out[i].unfinished for i in rids)
+    assert seen["blocks"] >= 8 and eng.n_requants >= 2
+    assert eng.compiled_programs == 1         # every requant landed in place
+    if case == "preemption":
+        assert eng.preemptions > 0
+        eng.allocator.assert_quiescent()
+
+
+@pytest.mark.gpu
+def test_graph_through_the_first_requant(gpu_params, cuda):
+    """Blocks on the full-precision tree before the first requant, then on
+    the quantized one: one graph each, tokens equal to eager in both."""
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, recalibrate_every=2)
+    prompts = _prompts(9, 4, GPU_CFG.vocab, 5, 30)
+    eng.submit(prompts[0], max_new=24)
+    with _shadowed(eng) as seen:
+        for _ in range(3):
+            assert eng.step()
+        assert eng.n_requants == 0 and eng.compiled_programs == 1
+        for p in prompts[1:]:
+            eng.submit(p, max_new=12)
+        eng.run_all()
+    assert eng.n_requants >= 1 and eng.compiled_programs == 2
+    assert seen["blocks"] >= 6
+
+
+@pytest.mark.gpu
+def test_requant_between_blocks_and_the_stale_graph(gpu_params, cuda):
+    """A requant between two blocks lands in the captured tree, so the next
+    replay reads the new weights.  The trap it avoids: a tree at new
+    storage replayed through the old graph decodes the OLD weights; the
+    runner instead captures anew for the new layout."""
+    pol = _policy()
+    eng = _engine(GPU_CFG, gpu_params, pol, cuda)
+    for p in _prompts(10, 2, GPU_CFG.vocab, 5, 30):
+        eng.submit(p, max_new=40)
+    eng.admit()
+    r = eng.runner
+    with _shadowed(eng):
+        assert eng.step() and eng.step()                # capture, replay
+        toks = torch.from_numpy(np.asarray(_prompts(11, 2, GPU_CFG.vocab,
+                                                    16, 17), np.int64))
+        stats = tlm.prefill(GPU_CFG, gpu_params, {"tokens": toks.to(cuda)},
+                            64)[2]
+        eng.qmodel.calibrate(stats, 1e4)
+        eng._requantize()                               # in place
+        assert eng.step()
+    assert eng.compiled_programs == 1
+    # the trap: other weights at new storage, through the captured graph
+    other = tlm.init_params(GPU_CFG, torch.Generator(device=cuda)
+                            .manual_seed(1), device=cuda)
+    s, count = eng.qmodel.session.as_calib()
+    new_tree = FusedRequantPlan(other, s, pol).run(other, s, count)
+    snap = _snapshot(r)
+    want_old = _eager(eng, eng.decode_params, _snapshot(r))
+    want_new = _eager(eng, new_tree, _snapshot(r))
+    assert not np.array_equal(want_old, want_new)
+    (stale,) = r._graphs.values()
+    stale.graph.replay()
+    assert np.array_equal(stale.out.cpu().numpy(), want_old)
+    for dst, src in zip((r.state, r.cur_tok, r.pos, r.done, r.remaining),
+                        snap):
+        _copy_into(dst, src)
+    got = r.block(new_tree).cpu().numpy()               # a new layout
+    assert np.array_equal(got, want_new) and r.compiled_programs == 2
+
+
+@pytest.mark.gpu
+def test_compiled_programs_flat_with_requants(gpu_params, cuda):
+    """The port of tests/test_runtime_guards.py:124-129: no program is added
+    from the first decode block to the end of a run that requantizes after
+    every admission."""
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda)
+    for p in _prompts(12, 6, GPU_CFG.vocab, 5, 30):
+        eng.submit(p, max_new=10)
+    assert eng.step()
+    warm, req = eng.compiled_programs, eng.n_requants
+    eng.run_all()
+    assert eng.compiled_programs == warm == 1
+    assert eng.n_requants >= req + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_replays_count_launches_and_sync_nothing(gpu_params, cuda, paged):
+    """N replays add N times an eager block's kernel launches to
+    ``build.LAUNCHES``, and a replay syncs nothing with the host."""
+    kw = dict(kv_paged=True, kv_block_size=16) if paged else {}
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, **kw)
+    for p in _prompts(13, 2, GPU_CFG.vocab, 5, 30):
+        eng.submit(p, max_new=60)
+    eng.admit()
+    r = eng.runner
+    r.decode_block(eng.decode_params)                   # warm + capture
+    kbuild.reset_launches()
+    _eager(eng, eng.decode_params, _snapshot(r))
+    per_block = dict(kbuild.LAUNCHES)
+    attn = "ttq_paged_decode_attention" if paged else "ttq_decode_attention"
+    assert per_block["ttq_gemm"] == r.K * GPU_CFG.n_layers * 7
+    assert per_block[attn] == r.K * GPU_CFG.n_layers
+    kbuild.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            r.block(eng.decode_params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kbuild.LAUNCHES == {k: 3 * n for k, n in per_block.items()}
+    assert r.compiled_programs == 1

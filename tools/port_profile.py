@@ -4,14 +4,17 @@
 
 Builds the engine of ``chip_smoke.py``'s main path (full-width gemma-7b,
 random weights, int4 g32 packed weights, int8 KV, 4 slots x 256) with that
-script's own setup, admits its first 4 prompts, runs one warm decode block,
-then traces one more under ``torch.profiler``; then the same on the paged
+script's own setup, admits its first 4 prompts and runs one decode block
+(the warm block and the capture of the runner's CUDA graph).  Then, for
+the eager loop (``lm.decode_many`` on a copy of the state) and for the
+graph (``DeviceRunner.decode_block``, one replay): one block timed
+untraced, and one more under ``torch.profiler``.  The same on the paged
 main path (``kv_paged=True``, block 16, default pool), with the same
-weights.  Prints for each the block's wall time, the summed device time of
-the device-side rows (kernels and copies, never the host ops that launched
-them), so the device's busy and idle shares, the device launches per
-decode step, and the rows that take the most device time with their mean
-time per call.
+weights.  Prints for each block its wall time, the summed device time of
+the device-side rows (kernels and copies, never the host ops that
+launched them), so the device's busy and idle shares, the device launches
+per decode step, the host-side launch calls per block, and the rows that
+take the most device time with their mean time per call.
 """
 from __future__ import annotations
 
@@ -25,50 +28,45 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 
-def profile_block(torch, eng, prompts, what):
-    """Trace one warm decode block of ``eng`` over 4 admitted prompts."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from chip_smoke import MAX_NEW
+def profile_block(torch, cfg, eng, prompts, what):
+    """Trace one eager and one graph decode block of ``eng`` over 4
+    admitted prompts."""
+    from chip_smoke import MAX_NEW, eager_block, snapshot, traced
 
     for p in prompts[:4]:
         eng.submit(p, max_new=MAX_NEW)
     eng.admit()
-    K = eng.runner.K
-    eng.runner.decode_block(eng.decode_params)          # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.runner.decode_block(eng.decode_params)
-    wall_plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.runner.decode_block(eng.decode_params)
+    r, params = eng.runner, eng.decode_params
+    K = r.K
+    r.decode_block(params)                      # warm block + capture
+    blocks = {
+        "eager": lambda snap: eager_block(torch, cfg, eng, params, snap),
+        "graph": lambda snap: r.decode_block(params)}
+    for kind, block in blocks.items():
+        snap = snapshot(torch, r)
         torch.cuda.synchronize()
-        wall_traced = time.perf_counter() - t0
-    # device rows only: an aten:: row's self device time repeats that of
-    # the kernels it launched, which have rows of their own
-    kern = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and getattr(e, "self_device_time_total", 0.0) > 0),
-                  key=lambda e: -e.self_device_time_total)
-    dev_us = sum(e.self_device_time_total for e in kern)
-    n_kern = sum(e.count for e in kern)
-    print(f"{what}: decode block K={K}, 4 slots: wall "
-          f"{wall_plain * 1e3:.2f} ms untraced, {wall_traced * 1e3:.2f} ms "
-          f"traced ({wall_plain * 1e3 / K:.2f} ms per step untraced)")
-    if not dev_us:
-        print("profiler: no device time recorded — device busy share not "
-              "measured")
-        return
-    busy = dev_us / 1e6 / wall_traced
-    print(f"{what}: device time {dev_us / 1e3:.2f} ms in the traced block: "
-          f"busy {busy:.1%}, idle {1 - busy:.1%}; {n_kern} device launches, "
-          f"{n_kern / K:.0f} per step")
-    print(f"{what}: top device rows (ms in the block, calls, us per call):")
-    for e in kern[:12]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}  "
-              f"{e.self_device_time_total / e.count:8.2f} us  {e.key[:80]}")
+        t0 = time.perf_counter()
+        block(snap)
+        wall = time.perf_counter() - t0
+        snap = snapshot(torch, r)
+        t = traced(torch, lambda: block(snap), top=12)
+        print(f"{what}, {kind}: decode block K={K}, 4 slots: wall "
+              f"{wall * 1e3:.2f} ms untraced ({wall * 1e3 / K:.2f} ms per "
+              f"step), {t['wall_ms']:.2f} ms traced")
+        if not t["device_launches"]:
+            print("profiler: no device time recorded — device busy share "
+                  "not measured")
+            continue
+        print(f"{what}, {kind}: device time {t['device_ms']:.2f} ms in the "
+              f"traced block: busy {t['busy']:.1%}, idle {1 - t['busy']:.1%}; "
+              f"{t['device_launches']} device launches, "
+              f"{t['device_launches'] / K:.0f} per step; host launch calls "
+              f"per block {t['host_launches']} {t['host_apis']}")
+        print(f"{what}, {kind}: top device rows (ms in the block, calls, us "
+              f"per call):")
+        for key, us, n in t["top"]:
+            print(f"  {us / 1e3:8.3f} ms  {n:6d}  {us / n:8.2f} us  "
+                  f"{key[:80]}")
 
 
 def main() -> int:
@@ -86,7 +84,7 @@ def main() -> int:
     for what, kw in (("dense", {}),
                      ("paged", dict(kv_paged=True, kv_block_size=BLOCK))):
         _, _, eng = build_engine(torch, dev, cfg, params, **kw)
-        profile_block(torch, eng, prompts, what)
+        profile_block(torch, cfg, eng, prompts, what)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
