@@ -107,6 +107,13 @@ SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clock (time_ms)
 # host-side CUDA API calls that put work on a stream, as the profiler
 # names them (with or without CUPTI's version suffix)
 HOST_LAUNCH = re.compile(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)\w*")
+# phase 3d: the reference's default policy.  Exact top-16 SVD (cuSOLVER
+# gesvd) takes 0.8-1.0 s per gemma-7b weight matrix on an H100, ~6 s per
+# layer, so [3d] runs 8 of the 28 layers at full width (PERF.md).
+DEPTH_3D = 8
+RANK_3D = 16
+THRESHOLD_3D = 0.05
+SVD_TOL = 1e-4                 # relative, against a float64 CPU SVD
 REL_L2_ONE_LAYER = 1e-2
 WITNESS_RATIO = 1.5
 REL_L2_BOUND = 3e-2
@@ -754,17 +761,45 @@ def block_syncs_nothing(torch, cfg, eng, prompts):
     return r, res
 
 
+def tree_equal(torch, a, b) -> bool:
+    """Trees of tensors equal leaf for leaf, bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(tree_equal(torch, x, y)
+                                        for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def kv_equal(torch, eng, a, b) -> bool:
+    """Two decode states of ``eng`` equal bit for bit, except a paged pool's
+    sink block 0: pad rows past each prompt and done lanes write there, in
+    an unspecified order (its rows are never read unmasked)."""
+    if not eng.runner.paged:
+        return tree_equal(torch, a, b)
+    return torch.equal(a["block_table"], b["block_table"]) and all(
+        torch.equal(x[:, 1:], y[:, 1:])
+        for ra, rb in zip(a["stack"], b["stack"])
+        for u in ra for x, y in zip(ra[u].values(), rb[u].values()))
+
+
 def graph_vs_eager(torch, cfg, eng, prompts):
     """Serve ``prompts`` with every decode block held to an eager
     ``lm.decode_many`` on clones of the state the block started from
     (tokens, valid and done flags bit for bit; requants land in the tree
-    between blocks), each synced and timed: the graph block, then the eager
-    one.  Blocks that captured a graph (their warm block runs eagerly) are
-    counted apart.  Returns ms per decode step of each, block counts and
-    the outputs."""
+    between blocks), and every admission that replays a prefill graph held
+    to the eager prefill body on a clone of the state it started from
+    (first tokens, statistics and every state leaf after the cache writes,
+    bit for bit); each synced and timed: the graph run, then the eager one.
+    Blocks and admissions that captured a graph (their warm run is the
+    eager one) are counted apart.  Returns ms per decode step and per
+    admission of each, counts and the outputs."""
     r = eng.runner
-    real = r.decode_block
+    real, real_admit = r.decode_block, r.admit_group
     t = {"graph": 0.0, "eager": 0.0, "blocks": 0, "capture_blocks": 0}
+    p = {"graph": 0.0, "eager": 0.0, "replayed": 0, "captured": 0,
+         "shapes": set()}
 
     def run(params):
         snap = snapshot(torch, r)
@@ -788,42 +823,111 @@ def graph_vs_eager(torch, cfg, eng, prompts):
             t["graph"] += t1 - t0
             t["eager"] += t2 - t1
         return toks, valid, done
-    r.decode_block = run
+
+    def admit(params, group):
+        snap = clone_tree(torch, r.state)
+        programs = r.compiled_programs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, fin, stats = real_admit(params, group)
+        t1 = time.perf_counter()
+        if r.compiled_programs != programs:
+            p["captured"] += 1
+            return first, fin, stats
+        inp = {k: torch.from_numpy(v).to(r.device)
+               for k, v in r._prefill_inputs(group).items()}
+        want, want_stats = r._prefill(params, snap, inp, group.prefix_len,
+                                      None)
+        want = want.cpu().numpy()
+        t2 = time.perf_counter()
+        shape = (group.bucket, len(group.requests), group.prefix_len)
+        same = (np.array_equal(first, want),
+                tree_equal(torch, stats, want_stats),
+                kv_equal(torch, eng, r.state, snap))
+        check(all(same), f"prefill graph {shape}: (first tokens, statistics, "
+              f"KV rows) equal to the eager prefill's: {same}")
+        p["replayed"] += 1
+        p["shapes"].add(shape)
+        p["graph"] += t1 - t0
+        p["eager"] += t2 - t1
+        return first, fin, stats
+    check(eng.ecfg.temperature == 0, "the shadowed run samples greedily")
+    r.decode_block, r.admit_group = run, admit
     try:
         outs, _ = serve(torch, eng, prompts)
     finally:
-        del r.decode_block
+        del r.decode_block, r.admit_group
     steps = max(t["blocks"], 1) * r.K
+    adm = max(p["replayed"], 1)
     res = dict(graph_ms_per_step=t["graph"] * 1e3 / steps,
                eager_ms_per_step=t["eager"] * 1e3 / steps,
-               blocks_timed=t["blocks"], capture_blocks=t["capture_blocks"])
+               blocks_timed=t["blocks"], capture_blocks=t["capture_blocks"],
+               prefill_graph_ms=p["graph"] * 1e3 / adm,
+               prefill_eager_ms=p["eager"] * 1e3 / adm,
+               prefills_replayed=p["replayed"],
+               prefills_captured=p["captured"],
+               prefill_shapes=sorted(p["shapes"]))
     print(f"  every graph block equal to the eager loop's, bit for bit "
           f"({t['blocks']} replayed, {t['capture_blocks']} capturing); ms "
           f"per decode step over the replayed blocks: graph "
           f"{res['graph_ms_per_step']:.2f}, eager "
           f"{res['eager_ms_per_step']:.2f}")
+    print(f"  every graph prefill equal to the eager prefill, bit for bit "
+          f"(first tokens, stats, KV rows; paged: but the sink block's): "
+          f"{p['replayed']} replayed, "
+          f"{p['captured']} capturing, at (bucket, group, prefix) "
+          f"{res['prefill_shapes']}; ms per admission (synced): graph "
+          f"{res['prefill_graph_ms']:.2f}, eager "
+          f"{res['prefill_eager_ms']:.2f}")
     return res, outs
 
 
 def graph_phases(torch, cfg, eng, prompts, n_tok) -> dict:
     """The graph readings shared by [3] and [3b], after the cold run:
-    compiled programs and capture time, a warm rerun (checked to add no
-    program), and the shadowed run of :func:`graph_vs_eager`."""
+    decode and prefill graphs, capture times (prefill per shape) and peak
+    memory, a warm rerun, and the shadowed run of :func:`graph_vs_eager`.
+    A rerun adds no decode graph, and a prefill graph only for a shape the
+    cold run could not have had: a tail past a prefix the cold run left in
+    the paged pool's cache.  Where the warm run added such graphs, it is
+    run once more and must add none; the shadowed run adds none."""
+    r = eng.runner
     cold = eng.compiled_programs
+    shapes = {k[0] for k in r._prefills}
     res = dict(compiled_programs_cold=cold,
-               capture_s=eng.runner.capture_s)
+               peak_gb_cold=torch.cuda.max_memory_allocated() / 1e9)
     res.update(warm_phases(torch, eng, prompts, n_tok))
-    res["compiled_programs_warm"] = eng.compiled_programs
-    check(eng.compiled_programs == cold == 1,
-          f"compiled programs {cold} after the cold run, "
-          f"{eng.compiled_programs} after the warm run (want 1, unchanged)")
+    added = {k[0] for k in r._prefills} - shapes
+    check(all(pfx > 0 for _, _, pfx in added),
+          f"the warm run captured prefill shapes the cold run had: {added}")
+    if added:
+        res["warm_run_prefix_captures"] = sorted(added)
+        warm = eng.compiled_programs
+        res.update(warm_phases(torch, eng, prompts, n_tok))
+        check(eng.compiled_programs == warm, f"a second warm run captured: "
+              f"{warm} → {eng.compiled_programs}")
+    res.update(compiled_programs_warm=eng.compiled_programs,
+               decode_graphs=len(r._graphs), prefill_graphs=len(r._prefills),
+               capture_s=r.capture_s,
+               prefill_capture_s={str(k): v for k, v in
+                                  r.prefill_capture_s.items()})
+    check(eng.compiled_programs == 1 + len(r._prefills)
+          and len(r._graphs) == 1,
+          f"compiled programs {eng.compiled_programs}: {len(r._graphs)} "
+          f"decode graphs (want 1) and {len(r._prefills)} prefill graphs")
     shadow, _ = graph_vs_eager(torch, cfg, eng, prompts)
-    check(eng.compiled_programs == cold,
-          f"the shadowed run captured: {cold} → {eng.compiled_programs}")
+    check(eng.compiled_programs == res["compiled_programs_warm"],
+          f"the shadowed run captured: {res['compiled_programs_warm']} → "
+          f"{eng.compiled_programs}")
     res.update(shadow)
-    print(f"  captures: {eng.compiled_programs} program(s), warm block and "
-          f"capture {res['capture_s']:.3f} s; compiled programs {cold} "
-          f"before and {res['compiled_programs_warm']} after the warm run")
+    print(f"  captures: {len(r._graphs)} decode graph (warm block and capture "
+          f"{res['capture_s']:.3f} s), {len(r._prefills)} prefill graphs "
+          f"(warm admission and capture, s per (bucket, group, prefix): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in r.prefill_capture_s.items())
+          + f"); compiled programs {cold} after the cold run, "
+          f"{res['compiled_programs_warm']} after the warm run"
+          + (f" (prefix-hit tails {sorted(added)} captured in the first warm "
+             f"run; the numbers above are the second's)" if added else "")
+          + f"; peak memory after the cold run {res['peak_gb_cold']:.2f} GB")
     return res
 
 
@@ -1166,9 +1270,11 @@ def prefix_and_preemption(torch, dev, cfg, params):
                              kv_block_size=BLOCK, kv_pool_blocks=POOL_3C)
     shadow, outs = graph_vs_eager(torch, cfg, eng, prompts)
     check_outputs(cfg, outs, "3c constrained, shadowed")
-    check(eng.preemptions > 0 and eng.compiled_programs == 1,
-          f"3c shadowed: preemptions {eng.preemptions}, compiled programs "
-          f"{eng.compiled_programs}")
+    check(eng.preemptions > 0 and len(eng.runner._graphs) == 1
+          and shadow["prefills_replayed"] > 0,
+          f"3c shadowed: preemptions {eng.preemptions}, decode graphs "
+          f"{len(eng.runner._graphs)}, prefill replays "
+          f"{shadow['prefills_replayed']}")
     eng.allocator.assert_quiescent()
     runs["graph vs eager, constrained"] = shadow
     del eng
@@ -1181,6 +1287,255 @@ def prefix_and_preemption(torch, dev, cfg, params):
         if isinstance(r, dict):
             r.pop("outs", None)
     return runs
+
+
+def svd_against_f64(torch, params):
+    """(a) Layer 0 of each weight shape: the f32 factors before the cast
+    (``lowrank.svd_top``) against a float64 SVD on the CPU.  ‖W − B·A‖_F
+    must be within SVD_TOL (relative) of the Eckart-Young optimum √(Σ_{i>r}
+    σ_i²), and the singular values of B·A within SVD_TOL of the top r.
+    Random weights have a nearly flat spectrum, so the top-r subspace itself
+    is ill-determined and B·A is not compared element by element.  Returns
+    each shape's SVD time (synced) and both errors."""
+    from repro_torch.core.lowrank import svd_top
+    out = {}
+    for name, (grp, leaf) in (("wq/wk/wv", ("mix", "wq")),
+                              ("wo", ("mix", "wo")), ("wg/wu", ("mlp", "wg")),
+                              ("wd", ("mlp", "wd"))):
+        W = params["stack"][0]["u0"][grp][leaf][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        B, A = svd_top(W, RANK_3D)
+        torch.cuda.synchronize()
+        svd_s = time.perf_counter() - t0
+        s = torch.linalg.svdvals(W.double().cpu())
+        opt = float(s[RANK_3D:].square().sum().sqrt())
+        res = float((W.double() - B.double() @ A.double()).norm())
+        _, Rb = torch.linalg.qr(B.double())
+        _, Ra = torch.linalg.qr(A.double().T)
+        sv = torch.linalg.svdvals(Rb @ Ra.T).cpu()
+        e_res = abs(res - opt) / opt
+        e_sv = float(((sv - s[:RANK_3D]).abs() / s[:RANK_3D]).max())
+        out[name] = dict(shape=list(W.shape), svd_s=svd_s, resid_rel=e_res,
+                         sigma_rel=e_sv)
+        print(f"  (a) {name} {tuple(W.shape)}: top-{RANK_3D} SVD {svd_s:.3f} s; "
+              f"‖W − BA‖_F {res:.6f} against the optimum {opt:.6f} (rel "
+              f"{e_res:.2e}); singular values of BA rel {e_sv:.2e} from a "
+              f"float64 CPU SVD's")
+        check(e_res <= SVD_TOL and e_sv <= SVD_TOL,
+              f"{name}: SVD factors off the float64 SVD (residual {e_res:.2e},"
+              f" singular values {e_sv:.2e}, bound {SVD_TOL})")
+    return out
+
+
+def residual_quantize_checked(torch, eng) -> dict:
+    """(b) ``ttq_quantize`` on the f32 residual W − B·A of every stack (D
+    from the session's statistics, as the requant forms them) against its
+    plain version: the dequantized weights differ by at most 0."""
+    from repro_torch.core.lowrank import residual
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.api import _tree_get
+    qm = eng.qmodel
+    plan = qm._plan
+    stats, count = qm.session.as_calib()
+    out = {}
+    for members in plan.families.values():
+        for m in members:
+            ba = _tree_get(qm.lowrank_tree, m.path)
+            R = residual(_tree_get(qm.params, m.path), ba["B"], ba["A"])
+            D = m.eff.quantizer.diag(plan._stat(stats, m).reshape(-1, m.d),
+                                     count, m.eff.acfg, m.d)
+            off, sz, err = quant_mismatch(
+                torch, ops.ttq_quantize(R, D, bits=4, group_size=32),
+                ref.ttq_quantize_ref(R, D, bits=4, group_size=32), m.d, 4)
+            out[m.path_str] = dict(codes_differ=off, sz_equal=sz,
+                                   max_abs_err=err)
+            check(err == 0.0, f"{m.path_str}: ttq_quantize on the residual "
+                  f"differs from its plain version by {err} ({off} codes)")
+            del R
+    print(f"  (b) ttq_quantize on the residual of every stack ({len(out)}): "
+          f"dequantized weights equal to the plain version's (max |diff| "
+          f"{max(v['max_abs_err'] for v in out.values())}; codes differing "
+          f"{sum(v['codes_differ'] for v in out.values())})")
+    return out
+
+
+def recorded(eng, swaps=None):
+    """Wrap ``eng``'s block count, its model's readiness check and its
+    requants: the blocks before which the pending tree was swapped in are
+    recorded (``swaps`` None), or forced to be exactly ``swaps``; and each
+    requant's (layers requantized, layers skipped).  Undo with
+    :func:`unrecorded`."""
+    r, qm = eng.runner, eng.qmodel
+    n = {"blocks": 0}
+    log, per = [], []
+    real_block, real_ready, real_rq = r.decode_block, qm._ready, eng._requantize
+
+    def block(params):
+        out = real_block(params)
+        n["blocks"] += 1
+        return out
+
+    def ready():
+        ok = real_ready() if swaps is None else n["blocks"] in swaps
+        if ok:
+            log.append(n["blocks"])
+        return ok
+
+    def rq():
+        real_rq()
+        per.append((qm.last_requant_layers, qm.last_skipped_layers))
+    r.decode_block, qm._ready, eng._requantize = block, ready, rq
+    return log, per
+
+
+def unrecorded(eng):
+    del eng.runner.decode_block, eng.qmodel._ready, eng._requantize
+
+
+def requant_wall(torch, eng, threshold) -> dict:
+    """One synced ``requantize(threshold=)`` of the double-buffered model:
+    its wall time and its ``ttq_quantize`` launches' device time (events on
+    the stream each launch runs on)."""
+    from repro_torch.kernels import ops
+    saved, events = ops.ttq_quantize, []
+
+    def timed(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = saved(*a, **kw)
+        e.record()
+        events.append((s, e))
+        return out
+    qm = eng.qmodel
+    ops.ttq_quantize = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qm.requantize(threshold=threshold)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.ttq_quantize = saved
+    kern = sum(s.elapsed_time(e) for s, e in events) / 1e3
+    return dict(wall_s=wall, kernel_s=kern, launches=len(events),
+                requantized=qm.last_requant_layers,
+                skipped=qm.last_skipped_layers)
+
+
+def default_policy(torch, dev, cfg, params, base) -> dict:
+    """Phase 3d: the reference's default serving policy, ttq_policy(bits=4,
+    group_size=32, rank=16, packed=True) with the delta gate and the double
+    buffer, at full width and DEPTH_3D layers, on [3]'s traffic.  Checks
+    (a) the factors against a float64 SVD, (b) the residual's quantization
+    against its plain version, (c) the double-buffered run's tokens against
+    a rerun that forces each swap at the block where the first run saw it,
+    (d) layers requantized and skipped per requant, (e) compiled programs
+    flat after the cold run.  Times the factors, decode (beside rank 0 at
+    the same depth and [3]) and a synced requant with and without the
+    gate."""
+    from repro_torch.core import KernelConfig, KVCacheConfig, ttq_policy
+    from repro_torch.kernels import build
+    from repro_torch.models.stack import layer_slice
+    from repro_torch.quant import model as qmodel
+
+    res = {"svd": svd_against_f64(torch, params)}
+    cfg_d = dataclasses.replace(cfg, n_layers=DEPTH_3D)
+    params_d = dict(params, stack=[layer_slice(run, slice(0, DEPTH_3D))
+                                   for run in params["stack"]])
+    policy = ttq_policy(bits=4, group_size=32, rank=RANK_3D, packed=True,
+                        kvcache=KVCacheConfig(dtype="int8"),
+                        kernel=KernelConfig(use_pallas=True))
+    kw = dict(requant_threshold=THRESHOLD_3D, double_buffer=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, eng = build_engine(torch, dev, cfg_d, params_d, policy, **kw)
+    torch.cuda.synchronize()
+    res["factor_s"] = time.perf_counter() - t0
+    print(f"  factors: {7 * DEPTH_3D} top-{RANK_3D} SVDs at engine "
+          f"construction, {res['factor_s']:.1f} s")
+    prompts = make_prompts()
+    build.reset_launches()
+    swaps, per = recorded(eng)
+    outs, wall = serve(torch, eng, prompts)
+    launches = dict(build.LAUNCHES)
+    n_tok = sum(len(o) for o in outs)
+    check_outputs(cfg, outs, "3d")
+    on_path = ("ttq_quantize", "ttq_gemm", "ttq_decode_attention")
+    check(all(launches[k] > 0 for k in on_path),
+          f"3d: a kernel of the path never launched: {launches}")
+    res.update(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+               launches=launches, requants=eng.n_requants,
+               swap_blocks=list(swaps), requant_layers=[list(x) for x in per])
+    print(f"  cold run: {n_tok} tokens in {wall:.2f} s ({n_tok / wall:.1f} "
+          f"tok/s); requants {eng.n_requants}; the pending tree swapped in "
+          f"before blocks {swaps}; launches {launches}")
+    # (d) every requant covers the 7 stacks; the first quantizes them all
+    check(len(per) == eng.n_requants >= 2 and per[0] == (7, 0)
+          and all(a + b == 7 for a, b in per),
+          f"3d: layers (requantized, skipped) per requant {per}")
+    print(f"  (d) layers (requantized, skipped) per requant: {per}; "
+          f"{eng.layers_requantized} requantized, {eng.layers_skipped} "
+          f"skipped in all")
+    check(len(swaps) >= 1, "3d: the double buffer never swapped")
+    cold = eng.compiled_programs
+    # (c) a rerun forcing the recorded swaps: the same tokens, bit for bit
+    saved = qmodel.lowrank_tree
+    qmodel.lowrank_tree = lambda *a: eng.lowrank_tree     # no second SVD
+    try:
+        _, _, again = build_engine(torch, dev, cfg_d, params_d, policy, **kw)
+    finally:
+        qmodel.lowrank_tree = saved
+    forced, per2 = recorded(again, set(swaps))
+    outs2, _ = serve(torch, again, prompts)
+    check([list(o) for o in outs2] == [list(o) for o in outs]
+          and forced == swaps and per2 == per,
+          f"3d: the rerun forcing swaps {swaps} (got {forced}, requants "
+          f"{per2}) emitted other tokens: leading tokens equal per request "
+          f"{[leading_equal(a, b) for a, b in zip(outs2, outs)]}")
+    print(f"  (c) double-buffered tokens equal, bit for bit, to a rerun that "
+          f"forces each swap at the recorded block ({len(swaps)} swaps)")
+    del again
+    res["residual_quantize"] = residual_quantize_checked(torch, eng)
+    # (e) and the readings: a warm rerun adds no program
+    unrecorded(eng)
+    res.update(warm_phases(torch, eng, prompts, n_tok))
+    r = eng.runner
+    res.update(compiled_programs_cold=cold,
+               compiled_programs_warm=eng.compiled_programs,
+               decode_graphs=len(r._graphs), prefill_graphs=len(r._prefills))
+    check(eng.compiled_programs == cold and len(r._graphs) == 2,
+          f"3d: compiled programs {cold} after the cold run, "
+          f"{eng.compiled_programs} after the warm run; decode graphs "
+          f"{len(r._graphs)} (want 2, one per tree)")
+    print(f"  (e) compiled programs {cold} after the cold run and "
+          f"{eng.compiled_programs} after the warm run: {len(r._graphs)} "
+          f"decode graphs (one per tree), {len(r._prefills)} prefill graphs")
+    res["requant_gated"] = requant_wall(torch, eng, THRESHOLD_3D)
+    res["requant_full"] = requant_wall(torch, eng, 0.0)
+    for k in ("requant_gated", "requant_full"):
+        q = res[k]
+        print(f"  synced requant, threshold "
+              f"{THRESHOLD_3D if k == 'requant_gated' else 0.0}: "
+              f"{q['wall_s'] * 1e3:.1f} ms wall, ttq_quantize "
+              f"{q['kernel_s'] * 1e3:.3f} ms on the device ({q['launches']} "
+              f"launches); layers requantized {q['requantized']}, skipped "
+              f"{q['skipped']}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, flat = build_engine(torch, dev, cfg_d, params_d)
+    o0, _ = serve(torch, flat, prompts)
+    check_outputs(cfg, o0, "3d rank-0 baseline")
+    res["rank0_same_depth"] = warm_phases(torch, flat, prompts, n_tok)
+    print(f"  ms per decode step (warm, synced): rank {RANK_3D} with gate and "
+          f"double buffer {res['decode_ms_per_step']:.2f} at {DEPTH_3D} "
+          f"layers; rank 0 at {DEPTH_3D} layers "
+          f"{res['rank0_same_depth']['decode_ms_per_step']:.2f}; [3] (rank 0, "
+          f"{cfg.n_layers} layers) {base['decode_ms_per_step']:.2f}")
+    del flat
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
 
 
 def main() -> int:
@@ -1267,6 +1622,17 @@ def main() -> int:
           f"pool of {POOL_3C} blocks")
     pre = prefix_and_preemption(torch, dev, cfg, params)
     print("    prefix cache and preemption: " + json.dumps(pre))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    print(f"[3d] the reference's default policy: ttq_policy(bits=4, "
+          f"group_size=32, rank={RANK_3D}, packed=True), int8 KV, "
+          f"requant_threshold={THRESHOLD_3D}, double_buffer=True; gemma-7b "
+          f"full width, {DEPTH_3D} of {cfg.n_layers} layers (exact SVD at "
+          f"~6 s per layer)")
+    dflt = default_policy(torch, dev, cfg, params, res)
+    print("    default policy: " + json.dumps(dflt))
 
     kernels = []
     for name, (src, replaces, m) in rows.items():

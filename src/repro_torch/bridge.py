@@ -7,6 +7,11 @@ go through f32 into torch bf16, and a quantized weight (any object with the
 reference ``QuantizedTensor``'s fields) becomes the port's
 :class:`~repro_torch.core.ttq.QuantizedTensor`.  It reads the objects by
 their fields and imports nothing of the JAX package.
+
+``lowrank_from_jax(tree)`` carries the JAX package's ``lowrank_tree`` (its
+numpy form) across the same way, so both packages quantize the residual of
+the same factors: SVD signs are ambiguous, and factors computed on each side
+need not agree.
 """
 from __future__ import annotations
 
@@ -46,3 +51,10 @@ def params_from_jax(tree, device="cuda"):
         return _tensor(x, dev)
 
     return conv(tree)
+
+
+def lowrank_from_jax(tree, device="cuda"):
+    """A JAX ``lowrank_tree`` (numpy leaves; a {'B', 'A'} pair at each
+    factored weight, None elsewhere, or None for no factors at all) → the
+    port's tree of the same nesting, for ``QuantizedModel(lowrank=)``."""
+    return None if tree is None else params_from_jax(tree, device)

@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from .qdq import QuantConfig, quantize
+from .qdq import QuantConfig, qdq, quantize
 
 _EPS = 1e-12
 
@@ -41,6 +41,13 @@ def diag_from_stats(stat: torch.Tensor, count, cfg: AWQConfig) -> torch.Tensor:
     else:
         raise ValueError(f"unknown AWQ form {cfg.form!r}")
     return torch.clamp(D, min=_EPS)
+
+
+def awq_qdq(W: torch.Tensor, D: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
+    """Fake-quant closed form Ŵ = Q[W∘D]∘D⁻¹ (paper eq. 20); W (d', d), D
+    (d,)."""
+    Dn = D[None, :].float()
+    return (qdq(W.float() * Dn, qcfg) / Dn).to(W.dtype)
 
 
 def awq_quantize(W: torch.Tensor, D: torch.Tensor, qcfg: QuantConfig):

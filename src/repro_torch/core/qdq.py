@@ -90,6 +90,12 @@ def dequantize(Wint: torch.Tensor, S: torch.Tensor, Z: torch.Tensor,
     return (Wg * S[:, None] + Z[:, None]).reshape(Wint.shape)
 
 
+def qdq(W: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Q[W] = G⁻[G[W]], the groupwise round-to-nearest fake-quant, in W's
+    dtype."""
+    return dequantize(*quantize(W, cfg), cfg).to(W.dtype)
+
+
 def pack_bits(Wint: torch.Tensor, bits: int) -> torch.Tensor:
     """k = 32//bits codes per int32 along the last axis, low bits first.
 

@@ -3,7 +3,7 @@ from repro_torch.core.kvquant import BF16_KV, KVCacheConfig
 from repro_torch.core.policy import (FUSED_KERNELS, KernelConfig, NO_QUANT,
                                      QuantPolicy, override, ttq_policy)
 
-from .api import FusedRequantPlan, quantize_params
+from .api import FusedRequantPlan, lowrank_tree, quantize_params
 from .model import QuantizedModel
 from .registry import get_quantizer, register_quantizer, registered_methods
 from .session import CalibrationSession
@@ -11,6 +11,7 @@ from .session import CalibrationSession
 __all__ = [
     "BF16_KV", "CalibrationSession", "FUSED_KERNELS", "FusedRequantPlan",
     "KVCacheConfig", "KernelConfig", "NO_QUANT", "QuantPolicy",
-    "QuantizedModel", "get_quantizer", "override", "quantize_params",
-    "register_quantizer", "registered_methods", "ttq_policy",
+    "QuantizedModel", "get_quantizer", "lowrank_tree", "override",
+    "quantize_params", "register_quantizer", "registered_methods",
+    "ttq_policy",
 ]

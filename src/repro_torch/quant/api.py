@@ -12,7 +12,11 @@ joins projections that share a tapped input), and quantize.
   through ONE ``ttq_quantize`` launch that reads the bf16 stack in place
   and applies D in f32 inside the kernel — the reference's
   ``concatenate(... .astype(float32))`` would need 16.9 GB for gemma-7b's
-  wg/wu family alone.
+  wg/wu family alone.  A member with low-rank factors quantizes the f32
+  residual W − B·A instead, formed a chunk of layers at a time
+  (``RESIDUAL_BYTES``), one launch per chunk.  ``drift``/``gate`` are the
+  reference's delta gate: ``run(only=)`` requantizes the drifted families.
+* :func:`lowrank_tree` — the data-free SVD factors, computed once per model.
 """
 from __future__ import annotations
 
@@ -22,9 +26,15 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.core.awq import AWQConfig
+from repro_torch.core.lowrank import residual, svd_factors
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qdq import pack_bits, quantize
 from repro_torch.core.ttq import QuantizedTensor
+
+# R = W − B·A is formed in f32 at most this many bytes at a time (a chunk of
+# one stack's layers) before the kernel quantizes it: gemma-7b's 28-layer
+# wg stack alone is 8.5 GB in f32.
+RESIDUAL_BYTES = 4 << 30
 
 # projections sharing their input with a tapped sibling (one tap per input)
 STAT_ALIAS = {"wk": "wq", "wv": "wq", "wkv_a": "wq", "wu": "wg",
@@ -69,6 +79,16 @@ def _tree_get(tree, path):
     return tree
 
 
+def _map_paths(fn, tree, path=()):
+    """The tree with every leaf replaced by ``fn(path string, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_paths(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(_path_str(path), tree)
+
+
 def _stat_for(stats, parts):
     """The stats leaf (lead..., d) for a parameter path, or None."""
     if parts[0] != "stack" or not stats or "stack" not in stats:
@@ -83,11 +103,39 @@ def _eligible(base: QuantPolicy, ps: str, leaf) -> Optional[QuantPolicy]:
     eff = base.resolve(ps)
     if not eff.quantizes(ps.split(".")[-1]) or not eff.quantizes(ps):
         return None
-    if eff.rank > 0:
-        raise NotImplementedError(
-            "low-rank SVD init (rank > 0) is ported in a later slice; a "
-            "bridged B/A still runs in ttq_matmul")
     return eff
+
+
+def _factored(eff: QuantPolicy, leaf) -> bool:
+    """Whether the policy gives this weight low-rank factors."""
+    return eff.rank > 0 and min(leaf.shape[-2:]) > eff.rank
+
+
+def lowrank_tree(params, policy: QuantPolicy):
+    """Data-free SVD factors for every quantizable 2/3-D weight whose
+    resolved policy has ``rank > 0``: the params' structure with a {'B',
+    'A'} pair of stacked factors ((lead..., d', r), (lead..., r, d), in the
+    weight's dtype) at each such weight and None elsewhere; None when no
+    path resolves to rank > 0.  Computed once per model, one layer's SVD at
+    a time; requantization reuses it and never re-runs the SVD."""
+    found = False
+
+    def per_leaf(ps, leaf):
+        nonlocal found
+        eff = policy.resolve(ps)
+        if not (isinstance(leaf, torch.Tensor) and leaf.dim() in (2, 3)
+                and eff.quantizes(ps.split(".")[-1]) and eff.quantizes(ps)
+                and _factored(eff, leaf)):
+            return None
+        found = True
+        fs = [svd_factors(w, eff.rank)
+              for w in leaf.reshape(-1, *leaf.shape[-2:])]
+        lead = leaf.shape[:-2]
+        return {k: torch.stack([f[i] for f in fs]).reshape(
+            *lead, *fs[0][i].shape) for i, k in enumerate(("B", "A"))}
+
+    tree = _map_paths(per_leaf, params)
+    return tree if found else None
 
 
 def _row_qcfg(eff: QuantPolicy):
@@ -96,10 +144,11 @@ def _row_qcfg(eff: QuantPolicy):
 
 
 def quantize_params(params, stats, policy: QuantPolicy, *, count=1.0,
-                    acfg: Optional[AWQConfig] = None):
+                    acfg: Optional[AWQConfig] = None, lowrank_tree=None):
     """Eager per-leaf path: every quantizable stacked weight becomes a
     stacked :class:`QuantizedTensor`; untapped, skipped or disabled leaves
-    stay in full precision."""
+    stay in full precision.  A weight with ``rank > 0`` takes its factors
+    from ``lowrank_tree``, or runs the SVD inline when it has none there."""
     base = policy if acfg is None else policy.with_(acfg=acfg)
     results = {}
     for path, leaf in _walk(params):
@@ -117,7 +166,15 @@ def quantize_params(params, stats, policy: QuantPolicy, *, count=1.0,
         lead = leaf.shape[:-2]
         Ws = leaf.reshape(-1, *leaf.shape[-2:])
         Ss = stat.reshape(-1, stat.shape[-1])
-        qts = [qz.quantize_weight(Ws[i], Ss[i], count, eff, eff.acfg)
+        ba = None if lowrank_tree is None else _tree_get(lowrank_tree, path)
+        if ba is not None:
+            fs = list(zip(*(ba[k].reshape(-1, *ba[k].shape[-2:])
+                            for k in ("B", "A"))))
+        elif _factored(eff, leaf):
+            fs = [svd_factors(w, eff.rank) for w in Ws]
+        else:
+            fs = [(None, None)] * Ws.shape[0]
+        qts = [qz.quantize_weight(Ws[i], Ss[i], count, eff, eff.acfg, *fs[i])
                for i in range(Ws.shape[0])]
         results[ps] = _stack_qts(qts, lead)
     return _replace(params, results)
@@ -146,10 +203,12 @@ class _Member:
 
 class FusedRequantPlan:
     """Whole-model requantization grouped by weight family; built once per
-    (params structure, stats structure, policy)."""
+    (params structure, stats structure, policy).  A weight whose policy has
+    ``rank > 0`` takes its factors from ``lowrank_tree`` (the same tree is
+    passed to :meth:`run`); the plan never runs an SVD."""
 
     def __init__(self, params, stats, policy: QuantPolicy, *,
-                 acfg: Optional[AWQConfig] = None):
+                 acfg: Optional[AWQConfig] = None, lowrank_tree=None):
         base = policy if acfg is None else policy.with_(acfg=acfg)
         self.policy = policy
         self.families: Dict[tuple, List[_Member]] = {}
@@ -167,8 +226,14 @@ class FusedRequantPlan:
             elif parts[0] != "stack" or leaf.dim() < 3:
                 continue
             dp, d = leaf.shape[-2:]
+            has_ba = (lowrank_tree is not None
+                      and _tree_get(lowrank_tree, path) is not None)
+            if not has_ba and _factored(eff, leaf):
+                raise ValueError(
+                    f"{ps}: rank {eff.rank} needs its factors; pass "
+                    f"lowrank_tree=lowrank_tree(params, policy)")
             key = (dp, d, _row_qcfg(eff), eff.acfg, eff.method, eff.packed,
-                   False, eff.rank)
+                   has_ba, eff.rank)
             self.families.setdefault(key, []).append(_Member(
                 path=tuple(path), path_str=ps, lead=tuple(leaf.shape[:-2]),
                 dp=dp, d=d, eff=eff, stat_key=stat_key))
@@ -184,12 +249,15 @@ class FusedRequantPlan:
                 and self.policy.kernel.use_pallas and qcfg.bits in (2, 4, 8)
                 and not qcfg.symmetric and qcfg.nu == 1.0)
 
-    def _run_member(self, key, m: _Member, W, stat, count, into=None):
+    def _run_member(self, key, m: _Member, W, stat, count, ba=None,
+                    into=None):
         """One member's layer stack: D, then quantize the stack — one
-        ``ttq_quantize`` launch on the kernel path.  ``into``: the member's
-        leaf of an earlier tree of this plan, overwritten in place and
-        returned (the kernel writes its codes, S and Z there; 1/D, and on
-        the plain path every field, is copied in)."""
+        ``ttq_quantize`` launch on the kernel path (one per chunk of layers
+        of the residual W − B·A where ``ba`` holds factors).  ``into``: the
+        member's leaf of an earlier tree of this plan, overwritten in place
+        and returned (the kernel writes its codes, S and Z there; 1/D, and
+        on the plain path every field, is copied in; B and A never change
+        and stay where they are)."""
         dp, d, qcfg, acfg, method, packed_on, _, _ = key
         qz = m.eff.quantizer
         W = W.reshape(-1, dp, d)                       # a view, no copy
@@ -197,6 +265,9 @@ class FusedRequantPlan:
         if stat is None:
             stat = torch.zeros((n, d), dtype=torch.float32, device=W.device)
         D = qz.diag(stat.reshape(-1, d), count, acfg, d)          # (n, d)
+        B = A = None
+        if ba is not None:
+            B, A = (ba[k].reshape(n, *ba[k].shape[-2:]) for k in ("B", "A"))
         per = 32 // qcfg.bits if 32 % qcfg.bits == 0 else 0
         packable = packed_on and per > 0 and d % per == 0
         flat = lambda x: x.reshape(n, *x.shape[len(m.lead):])
@@ -206,14 +277,25 @@ class FusedRequantPlan:
         written = ()
         if self._kernel_ok(key):
             from repro_torch.kernels import ops as kops
+            kw = dict(bits=qcfg.bits, group_size=qcfg.group_size)
             out = None
             if into is not None:
                 written = ("packed", "scale", "zero")
                 out = tuple(flat(getattr(into, f)) for f in written)
-            pk, Sc, Z = kops.ttq_quantize(W, D, bits=qcfg.bits,
-                                          group_size=qcfg.group_size, out=out)
+            if out is None:
+                out = (W.new_empty((n, dp, d // per), dtype=torch.int32),
+                       *(W.new_empty((n, dp, d // qcfg.group_size),
+                                     dtype=torch.float32) for _ in range(2)))
+            step = n if B is None else max(1, RESIDUAL_BYTES // (dp * d * 4))
+            for i in range(0, n, step):
+                j = slice(i, i + step)
+                Wj = W[j] if B is None else residual(W[j], B[j], A[j])
+                kops.ttq_quantize(Wj, D[j], out=tuple(o[j] for o in out),
+                                  **kw)
+            pk, Sc, Z = out
         else:
-            Ws = (W.float() * D[:, None, :]).reshape(n * dp, d)
+            Wf = W.float() if B is None else residual(W, B, A)
+            Ws = (Wf * D[:, None, :]).reshape(n * dp, d)
             wint, Sc, Z = quantize(Ws, qcfg)
             wint = wint.reshape(n, dp, d)
             Sc, Z = Sc.reshape(n, dp, -1), Z.reshape(n, dp, -1)
@@ -226,23 +308,76 @@ class FusedRequantPlan:
                 if x is not None and f not in written:
                     getattr(into, f).copy_(shaped(x))
             return into
+        factors = dict(B=None, A=None) if ba is None else ba
         return QuantizedTensor(
-            **{f: shaped(x) for f, x in fields.items()}, B=None, A=None,
-            bits=qcfg.bits, group_size=qcfg.group_size, out_features=dp,
-            in_features=d)
+            **{f: shaped(x) for f, x in fields.items()}, B=factors["B"],
+            A=factors["A"], bits=qcfg.bits, group_size=qcfg.group_size,
+            out_features=dp, in_features=d)
 
-    def run(self, params, stats, count, into=None):
+    def _stat(self, stats, m: _Member):
+        return None if m.stat_key is None else \
+            stats["stack"][m.stat_key[0]][m.stat_key[1]]
+
+    def run(self, params, stats, count, lowrank_tree=None, *, only=None,
+            into=None):
         """The quantized parameter tree (fp leaves shared, not copied).
         ``into``: a tree this plan returned earlier; its quantized leaves
         are overwritten in place and it is returned, so its storage stays
-        where a captured decode graph reads it."""
+        where a captured decode graph reads it.  ``only`` (a set of family
+        keys, the delta gate's): requantize those families alone; the
+        others are left as they are in ``into`` (full precision in a new
+        tree)."""
         results = {}
         for key, members in self.families.items():
+            if only is not None and key not in only:
+                continue
+            has_ba = key[6]
             for m in members:
-                stat = None
-                if m.stat_key is not None:
-                    stat = stats["stack"][m.stat_key[0]][m.stat_key[1]]
                 results[m.path_str] = self._run_member(
-                    key, m, _tree_get(params, m.path), stat, count,
+                    key, m, _tree_get(params, m.path), self._stat(stats, m),
+                    count, _tree_get(lowrank_tree, m.path) if has_ba else None,
                     None if into is None else _tree_get(into, m.path))
         return into if into is not None else _replace(params, results)
+
+    # ------------------------------------------------------------ delta gate
+
+    def drift(self, stats, count, last_D: Dict[str, torch.Tensor]
+              ) -> Dict[str, float]:
+        """Relative-L2 drift of each member's activation diagonal D since
+        its snapshot in ``last_D`` ({path: (lead..., d) f32}), the largest
+        over the member's layers; members without a snapshot are omitted
+        (the gate requantizes them).  Computed on the device, then one
+        host transfer of the per-member scalars."""
+        tracked = [m for ms in self.families.values() for m in ms
+                   if m.path_str in last_D]
+        if not tracked:
+            return {}
+        vals = []
+        for m in tracked:
+            Dp = last_D[m.path_str].reshape(-1, m.d)
+            s = self._stat(stats, m)
+            s = torch.zeros_like(Dp) if s is None else s.reshape(-1, m.d)
+            Dn = m.eff.quantizer.diag(s, count, m.eff.acfg, m.d)
+            num = torch.linalg.vector_norm(Dn - Dp, dim=-1)
+            den = torch.linalg.vector_norm(Dp, dim=-1) + 1e-12
+            vals.append((num / den).max())
+        host = torch.stack(vals).cpu().tolist()        # the one transfer
+        return {m.path_str: v for m, v in zip(tracked, host)}
+
+    def gate(self, drifts: Dict[str, float], threshold: float,
+             have: set) -> tuple:
+        """(family keys to requantize, members requantized, members
+        skipped): a family requantizes when any member drifted by at least
+        ``threshold`` or has no previous QuantizedTensor (``have`` = the
+        paths that do)."""
+        only = set()
+        n_requant = n_skip = 0
+        for key, members in self.families.items():
+            if any(m.path_str not in have
+                   or drifts.get(m.path_str, float("inf")) >= threshold
+                   for m in members):
+                only.add(key)
+                n_requant += len(members)
+            else:
+                n_skip += len(members)
+        return only, n_requant, n_skip

@@ -20,8 +20,11 @@ def _tree_map(fn, *trees):
 
 
 def _tree_add(a: Any, b: Any) -> Any:
+    """a + b as new tensors; a copy of ``b`` when ``a`` is None.  Never the
+    caller's tensors: a prefill graph's statistics are its static outputs,
+    which its next replay overwrites."""
     if a is None:
-        return b
+        return None if b is None else _tree_map(lambda x: x.clone(), b)
     if b is None:
         return a
     return _tree_map(lambda x, y: x + y, a, b)

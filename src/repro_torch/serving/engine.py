@@ -2,8 +2,11 @@
 
   submit → [queue] → admit: PREFILL in full precision, stats tap on
                      → CALIBRATE (CalibrationSession)
-                     → REQUANTIZE: D = f(stats); W_int,S,Z = G[W∘D] — one
-                       ``ttq_quantize`` launch per weight stack
+                     → REQUANTIZE: D = f(stats); W_int,S,Z = G[(W−BA)∘D]
+                       — ``ttq_quantize`` launches per weight stack, only
+                       for the families the delta gate lets through
+                       (``requant_threshold``), landing in the tree decode
+                       reads or, with ``double_buffer``, in the other one
                      → DECODE in fused K-step blocks, each one replay of
                        a CUDA graph on the card; every packed-weight
                        matmul runs ``ttq_gemm`` and every int8/int4 KV read
@@ -55,10 +58,11 @@ class EngineConfig:
                                     # + 1, which never preempts; smaller
                                     # pools oversubscribe and preempt
     prefix_cache: bool = True       # share quantized prompt-prefix blocks
+    requant_threshold: float = -1.0  # ≥0 → delta-gated requantization
+    double_buffer: bool = False     # requant into the tree decode is not
+                                    # reading; swap when it is ready
     # ---- fields of the reference whose machinery comes in later slices;
     # a non-default value raises NotImplementedError ----
-    requant_threshold: float = -1.0  # delta gate
-    double_buffer: bool = False
     speculate_k: int = 0            # self-speculative decoding
     guards: bool = True             # guards and faults (this slice: False)
     guard_cfg: object = None
@@ -69,8 +73,6 @@ class EngineConfig:
 
 
 _LATER = [  # (field, value that keeps it off, slice that brings it)
-    ("requant_threshold", -1.0, "the delta gate and double buffer"),
-    ("double_buffer", False, "the delta gate and double buffer"),
     ("speculate_k", 0, "speculation"),
     ("guards", False, "guards and faults"),
     ("guard_cfg", None, "guards and faults"),
@@ -130,13 +132,15 @@ class TTQEngine:
                                    num_blocks=self.num_blocks)
         self.qmodel = QuantizedModel(
             params, policy,
-            session=CalibrationSession(halflife=ecfg.stats_halflife))
+            session=CalibrationSession(halflife=ecfg.stats_halflife),
+            double_buffer=ecfg.double_buffer)
         self.scheduler = Scheduler(ecfg, self.kvcfg, self.num_blocks)
         self.requant_wall_s = 0.0
 
     def _requantize(self):
+        thr = self.ecfg.requant_threshold
         t0 = time.perf_counter()
-        tree = self.qmodel.requantize()
+        tree = self.qmodel.requantize(threshold=thr if thr >= 0 else None)
         self.requant_wall_s += time.perf_counter() - t0
         if tree is not None:
             self.scheduler.note_requant()
@@ -154,6 +158,20 @@ class TTQEngine:
         return self.qmodel.n_requants
 
     @property
+    def lowrank_tree(self):
+        return self.qmodel.lowrank_tree
+
+    @property
+    def layers_requantized(self) -> int:
+        """Quantized-leaf requantizations dispatched across all requants."""
+        return self.qmodel.total_requant_layers
+
+    @property
+    def layers_skipped(self) -> int:
+        """Quantized-leaf requantizations the delta gate skipped."""
+        return self.qmodel.total_skipped_layers
+
+    @property
     def host_syncs(self) -> int:
         return self.runner.host_syncs
 
@@ -161,9 +179,10 @@ class TTQEngine:
     def compiled_programs(self) -> int:
         """Programs resident on the device, the reference's count
         (``src/repro/serving/engine.py:compiled_programs``): the runner's
-        decode graphs.  Prefill and requant run eagerly and hold none.
-        Bounded by construction (one graph per parameter-tree layout), so
-        it stays flat from the first decode block on."""
+        decode graphs (one per parameter-tree layout: two under the double
+        buffer) and prefill graphs (one per admission shape).  The requant
+        runs eagerly and holds none.  Flat once every shape of the traffic
+        has been admitted."""
         return self.runner.compiled_programs
 
     @property

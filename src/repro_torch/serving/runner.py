@@ -15,19 +15,26 @@ prompt's tail, gathering the cached prefix from the pool), and
 ``release_slots`` points freed slots at the sink block 0, so their
 done-lane writes never reach blocks handed to someone else.
 
-On a CUDA device a decode block is a CUDA graph, the port's counterpart of
-the reference's ``jax.jit(lm.decode_many)``: the first block at a new
-layout (see :func:`_layout`) runs eagerly on a side stream (it warms
-cuBLAS and the kernel library), then ``decode_many``'s K steps are
-captured; every later block replays the graph, one launch.  A graph reads
-the addresses it captured, so everything a block reads keeps its storage:
-the decode state, ``cur_tok``/``pos``/``done``/``remaining`` (written in
-place; the block ends by copying its carry into them) and the parameter
-tree (a requant lands in place, ``quant/api.py:FusedRequantPlan.run``).
-A tree at new storage has a new layout and gets its own graph, so a
-replay never reads a stale tree.  On the CPU the block is the eager loop,
-the plain version.  There is no switch between the two and no fallback: a
-capture or replay that fails raises.
+On a CUDA device a decode block and an admission group's prefill are CUDA
+graphs, the port's counterparts of the reference's ``jax.jit(lm.
+decode_many)`` and ``_prefill_jit``.  The first run at a new key runs
+eagerly on a side stream (it warms cuBLAS and the kernel library), then
+its work is captured; every later run at that key replays the graph.  A
+decode graph is keyed by the layout (see :func:`_layout`) of everything a
+block reads; a prefill graph by (bucket, group size, prefix length) and
+the parameter tree's layout (paged or not is the runner's).  A graph reads
+the addresses it captured, so everything it reads keeps its storage: the
+decode state, ``cur_tok``/``pos``/``done``/``remaining`` (written in
+place; the block ends by copying its carry into them), the parameter tree
+(a requant lands in place, ``quant/api.py:FusedRequantPlan.run``) and a
+prefill graph's input buffers (tokens, last-row index, slots, the paged
+block rows and prefix table), which each admission writes in place.  A
+tree at new storage has a new layout and gets its own graph, so a replay
+never reads a stale tree.  The prefill graphs share one memory pool: they
+replay one at a time, and each replay's outputs (first tokens, stats) are
+consumed before the next.  On the CPU both run eagerly, the plain
+version.  There is no switch between the two and no fallback: a capture
+or replay that fails raises.
 
 ``host_syncs`` counts blocking device→host transfers.
 """
@@ -127,8 +134,9 @@ def _layout(tree):
 @dataclasses.dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
-    out: torch.Tensor               # the packed block result, overwritten
+    out: object                     # its outputs, overwritten per replay
     launches: dict                  # kernel launches per replay
+    inputs: dict                    # static input buffers (prefill)
 
 
 class DeviceRunner:
@@ -149,12 +157,74 @@ class DeviceRunner:
         self.done = torch.ones((B,), dtype=torch.bool, device=dev)
         self.remaining = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.host_syncs = 0
-        self._graphs: dict = {}         # layout → _Graph (CUDA only)
+        self._graphs: dict = {}         # layout → decode _Graph (CUDA)
+        self._prefills: dict = {}       # shape, layout → prefill _Graph
+        self._pool = None               # the prefill graphs' memory pool
         self._stream = None             # the side stream of warm + capture
         self.capture_s = 0.0            # wall time of warm blocks + captures
+        self.prefill_capture_s: dict = {}   # (bucket, n, prefix) → seconds
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _prefill_inputs(self, group) -> dict:
+        """A group's prefill inputs as host arrays: tokens (n, bucket) — the
+        prompts past ``prefix_len``, right-padded — the last real row of
+        each, the slots; paged, each written logical block's physical block
+        (pad blocks past the prompt, and logical blocks a request does not
+        own, go to the sink), the slots' block-table rows and, after a
+        prefix hit, the prefix's blocks."""
+        reqs, pfx = group.requests, group.prefix_len
+        toks = np.zeros((len(reqs), group.bucket), np.int32)
+        for i, r in enumerate(reqs):
+            tail = r.prompt[pfx:]
+            toks[i, :len(tail)] = tail
+        plens = np.asarray([len(r.prompt) for r in reqs], np.int64)
+        inp = dict(tokens=toks, last=plens - pfx - 1,
+                   slots=np.asarray(group.slots, np.int64))
+        if self.paged:
+            bs = self.kvcfg.block_size
+            nbw, pb0 = -(-group.bucket // bs), pfx // bs
+            phys = np.full((len(reqs), nbw), SINK, np.int32)
+            rows = np.full((len(reqs), self.ecfg.max_len // bs), SINK,
+                           np.int32)
+            for i, r in enumerate(reqs):
+                rows[i, :len(r.blocks)] = r.blocks
+                for j in range(nbw):
+                    lb = pb0 + j
+                    if lb * bs < len(r.prompt) and lb < len(r.blocks):
+                        phys[i, j] = r.blocks[lb]
+            inp.update(phys=phys, rows=rows)
+            if pfx:
+                inp["ptab"] = np.asarray([r.blocks[:pb0] for r in reqs],
+                                         np.int32)
+        return inp
+
+    def _prefill(self, params, state, inp: dict, pfx: int, generator):
+        """An admission group's device work, the body of a prefill graph:
+        the stack with the stats tap on (a paged tail over the prefix
+        gathered from the pool), each row's last-position logits, the cache
+        writes into ``state`` (the slots' slab rows, or the pool blocks and
+        block-table rows) and the first tokens.  ``inp``: the tensors of
+        :meth:`_prefill_inputs`.  Returns (first tokens (n,) int32,
+        stats)."""
+        prefix_kv = None
+        if pfx:
+            prefix_kv = _gather_prefix(state["stack"], inp["ptab"],
+                                       self.kvcfg)
+        logits, sstate, stats = lm.prefill(
+            self.cfg, params, {"tokens": inp["tokens"]}, self.ecfg.max_len,
+            collect_stats=True, full_logits=True, kvcfg=self.kvcfg,
+            prefix_kv=prefix_kv, pos0=pfx)
+        n = inp["tokens"].shape[0]
+        last = logits[torch.arange(n, device=logits.device), inp["last"]]
+        if self.paged:
+            _write_paged(state["stack"], sstate["stack"], inp["phys"],
+                         self.kvcfg.block_size)
+            state["block_table"][inp["slots"]] = inp["rows"]
+        else:
+            _write_slots(state, sstate, inp["slots"])
+        return sample_logits(last, generator, self.ecfg.temperature), stats
 
     def admit_group(self, params, group):
         """One bucketed prefill for ``len(group.slots)`` prompts: right-pad to
@@ -163,35 +233,23 @@ class DeviceRunner:
         row's first token and write each row's cache into its slot.  A paged
         group prefills only the prompt tails past its ``prefix_len``, over
         the prefix gathered from the pool, and scatters the tails' rows into
-        each slot's blocks.
+        each slot's blocks.  On a CUDA device that work is one replay of the
+        group shape's prefill graph (captured at its first admission).
 
         Returns (first tokens (n,), finished (n,)) as host arrays — one sync
-        for the group — and the group's statistics."""
+        for the group — and the group's statistics (a graph's outputs: the
+        next admission overwrites them)."""
         reqs, pfx = group.requests, group.prefix_len
-        toks_h = np.zeros((len(reqs), group.bucket), np.int32)
-        for i, r in enumerate(reqs):
-            tail = r.prompt[pfx:]
-            toks_h[i, :len(tail)] = tail
-        prefix_kv = None
-        if pfx:
-            bs = self.kvcfg.block_size
-            ptab = self._tensor(np.asarray([r.blocks[:pfx // bs]
-                                            for r in reqs], np.int32))
-            prefix_kv = _gather_prefix(self.state["stack"], ptab, self.kvcfg)
-        logits, sstate, stats = lm.prefill(
-            self.cfg, params, {"tokens": self._tensor(toks_h)},
-            self.ecfg.max_len, collect_stats=True, full_logits=True,
-            kvcfg=self.kvcfg, prefix_kv=prefix_kv, pos0=pfx)
-        plens_h = np.asarray([len(r.prompt) for r in reqs], np.int64)
-        last = logits[torch.arange(len(reqs), device=self.device),
-                      self._tensor(plens_h - pfx - 1)]
-        idx = torch.as_tensor(group.slots, dtype=torch.long, device=self.device)
-        if self.paged:
-            self._write_group_paged(group, sstate)
+        host = self._prefill_inputs(group)
+        if self.device.type == "cuda":
+            first, stats = self._prefill_graph(params, host, group)
         else:
-            _write_slots(self.state, sstate, idx)
+            inp = {k: self._tensor(v) for k, v in host.items()}
+            first, stats = self._prefill(params, self.state, inp, pfx,
+                                         self.generator)
+        plens_h = host["last"] + pfx + 1
+        idx = torch.as_tensor(group.slots, dtype=torch.long, device=self.device)
         ecfg = self.ecfg
-        first = sample_logits(last, self.generator, ecfg.temperature)
         budget_h = np.asarray([r.remaining for r in reqs], np.int32) - 1
         self.pos[idx] = self._tensor(plens_h.astype(np.int32))
         self.cur_tok[idx] = first[:, None]
@@ -203,25 +261,28 @@ class DeviceRunner:
         self.done[idx] = self._tensor(fin_h)
         return first_h, fin_h, stats
 
-    def _write_group_paged(self, group, sstate):
-        """Scatter a paged group's tail rows into each slot's blocks (pad
-        blocks past the prompt, and logical blocks a request does not own,
-        go to the sink) and set the slots' block-table rows."""
-        bs, reqs, pfx = self.kvcfg.block_size, group.requests, group.prefix_len
-        nbw, pb0 = -(-group.bucket // bs), pfx // bs
-        phys = np.full((len(reqs), nbw), SINK, np.int32)
-        for i, r in enumerate(reqs):
-            for j in range(nbw):
-                lb = pb0 + j
-                if lb * bs < len(r.prompt) and lb < len(r.blocks):
-                    phys[i, j] = r.blocks[lb]
-        _write_paged(self.state["stack"], sstate["stack"], self._tensor(phys),
-                     bs)
-        rows = np.full((len(reqs), self.ecfg.max_len // bs), SINK, np.int32)
-        for i, r in enumerate(reqs):
-            rows[i, :len(r.blocks)] = r.blocks
-        idx = torch.as_tensor(group.slots, dtype=torch.long, device=self.device)
-        self.state["block_table"][idx] = self._tensor(rows)
+    def _prefill_graph(self, params, host: dict, group):
+        """Replay the prefill graph of this group's key after writing its
+        inputs into the graph's buffers; capture it first if there is none
+        (the warm-up admission's results are returned)."""
+        pfx = group.prefix_len
+        shape = (group.bucket, len(group.requests), pfx)
+        key = (shape, _layout(params))
+        g = self._prefills.get(key)
+        if g is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            inputs = {k: self._tensor(v) for k, v in host.items()}
+            warm, dt = self._capture(
+                lambda: self._prefill(params, self.state, inputs, pfx,
+                                      self.generator),
+                self._prefills, key, pool=self._pool, inputs=inputs)
+            self.prefill_capture_s[shape] = \
+                self.prefill_capture_s.get(shape, 0.0) + dt
+            return warm
+        for k, buf in g.inputs.items():
+            buf.copy_(torch.from_numpy(host[k]))
+        return self._replay(g)
 
     def release_slots(self, slots):
         """Deactivate freed slots (finished, preempted, cancelled): done
@@ -242,10 +303,11 @@ class DeviceRunner:
 
     @property
     def compiled_programs(self) -> int:
-        """Decode graphs held (one per parameter-tree layout: the
-        full-precision tree before the first requant, then the quantized
-        one); 0 on the CPU.  Prefill runs eagerly and holds none."""
-        return len(self._graphs)
+        """Graphs held, the reference's count of its decode and prefill jit
+        caches: decode graphs (one per parameter-tree layout: the
+        full-precision tree before the first requant, then each quantized
+        tree) and prefill graphs (one per admission key); 0 on the CPU."""
+        return len(self._graphs) + len(self._prefills)
 
     def _eager_block(self, params) -> torch.Tensor:
         """``decode_chunk`` steps of ``lm.decode_many`` from the runner's
@@ -263,31 +325,37 @@ class DeviceRunner:
         return torch.cat([toks, valid.to(torch.int32),
                           self.done.to(torch.int32)[:, None]], dim=1)
 
-    def _capture(self, params, key) -> torch.Tensor:
-        """Run one block eagerly on the side stream (the warm block: cuBLAS
+    def _capture(self, fn, graphs: dict, key, pool=None, inputs=None):
+        """Run ``fn`` once eagerly on the side stream (the warm-up: cuBLAS
         handles and workspaces, the kernel library and the split rules'
-        caches are set up outside the capture), then capture the next
-        block's work as a graph without running it.  Returns the warm
-        block's result."""
+        caches are set up outside the capture), then capture its work as a
+        graph without running it, stored in ``graphs[key]``.  Returns the
+        warm run's result and the seconds both took."""
         t0 = time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         cur = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
-            warm = self._eager_block(params)
+            warm = fn()
         cur.wait_stream(self._stream)
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None and self.ecfg.temperature > 0:
             graph.register_generator_state(self.generator)
         before = dict(build.LAUNCHES)
-        with torch.cuda.graph(graph, stream=self._stream):
-            out = self._eager_block(params)
+        with torch.cuda.graph(graph, pool=pool, stream=self._stream):
+            out = fn()
         launches = {k: build.LAUNCHES[k] - n for k, n in before.items()}
         build.LAUNCHES.update(before)   # captured, not launched
-        self._graphs[key] = _Graph(graph, out, launches)
-        self.capture_s += time.perf_counter() - t0
-        return warm
+        graphs[key] = _Graph(graph, out, launches, inputs or {})
+        return warm, time.perf_counter() - t0
+
+    @staticmethod
+    def _replay(g: _Graph):
+        g.graph.replay()
+        for k, n in g.launches.items():
+            build.LAUNCHES[k] += n
+        return g.out
 
     def _key(self, params):
         return _layout((params, self.state, self.cur_tok, self.pos,
@@ -304,11 +372,11 @@ class DeviceRunner:
         key = self._key(params)
         g = self._graphs.get(key)
         if g is None:
-            return self._capture(params, key)
-        g.graph.replay()
-        for k, n in g.launches.items():
-            build.LAUNCHES[k] += n
-        return g.out
+            warm, dt = self._capture(lambda: self._eager_block(params),
+                                     self._graphs, key)
+            self.capture_s += dt
+            return warm
+        return self._replay(g)
 
     def decode_block(self, params):
         """One fused block over every slot.  Returns host copies (tokens

@@ -15,7 +15,9 @@ a replay that the CPU can check:
 * ``compiled_programs`` is 0 where nothing is captured.
 
 On the card (``gpu`` marker) the graph's tokens are held bitwise to the
-eager ``lm.decode_many``'s on clones of the same state, block by block.
+eager ``lm.decode_many``'s on clones of the same state, block by block, and
+each prefill replay's first tokens, statistics and written cache rows to
+the eager prefill's; the double buffer's two trees are held apart.
 Inputs come from numpy or torch generators with a seed."""
 import contextlib
 
@@ -52,8 +54,8 @@ def _prompts(seed, n, vocab, lo=3, hi=12):
             for k in rng.integers(lo, hi, size=n)]
 
 
-def _policy(bits=4, kv="int8", use_kernels=True, **kv_kw):
-    return ttq_policy(bits=bits, group_size=32, rank=0, packed=True,
+def _policy(bits=4, kv="int8", use_kernels=True, rank=0, **kv_kw):
+    return ttq_policy(bits=bits, group_size=32, rank=rank, packed=True,
                       kvcache=KVCacheConfig(dtype=kv, **kv_kw),
                       kernel=KernelConfig(use_pallas=use_kernels))
 
@@ -276,6 +278,25 @@ def test_block_leaves_the_state_where_decode_many_does(cpu_params, paged,
     assert r.compiled_programs == 0
 
 
+def test_session_keeps_its_own_copy(cpu_params):
+    """CalibrationSession.update never keeps the caller's tensors (on the
+    card they are a prefill graph's outputs, which its next replay
+    overwrites): writing into them after an update changes nothing."""
+    from repro_torch.quant import CalibrationSession
+    toks = torch.from_numpy(np.asarray(_prompts(3, 2, CPU_CFG.vocab, 8, 9),
+                                       np.int64))
+    mine = tlm.prefill(CPU_CFG, cpu_params, {"tokens": toks}, 16)[2]
+    want = [t.clone() for t in _leaves(mine)]
+    s = CalibrationSession()
+    s.update(mine, 16.0)
+    for t in _leaves(mine):
+        t.fill_(-1.0)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(s.stats), want))
+    s.update(mine, 16.0)
+    assert all(torch.equal(a, b - 1.0) for a, b in zip(_leaves(s.stats),
+                                                       want))
+
+
 # -------------------------------------------------------------- on a card
 
 @pytest.fixture
@@ -328,6 +349,9 @@ CASES = {
     "preemption": dict(policy=dict(kv="int8"),
                        engine=dict(kv_paged=True, kv_block_size=16,
                                    kv_pool_blocks=7)),
+    "low rank, gate, double buffer": dict(
+        policy=dict(kv="int8", rank=16),
+        engine=dict(requant_threshold=0.05, double_buffer=True)),
 }
 
 
@@ -356,7 +380,12 @@ def test_graph_tokens_equal_eager(gpu_params, cuda, case):
         out = eng.run_all()
     assert all(len(out[i]) == 20 and not out[i].unfinished for i in rids)
     assert seen["blocks"] >= 8 and eng.n_requants >= 2
-    assert eng.compiled_programs == 1         # every requant landed in place
+    r = eng.runner
+    assert eng.compiled_programs == len(r._graphs) + len(r._prefills)
+    if eng.ecfg.double_buffer:                # one decode graph per tree
+        assert 1 <= len(r._graphs) <= 2
+    else:                                     # every requant landed in place
+        assert len(r._graphs) == 1
     if case == "preemption":
         assert eng.preemptions > 0
         eng.allocator.assert_quiescent()
@@ -372,11 +401,11 @@ def test_graph_through_the_first_requant(gpu_params, cuda):
     with _shadowed(eng) as seen:
         for _ in range(3):
             assert eng.step()
-        assert eng.n_requants == 0 and eng.compiled_programs == 1
+        assert eng.n_requants == 0 and len(eng.runner._graphs) == 1
         for p in prompts[1:]:
             eng.submit(p, max_new=12)
         eng.run_all()
-    assert eng.n_requants >= 1 and eng.compiled_programs == 2
+    assert eng.n_requants >= 1 and len(eng.runner._graphs) == 2
     assert seen["blocks"] >= 6
 
 
@@ -401,7 +430,7 @@ def test_requant_between_blocks_and_the_stale_graph(gpu_params, cuda):
         eng.qmodel.calibrate(stats, 1e4)
         eng._requantize()                               # in place
         assert eng.step()
-    assert eng.compiled_programs == 1
+    assert len(r._graphs) == 1
     # the trap: other weights at new storage, through the captured graph
     other = tlm.init_params(GPU_CFG, torch.Generator(device=cuda)
                             .manual_seed(1), device=cuda)
@@ -418,22 +447,31 @@ def test_requant_between_blocks_and_the_stale_graph(gpu_params, cuda):
                         snap):
         _copy_into(dst, src)
     got = r.block(new_tree).cpu().numpy()               # a new layout
-    assert np.array_equal(got, want_new) and r.compiled_programs == 2
+    assert np.array_equal(got, want_new) and len(r._graphs) == 2
 
 
 @pytest.mark.gpu
 def test_compiled_programs_flat_with_requants(gpu_params, cuda):
-    """The port of tests/test_runtime_guards.py:124-129: no program is added
-    from the first decode block to the end of a run that requantizes after
-    every admission."""
+    """The port of tests/test_runtime_guards.py:124-129: no decode graph is
+    added from the first decode block to the end of a run that requantizes
+    after every admission, one prefill graph is held per admission shape,
+    and a rerun of the same traffic adds no program at all."""
     eng = _engine(GPU_CFG, gpu_params, _policy(), cuda)
-    for p in _prompts(12, 6, GPU_CFG.vocab, 5, 30):
+    prompts = _prompts(12, 6, GPU_CFG.vocab, 5, 30)
+    for p in prompts:
         eng.submit(p, max_new=10)
     assert eng.step()
-    warm, req = eng.compiled_programs, eng.n_requants
+    req = eng.n_requants
     eng.run_all()
-    assert eng.compiled_programs == warm == 1
-    assert eng.n_requants >= req + 2
+    r = eng.runner
+    assert len(r._graphs) == 1 and eng.n_requants >= req + 2
+    assert len(r._prefills) == len(r.prefill_capture_s) >= 1
+    cold = eng.compiled_programs
+    assert cold == 1 + len(r._prefills)
+    for p in prompts:
+        eng.submit(p, max_new=10)
+    eng.run_all()
+    assert eng.compiled_programs == cold
 
 
 @pytest.mark.gpu
@@ -463,4 +501,177 @@ def test_replays_count_launches_and_sync_nothing(gpu_params, cuda, paged):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert kbuild.LAUNCHES == {k: 3 * n for k, n in per_block.items()}
-    assert r.compiled_programs == 1
+    assert len(r._graphs) == 1
+
+
+# ------------------------------------------------------- the prefill graph
+
+def _tree_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def _kv_equal(eng, a, b):
+    """Decode states equal, but a paged pool's sink block 0 (pad rows and
+    done lanes write there in an unspecified order; never read unmasked)."""
+    if not eng.runner.paged:
+        return _tree_equal(a, b)
+    return torch.equal(a["block_table"], b["block_table"]) and all(
+        torch.equal(x[:, 1:], y[:, 1:])
+        for x, y in zip(_leaves(a["stack"]), _leaves(b["stack"])))
+
+
+@contextlib.contextmanager
+def _prefill_shadowed(eng):
+    """Hold every admission of ``eng`` to the eager prefill body on clones
+    of the state and generator it started from: first tokens, statistics
+    and every state leaf after the writes (a paged pool's but its sink
+    block), bit for bit.  Yields counts of admissions that captured and
+    that replayed."""
+    r = eng.runner
+    real = r.admit_group
+    seen = {"captured": 0, "replayed": 0}
+
+    def run(params, group):
+        snap = _snapshot(r)
+        n = len(r._prefills)
+        first, fin, stats = real(params, group)
+        st, gen = snap[0], snap[-1]
+        inp = {k: torch.from_numpy(v).to(r.device)
+               for k, v in r._prefill_inputs(group).items()}
+        want, want_stats = r._prefill(params, st, inp, group.prefix_len, gen)
+        assert np.array_equal(first, want.cpu().numpy())
+        assert _tree_equal(stats, want_stats)
+        assert _kv_equal(eng, r.state, st)
+        seen["captured" if len(r._prefills) > n else "replayed"] += 1
+        return first, fin, stats
+    r.admit_group = run
+    try:
+        yield seen
+    finally:
+        del r.admit_group
+
+
+def _prefix_prompts(seed, n, vocab, prefix=16):
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, size=prefix).tolist()
+    return [head + t for t in _prompts(seed + 1, n, vocab, 5, 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged prefix"])
+def test_prefill_graph_equals_eager(gpu_params, cuda, paged, temperature):
+    """Every admission's prefill graph (captured, then replayed at the same
+    key) against the eager prefill; paged traffic shares a one-block
+    prefix, so tail prefills over a gathered prefix are among them."""
+    kw = dict(kv_paged=True, kv_block_size=16) if paged else {}
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, max_slots=2,
+                  temperature=temperature, generator=gen, **kw)
+    prompts = (_prefix_prompts(18, 8, GPU_CFG.vocab) if paged
+               else _prompts(18, 8, GPU_CFG.vocab, 5, 30))
+    for p in prompts:
+        eng.submit(p, max_new=6)
+    with _prefill_shadowed(eng) as seen:
+        eng.run_all()
+    assert seen["captured"] >= 1 and seen["replayed"] >= 1
+    if paged:
+        assert eng.allocator.prefix_hits > 0
+        eng.allocator.assert_quiescent()
+
+
+@pytest.mark.gpu
+def test_second_admission_at_a_key_replays(gpu_params, cuda):
+    """Two admissions of the same shape: the first captures, the second
+    writes its inputs into the graph's buffers and replays."""
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, max_slots=2)
+    r = eng.runner
+    replays = []
+    real = r._replay
+    r._replay = lambda g: replays.append(g) or real(g)
+    a, b = _prompts(19, 2, GPU_CFG.vocab, 9, 10)
+    eng.submit(a, max_new=3)
+    eng.run_all()
+    assert len(r._prefills) == 1 and not any(
+        g in r._prefills.values() for g in replays)
+    captured = dict(r.prefill_capture_s)
+    eng.submit(b, max_new=3)
+    eng.run_all()
+    (g,) = r._prefills.values()
+    assert replays.count(g) == 1 and r.prefill_capture_s == captured
+
+
+@pytest.mark.gpu
+def test_session_stats_survive_the_next_prefill_replay(gpu_params, cuda):
+    """The statistics a replay returns are its graph's outputs, which the
+    next replay at the key overwrites: a session whose first update came
+    from a replay must hold its own copy."""
+    from repro_torch.quant import CalibrationSession
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, max_slots=2,
+                  recalibrate_every=100)
+    r = eng.runner
+    prompts = _prompts(20, 3, GPU_CFG.vocab, 9, 10)    # one admission key
+    eng.submit(prompts[0], max_new=2)
+    eng.run_all()                                      # captures
+    eng.qmodel.session = CalibrationSession()
+    eng.submit(prompts[1], max_new=2)
+    eng.run_all()                                      # a replay: update 1
+    (g,) = r._prefills.values()
+    held = _clone(eng.qmodel.session.stats)
+    assert _tree_equal(held, g.out[1])
+    eng.submit(prompts[2], max_new=2)
+    eng.run_all()                                      # overwrites g.out
+    want = {"stack": [{k: held["stack"][0][k] + v for k, v in
+                       g.out[1]["stack"][0].items()}]}
+    assert not _tree_equal(held, g.out[1])
+    assert _tree_equal(eng.qmodel.session.stats, want)
+
+
+def _written(tree):
+    return {t.data_ptr() for q in _qts(tree).values() for t in
+            (getattr(q, f) for f in FIELDS) if t is not None}
+
+
+@pytest.mark.gpu
+def test_double_buffer_requant_never_writes_the_tree_decode_reads(
+        gpu_params, cuda):
+    """Under the double buffer, a requant writes the tree decode is not
+    reading: the serving tree's codes, S, Z and 1/D are unchanged and its
+    captured graph still decodes what eager decode does on it; the two
+    trees share no written storage, and each gets its own decode graph."""
+    eng = _engine(GPU_CFG, gpu_params, _policy(rank=16), cuda,
+                  double_buffer=True, requant_threshold=0.0)
+    prompts = _prompts(21, 6, GPU_CFG.vocab, 5, 30)
+    for p in prompts[:2]:
+        eng.submit(p, max_new=40)
+    assert eng.step() and eng.step()                # tree A serves
+    qm, r = eng.qmodel, eng.runner
+    a = eng.decode_params
+    held = _clone([getattr(q, f) for q in _qts(a).values() for f in FIELDS
+                   if getattr(q, f) is not None])
+    toks = torch.from_numpy(np.asarray(_prompts(22, 2, GPU_CFG.vocab, 16, 17),
+                                       np.int64))
+    stats = tlm.prefill(GPU_CFG, gpu_params, {"tokens": toks.to(cuda)}, 64)[2]
+    qm.calibrate(stats, 1e4)
+    b = qm.requantize(threshold=0.0)                # into B, side stream
+    assert b is not a and qm._pending is b
+    lanes = _snapshot(r)[:-1]
+    with _shadowed(eng):
+        assert r.decode_block(a)                    # a replay reading A
+    torch.cuda.synchronize()
+    for dst, src in zip((r.state, r.cur_tok, r.pos, r.done, r.remaining),
+                        lanes):                     # as the scheduler left it
+        _copy_into(dst, src)
+    now = [getattr(q, f) for q in _qts(a).values() for f in FIELDS
+           if getattr(q, f) is not None]
+    assert all(torch.equal(x, y) for x, y in zip(now, held))
+    assert not _written(a) & _written(b)
+    assert eng.decode_params is b                   # ready → swapped
+    with _shadowed(eng):
+        for p in prompts[2:]:
+            eng.submit(p, max_new=10)
+        eng.run_all()
+    assert eng.n_requants >= 4 and len(r._graphs) == 2
+    trees = {id(t) for t in (qm.qparams, qm._spare, qm._pending)
+             if t is not None}
+    assert trees == {id(a), id(b)}

@@ -99,16 +99,36 @@ def test_engine_options_of_later_slices_raise():
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     for kw in ({}, dict(guards=False, speculate_k=2),
-               dict(guards=False, requant_threshold=0.1),
                dict(guards=False, prefill_chunk=16)):
         with pytest.raises(NotImplementedError):
             TTQEngine(cfg, params, ttq_policy(rank=0), EngineConfig(**kw),
                       device="cpu")
-    # the low-rank SVD init comes later: a rank > 0 policy refuses to requant
-    from repro_torch.quant import QuantizedModel
-    _, _, stats = lm.prefill(cfg, params,
-                             {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                             8)
-    qm = QuantizedModel(params, ttq_policy(rank=8)).calibrate(stats, 4.0)
-    with pytest.raises(NotImplementedError):
-        qm.requantize()
+
+
+@pytest.mark.parametrize("ecfg", [dict(requant_threshold=0.1),
+                                  dict(double_buffer=True),
+                                  dict(requant_threshold=0.1,
+                                       double_buffer=True)],
+                         ids=["threshold", "double buffer", "both"])
+def test_engine_serves_the_reference_default_policy(ecfg):
+    """``ttq_policy()`` (its default rank 16) with the delta gate and the
+    double buffer: the options that refused before this slice construct and
+    serve; the factors are computed once and ride in every quantized leaf."""
+    from repro_torch.configs import get
+    from repro_torch.core import ttq_policy
+    from repro_torch.models import lm
+    from repro_torch.serving import EngineConfig, TTQEngine
+    cfg = get("gemma_7b", smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    eng = TTQEngine(cfg, params, ttq_policy(),
+                    EngineConfig(guards=False, max_slots=2, max_len=64,
+                                 decode_chunk=2, **ecfg), device="cpu")
+    rids = [eng.submit([5 + i, 9, 17, 3], max_new=4) for i in range(3)]
+    out = eng.run_all()
+    assert all(len(out[r]) == 4 and not out[r].unfinished for r in rids)
+    assert eng.n_requants >= 2 and eng.lowrank_tree is not None
+    wg = eng.decode_params["stack"][0]["u0"]["mlp"]["wg"]
+    lr = eng.lowrank_tree["stack"][0]["u0"]["mlp"]["wg"]
+    assert wg.B is lr["B"] and wg.A is lr["A"] and wg.B.shape[-1] == 16
+    assert eng.layers_requantized + eng.layers_skipped == 7 * eng.n_requants

@@ -103,8 +103,12 @@ def test_quantized_model_lifecycle(ref):
     assert qm.n_requants == 1 and qm.decode_params is tree
     wq = tree["stack"][0]["u0"]["mix"]["wq"]
     assert wq.bits == 8 and wq.packed.shape == (2, 64, 16)
-    with pytest.raises(NotImplementedError):
-        qm.requantize(threshold=0.1)
+    # the delta gate: the same statistics again drift by 0, so every
+    # family keeps its codes and the tree stays the one decode reads
+    codes = wq.packed.clone()
+    assert qm.requantize(threshold=0.1) is tree
+    assert qm.last_requant_layers == 0 and qm.last_skipped_layers == 7
+    assert torch.equal(wq.packed, codes) and qm.decode_params is tree
 
 
 def test_plan_honours_per_layer_overrides(ref):

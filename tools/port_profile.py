@@ -15,6 +15,10 @@ the device-side rows (kernels and copies, never the host ops that
 launched them), so the device's busy and idle shares, the device launches
 per decode step, the host-side launch calls per block, and the rows that
 take the most device time with their mean time per call.
+
+Then one admission group's prefill (the first group of those 4 prompts, its
+graph captured at admission) the same way: the eager prefill body on a copy
+of the state, and one replay of the group's prefill graph.
 """
 from __future__ import annotations
 
@@ -69,6 +73,39 @@ def profile_block(torch, cfg, eng, prompts, what):
                   f"{key[:80]}")
 
 
+def profile_prefill(torch, eng, params, group, what):
+    """Trace one eager prefill of ``group`` (the runner's prefill body on a
+    copy of the state) beside one replay of its prefill graph."""
+    from chip_smoke import clone_tree, traced
+
+    r = eng.runner
+    host = r._prefill_inputs(group)
+    inp = {k: torch.from_numpy(v).to(r.device) for k, v in host.items()}
+    shape = (group.bucket, len(group.requests), group.prefix_len)
+    runs = {
+        "eager": lambda: r._prefill(params, clone_tree(torch, r.state), inp,
+                                    group.prefix_len, None)[0].cpu(),
+        "graph": lambda: r._prefill_graph(params, host, group)[0].cpu()}
+    for kind, fn in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+        t = traced(torch, fn, top=8)
+        print(f"{what}, prefill {kind}, (bucket, group, prefix) {shape}: wall "
+              f"{wall * 1e3:.2f} ms untraced, {t['wall_ms']:.2f} ms traced")
+        if not t["device_launches"]:
+            print("profiler: no device time recorded — device busy share "
+                  "not measured")
+            continue
+        print(f"{what}, prefill {kind}: device time {t['device_ms']:.2f} ms: "
+              f"busy {t['busy']:.1%}; {t['device_launches']} device launches; "
+              f"host launch calls {t['host_launches']} {t['host_apis']}")
+        for key, us, n in t["top"]:
+            print(f"  {us / 1e3:8.3f} ms  {n:6d}  {us / n:8.2f} us  "
+                  f"{key[:80]}")
+
+
 def main() -> int:
     import torch
 
@@ -84,7 +121,13 @@ def main() -> int:
     for what, kw in (("dense", {}),
                      ("paged", dict(kv_paged=True, kv_block_size=BLOCK))):
         _, _, eng = build_engine(torch, dev, cfg, params, **kw)
+        groups = []
+        real = eng.runner.admit_group
+        eng.runner.admit_group = lambda p, g: groups.append((p, g)) or real(
+            p, g)
         profile_block(torch, cfg, eng, prompts, what)
+        del eng.runner.admit_group
+        profile_prefill(torch, eng, *groups[0], what)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
