@@ -49,6 +49,22 @@
    same pair on the first layer alone, as its witness.  A rerun of the
    constrained traffic at full depth holds every graph block to the eager
    loop, through preemption and prefix hits.
+3d. The reference's default policy (rank 16, delta gate, double buffer)
+   at full width on DEPTH_3D layers, checks (a)-(e).
+3e. Self-speculative decoding (``speculate_k=SPEC_W``): (a) [3d]'s policy
+   and factors with its int4 rank-0 draft; (b) bf16 weights, int8 KV and
+   an int4 g32 draft (draft-only quantization) at full depth, on the dense
+   slab and on the paged pool; (c) (b) on the first layer.  Every
+   speculative block is a graph replay held bit for bit to an eager
+   ``speculate_many``; paged tokens equal dense ones; in (a), (b) and (c)
+   each request's first disagreement with the non-speculative run must be
+   a near-tie (its two tokens' logits closer than a recomputed decode step
+   and verify window differ); every kernel
+   launches on the path (``ttq_gemm`` at 4 and 16 rows); compiled programs
+   flat over a warm rerun.  Prints acceptance, ms per block, warm tokens/s
+   speculative and not, launches per block, captures, the draft requant's
+   ``ttq_quantize`` time and peak memory.  [2] also times ``ttq_gemm`` at
+   the verify window's 16 rows.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -117,6 +133,7 @@ SVD_TOL = 1e-4                 # relative, against a float64 CPU SVD
 REL_L2_ONE_LAYER = 1e-2
 WITNESS_RATIO = 1.5
 REL_L2_BOUND = 3e-2
+SPEC_W = 3                     # phase 3e: drafted tokens per window
 
 
 class CheckFailed(RuntimeError):
@@ -296,7 +313,8 @@ def kernel_quantize(torch, dev, flush):
 def kernel_gemm(torch, dev, flush):
     from repro_torch.core.qdq import unpack_bits
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels.ttq_gemm import ROW_TILE, gemm_splits, ttq_gemm
+    from repro_torch.kernels.ttq_gemm import (ROW_TILE, TOKEN_TILE, gemm_splits,
+                                              ttq_gemm)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
@@ -348,6 +366,23 @@ def kernel_gemm(torch, dev, flush):
               f"calls bitwise equal; at every split (us): " + ", ".join(
                   f"{s} {t * 1e3:.1f}" for s, t in gemm_at_splits(
                       torch, build.lib(), xb, pk, S, Z, dinv, flush).items()))
+        # the verify window of phase 3e: 4 slots x (SPEC_W + 1) rows
+        Tv = 4 * (SPEC_W + 1)
+        xv = torch.randn((Tv, d), generator=gen, device=dev).to(torch.bfloat16)
+        yv = ttq_gemm(xv, pk, S, Z, dinv, bits=4, group_size=32)
+        yv_r = ref.ttq_gemm_ref(xv, pk, S, Z, bits=4, group_size=32, dinv=dinv)
+        torch.testing.assert_close(yv.float(), yv_r, rtol=2 ** -7,
+                                   atol=2e-4 * scale)
+        t_v = time_ms(torch, lambda: ttq_gemm(xv, pk, S, Z, dinv, bits=4,
+                                              group_size=32), flush=flush)
+        t_vp = time_ms(torch, lambda: ref.ttq_gemm_ref(
+            xv, pk, S, Z, bits=4, group_size=32, dinv=dinv), flush=flush)
+        split_v = gemm_splits(dp, d, Tv, 4, 32, n_sm)
+        print(f"  ttq_gemm {name} T={Tv} int4 (the verify window): "
+              f"{t_v * 1e3:.1f} us, plain {t_vp * 1e3:.1f} us; split "
+              f"{split_v}, {-(-dp // ROW_TILE) * -(-Tv // TOKEN_TILE) * split_v}"
+              f" blocks; within one bf16 rounding of the plain version (max "
+              f"|diff| {float((yv.float() - yv_r).abs().max()):.3g})")
         n = 28 * per_layer
         ms, plain, lib, bound = (ms + n * t_k, plain + n * t_p,
                                  lib + n * t_l, bound + n * b)
@@ -612,10 +647,12 @@ def init_gemma(torch, dev):
     return cfg, params
 
 
-def build_engine(torch, dev, cfg=None, params=None, policy=None, **ecfg_kw):
+def build_engine(torch, dev, cfg=None, params=None, policy=None,
+                 engine_kw=None, **ecfg_kw):
     """``TTQEngine`` on full-width gemma-7b (random weights, seed 0; or the
     given ones), by default int4 g32 packed weights through the kernels,
-    int8 KV, 4 slots x 256; ``ecfg_kw`` adds to the ``EngineConfig``."""
+    int8 KV, 4 slots x 256; ``ecfg_kw`` adds to the ``EngineConfig`` and
+    ``engine_kw`` (``draft_policy``, ``lowrank``) to the engine's own."""
     from repro_torch.core import KernelConfig, KVCacheConfig, ttq_policy
     from repro_torch.serving import EngineConfig, TTQEngine
 
@@ -627,7 +664,8 @@ def build_engine(torch, dev, cfg=None, params=None, policy=None, **ecfg_kw):
                             kernel=KernelConfig(use_pallas=True))
     ecfg = EngineConfig(max_slots=4, max_len=256, decode_chunk=0,
                         guards=False, **ecfg_kw)
-    return cfg, ecfg, TTQEngine(cfg, params, policy, ecfg, device=dev)
+    return cfg, ecfg, TTQEngine(cfg, params, policy, ecfg, device=dev,
+                                **(engine_kw or {}))
 
 
 def serve(torch, eng, prompts):
@@ -697,15 +735,21 @@ def snapshot(torch, r):
             r.done.clone(), r.remaining.clone())
 
 
-def eager_block(torch, cfg, eng, params, snap):
+def eager_block(torch, cfg, eng, params, snap, draft=None):
     """One eager ``lm.decode_many`` block on ``snap`` (its state is
-    consumed), with the runner's one transfer: the (B, 2K+1) host array."""
+    consumed), or with ``draft`` one ``lm.speculate_many`` block, with the
+    runner's one transfer: the (B, 2C+1) host array."""
     from repro_torch.models import lm
     r = eng.runner
-    (toks, valid), (_, _, _, done, _, _) = lm.decode_many(
-        cfg, params, *snap, r.generator, K=r.K, max_len=eng.ecfg.max_len,
-        temperature=eng.ecfg.temperature, eos_token=eng.ecfg.eos_token,
-        kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    kw = dict(K=r.K, max_len=eng.ecfg.max_len, eos_token=eng.ecfg.eos_token,
+              kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    if draft is None:
+        (toks, valid), (_, _, _, done, _, _) = lm.decode_many(
+            cfg, params, *snap, r.generator,
+            temperature=eng.ecfg.temperature, **kw)
+    else:
+        (toks, valid), (_, _, _, done, _, _) = lm.speculate_many(
+            cfg, draft, params, *snap, r.generator, W=r.W, **kw)
     return torch.cat([toks, valid.to(torch.int32),
                       done.to(torch.int32)[:, None]], dim=1).cpu().numpy()
 
@@ -801,19 +845,20 @@ def graph_vs_eager(torch, cfg, eng, prompts):
     p = {"graph": 0.0, "eager": 0.0, "replayed": 0, "captured": 0,
          "shapes": set()}
 
-    def run(params):
+    def run(params, draft=None):
         snap = snapshot(torch, r)
         programs = r.compiled_programs
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks, valid, done = real(params)
+        toks, valid, done = real(params, draft)
         t1 = time.perf_counter()
-        want = eager_block(torch, cfg, eng, params, snap)
+        want = eager_block(torch, cfg, eng, params, snap,
+                           draft if r.W > 0 else None)
         t2 = time.perf_counter()
-        K = r.K
-        check(np.array_equal(toks, want[:, :K])
-              and np.array_equal(valid, want[:, K:2 * K].astype(bool))
-              and np.array_equal(done, want[:, 2 * K].astype(bool)),
+        C = toks.shape[1]
+        check(np.array_equal(toks, want[:, :C])
+              and np.array_equal(valid, want[:, C:2 * C].astype(bool))
+              and np.array_equal(done, want[:, 2 * C].astype(bool)),
               f"graph block {t['blocks'] + t['capture_blocks']}: tokens "
               f"differ from the eager loop's")
         if r.compiled_programs != programs:
@@ -861,6 +906,8 @@ def graph_vs_eager(torch, cfg, eng, prompts):
     adm = max(p["replayed"], 1)
     res = dict(graph_ms_per_step=t["graph"] * 1e3 / steps,
                eager_ms_per_step=t["eager"] * 1e3 / steps,
+               graph_ms_per_block=t["graph"] * 1e3 / max(t["blocks"], 1),
+               eager_ms_per_block=t["eager"] * 1e3 / max(t["blocks"], 1),
                blocks_timed=t["blocks"], capture_blocks=t["capture_blocks"],
                prefill_graph_ms=p["graph"] * 1e3 / adm,
                prefill_eager_ms=p["eager"] * 1e3 / adm,
@@ -1371,8 +1418,8 @@ def recorded(eng, swaps=None):
     log, per = [], []
     real_block, real_ready, real_rq = r.decode_block, qm._ready, eng._requantize
 
-    def block(params):
-        out = real_block(params)
+    def block(params, draft=None):
+        out = real_block(params, draft)
         n["blocks"] += 1
         return out
 
@@ -1437,7 +1484,6 @@ def default_policy(torch, dev, cfg, params, base) -> dict:
     from repro_torch.core import KernelConfig, KVCacheConfig, ttq_policy
     from repro_torch.kernels import build
     from repro_torch.models.stack import layer_slice
-    from repro_torch.quant import model as qmodel
 
     res = {"svd": svd_against_f64(torch, params)}
     cfg_d = dataclasses.replace(cfg, n_layers=DEPTH_3D)
@@ -1480,12 +1526,9 @@ def default_policy(torch, dev, cfg, params, base) -> dict:
     check(len(swaps) >= 1, "3d: the double buffer never swapped")
     cold = eng.compiled_programs
     # (c) a rerun forcing the recorded swaps: the same tokens, bit for bit
-    saved = qmodel.lowrank_tree
-    qmodel.lowrank_tree = lambda *a: eng.lowrank_tree     # no second SVD
-    try:
-        _, _, again = build_engine(torch, dev, cfg_d, params_d, policy, **kw)
-    finally:
-        qmodel.lowrank_tree = saved
+    factors = eng.lowrank_tree                            # no second SVD
+    _, _, again = build_engine(torch, dev, cfg_d, params_d, policy,
+                               dict(lowrank=factors), **kw)
     forced, per2 = recorded(again, set(swaps))
     outs2, _ = serve(torch, again, prompts)
     check([list(o) for o in outs2] == [list(o) for o in outs]
@@ -1535,6 +1578,384 @@ def default_policy(torch, dev, cfg, params, base) -> dict:
           f"{cfg.n_layers} layers) {base['decode_ms_per_step']:.2f}")
     del flat
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res, factors
+
+
+# ------------------------------------------------------------- phase 3e
+
+def cut(cfg, params, depth):
+    """The first ``depth`` layers of the model (views, no copies)."""
+    from repro_torch.models.stack import layer_slice
+    return (dataclasses.replace(cfg, n_layers=depth),
+            dict(params, stack=[layer_slice(run, slice(0, depth))
+                                for run in params["stack"]]))
+
+
+def clone_qt_tree(torch, tree):
+    """A copy of a parameter tree with new storage for every field a
+    requant writes (full-precision leaves and low-rank factors shared)."""
+    from repro_torch.core.ttq import QuantizedTensor
+    if isinstance(tree, dict):
+        return {k: clone_qt_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_qt_tree(torch, v) for v in tree]
+    if isinstance(tree, QuantizedTensor):
+        return dataclasses.replace(tree, **{
+            f: getattr(tree, f).clone() for f in ("wint", "packed", "scale",
+                                                  "zero", "dinv")
+            if getattr(tree, f) is not None})
+    return tree
+
+
+def qt_tree_equal(torch, a, b) -> bool:
+    from repro_torch.core.ttq import QuantizedTensor
+    if isinstance(a, dict):
+        return all(qt_tree_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return all(qt_tree_equal(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, QuantizedTensor):
+        return all((getattr(a, f) is None) == (getattr(b, f) is None)
+                   and (getattr(a, f) is None
+                        or torch.equal(getattr(a, f), getattr(b, f)))
+                   for f in ("packed", "wint", "scale", "zero", "dinv"))
+    return a is b or torch.equal(a, b)
+
+
+def first_tree(torch, eng):
+    """Record what the verify tree was until its first change: a clone of
+    the tree of the first requant, and each request's tokens emitted before
+    the second requant (until then every block read the first tree).
+    Returns the record; ``before`` stays None if no second requant came."""
+    rec = {"tree": None, "before": None}
+    real, sch = eng._requantize, eng.scheduler
+
+    def rq():
+        if rec["tree"] is not None and rec["before"] is None:
+            rec["before"] = {rid: len(q.out)
+                             for rid, q in sch.finished.items()}
+            rec["before"].update({q.rid: len(q.out) for q in sch.slot_req
+                                  if q is not None})
+        real()
+        if rec["tree"] is None and eng.qmodel.qparams is not None:
+            rec["tree"] = clone_qt_tree(torch, eng.qmodel.qparams)
+    eng._requantize = rq
+    return rec
+
+
+def near_tie(torch, cfg, fp, tree, kvcfg, kcfg, prompts, i, t, a, b,
+             drafts):
+    """At request ``i``'s first disagreement (index ``t`` of its output; the
+    runs chose ``a`` and ``b``), recompute its logits eagerly for the agreed
+    prefix ``drafts[:t]`` two ways on ``tree``: one ``decode_step`` after the
+    prefill and the decode of the prefix, and one ``verify_window`` from the
+    same state (the window the agreed token and the next W of ``drafts``).
+    At t = 0, the prompt's prefill alone and in the batch of every prompt.
+    Returns (|logit a − logit b| in the decode logits, the largest |Δlogit|
+    between the two sets)."""
+    from repro_torch.models import lm
+    dev = fp["embed"].device
+    P = len(prompts[i])
+    ML = 256
+    if t == 0:
+        lg1, _, _ = lm.prefill(cfg, fp, {"tokens": torch.tensor(
+            [prompts[i]], device=dev)}, ML, collect_stats=False, kvcfg=kvcfg)
+        toks = torch.zeros((len(prompts), 64), dtype=torch.long, device=dev)
+        for j, p in enumerate(prompts):
+            toks[j, :len(p)] = torch.tensor(p)
+        lgb, _, _ = lm.prefill(cfg, fp, {"tokens": toks}, ML,
+                               collect_stats=False, full_logits=True,
+                               kvcfg=kvcfg)
+        L_d, L_v = lg1[0], lgb[i, P - 1]
+    else:
+        _, st, _ = lm.prefill(cfg, fp, {"tokens": torch.tensor(
+            [prompts[i]], device=dev)}, ML, collect_stats=False, kvcfg=kvcfg)
+        tok = lambda x: torch.tensor([[x]], dtype=torch.int32, device=dev)
+        at = lambda p: torch.tensor([p], dtype=torch.int32, device=dev)
+        for j in range(t - 1):
+            lm.decode_step(cfg, tree, st, tok(drafts[j]), at(P + j),
+                           kvcfg=kvcfg, kcfg=kcfg)
+        st_v = clone_tree(torch, st)
+        L_d, _ = lm.decode_step(cfg, tree, st, tok(drafts[t - 1]),
+                                at(P + t - 1), kvcfg=kvcfg, kcfg=kcfg)
+        win = (list(drafts[t - 1:t + SPEC_W]) + [drafts[-1]] * SPEC_W)[
+            :SPEC_W + 1]
+        L_v, _ = lm.verify_window(cfg, tree, st_v, torch.tensor(
+            [win], dtype=torch.int32, device=dev), at(P + t - 1),
+            kvcfg=kvcfg, kcfg=kcfg)
+        L_d, L_v = L_d[0], L_v[0, 0]
+    return float((L_d[a] - L_d[b]).abs()), float((L_d - L_v).abs().max())
+
+
+def spec_readings(torch, eng, label):
+    """After a speculative run: one traced speculative replay (device
+    launches per block, busy share), and one synced requant with each
+    ``ttq_quantize`` launch timed by CUDA events, split into the verify and
+    the draft tree's."""
+    from repro_torch.kernels import ops
+    r, qm = eng.runner, eng.qmodel
+    params, draft = eng.decode_params, eng.draft_params
+    r.block(params, draft)          # captures if a swap left a new pair
+    programs = eng.compiled_programs
+    tr = traced(torch, lambda: r.decode_block(params, draft))
+    check(eng.compiled_programs == programs and tr["device_launches"] > 0,
+          f"{label}: the traced block captured, or launched nothing")
+    saved_q, saved_w, events = ops.ttq_quantize, qm._write, []
+    tree = {"now": None}
+
+    def timed(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = saved_q(*a, **kw)
+        e.record()
+        events.append((tree["now"], s, e))
+        return out
+
+    def write(t, *a, **kw):
+        tree["now"] = "draft" if t is qm._d else "verify"
+        return saved_w(t, *a, **kw)
+    ops.ttq_quantize, qm._write = timed, write
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qm.requantize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.ttq_quantize = saved_q
+        del qm._write
+    split = {k: (sum(s.elapsed_time(e) for w, s, e in events if w == k),
+                 sum(1 for w, *_ in events if w == k))
+             for k in ("verify", "draft")}
+    check(split["draft"][1] > 0, f"{label}: the draft requant launched no "
+          f"ttq_quantize")
+    print(f"  {label} traced speculative block: wall {tr['wall_ms']:.2f} ms, "
+          f"device {tr['device_ms']:.2f} ms, busy {tr['busy']:.1%}, "
+          f"{tr['device_launches']} device launches per block, host launch "
+          f"calls {tr['host_launches']} {tr['host_apis']}; synced requant "
+          f"{wall * 1e3:.1f} ms: ttq_quantize verify tree "
+          f"{split['verify'][0]:.3f} ms ({split['verify'][1]} launches), "
+          f"draft tree {split['draft'][0]:.3f} ms ({split['draft'][1]} "
+          f"launches) on the device")
+    return dict(traced=tr, requant_synced_ms=wall * 1e3,
+                draft_quantize_ms=split["draft"][0],
+                draft_quantize_launches=split["draft"][1],
+                verify_quantize_ms=split["verify"][0],
+                verify_quantize_launches=split["verify"][1])
+
+
+def spec_case(torch, dev, cfg, params, policy, label, prompts, *,
+              engine_kw=None, nonspec=True, tree_one=False, **ecfg_kw):
+    """One speculative configuration, ``speculate_k=SPEC_W``: a cold run
+    (launches, ``ttq_gemm`` rows per call, the draft tree's quantize
+    launches, acceptance, captures), a warm rerun (tokens/s; no program
+    added), a shadowed run holding every speculative graph block to an
+    eager ``speculate_many`` on clones of its starting state, the readings
+    of :func:`spec_readings`; then, with ``nonspec``, the same engine with
+    ``speculate_k=0`` (cold and warm) and the leading tokens the two share
+    per request.  Returns the readings and the outputs of both."""
+    from repro_torch.kernels import build, ops
+    torch.cuda.reset_peak_memory_stats()
+    _, _, eng = build_engine(torch, dev, cfg, params, policy, engine_kw,
+                             speculate_k=SPEC_W, **ecfg_kw)
+    rec = first_tree(torch, eng) if tree_one else None
+    rows, saved_g = set(), ops.ttq_gemm
+
+    def gemm(x, *a, **kw):
+        rows.add(x.numel() // x.shape[-1])
+        return saved_g(x, *a, **kw)
+    build.reset_launches()
+    ops.ttq_gemm = gemm
+    try:
+        outs, wall = serve(torch, eng, prompts)
+    finally:
+        ops.ttq_gemm = saved_g
+    launches = dict(build.LAUNCHES)
+    n_tok = sum(len(o) for o in outs)
+    check_outputs(cfg, outs, label)
+    r = eng.runner
+    res = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+               launches=launches, gemm_rows=sorted(rows),
+               windows=eng.spec_windows, drafted=r.spec_drafted,
+               accepted=r.spec_accepted,
+               acceptance_rate=eng.spec_acceptance_rate,
+               decode_chunk=eng.ecfg.decode_chunk, requants=eng.n_requants,
+               host_syncs=eng.host_syncs, capture_s=r.capture_s,
+               spec_graphs=len(r._graphs),
+               compiled_programs_cold=eng.compiled_programs,
+               peak_gb_cold=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"  {label} cold run: {n_tok} tokens in {wall:.2f} s; acceptance "
+          f"{eng.spec_acceptance_rate:.3f} ({r.spec_accepted} of "
+          f"{r.spec_drafted} drafts, {eng.spec_windows} windows, "
+          f"{eng.ecfg.decode_chunk} windows per block); ttq_gemm rows per "
+          f"call {sorted(rows)}; launches {launches}; {len(r._graphs)} "
+          f"speculative graphs (warm block and capture {r.capture_s:.3f} s), "
+          f"compiled programs {eng.compiled_programs}; peak "
+          f"{res['peak_gb_cold']:.2f} GB")
+    # a warm rerun adds no speculative graph, and a prefill graph only for
+    # a tail past a prefix the cold run left in the paged pool's cache (as
+    # in graph_phases); where it added one, the next rerun adds nothing
+    cold, n_graphs = eng.compiled_programs, len(r._graphs)
+    shapes = {k[0] for k in r._prefills}
+    res["warm"] = warm_phases(torch, eng, prompts, n_tok)
+    added = {k[0] for k in r._prefills} - shapes
+    check(len(r._graphs) == n_graphs and all(pfx > 0 for *_, pfx in added),
+          f"{label}: the warm run captured speculative graphs "
+          f"({n_graphs} → {len(r._graphs)}) or prefill shapes the cold run "
+          f"had {added}")
+    if added:
+        res["warm_run_prefix_captures"] = sorted(added)
+        cold = eng.compiled_programs
+        res["warm"] = warm_phases(torch, eng, prompts, n_tok)
+    check(eng.compiled_programs == cold, f"{label}: the warm run captured: "
+          f"{cold} → {eng.compiled_programs}")
+    shadow, _ = graph_vs_eager(torch, cfg, eng, prompts)
+    check(eng.compiled_programs == cold and shadow["blocks_timed"] > 0,
+          f"{label}: the shadowed run captured, or replayed no block")
+    res["shadow"] = shadow
+    print(f"  {label}: every speculative graph block ({shadow['blocks_timed']}"
+          f" replayed) equal to an eager speculate_many, bit for bit; ms per "
+          f"speculative block: graph {shadow['graph_ms_per_block']:.2f}, "
+          f"eager {shadow['eager_ms_per_block']:.2f}")
+    res.update(spec_readings(torch, eng, label))
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(spec=[list(o) for o in outs], tree=None if rec is None
+               else rec, fp=eng.params, kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not nonspec:
+        return res, out
+    _, _, base = build_engine(torch, dev, cfg, params, policy, engine_kw,
+                              **ecfg_kw)
+    rec0 = first_tree(torch, base) if tree_one else None
+    outs0, wall0 = serve(torch, base, prompts)
+    check_outputs(cfg, outs0, label + " non-speculative")
+    res["nonspec_tok_per_s"] = n_tok / wall0
+    res["nonspec_warm"] = warm_phases(torch, base, prompts, n_tok)
+    out["nonspec"], out["tree0"] = [list(o) for o in outs0], rec0
+    agree = [leading_equal(a, b) for a, b in zip(out["spec"], out["nonspec"])]
+    res["leading_equal"] = agree
+    print(f"  {label} warm tokens/s: speculative "
+          f"{res['warm']['warm_tok_per_s']:.1f}, non-speculative "
+          f"{res['nonspec_warm']['warm_tok_per_s']:.1f}; leading tokens equal "
+          f"to the non-speculative run, per request: {agree} of {MAX_NEW}")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, out
+
+
+def near_ties(torch, cfg, out, prompts, label, tree_one) -> list:
+    """Hold each request's first disagreement between the speculative and
+    the non-speculative run to :func:`near_tie`: its two tokens' logits
+    differ by no more than the recomputed decode and verify logits do.
+    With ``tree_one`` (a quantized verify tree that requants as requests
+    arrive) a disagreement is held only where both runs decoded the whole
+    prefix on their first tree, which must be bit for bit the same in both;
+    past it the two schedules read different trees and it is printed as
+    such."""
+    rows = []
+    tree = out["fp"]
+    if tree_one:
+        r1, r0 = out["tree"], out["tree0"]
+        check(r1["tree"] is not None and qt_tree_equal(torch, r1["tree"],
+                                                       r0["tree"]),
+              f"{label}: the first verify trees of the two runs differ")
+        tree = r1["tree"]
+    for i, (a, b) in enumerate(zip(out["nonspec"], out["spec"])):
+        t = leading_equal(a, b)
+        if t == len(a):
+            continue
+        if tree_one:
+            # tokens before the second requant (index 0 is the prefill's)
+            lim = min(len(a) if rec["before"] is None
+                      else rec["before"].get(i, 1) for rec in (r1, r0))
+            if t >= lim:
+                rows.append(dict(request=i, t=t, held=False, first_tree=lim))
+                print(f"  {label} request {i}: first disagreement at token "
+                      f"{t}, after the verify tree changed (token {lim}): "
+                      f"the schedules read different trees there, not held")
+                continue
+        margin, delta = near_tie(torch, cfg, out["fp"], tree, out["kvcfg"],
+                                 out["kcfg"], prompts, i, t, a[t], b[t], b)
+        rows.append(dict(request=i, t=t, held=True, margin=margin,
+                         delta=delta))
+        print(f"  {label} request {i}: first disagreement at token {t} "
+              f"({a[t]} vs {b[t]}): their logits differ by {margin:.4g}, the "
+              f"recomputed decode and verify logits by up to {delta:.4g}")
+        check(margin <= delta, f"{label} request {i}: the disagreement at "
+              f"token {t} is no near-tie ({margin} > {delta})")
+    return rows
+
+
+def speculation(torch, dev, cfg, params, factors) -> dict:
+    """Phase 3e: self-speculative decoding, W = SPEC_W, at full width.
+    (a) the reference's default policy (rank 16 with [3d]'s factors, gate,
+    double buffer) on DEPTH_3D layers with its default int4 rank-0 draft;
+    (b) draft-only, bf16 weights with an int4 g32 draft, at full depth on
+    the dense slab and on the paged pool (block 16); (c) (b) on the first
+    layer alone, the witness that rounding is not amplified there.
+    Each through :func:`spec_case`; then the kernel checks over the path."""
+    from repro_torch.core import KernelConfig, KVCacheConfig, NO_QUANT
+    from repro_torch.core import ttq_policy
+    t0 = time.perf_counter()
+    prompts = make_prompts()
+    kern, kv8 = KernelConfig(use_pallas=True), KVCacheConfig(dtype="int8")
+    res, outs = {}, {}
+    cfg_d, params_d = cut(cfg, params, DEPTH_3D)
+    pol_a = ttq_policy(bits=4, group_size=32, rank=RANK_3D, packed=True,
+                       kvcache=kv8, kernel=kern)
+    res["a"], outs["a"] = spec_case(
+        torch, dev, cfg_d, params_d, pol_a, "(a)", prompts,
+        engine_kw=dict(lowrank=factors), tree_one=True,
+        requant_threshold=THRESHOLD_3D, double_buffer=True)
+    check(res["a"]["gemm_rows"] == [4, 4 * (SPEC_W + 1)],
+          f"(a): ttq_gemm ran at rows {res['a']['gemm_rows']}, not at the "
+          f"draft's 4 and the verify window's {4 * (SPEC_W + 1)}")
+    res["a"]["near_ties"] = near_ties(torch, cfg_d, outs["a"], prompts,
+                                      "(a)", True)
+    del outs["a"]                   # the first trees' clones
+    gc.collect()
+    torch.cuda.empty_cache()
+    pol_b = NO_QUANT.with_(kvcache=kv8, kernel=kern)
+    draft = dict(draft_policy=ttq_policy(bits=4, group_size=32, rank=0,
+                                         packed=True, kvcache=kv8,
+                                         kernel=kern))
+    res["b"], outs["b"] = spec_case(torch, dev, cfg, params, pol_b,
+                                    "(b) dense", prompts, engine_kw=draft)
+    res["b"]["near_ties"] = near_ties(torch, cfg, outs["b"], prompts,
+                                      "(b) dense", False)
+    res["b paged"], outs["b paged"] = spec_case(
+        torch, dev, cfg, params, pol_b, "(b) paged", prompts,
+        engine_kw=draft, nonspec=False, kv_paged=True, kv_block_size=BLOCK)
+    check(outs["b paged"]["spec"] == outs["b"]["spec"],
+          f"(b): paged tokens differ from the dense run's: leading tokens "
+          f"equal per request {[leading_equal(a, b) for a, b in zip(outs['b paged']['spec'], outs['b']['spec'])]}")
+    print("  (b) paged tokens equal to the dense run's, bit for bit")
+    cfg_1, params_1 = cut(cfg, params, 1)
+    res["c"], outs["c"] = spec_case(torch, dev, cfg_1, params_1, pol_b,
+                                    "(c)", prompts, engine_kw=draft)
+    # one layer amplifies no rounding, yet the logits are bf16 and 256000
+    # wide, so exact ties are common and any rounding change of either
+    # path can break one the other way: each first disagreement is held to
+    # the near-tie check, like (a)'s and (b)'s
+    res["c"]["near_ties"] = near_ties(torch, cfg_1, outs["c"], prompts,
+                                      "(c)", False)
+    agree = res["c"]["leading_equal"]
+    print(f"  (c) one layer: {sum(agree)} of {MAX_NEW * len(agree)} tokens "
+          f"before the requests' first disagreements, each a near-tie")
+    # the four kernels on the speculative path
+    la, lb, lp = (res[k]["launches"] for k in ("a", "b", "b paged"))
+    check(la["ttq_gemm"] > 0 and la["ttq_decode_attention"] > 0
+          and la["ttq_quantize"] > 0 and lb["ttq_decode_attention"] > 0
+          and lp["ttq_paged_decode_attention"] > 0
+          and lp["ttq_decode_attention"] == 0
+          and res["a"]["draft_quantize_launches"] > 0
+          and res["b"]["draft_quantize_launches"] > 0,
+          f"a kernel of the speculative path never launched: (a) {la}, (b) "
+          f"{lb}, paged {lp}")
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"  [3e] wall {res['wall_s']:.1f} s")
     return res
 
 
@@ -1631,17 +2052,33 @@ def main() -> int:
           f"requant_threshold={THRESHOLD_3D}, double_buffer=True; gemma-7b "
           f"full width, {DEPTH_3D} of {cfg.n_layers} layers (exact SVD at "
           f"~6 s per layer)")
-    dflt = default_policy(torch, dev, cfg, params, res)
+    dflt, factors = default_policy(torch, dev, cfg, params, res)
     print("    default policy: " + json.dumps(dflt))
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    kernels = []
-    for name, (src, replaces, m) in rows.items():
-        launches = (paged if name == "ttq_paged_decode_attention"
-                    else res)["launches"][name]
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=launches, **m))
+    print(f"[3e] self-speculative decoding, speculate_k={SPEC_W}: (a) the "
+          f"default policy of [3d] with its int4 rank-0 draft, {DEPTH_3D} "
+          f"layers; (b) bf16 weights, int8 KV, an int4 g32 draft, "
+          f"{cfg.n_layers} layers, dense and paged; (c) (b) on one layer")
+    spec = speculation(torch, dev, cfg, params, factors)
+    print("    speculation: " + json.dumps(spec))
+
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
-          "requant (quantize); paged launches from 3b")
+          "requant (quantize); launches: the main path's ([3], paged from "
+          "[3b]) and the speculative path's ([3e]), counted per replay")
+    kernels = []
+    spec_cases = ("a", "b", "b paged", "c")
+    for name, (src, replaces, m) in rows.items():
+        main_n = (paged if name == "ttq_paged_decode_attention"
+                  else res)["launches"][name]
+        spec_n = sum(spec[k]["launches"][name] for k in spec_cases)
+        print(f"  {name} launches: main path {main_n}, speculative path "
+              f"{spec_n} ([3e] cold runs "
+              + ", ".join(f"({k}) {spec[k]['launches'][name]}"
+                          for k in spec_cases) + ")")
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=replaces, launches=main_n + spec_n, **m))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

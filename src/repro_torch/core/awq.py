@@ -25,6 +25,21 @@ class AWQConfig:
     form: str = "blend"  # 'raw' | 'blend'
 
 
+def accumulate_stats(X: torch.Tensor, p: float = 2.0):
+    """Sufficient statistic over tokens: X (..., T, d) → (Σ|x|^p per
+    feature (d,) f32, token count as an f32 scalar tensor); leading axes
+    fold into the token axis."""
+    Xf = X.float().reshape(-1, X.shape[-1])
+    if p == 2.0:
+        s = (Xf * Xf).sum(dim=0)
+    elif p == 1.0:
+        s = Xf.abs().sum(dim=0)
+    else:
+        s = (Xf.abs() ** p).sum(dim=0)
+    return s, torch.tensor(float(Xf.shape[0]), dtype=torch.float32,
+                           device=X.device)
+
+
 def diag_from_stats(stat: torch.Tensor, count, cfg: AWQConfig) -> torch.Tensor:
     """Σ|x|^p (..., d) → scaling vector D (..., d); leading dims are rows
     (the fused requant passes a (n, d) stack)."""
@@ -43,6 +58,13 @@ def diag_from_stats(stat: torch.Tensor, count, cfg: AWQConfig) -> torch.Tensor:
     return torch.clamp(D, min=_EPS)
 
 
+def activation_diag(X: torch.Tensor, cfg: AWQConfig = AWQConfig()
+                    ) -> torch.Tensor:
+    """One-shot D (d,) from raw activations X (..., T, d)."""
+    s, n = accumulate_stats(X, cfg.p)
+    return diag_from_stats(s, n, cfg)
+
+
 def awq_qdq(W: torch.Tensor, D: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
     """Fake-quant closed form Ŵ = Q[W∘D]∘D⁻¹ (paper eq. 20); W (d', d), D
     (d,)."""
@@ -54,3 +76,11 @@ def awq_quantize(W: torch.Tensor, D: torch.Tensor, qcfg: QuantConfig):
     """Real-quant path: quantize W∘D (D kept separate, applied as x/D)."""
     Ws = W.float() * D[None, :].float()
     return quantize(Ws, qcfg)
+
+
+def awq_loss(W: torch.Tensor, What: torch.Tensor,
+             C_diag: torch.Tensor) -> torch.Tensor:
+    """Diagnostic: the activation-aware loss ‖(W − Ŵ) diag(c)^½‖² with
+    c = E[x_i²], in f32."""
+    E = (W - What).float()
+    return (E * E * C_diag[None, :].float()).sum()

@@ -115,6 +115,20 @@ class QuantPolicy:
                 eff = eff._apply(delta)
         return eff
 
+    def draft_variant(self, bits: int = 4,
+                      group_size: int = 0) -> "QuantPolicy":
+        """The uniform low-bit sibling that drafts for self-speculative
+        decoding: the same method, skip set, KV layout and kernel dispatch,
+        one flat ``bits`` (``group_size`` 0 keeps the base group), rank 0
+        and no overrides.  A disabled policy is its own draft."""
+        if not self.enabled:
+            return self
+        gs = group_size or self.qcfg.group_size
+        return dataclasses.replace(
+            self, qcfg=dataclasses.replace(self.qcfg, bits=bits,
+                                           group_size=gs),
+            rank=0, overrides=())
+
 
 NO_QUANT = QuantPolicy(method="none")
 

@@ -120,3 +120,21 @@ def unpack_bits(packed: torch.Tensor, d: int, bits: int) -> torch.Tensor:
     shifts = torch.arange(per, dtype=torch.int32, device=packed.device) * bits
     w = (packed.unsqueeze(-1) >> shifts) & mask
     return w.reshape(*packed.shape[:-1], d)
+
+
+def rtn(W: torch.Tensor, bits: int, group_size: int, **kw) -> torch.Tensor:
+    """The paper's ``rtn(W, q, g)``: :func:`qdq` at ``bits`` and
+    ``group_size`` (other :class:`QuantConfig` fields through ``kw``)."""
+    return qdq(W, QuantConfig(bits=bits, group_size=group_size, **kw))
+
+
+def pack_int4(Wint: torch.Tensor) -> torch.Tensor:
+    """(..., d) codes in [0, 15] → (..., d//8) int32, low nibble first."""
+    if Wint.shape[-1] % 8:
+        raise ValueError("last dim must be divisible by 8 to pack int4")
+    return pack_bits(Wint, 4)
+
+
+def unpack_int4(packed: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., d//8) int32 → (..., d) int32 codes in [0, 15]."""
+    return unpack_bits(packed, d, 4)

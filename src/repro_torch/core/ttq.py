@@ -105,7 +105,8 @@ def ttq_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
         if wint is None:
             wint = unpack_bits(qt.packed, qt.in_features, qt.bits)
         Wd = dequantize(wint, qt.scale, qt.zero, qt.qcfg)
-        y = (xs @ Wd.T).reshape(*lead, -1).to(x.dtype)
+        from repro_torch.kernels.ref import row_matmul
+        y = row_matmul(xs, Wd.T).reshape(*lead, -1).to(x.dtype)
     if qt.B is not None:
         y = y + (x @ qt.A.to(x.dtype).T) @ qt.B.to(x.dtype).T
     return y

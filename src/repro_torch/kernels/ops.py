@@ -3,7 +3,9 @@
 ``use_pallas=False`` (the reference's escape hatch, same name), an
 unsupported bit-width, or a windowed mask routes to the plain PyTorch
 version; otherwise the kernel wrapper runs, which launches the CUDA kernel
-for CUDA tensors and uses the plain version for CPU tensors.
+for CUDA tensors and uses the plain version for CPU tensors.  The
+speculative verify reads (``kv_suffix_attention``,
+``kv_paged_suffix_attention``) have no kernel and are plain everywhere.
 """
 from __future__ import annotations
 
@@ -51,6 +53,29 @@ def kv_paged_decode_attention(q, kq, ks, vq, vs, block_table, cur_pos, *,
     return _ref.kv_paged_attn_ref(q, kq, ks, vq, vs, block_table, cur_pos,
                                   bits=bits, group_size=group_size,
                                   scale=scale, soft_cap=soft_cap)
+
+
+def kv_suffix_attention(q, kq, ks, vq, vs, pos, *, bits=8, group_size=0,
+                        scale=None, soft_cap=0.0, use_pallas=True):
+    """Speculative-verify attention over an int8/int4 cache whose window
+    rows were just written.  No kernel, in the reference as here: every
+    device runs the plain version (``use_pallas`` kept for the reference's
+    signature)."""
+    del use_pallas
+    return _ref.kv_suffix_attn_ref(q, kq, ks, vq, vs, pos, bits=bits,
+                                   group_size=group_size, scale=scale,
+                                   soft_cap=soft_cap)
+
+
+def kv_paged_suffix_attention(q, kq, ks, vq, vs, block_table, pos, *, bits=8,
+                              group_size=0, scale=None, soft_cap=0.0,
+                              use_pallas=True):
+    """The same over the (NB, Hkv, block_size, ·) pools through the (B,
+    nblk) block table; plain on every device."""
+    del use_pallas
+    return _ref.kv_paged_suffix_attn_ref(q, kq, ks, vq, vs, block_table, pos,
+                                         bits=bits, group_size=group_size,
+                                         scale=scale, soft_cap=soft_cap)
 
 
 def ttq_quantize(W, D, *, bits=4, group_size=32, use_pallas=True, out=None):

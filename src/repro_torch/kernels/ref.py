@@ -2,7 +2,15 @@
 
 Each repeats its kernel's arithmetic in f32 with PyTorch ops.  The kernel
 wrappers use them for CPU tensors; the tests and ``chip_smoke.py`` hold
-the kernels against them.
+the kernels against them.  The verify read of a speculated window
+(:func:`kv_suffix_attn_ref`, :func:`kv_paged_suffix_attn_ref`) has no
+kernel, in the reference as here: it is plain on every device.
+
+On the CPU a row of an f32 product must not depend on the rows beside it,
+so that a verify window (slots·(W+1) rows) reproduces sequential decode
+(slots rows) bit for bit, as in the reference: :func:`row_matmul` takes
+the rows one at a time there, and the suffix reads run each query through
+the single-query math of :func:`kv_attn_ref`.
 """
 from __future__ import annotations
 
@@ -12,6 +20,14 @@ from repro_torch.core.kvquant import dequantize_kv
 from repro_torch.core.qdq import pack_bits, unpack_bits
 
 NEG_INF = -1e30
+
+
+def row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N).  On the CPU one row at a time: its f32 GEMM
+    picks its method by M, which changes the order of each row's sums."""
+    if a.device.type != "cpu" or a.shape[0] <= 1:
+        return a @ b
+    return torch.cat([a[i:i + 1] @ b for i in range(a.shape[0])])
 
 
 def ttq_gemm_ref(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -27,23 +43,15 @@ def ttq_gemm_ref(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     if dinv is not None:
         xf = xf * dinv[None, :].float()
-    return xf @ W.T
+    return row_matmul(xf, W.T)
 
 
-def kv_attn_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
-                vq: torch.Tensor, vs: torch.Tensor, cur_pos: torch.Tensor, *,
-                bits: int = 8, group_size: int = 0,
-                scale: float | None = None, soft_cap: float = 0.0,
-                window: int = 0) -> torch.Tensor:
-    """Decode attention over a quantized cache: dequantize, then grouped-query
-    attention with an f32 softmax.  q (B,H,1,Dh); kq/vq (B,Hkv,S,Dc); ks/vs
-    (B,Hkv,S,Dh//g); cur_pos (B,) → (B,H,1,Dh) in q's dtype."""
+def _attend(q, k, v, cur_pos, sc, soft_cap, window):
+    """One query per slot over dequantized f32 k/v (B,Hkv,S,Dh): q
+    (B,H,1,Dh), rows past ``cur_pos`` (B,) masked, f32 softmax."""
     B, H, _, Dh = q.shape
-    Hkv, S = kq.shape[1], kq.shape[2]
+    Hkv, S = k.shape[1], k.shape[2]
     G = H // Hkv
-    sc = scale if scale is not None else Dh ** -0.5
-    k = dequantize_kv(kq, ks, torch.float32, bits=bits, group_size=group_size)
-    v = dequantize_kv(vq, vs, torch.float32, bits=bits, group_size=group_size)
     qg = (q[:, :, 0].float() * sc).reshape(B, Hkv, G, Dh)
     s = torch.einsum("bhgd,bhkd->bhgk", qg, k)
     if soft_cap > 0:
@@ -56,6 +64,55 @@ def kv_attn_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bhkd->bhgd", p, v)
     return o.reshape(B, H, 1, Dh).to(q.dtype)
+
+
+def kv_attn_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                vq: torch.Tensor, vs: torch.Tensor, cur_pos: torch.Tensor, *,
+                bits: int = 8, group_size: int = 0,
+                scale: float | None = None, soft_cap: float = 0.0,
+                window: int = 0) -> torch.Tensor:
+    """Decode attention over a quantized cache: dequantize, then grouped-query
+    attention with an f32 softmax.  q (B,H,1,Dh); kq/vq (B,Hkv,S,Dc); ks/vs
+    (B,Hkv,S,Dh//g); cur_pos (B,) → (B,H,1,Dh) in q's dtype."""
+    Dh = q.shape[-1]
+    sc = scale if scale is not None else Dh ** -0.5
+    k = dequantize_kv(kq, ks, torch.float32, bits=bits, group_size=group_size)
+    v = dequantize_kv(vq, vs, torch.float32, bits=bits, group_size=group_size)
+    return _attend(q, k, v, cur_pos, sc, soft_cap, window)
+
+
+def kv_suffix_attn_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                       vq: torch.Tensor, vs: torch.Tensor, pos: torch.Tensor,
+                       *, bits: int = 8, group_size: int = 0,
+                       scale: float | None = None,
+                       soft_cap: float = 0.0) -> torch.Tensor:
+    """Speculative-window attention over a quantized cache whose window rows
+    were just written: q (B,H,S,Dh) holds S queries per slot at positions
+    ``pos[b]..pos[b]+S-1``; query s attends rows ≤ pos[b]+s.  The cache is
+    dequantized once; each query then runs :func:`kv_attn_ref`'s math, so
+    the verify logits are sequential decode's bit for bit on the CPU.
+    Returns (B,H,S,Dh) in q's dtype."""
+    Dh = q.shape[-1]
+    sc = scale if scale is not None else Dh ** -0.5
+    k = dequantize_kv(kq, ks, torch.float32, bits=bits, group_size=group_size)
+    v = dequantize_kv(vq, vs, torch.float32, bits=bits, group_size=group_size)
+    return torch.cat([_attend(q[:, :, s:s + 1].contiguous(), k, v, pos + s,
+                              sc, soft_cap, 0)
+                      for s in range(q.shape[2])], dim=2)
+
+
+def kv_paged_suffix_attn_ref(q: torch.Tensor, kq: torch.Tensor,
+                             ks: torch.Tensor, vq: torch.Tensor,
+                             vs: torch.Tensor, block_table: torch.Tensor,
+                             pos: torch.Tensor, *, bits: int = 8,
+                             group_size: int = 0, scale: float | None = None,
+                             soft_cap: float = 0.0) -> torch.Tensor:
+    """Paged speculative-window attention: the block table's view of each
+    pool gathered into the contiguous layout, then exactly
+    :func:`kv_suffix_attn_ref`."""
+    g = [gather_paged_kv(t, block_table) for t in (kq, ks, vq, vs)]
+    return kv_suffix_attn_ref(q, *g, pos, bits=bits, group_size=group_size,
+                              scale=scale, soft_cap=soft_cap)
 
 
 def gather_paged_kv(pool: torch.Tensor,

@@ -76,6 +76,16 @@ def rope_decode(x: torch.Tensor, pos: torch.Tensor, theta: float = 10000.0):
     return _rotate(x, pos.float()[:, None, None, None] * freqs)
 
 
+def rope_window(x: torch.Tensor, pos: torch.Tensor, theta: float = 10000.0):
+    """RoPE for a window of S tokens per slot, x (B,H,S,Dh) at positions
+    pos[b]..pos[b]+S-1 (pos (B,)): :func:`rope_decode` per position, so
+    each angle table has decode's shape and the CPU computes each cos/sin
+    the way decode does (its vector loop and scalar tail can round an
+    element differently)."""
+    return torch.cat([rope_decode(x[:, :, s:s + 1], pos + s, theta)
+                      for s in range(x.shape[2])], dim=2)
+
+
 def cache_update_batched(cache: torch.Tensor, new: torch.Tensor,
                          pos: torch.Tensor) -> torch.Tensor:
     """cache (B,Hkv,Smax,D·) ← new (B,Hkv,1,D·) at per-batch row pos (B,).
@@ -137,6 +147,19 @@ def decode_attention(q, k_cache, v_cache, cur_pos, *, soft_cap: float = 0.0):
     o = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(B, H, -1)[:, :, None].to(q.dtype)
+
+
+def suffix_attention(q, k_cache, v_cache, pos, *, soft_cap: float = 0.0):
+    """Attention for a speculated window over a bf16 (B,Hkv,Smax,Dh) cache
+    whose window rows were just written (write, then read): q (B,H,S,Dh)
+    holds S queries per slot at positions ``pos[b]..pos[b]+S-1``, and query
+    s attends rows ≤ pos[b]+s.  Each query runs :func:`decode_attention`
+    itself (same key axis, mask and dtype order), so a verify pass
+    reproduces sequential decode bit for bit on the CPU.  → (B,H,S,Dh)."""
+    return torch.cat([decode_attention(q[:, :, s:s + 1].contiguous(),
+                                       k_cache, v_cache, pos + s,
+                                       soft_cap=soft_cap)
+                      for s in range(q.shape[2])], dim=2)
 
 
 def glu_mlp(x, p, stats=None, prefix="mlp", act="silu", kcfg=None):

@@ -3,6 +3,7 @@
   init_attn(gen, cfg, n, device)             → stacked param dict (n layers)
   attn_apply(cfg, p, x, stats, prefix, ...)  → prefill output [, (k, v)]
   attn_decode(cfg, p, x, state, pos, ...)    → (y, state) single token
+  attn_verify(cfg, p, x, state, pos, ...)    → (y, state) a drafted window
   attn_init_state / build_kv_state           → one layer's decode cache
   build_kv_compact                           → prefill rows for the pool
 
@@ -19,7 +20,8 @@ import torch
 from repro_torch.core.kvquant import dequantize_kv, quantize_kv
 
 from .common import (apply_rope, attention, cache_update_batched,
-                     decode_attention, linear, rope_decode)
+                     decode_attention, linear, rope_decode, rope_window,
+                     suffix_attention)
 from .config import ModelConfig
 
 DTYPE = torch.bfloat16
@@ -159,10 +161,11 @@ def build_kv_compact(k, v, kvcfg):
 
 
 def _pool_row_write(pool, row, idx):
-    """pool (NB,Hkv,bs,D·) ← row (B,Hkv,1,D·) at the pool rows ``idx``
-    (B·Hkv,), in place: a scatter, no host sync.  Live slots own distinct
+    """pool (NB,Hkv,bs,D·) ← row (B,Hkv,S,D·) at the pool rows ``idx``
+    (B·Hkv·S,), in place: a scatter, no host sync.  Live slots own distinct
     blocks, so the only duplicate index is the sink block 0 of done and
-    empty lanes, where any write order will do."""
+    empty lanes (and a window's rows past capacity), where any write order
+    will do."""
     D = pool.shape[-1]
     pool.view(-1, D).scatter_(0, idx[:, None].expand(-1, D),
                               row.reshape(-1, D).to(pool.dtype))
@@ -181,9 +184,27 @@ def paged_rows(pos, block_table, Hkv: int, block_size: int) -> torch.Tensor:
     return ((phys * Hkv + h) * bs + (pos % bs).long()[:, None]).reshape(-1)
 
 
+def paged_window_rows(pos, block_table, Hkv: int, block_size: int,
+                      S: int) -> torch.Tensor:
+    """The pool rows a window of S tokens per slot at positions
+    pos[b]..pos[b]+S-1 writes, (B·Hkv·S,) in (slot, head, token) order, as
+    :func:`paged_rows`; a row at or past the slot's capacity (nblk·bs) goes
+    to the sink block 0 instead of a clamped block, like a dense window's
+    row past the slab (:func:`_kv_write_rows`)."""
+    bs, nblk = block_size, block_table.shape[1]
+    rows = pos.long()[:, None] + torch.arange(S, device=pos.device)  # (B,S)
+    blk = torch.clamp(rows // bs, 0, nblk - 1)
+    phys = block_table.gather(1, blk).long()
+    phys = torch.where(rows < nblk * bs, phys, torch.zeros_like(phys))
+    h = torch.arange(Hkv, device=pos.device)
+    return ((phys[:, None, :] * Hkv + h[None, :, None]) * bs
+            + (rows % bs)[:, None, :]).reshape(-1)
+
+
 def _kv_append_paged(state, k, v, rows, kvcfg):
-    """Paged decode append: one token's k/v row lands in the pool rows
-    ``rows`` (:func:`paged_rows`), shared by the four leaves."""
+    """Paged append: the k/v rows (one token's, or a window's) land in the
+    pool rows ``rows`` (:func:`paged_rows`, :func:`paged_window_rows`),
+    shared by the four leaves."""
     if not kvcfg.quantized:
         _pool_row_write(state["k"], k, rows)
         _pool_row_write(state["v"], v, rows)
@@ -193,6 +214,42 @@ def _kv_append_paged(state, k, v, rows, kvcfg):
                                     group_size=kvcfg.group_size)
         _pool_row_write(state[name + "_q"], codes, rows)
         _pool_row_write(state[name + "_s"], scales, rows)
+    return state
+
+
+def _kv_write_rows(cache, new, pos):
+    """cache (B,Hkv,Smax,D·) ← new (B,Hkv,S,D·) at rows pos[b]..pos[b]+S-1,
+    in place.  A row at or past Smax is dropped, as the reference's
+    ``mode="drop"``: a scatter has no drop mode, a mask over the rows would
+    sync the host, and clamping would let a row past the slab overwrite row
+    Smax-1, which a query at the capacity boundary still reads.  So a row
+    past the slab is sent to row Smax-1 carrying the bytes that row ends up
+    with (the window's own row there, else the cache's current one): every
+    write to a repeated index carries the same bytes."""
+    B, Hkv, S, Dc = new.shape
+    last = cache.shape[2] - 1
+    new = new.to(cache.dtype)
+    p = pos.long()
+    rows = p[:, None] + torch.arange(S, device=pos.device)          # (B,S)
+    j = torch.clamp(last - p, 0, S - 1).view(B, 1, 1, 1)
+    hit = ((p <= last) & (p + S > last)).view(B, 1, 1, 1)
+    at_last = torch.where(hit, new.gather(2, j.expand(B, Hkv, 1, Dc)),
+                          cache[:, :, last:])
+    src = torch.where((rows <= last).view(B, 1, S, 1), new, at_last)
+    idx = torch.clamp(rows, max=last).view(B, 1, S, 1).expand(B, Hkv, S, Dc)
+    cache.scatter_(2, idx, src)
+    return cache
+
+
+def _kv_append_rows(state, k, v, pos, kvcfg):
+    """Quantized-slab window append: the window's codes and scale rows at
+    positions pos..pos+S-1 (each row quantized as :func:`_kv_append`
+    quantizes one token)."""
+    for name, t in (("k", k), ("v", v)):
+        codes, scales = quantize_kv(t, bits=kvcfg.bits,
+                                    group_size=kvcfg.group_size)
+        _kv_write_rows(state[name + "_q"], codes, pos)
+        _kv_write_rows(state[name + "_s"], scales, pos)
     return state
 
 
@@ -245,4 +302,48 @@ def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
         o = decode_attention(q, st["k"], st["v"], pos,
                              soft_cap=cfg.attn_soft_cap)
     y = linear(o.reshape(x.shape[0], 1, -1), p["wo"], kcfg=kcfg)
+    return y, st
+
+
+def attn_verify(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None, kcfg=None,
+                block_table=None, rows=None):
+    """Score a drafted window at once: x (B,S,D) are the window's tokens at
+    positions pos[b]..pos[b]+S-1 (pos (B,)).  The window's k/v rows are
+    written first, at the cache's storage dtype, over whatever the draft
+    pass stored there; then the suffix read runs over the updated cache.
+    Write then read keeps the key axis of sequential decode, so rejected
+    drafts roll back by rewinding positions.  ``rows``
+    (:func:`paged_window_rows`) are the pool rows of a paged cache.
+    Returns (y (B,S,D), state)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, None, "", kcfg)
+    q = rope_window(q, pos, cfg.rope_theta)
+    k = rope_window(k, pos, cfg.rope_theta)
+    cap = cfg.attn_soft_cap
+    if kvcfg is not None and kvcfg.paged:
+        st = _kv_append_paged(state, k, v, rows, kvcfg)
+        if kvcfg.quantized:
+            from repro_torch.kernels import ops as kops
+            o = kops.kv_paged_suffix_attention(
+                q, st["k_q"], st["k_s"], st["v_q"], st["v_s"], block_table,
+                pos, bits=kvcfg.bits, group_size=kvcfg.group_size,
+                soft_cap=cap, use_pallas=kvcfg.use_pallas)
+        else:
+            from repro_torch.kernels.ref import gather_paged_kv
+            o = suffix_attention(q, gather_paged_kv(st["k"], block_table),
+                                 gather_paged_kv(st["v"], block_table), pos,
+                                 soft_cap=cap)
+    elif kvcfg is not None and kvcfg.quantized:
+        from repro_torch.kernels import ops as kops
+        st = _kv_append_rows(state, k, v, pos, kvcfg)
+        o = kops.kv_suffix_attention(
+            q, st["k_q"], st["k_s"], st["v_q"], st["v_s"], pos,
+            bits=kvcfg.bits, group_size=kvcfg.group_size, soft_cap=cap,
+            use_pallas=kvcfg.use_pallas)
+    else:
+        _kv_write_rows(state["k"], k, pos)
+        _kv_write_rows(state["v"], v, pos)
+        st = state
+        o = suffix_attention(q, st["k"], st["v"], pos, soft_cap=cap)
+    y = linear(o.transpose(1, 2).reshape(B, S, -1), p["wo"], kcfg=kcfg)
     return y, st

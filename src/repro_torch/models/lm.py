@@ -7,6 +7,9 @@
     decode_step(cfg, params, state, token, pos)    → (logits, state)
     decode_many(cfg, params, state, token, pos, done, remaining, gen, K=...)
                                                    → ((tokens, valid), carry)
+    verify_window(cfg, params, state, tokens, pos) → (logits, state)
+    speculate_many(cfg, draft_params, params, state, token, pos, done,
+                   remaining, gen, K=..., W=...)  → ((tokens, valid), carry)
 
 ``batch`` is a dict {'tokens': (B,S) int}.  Decode updates the KV caches of
 ``state`` in place; a paged state's ``block_table`` addresses its pools.
@@ -144,5 +147,74 @@ def decode_many(cfg: ModelConfig, params, state, token, pos, done, remaining,
         tok = nxt[:, None]
         toks.append(nxt)
         valids.append(live)
+    return ((torch.stack(toks, dim=1), torch.stack(valids, dim=1)),
+            (state, tok, p, dn, rem, generator))
+
+
+def verify_window(cfg: ModelConfig, params, state, tokens, pos, *, kvcfg=None,
+                  kcfg=None):
+    """Score a drafted window in one pass: tokens (B,S) int — per slot the
+    current token and S-1 drafts — at positions pos[b]..pos[b]+S-1.  The
+    window's KV rows are written with this tree's k/v (over the draft
+    pass's), then read, so the logits (B,S,V) f32 are those of S sequential
+    :func:`decode_step` calls (bit for bit on the CPU).  The state's caches
+    are written in place."""
+    pos = pos.to(torch.int32).expand(tokens.shape[0])
+    x = params["embed"][tokens.long()]
+    x, _ = S.apply_stack_verify(cfg, params["stack"], S.stack_spec(cfg),
+                                state["stack"], x, pos, kvcfg=kvcfg,
+                                kcfg=kcfg,
+                                block_table=state.get("block_table"))
+    x = norm(x, params["final_norm"])
+    return _head(cfg, params, x, kcfg), state
+
+
+def speculate_many(cfg: ModelConfig, draft_params, params, state, token, pos,
+                   done, remaining, generator=None, *, K: int, W: int,
+                   max_len: int, eos_token: int = -1, kvcfg=None,
+                   kcfg=None):
+    """Self-speculative fused decode: K draft/verify windows, greedy only.
+
+    Each window drafts W tokens with ``draft_params`` (W :func:`decode_step`
+    calls), then scores the current token and the W drafts with ``params``
+    in one :func:`verify_window`.  Greedy acceptance on the device keeps the
+    longest agreeing draft prefix plus the verifier's next token, so a live
+    lane emits 1 to W+1 tokens per window.  KV rollback is positional: the
+    verify pass rewrites the window's rows at verify quality, and rejected
+    rows lie at or past the new frontier, where the next window writes
+    before any query reads them.  Nothing reads a value back to the host.
+
+    The carry protocol of :func:`decode_many`; returns ((tokens (B,
+    K·(W+1)) int32, valid (B, K·(W+1)) bool), (state, token, pos, done,
+    remaining, generator)), window-major per slot."""
+    toks, valids = [], []
+    tok, p, dn, rem = token, pos, done, remaining
+    for _ in range(K):
+        tk, pp, drafts = tok, p, []
+        for _ in range(W):
+            logits, state = decode_step(cfg, draft_params, state, tk,
+                                        torch.clamp(pp, max=max_len - 1),
+                                        kvcfg=kvcfg, kcfg=kcfg)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            drafts.append(nxt)
+            tk, pp = nxt[:, None], pp + 1
+        drafts = torch.stack(drafts, dim=1)                      # (B, W)
+        logits, state = verify_window(cfg, params, state,
+                                      torch.cat([tok, drafts], dim=1), p,
+                                      kvcfg=kvcfg, kcfg=kcfg)
+        v = torch.argmax(logits, dim=-1).to(torch.int32)         # (B, W+1)
+        # candidate i is the verifier's token after window token i; it is
+        # emitted iff the first i drafts all agree
+        a = torch.cumprod((drafts == v[:, :W]).to(torch.int32), dim=1).sum(1)
+        for i in range(W + 1):
+            use = ~dn & (i <= a)
+            nxt = torch.where(use, v[:, i], tok[:, 0])
+            rem = rem - use.to(torch.int32)
+            p = p + use.to(torch.int32)
+            stop = (nxt == eos_token) | (p >= max_len) | (rem <= 0)
+            dn = dn | (use & stop)
+            tok = nxt[:, None]
+            toks.append(nxt)
+            valids.append(use)
     return ((torch.stack(toks, dim=1), torch.stack(valids, dim=1)),
             (state, tok, p, dn, rem, generator))

@@ -18,6 +18,18 @@ from .common import glu_mlp, norm
 from .config import ModelConfig
 
 
+def mixer_kinds(cfg: ModelConfig) -> set:
+    """The reference's layer kinds of a family (``stack_spec`` there),
+    ported or not: what self-speculative decoding checks before refusing a
+    family without plain attention."""
+    if cfg.family == "hybrid":
+        return {"lattn" if k == "attn" else k for k in cfg.hybrid.pattern}
+    kind = {"ssm": "ssd", "encdec": "xdec"}.get(cfg.family)
+    if kind is None:
+        kind = "mla" if cfg.mla is not None else "attn"
+    return {kind}
+
+
 def stack_spec(cfg: ModelConfig):
     """[(unit_kinds, n_repeat)]: one run of plain attention layers."""
     if cfg.family not in ("dense", "vlm") or cfg.mla is not None \
@@ -127,6 +139,22 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
     return _mlp_apply(cfg, p, x, None, "", kcfg), st
 
 
+def apply_layer_verify(cfg: ModelConfig, kind: str, p, x, state, pos, *,
+                       kvcfg=None, kcfg=None, block_table=None, rows=None):
+    """A drafted window x (B,S,D) at per-slot positions pos..pos+S-1
+    through one layer; ``state`` is written in place.  Returns (x, state)."""
+    if kind != "attn":
+        raise ValueError(
+            f"self-speculative decoding supports plain attention layers "
+            f"only, got {kind!r} (windowed/latent/recurrent decode states "
+            f"mutate destructively and cannot roll back rejected drafts)")
+    h = norm(x, p["ln1"])
+    y, st = L.attn_verify(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
+                          kcfg=kcfg, block_table=block_table, rows=rows)
+    x = x + y
+    return _mlp_apply(cfg, p, x, None, "", kcfg), st
+
+
 def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
                     want_state=False, max_len=0, kvcfg=None, kcfg=None,
                     pos0: int = 0, prefix_kv=None):
@@ -177,6 +205,26 @@ def apply_stack_decode(cfg: ModelConfig, run_params, spec, run_states, x, pos,
             up, st = layer_slice(rp, i), layer_slice(rs, i)
             for j, kind in enumerate(kinds):
                 x, _ = apply_layer_decode(cfg, kind, up[f"u{j}"], x,
+                                          st[f"u{j}"], pos, kvcfg=kvcfg,
+                                          kcfg=kcfg, block_table=block_table,
+                                          rows=rows)
+    return x, run_states
+
+
+def apply_stack_verify(cfg: ModelConfig, run_params, spec, run_states, x, pos,
+                       *, kvcfg=None, kcfg=None, block_table=None):
+    """:func:`apply_stack_decode` with a window of S tokens per slot: one
+    pass scores every drafted position.  A paged cache's window rows are
+    computed once, here, for every layer."""
+    rows = None
+    if kvcfg is not None and kvcfg.paged:
+        rows = L.paged_window_rows(pos, block_table, cfg.n_kv_heads,
+                                   kvcfg.block_size, x.shape[1])
+    for (kinds, n), rp, rs in zip(spec, run_params, run_states):
+        for i in range(n):
+            up, st = layer_slice(rp, i), layer_slice(rs, i)
+            for j, kind in enumerate(kinds):
+                x, _ = apply_layer_verify(cfg, kind, up[f"u{j}"], x,
                                           st[f"u{j}"], pos, kvcfg=kvcfg,
                                           kcfg=kcfg, block_table=block_table,
                                           rows=rows)

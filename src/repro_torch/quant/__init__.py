@@ -5,13 +5,14 @@ from repro_torch.core.policy import (FUSED_KERNELS, KernelConfig, NO_QUANT,
 
 from .api import FusedRequantPlan, lowrank_tree, quantize_params
 from .model import QuantizedModel
-from .registry import get_quantizer, register_quantizer, registered_methods
+from .registry import (Quantizer, get_quantizer, register_quantizer,
+                       registered_methods)
 from .session import CalibrationSession
 
 __all__ = [
     "BF16_KV", "CalibrationSession", "FUSED_KERNELS", "FusedRequantPlan",
     "KVCacheConfig", "KernelConfig", "NO_QUANT", "QuantPolicy",
-    "QuantizedModel", "get_quantizer", "lowrank_tree", "override",
+    "QuantizedModel", "Quantizer", "get_quantizer", "lowrank_tree", "override",
     "quantize_params", "register_quantizer", "registered_methods",
     "ttq_policy",
 ]

@@ -23,6 +23,17 @@ the quantized tree(s).
   swap), so it is opt-in.  A family the gate skips is copied into the
   written tree from the tree holding its newest codes.  Each tree gets its
   own decode graph.  On the CPU a written tree is ready at once.
+* **Draft tree** (``draft_policy``, self-speculative decoding): a second
+  quantized tree from the same statistics, with its own plan, delta-gate
+  snapshots, double-buffer trees and completion event.  Its requant runs
+  right after the verify tree's, on the same side stream.  A disabled draft
+  policy (``NO_QUANT``) keeps ``draft_params`` on the fp weights; a disabled
+  verify policy with an enabled draft is draft-only quantization (the
+  quantized model speculates for its fp self).
+* ``fused=False`` runs the eager per-leaf :func:`quantize_params` instead of
+  the plan; it refuses the delta gate and a draft tree.
+* ``fork()`` shares params and low-rank factors with a fresh copy of the
+  session; ``adopt(session)`` merges a forked stream's statistics back.
 """
 from __future__ import annotations
 
@@ -35,7 +46,8 @@ from repro_torch.core.awq import AWQConfig
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.ttq import QuantizedTensor
 
-from .api import FusedRequantPlan, _tree_get, _walk, lowrank_tree
+from .api import (FusedRequantPlan, _tree_get, _walk, lowrank_tree,
+                  quantize_params)
 from .registry import get_quantizer
 from .session import CalibrationSession
 
@@ -67,14 +79,45 @@ def _clone_written(tree):
     return tree
 
 
+class _Tree:
+    """One quantized tree's requant state: its policy, factors and plan,
+    the tree decode reads, the double buffer's pending (written, not
+    swapped) and spare trees with the pending write's completion event,
+    and the delta gate's snapshots."""
+
+    def __init__(self, policy: QuantPolicy, lowrank):
+        self.policy, self.lowrank = policy, lowrank
+        self.plan: Optional[FusedRequantPlan] = None
+        self.reset()
+
+    def reset(self):
+        self.qparams = self.pending = self.spare = self.done = None
+        self.qt_by_path: dict = {}       # path → QuantizedTensor with the
+                                         # newest codes of that path
+        self.last_D: dict = {}           # path → D at its last requant
+
+    def ready(self) -> bool:
+        """Whether the pending tree's write has finished on the device."""
+        return self.done is None or self.done.query()
+
+    def swap(self):
+        if self.done is not None:        # order decode after the write
+            torch.cuda.current_stream().wait_event(self.done)
+        self.spare, self.qparams, self.pending = \
+            self.qparams, self.pending, None
+
+
 class QuantizedModel:
     def __init__(self, params: Any, policy: QuantPolicy, *,
                  acfg: Optional[AWQConfig] = None, halflife: float = 0.0,
                  session: Optional[CalibrationSession] = None,
-                 lowrank: Any = _AUTO, double_buffer: bool = False):
+                 lowrank: Any = _AUTO, fused: bool = True,
+                 double_buffer: bool = False,
+                 draft_policy: Optional[QuantPolicy] = None):
         self.params = params
         self.policy = policy
         self.acfg = acfg
+        self.fused = fused
         self.double_buffer = double_buffer
         self.session = session if session is not None else \
             CalibrationSession(halflife=halflife)
@@ -83,21 +126,46 @@ class QuantizedModel:
                 if policy.any_enabled else None
         else:
             self.lowrank_tree = lowrank
-        self.qparams = None
+        self.draft_policy = draft_policy
+        drafting = draft_policy is not None and draft_policy.any_enabled
+        if drafting and not fused:
+            raise ValueError("draft_policy (self-speculative decoding) needs "
+                             "the fused requant plan; construct "
+                             "QuantizedModel(fused=True) (the default)")
+        self._v = _Tree(policy, self.lowrank_tree)
+        self._d = _Tree(draft_policy, lowrank_tree(params, draft_policy)
+                        if draft_policy.rank > 0 else None) \
+            if drafting else None
         self.n_requants = 0
-        self._plan: Optional[FusedRequantPlan] = None
-        self._plan_key = None
-        self._qt_by_path: dict = {}      # path → QuantizedTensor with the
-                                         # newest codes of that path
-        self._last_D: dict = {}          # path → D at its last requant
-        self._pending = None             # double buffer: written, not swapped
-        self._spare = None               # double buffer: the other tree
-        self._done = None                # event after the pending write
+        self._plan_key = _AUTO           # no plan built yet
         self._stream = None              # the requant's side stream
-        self.last_requant_layers = 0
+        self.last_requant_layers = 0     # verify-tree counts
         self.last_skipped_layers = 0
         self.total_requant_layers = 0
         self.total_skipped_layers = 0
+
+    # the verify tree's state, under the names the single-tree model had
+    qparams = property(lambda self: self._v.qparams)
+    _plan = property(lambda self: self._v.plan)
+    _qt_by_path = property(lambda self: self._v.qt_by_path)
+    _last_D = property(lambda self: self._v.last_D)
+    _pending = property(lambda self: self._v.pending)
+    _spare = property(lambda self: self._v.spare)
+
+    @property
+    def draft_qparams(self):
+        return None if self._d is None else self._d.qparams
+
+    @property
+    def requant_families(self) -> int:
+        """Weight families of the plan(s), the draft tree's included: the
+        counterpart of the reference's requant programs (one jitted program
+        per family)."""
+        return sum(len(t.plan.families) for t in self._trees()
+                   if t.plan is not None)
+
+    def _trees(self):
+        return [t for t in (self._v, self._d) if t is not None]
 
     def calibrate(self, stats: Any, tokens: float) -> "QuantizedModel":
         """Fold one prefill's activation statistics into the session."""
@@ -105,17 +173,17 @@ class QuantizedModel:
         return self
 
     def _active(self) -> bool:
-        active = [q for q in map(get_quantizer, self.policy.methods())
-                  if q.enabled]
+        active = [q for t in self._trees()
+                  for q in map(get_quantizer, t.policy.methods()) if q.enabled]
         if not active:
             return False
         return self.session.calibrated or not all(q.requires_stats
                                                   for q in active)
 
     @contextlib.contextmanager
-    def _side(self, stats):
+    def _side(self, stats, tree: _Tree):
         """Run the body on the requant's side stream after everything the
-        current stream has enqueued; record the completion event."""
+        current stream has enqueued; record ``tree``'s completion event."""
         cur = torch.cuda.current_stream()
         if self._stream is None:
             self._stream = torch.cuda.Stream(cur.device)
@@ -124,91 +192,145 @@ class QuantizedModel:
             t.record_stream(self._stream)
         with torch.cuda.stream(self._stream):
             yield
-        self._done = torch.cuda.Event()
-        self._done.record(self._stream)
+        tree.done = torch.cuda.Event()
+        tree.done.record(self._stream)
 
     def requantize(self, threshold: Optional[float] = None):
-        """Quantize from the session's statistics; returns the written tree,
-        or None when every method is disabled or statistics are still
-        missing.  ``threshold`` arms the delta gate (None: requantize
-        everything without computing drift)."""
+        """Quantize from the session's statistics; returns the written
+        verify tree (the draft tree in draft-only mode), or None when every
+        method is disabled or statistics are still missing.  ``threshold``
+        arms the delta gate (None: requantize everything without computing
+        drift)."""
         if not self._active():
             return None
         stats, count = self.session.as_calib()
+        if not self.fused:
+            if threshold is not None:
+                raise ValueError(
+                    "requantize(threshold=...) — the delta gate — needs the "
+                    "fused plan; construct QuantizedModel(fused=True) (the "
+                    "default) or drop the threshold")
+            self._v.qparams = quantize_params(
+                self.params, stats, self.policy, count=count, acfg=self.acfg,
+                lowrank_tree=self.lowrank_tree)
+            self.n_requants += 1
+            return self._v.qparams
+        self._v.lowrank = self.lowrank_tree  # callers may swap the factors
         key = _structure(stats)
         if self._plan_key != key:
-            self._plan = FusedRequantPlan(self.params, stats, self.policy,
-                                          acfg=self.acfg,
-                                          lowrank_tree=self.lowrank_tree)
+            for t in self._trees():
+                t.plan = FusedRequantPlan(
+                    self.params, stats, t.policy, acfg=self.acfg,
+                    lowrank_tree=t.lowrank) if t.policy.any_enabled else None
+                t.reset()
             self._plan_key = key
-            self.qparams = self._pending = self._spare = None
-            self._qt_by_path, self._last_D = {}, {}
-        buffered = self.double_buffer and self.qparams is not None
-        side = buffered and next(_walk(self.params))[1].is_cuda
-        with self._side(stats) if side else contextlib.nullcontext():
-            tree = self._write(stats, count, threshold, buffered)
-        if buffered:
-            self._pending = tree
-            if not side:
-                self._done = None
-        else:
-            self.qparams = tree
+        written = []
+        for t in self._trees():
+            if t.plan is None:           # draft-only: the verify tree is fp
+                continue
+            buffered = self.double_buffer and t.qparams is not None
+            side = buffered and next(_walk(self.params))[1].is_cuda
+            with self._side(stats, t) if side else contextlib.nullcontext():
+                tree = self._write(t, stats, count, threshold, buffered)
+            if buffered:
+                t.pending = tree
+                if not side:
+                    t.done = None
+            else:
+                t.qparams = tree
+            written.append(tree)
         self.n_requants += 1
-        return tree
+        return written[0]
 
-    def _write(self, stats, count, threshold, buffered):
+    def _write(self, t: _Tree, stats, count, threshold, buffered):
         """Gate, pick the tree to write, fill it, refresh the snapshots;
         returns the written tree."""
-        plan = self._plan
+        plan = t.plan
         only, n_requant, n_skip = None, plan.n_layers, 0
-        if threshold is not None and self._qt_by_path:
-            drifts = plan.drift(stats, count, self._last_D)
+        if threshold is not None and t.qt_by_path:
+            drifts = plan.drift(stats, count, t.last_D)
             only, n_requant, n_skip = plan.gate(drifts, threshold,
-                                                set(self._qt_by_path))
+                                                set(t.qt_by_path))
         if not buffered:
-            into = self.qparams
-        elif self._pending is not None:
-            into = self._pending
-        elif self._spare is not None:
-            into, self._spare = self._spare, None
+            into = t.qparams
+        elif t.pending is not None:
+            into = t.pending
+        elif t.spare is not None:
+            into, t.spare = t.spare, None
         else:
-            into = _clone_written(self.qparams)
+            into = _clone_written(t.qparams)
         if only is not None:                 # skipped families: newest codes
             for key, members in plan.families.items():
                 if key in only:
                     continue
                 for m in members:
-                    dst, src = _tree_get(into, m.path), self._qt_by_path[
+                    dst, src = _tree_get(into, m.path), t.qt_by_path[
                         m.path_str]
                     if dst is not src:
                         for f in _WRITTEN:
                             if getattr(dst, f) is not None:
                                 getattr(dst, f).copy_(getattr(src, f))
-        tree = plan.run(self.params, stats, count, self.lowrank_tree,
-                        only=only, into=into)
+        tree = plan.run(self.params, stats, count, t.lowrank, only=only,
+                        into=into)
         for key, members in plan.families.items():
             for m in members:
                 qt = _tree_get(tree, m.path)
                 if only is None or key in only:
-                    self._last_D[m.path_str] = 1.0 / qt.dinv
-                self._qt_by_path[m.path_str] = qt
-        self.last_requant_layers, self.last_skipped_layers = n_requant, n_skip
-        self.total_requant_layers += n_requant
-        self.total_skipped_layers += n_skip
+                    t.last_D[m.path_str] = 1.0 / qt.dinv
+                t.qt_by_path[m.path_str] = qt
+        if t is self._v:
+            self.last_requant_layers, self.last_skipped_layers = \
+                n_requant, n_skip
+            self.total_requant_layers += n_requant
+            self.total_skipped_layers += n_skip
         return tree
 
     def _ready(self) -> bool:
-        """Whether the pending tree's write has finished on the device."""
-        return self._done is None or self._done.query()
+        """Whether the verify tree's pending write has finished."""
+        return self._v.ready()
+
+    def _swap_ready(self):
+        """Swap the pending trees in once every pending write has finished:
+        the draft tree with the verify tree, so a speculative block reads
+        the pair one requant wrote and a double-buffered engine alternates
+        between two pairs (two speculative graphs, not up to four)."""
+        pending = [t for t in self._trees() if t.pending is not None]
+        if pending and self._ready() and (self._d is None
+                                          or self._d.ready()):
+            for t in pending:
+                t.swap()
 
     @property
     def decode_params(self):
-        """The tree decode reads: the newest one that is ready (double
-        buffer: the previous tree while a requant is in flight); the fp
-        parameters before the first requant."""
-        if self._pending is not None and self._ready():
-            if self._done is not None:   # order decode after the write
-                torch.cuda.current_stream().wait_event(self._done)
-            self._spare, self.qparams, self._pending = \
-                self.qparams, self._pending, None
-        return self.qparams if self.qparams is not None else self.params
+        """The verify tree decode reads: the newest one that is ready
+        (double buffer: the previous tree while a requant is in flight);
+        the fp parameters before the first requant."""
+        self._swap_ready()
+        t = self._v
+        return t.qparams if t.qparams is not None else self.params
+
+    @property
+    def draft_params(self):
+        """The draft tree a speculative block drafts with, by the same rule
+        as :attr:`decode_params`; the fp parameters before the first requant
+        or when the draft policy is disabled (an fp draft is a valid, most
+        accurate, speculator)."""
+        self._swap_ready()
+        t = self._d
+        if t is None:
+            return self.params
+        return t.qparams if t.qparams is not None else self.params
+
+    def fork(self) -> "QuantizedModel":
+        """An independent calibration stream sharing params and the verify
+        tree's low-rank factors."""
+        return QuantizedModel(self.params, self.policy, acfg=self.acfg,
+                              session=self.session.fork(),
+                              lowrank=self.lowrank_tree, fused=self.fused,
+                              double_buffer=self.double_buffer,
+                              draft_policy=self.draft_policy)
+
+    def adopt(self, session: CalibrationSession) -> "QuantizedModel":
+        """Join a forked stream's statistics into this model's session."""
+        self.session = self.session.merge(session)
+        return self

@@ -2,8 +2,12 @@
 
 ``update`` folds one prefill's Σx² tree in (with exponential decay when
 ``halflife`` > 0, in updates); ``as_calib`` hands (stats, count) to the
-requantization.  The reference's guards (quarantine, rollback) come in a
-later slice.
+requantization.  ``snapshot``/``fork`` copy the session in O(1): the copy
+shares the statistics tree, which ``update`` never writes (it builds new
+tensors).  ``merge`` joins two sessions by summing their statistics, exact
+since they are additive; sessions with different halflives weight their
+statistics differently and refuse to merge.  The reference's guards
+(quarantine, rollback) come in a later slice.
 """
 from __future__ import annotations
 
@@ -48,6 +52,29 @@ class CalibrationSession:
         self.count += float(tokens)
         self.n_updates += 1
         return self
+
+    def reset(self) -> "CalibrationSession":
+        self.stats, self.count, self.n_updates = None, 0.0, 0
+        return self
+
+    def snapshot(self) -> "CalibrationSession":
+        """A copy sharing the current statistics tree."""
+        return CalibrationSession(self.halflife, self.stats, self.count,
+                                  self.n_updates)
+
+    fork = snapshot
+
+    def merge(self, other: "CalibrationSession") -> "CalibrationSession":
+        """A new session holding the sum of both sessions' statistics."""
+        if self.halflife != other.halflife:
+            raise ValueError(
+                f"cannot merge sessions with different halflives "
+                f"({self.halflife} vs {other.halflife}): their statistics "
+                f"carry incompatible decay weighting — fork from one parent "
+                f"or resample one stream")
+        return CalibrationSession(
+            self.halflife, _tree_add(self.stats, other.stats),
+            self.count + other.count, self.n_updates + other.n_updates)
 
     @property
     def calibrated(self) -> bool:

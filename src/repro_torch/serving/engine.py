@@ -12,12 +12,18 @@
                        matmul runs ``ttq_gemm`` and every int8/int4 KV read
                        ``ttq_decode_attention`` (dense slab) or
                        ``ttq_paged_decode_attention`` (paged pool)
+                     → or, with ``speculate_k`` = W, SPECULATE: K windows
+                       per block, each W draft decode steps on the draft
+                       tree (``draft_policy``, by default
+                       ``policy.draft_variant()``, requantized beside the
+                       verify tree) and one verify pass over the window
 
 A facade over the :class:`Scheduler` (host policy), the
 :class:`DeviceRunner` (device execution) and :class:`QuantizedModel` (TTQ
-state).  ``EngineConfig`` keeps the reference's field names and defaults;
-options whose machinery is not ported yet raise ``NotImplementedError``
-naming the slice that brings them.
+state; ``lowrank=`` hands it low-rank factors computed earlier, so the
+engine runs no SVD).  ``EngineConfig`` keeps the reference's field names
+and defaults; options whose machinery is not ported yet raise
+``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -28,8 +34,9 @@ from typing import Dict, Optional
 from repro_torch._device import resolve_device
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.stack import stack_spec
+from repro_torch.models.stack import mixer_kinds, stack_spec
 from repro_torch.quant import CalibrationSession, QuantizedModel
+from repro_torch.quant.model import _AUTO
 
 from .runner import DeviceRunner
 from .scheduler import GenResult, Scheduler, pick_decode_chunk
@@ -61,9 +68,12 @@ class EngineConfig:
     requant_threshold: float = -1.0  # ≥0 → delta-gated requantization
     double_buffer: bool = False     # requant into the tree decode is not
                                     # reading; swap when it is ready
+    speculate_k: int = 0            # W drafted tokens per verify window (0
+                                    # off); greedy only, so it turns off at
+                                    # temperature > 0; decode_chunk then
+                                    # counts windows
     # ---- fields of the reference whose machinery comes in later slices;
     # a non-default value raises NotImplementedError ----
-    speculate_k: int = 0            # self-speculative decoding
     guards: bool = True             # guards and faults (this slice: False)
     guard_cfg: object = None
     deadline_s: float = 0.0
@@ -73,7 +83,6 @@ class EngineConfig:
 
 
 _LATER = [  # (field, value that keeps it off, slice that brings it)
-    ("speculate_k", 0, "speculation"),
     ("guards", False, "guards and faults"),
     ("guard_cfg", None, "guards and faults"),
     ("deadline_s", 0.0, "guards and faults"),
@@ -97,14 +106,31 @@ def _check_slice(ecfg: EngineConfig):
 class TTQEngine:
     def __init__(self, cfg: ModelConfig, params, policy: QuantPolicy,
                  ecfg: EngineConfig = EngineConfig(), *, device="cuda",
-                 generator=None):
+                 generator=None, draft_policy: Optional[QuantPolicy] = None,
+                 lowrank=_AUTO):
         _check_slice(ecfg)
+        if ecfg.speculate_k > 0 and ecfg.temperature > 0.0:
+            # greedy acceptance would bias sampled streams
+            ecfg = dataclasses.replace(ecfg, speculate_k=0)
+        if ecfg.speculate_k > 0 and mixer_kinds(cfg) != {"attn"}:
+            raise ValueError(
+                f"speculate_k needs a plain-attention family, got "
+                f"{sorted(mixer_kinds(cfg))} (windowed/latent/recurrent "
+                f"decode states cannot roll back rejected drafts)")
         stack_spec(cfg)                       # rejects families not ported
         self.device = resolve_device(device)
         if ecfg.decode_chunk <= 0:
             ecfg = dataclasses.replace(
-                ecfg, decode_chunk=pick_decode_chunk(ecfg.max_slots))
+                ecfg, decode_chunk=pick_decode_chunk(ecfg.max_slots,
+                                                     ecfg.speculate_k))
         self.cfg, self.params, self.policy, self.ecfg = cfg, params, policy, ecfg
+        # the draft tree: the policy's uniform low-bit variant unless given;
+        # a disabled verify policy with an enabled draft_policy is
+        # draft-only quantization
+        self.draft_policy = None
+        if ecfg.speculate_k > 0:
+            self.draft_policy = (draft_policy if draft_policy is not None
+                                 else policy.draft_variant())
         self.kvcfg = policy.kvcache
         if ecfg.kv_dtype:
             self.kvcfg = dataclasses.replace(self.kvcfg, dtype=ecfg.kv_dtype)
@@ -133,7 +159,8 @@ class TTQEngine:
         self.qmodel = QuantizedModel(
             params, policy,
             session=CalibrationSession(halflife=ecfg.stats_halflife),
-            double_buffer=ecfg.double_buffer)
+            double_buffer=ecfg.double_buffer, draft_policy=self.draft_policy,
+            lowrank=lowrank)
         self.scheduler = Scheduler(ecfg, self.kvcfg, self.num_blocks)
         self.requant_wall_s = 0.0
 
@@ -148,6 +175,24 @@ class TTQEngine:
     @property
     def decode_params(self):
         return self.qmodel.decode_params
+
+    @property
+    def draft_params(self):
+        """The tree a speculative block drafts with (None when speculation
+        is off)."""
+        if self.ecfg.speculate_k <= 0:
+            return None
+        return self.qmodel.draft_params
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Accepted drafts over drafted tokens, across all windows."""
+        r = self.runner
+        return r.spec_accepted / r.spec_drafted if r.spec_drafted else 0.0
+
+    @property
+    def spec_windows(self) -> int:
+        return self.runner.spec_windows
 
     @property
     def qparams(self):
@@ -179,9 +224,10 @@ class TTQEngine:
     def compiled_programs(self) -> int:
         """Programs resident on the device, the reference's count
         (``src/repro/serving/engine.py:compiled_programs``): the runner's
-        decode graphs (one per parameter-tree layout: two under the double
-        buffer) and prefill graphs (one per admission shape).  The requant
-        runs eagerly and holds none.  Flat once every shape of the traffic
+        decode graphs (one per layout of the tree(s) a block reads: two
+        under the double buffer, whose draft and verify trees swap together)
+        and prefill graphs (one per admission shape).  The requant runs
+        eagerly and holds none.  Flat once every shape of the traffic
         has been admitted."""
         return self.runner.compiled_programs
 
@@ -260,7 +306,8 @@ class TTQEngine:
         self.admit()
         if not self.scheduler.active_slots():
             return False
-        toks, valid, done = self.runner.decode_block(self.decode_params)
+        toks, valid, done = self.runner.decode_block(self.decode_params,
+                                                     self.draft_params)
         self.scheduler.record_block(toks, valid, done)
         self._flush_releases()
         if self.scheduler.should_requant():

@@ -6,7 +6,11 @@ done flags and budgets) and runs:
 * a bucketed batched prefill per admission group, stats tap on;
 * ``lm.decode_many`` — ``decode_chunk`` fused decode steps with sampling,
   EOS, budget and capacity masking on the device, so the host sees ONE
-  transfer per block (tokens, valid flags and done flags in one tensor).
+  transfer per block (tokens, valid flags and done flags in one tensor);
+* with ``speculate_k`` = W > 0 and a draft tree, ``lm.speculate_many``
+  instead — ``decode_chunk`` draft/verify windows of W drafts each, the
+  block K·(W+1) columns wide, its acceptance read from the same one
+  transfer (``spec_windows``, ``spec_drafted``, ``spec_accepted``).
 
 With a paged ``KVCacheConfig`` the slot caches are per-layer block pools
 plus a per-slot ``block_table``: admission scatters the prefill's rows
@@ -21,8 +25,9 @@ decode_many)`` and ``_prefill_jit``.  The first run at a new key runs
 eagerly on a side stream (it warms cuBLAS and the kernel library), then
 its work is captured; every later run at that key replays the graph.  A
 decode graph is keyed by the layout (see :func:`_layout`) of everything a
-block reads; a prefill graph by (bucket, group size, prefix length) and
-the parameter tree's layout (paged or not is the runner's).  A graph reads
+block reads (a speculative block reads two trees, and is keyed by both);
+a prefill graph by (bucket, group size, prefix length) and the parameter
+tree's layout (paged or not is the runner's).  A graph reads
 the addresses it captured, so everything it reads keeps its storage: the
 decode state, ``cur_tok``/``pos``/``done``/``remaining`` (written in
 place; the block ends by copying its carry into them), the parameter tree
@@ -148,6 +153,7 @@ class DeviceRunner:
         self.paged = kvcfg is not None and kvcfg.paged
         B, ML = ecfg.max_slots, ecfg.max_len
         self.K = max(1, ecfg.decode_chunk)
+        self.W = ecfg.speculate_k
         self.state = lm.init_decode_state(cfg, B, ML, kvcfg=kvcfg,
                                           device=self.device,
                                           num_blocks=num_blocks)
@@ -162,6 +168,9 @@ class DeviceRunner:
         self._pool = None               # the prefill graphs' memory pool
         self._stream = None             # the side stream of warm + capture
         self.capture_s = 0.0            # wall time of warm blocks + captures
+        self.spec_windows = 0           # live speculation windows
+        self.spec_drafted = 0           # drafted tokens in them
+        self.spec_accepted = 0          # drafted tokens the verifier kept
         self.prefill_capture_s: dict = {}   # (bucket, n, prefix) → seconds
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -304,21 +313,30 @@ class DeviceRunner:
     @property
     def compiled_programs(self) -> int:
         """Graphs held, the reference's count of its decode and prefill jit
-        caches: decode graphs (one per parameter-tree layout: the
-        full-precision tree before the first requant, then each quantized
-        tree) and prefill graphs (one per admission key); 0 on the CPU."""
+        caches: decode graphs (one per layout of the tree(s) a block reads:
+        the full-precision tree before the first requant, then each
+        quantized tree; a speculative block's pair of trees) and prefill
+        graphs (one per admission key); 0 on the CPU."""
         return len(self._graphs) + len(self._prefills)
 
-    def _eager_block(self, params) -> torch.Tensor:
-        """``decode_chunk`` steps of ``lm.decode_many`` from the runner's
-        state; the carry is copied back into the same tensors.  Returns
-        (B, 2K+1) int32: tokens, valid flags, done flags."""
+    def _eager_block(self, params, draft=None) -> torch.Tensor:
+        """One block from the runner's state: ``decode_chunk`` steps of
+        ``lm.decode_many``, or with ``draft`` ``decode_chunk`` windows of
+        ``lm.speculate_many``; the carry is copied back into the same
+        tensors.  Returns (B, 2C+1) int32, C columns: tokens, valid flags,
+        done flags."""
         ecfg = self.ecfg
-        (toks, valid), (_, tok, pos, done, rem, _) = lm.decode_many(
-            self.cfg, params, self.state, self.cur_tok, self.pos, self.done,
-            self.remaining, self.generator, K=self.K, max_len=ecfg.max_len,
-            temperature=ecfg.temperature, eos_token=ecfg.eos_token,
-            kvcfg=self.kvcfg, kcfg=self.kncfg)
+        kw = dict(K=self.K, max_len=ecfg.max_len, eos_token=ecfg.eos_token,
+                  kvcfg=self.kvcfg, kcfg=self.kncfg)
+        if draft is None:
+            (toks, valid), (_, tok, pos, done, rem, _) = lm.decode_many(
+                self.cfg, params, self.state, self.cur_tok, self.pos,
+                self.done, self.remaining, self.generator,
+                temperature=ecfg.temperature, **kw)
+        else:
+            (toks, valid), (_, tok, pos, done, rem, _) = lm.speculate_many(
+                self.cfg, draft, params, self.state, self.cur_tok, self.pos,
+                self.done, self.remaining, self.generator, W=self.W, **kw)
         for dst, src in ((self.cur_tok, tok), (self.pos, pos),
                          (self.done, done), (self.remaining, rem)):
             dst.copy_(src)
@@ -357,31 +375,41 @@ class DeviceRunner:
             build.LAUNCHES[k] += n
         return g.out
 
-    def _key(self, params):
-        return _layout((params, self.state, self.cur_tok, self.pos,
+    def _key(self, params, draft=None):
+        return _layout((params, draft, self.state, self.cur_tok, self.pos,
                         self.done, self.remaining))
 
-    def block(self, params) -> torch.Tensor:
-        """Enqueue one fused block of ``decode_chunk`` steps over every slot
-        and return its (B, 2K+1) int32 result on the device (tokens, valid
-        flags, done flags); reads nothing back.  CUDA: a replay of the
-        graph captured at this layout (captured first if there is none);
-        CPU: the eager loop."""
+    def block(self, params, draft=None) -> torch.Tensor:
+        """Enqueue one fused block over every slot (speculative with
+        ``draft``) and return its (B, 2C+1) int32 result on the device
+        (tokens, valid flags, done flags); reads nothing back.  CUDA: a
+        replay of the graph captured at this layout (captured first if
+        there is none); CPU: the eager loop."""
         if self.device.type != "cuda":
-            return self._eager_block(params)
-        key = self._key(params)
+            return self._eager_block(params, draft)
+        key = self._key(params, draft)
         g = self._graphs.get(key)
         if g is None:
-            warm, dt = self._capture(lambda: self._eager_block(params),
+            warm, dt = self._capture(lambda: self._eager_block(params, draft),
                                      self._graphs, key)
             self.capture_s += dt
             return warm
         return self._replay(g)
 
-    def decode_block(self, params):
-        """One fused block over every slot.  Returns host copies (tokens
-        (B,K), valid (B,K), done (B,))."""
-        out = self.block(params).cpu().numpy()  # the ONE sync per block
-        self.host_syncs += 1
-        K = self.K
-        return out[:, :K], out[:, K:2 * K].astype(bool), out[:, 2 * K].astype(bool)
+    def decode_block(self, params, draft=None):
+        """One fused block over every slot; with ``draft`` (and
+        ``speculate_k`` > 0) the speculative block.  Returns host copies
+        (tokens (B,C), valid (B,C), done (B,)), C = K or K·(W+1)."""
+        spec = draft is not None and self.W > 0
+        out = self.block(params, draft if spec else None).cpu().numpy()
+        self.host_syncs += 1                    # the ONE sync per block
+        C = (out.shape[1] - 1) // 2
+        toks, valid, done = (out[:, :C], out[:, C:2 * C].astype(bool),
+                             out[:, 2 * C].astype(bool))
+        if spec:
+            v = valid.reshape(valid.shape[0], -1, self.W + 1)
+            live = int(v[:, :, 0].sum())        # a live window emits
+            self.spec_windows += live
+            self.spec_drafted += live * self.W
+            self.spec_accepted += int(np.maximum(v.sum(axis=2) - 1, 0).sum())
+        return toks, valid, done

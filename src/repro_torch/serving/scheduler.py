@@ -22,11 +22,17 @@ from typing import Dict, List, Optional
 from .blocks import BlockAllocator
 
 
-def pick_decode_chunk(slots: int) -> int:
+def pick_decode_chunk(slots: int, speculate_k: int = 0) -> int:
     """Default fused-decode chunk: per-token at one slot (nothing to
     amortize, and fixed-K steps past EOS are wasted), 8 from two slots up
-    (the reference's tuning, ``scheduler.py:50``)."""
-    return 1 if slots <= 1 else 8
+    (the reference's tuning, ``scheduler.py:50``).  With self-speculative
+    decoding the chunk counts windows, each emitting up to W+1 tokens per
+    lane, so it is divided by W+1 (at least 1) to keep the work past EOS
+    or budget comparable; one slot stays at one window."""
+    base = 1 if slots <= 1 else 8
+    if speculate_k <= 0:
+        return base
+    return max(1, base // (speculate_k + 1))
 
 
 @dataclasses.dataclass

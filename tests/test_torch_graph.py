@@ -120,16 +120,23 @@ def _snapshot(r):
             r.done.clone(), r.remaining.clone(), gen)
 
 
-def _eager(eng, params, snap, carry=False):
+def _eager(eng, params, snap, carry=False, draft=None):
     """One eager ``lm.decode_many`` block from ``snap`` (its state and
-    generator are consumed): the (B, 2K+1) host array the runner's block
-    returns [, and the carry (token, pos, done, remaining)]."""
+    generator are consumed), or with ``draft`` one ``lm.speculate_many``
+    block: the (B, 2C+1) host array the runner's block returns [, and the
+    carry (token, pos, done, remaining)]."""
     r, e = eng.runner, eng.ecfg
     st, tok, pos, done, rem, gen = snap
-    (toks, valid), (_, *rest, _) = tlm.decode_many(
-        eng.cfg, params, st, tok, pos, done, rem, gen, K=r.K,
-        max_len=e.max_len, temperature=e.temperature, eos_token=e.eos_token,
-        kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    kw = dict(K=r.K, max_len=e.max_len, eos_token=e.eos_token,
+              kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    if draft is None:
+        (toks, valid), (_, *rest, _) = tlm.decode_many(
+            eng.cfg, params, st, tok, pos, done, rem, gen,
+            temperature=e.temperature, **kw)
+    else:
+        (toks, valid), (_, *rest, _) = tlm.speculate_many(
+            eng.cfg, draft, params, st, tok, pos, done, rem, gen, W=r.W,
+            **kw)
     out = torch.cat([toks, valid.to(torch.int32),
                      rest[2].to(torch.int32)[:, None]], dim=1).cpu().numpy()
     return (out, rest) if carry else out
@@ -315,21 +322,23 @@ def gpu_params(cuda):
 
 @contextlib.contextmanager
 def _shadowed(eng):
-    """Hold every ``decode_block`` of ``eng`` to an eager ``decode_many`` on
-    clones of the state it started from: the same tokens, valid and done
-    flags, bit for bit.  Yields the count of blocks held."""
+    """Hold every ``decode_block`` of ``eng`` to an eager ``decode_many`` (a
+    speculative block: ``speculate_many``) on clones of the state it started
+    from: the same tokens, valid and done flags, bit for bit.  Yields the
+    count of blocks held."""
     r = eng.runner
     real = r.decode_block
     seen = {"blocks": 0}
 
-    def run(params):
+    def run(params, draft=None):
         snap = _snapshot(r)
-        toks, valid, done = real(params)
-        want = _eager(eng, params, snap)
-        K = r.K
-        assert np.array_equal(toks, want[:, :K])
-        assert np.array_equal(valid, want[:, K:2 * K].astype(bool))
-        assert np.array_equal(done, want[:, 2 * K].astype(bool))
+        toks, valid, done = real(params, draft)
+        want = _eager(eng, params, snap,
+                      draft=draft if r.W > 0 else None)
+        C = toks.shape[1]
+        assert np.array_equal(toks, want[:, :C])
+        assert np.array_equal(valid, want[:, C:2 * C].astype(bool))
+        assert np.array_equal(done, want[:, 2 * C].astype(bool))
         seen["blocks"] += 1
         return toks, valid, done
     r.decode_block = run
@@ -675,3 +684,100 @@ def test_double_buffer_requant_never_writes_the_tree_decode_reads(
     trees = {id(t) for t in (qm.qparams, qm._spare, qm._pending)
              if t is not None}
     assert trees == {id(a), id(b)}
+
+
+# ------------------------------------------------- speculation on the card
+
+SPEC_CASES = {
+    "int8 KV": dict(policy=dict(kv="int8")),
+    "int4 KV": dict(policy=dict(kv="int4")),
+    "paged pool": dict(policy=dict(kv="int8"),
+                       engine=dict(kv_paged=True, kv_block_size=16)),
+    "draft only": dict(policy=None, engine=dict(kv_dtype="int8")),
+    "low rank, gate, double buffer": dict(
+        policy=dict(kv="int8", rank=16),
+        engine=dict(requant_threshold=0.05, double_buffer=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SPEC_CASES))
+def test_spec_graph_tokens_equal_eager(gpu_params, cuda, case):
+    """Every speculative block is one replay of a graph keyed by both
+    trees' layouts (two under the double buffer: the trees swap together),
+    with tokens, valid and done flags bit for bit those of an eager
+    ``speculate_many`` on clones of its starting state; rerunning the
+    traffic adds no speculative graph."""
+    from repro_torch.core import NO_QUANT
+    c = SPEC_CASES[case]
+    if c["policy"] is None:                  # bf16 weights, int4 draft
+        pol = NO_QUANT.with_(kernel=KernelConfig(use_pallas=True))
+        draft = _policy()
+    else:
+        pol, draft = _policy(**c["policy"]), None
+    eng = TTQEngine(GPU_CFG, gpu_params, pol, EngineConfig(
+        max_slots=3, max_len=64, decode_chunk=2, guards=False,
+        prompt_buckets=(16, 32, 64), speculate_k=3, **c.get("engine", {})),
+        device=cuda, draft_policy=draft)
+    prompts = _prompts(18, 6, GPU_CFG.vocab, 5, 30)
+    kbuild.reset_launches()
+    with _shadowed(eng) as seen:
+        rids = [eng.submit(p, max_new=20) for p in prompts]
+        out = eng.run_all()
+    assert all(len(out[i]) == 20 and not out[i].unfinished for i in rids)
+    assert seen["blocks"] >= 4 and eng.spec_windows > 0
+    assert kbuild.LAUNCHES["ttq_gemm"] > 0
+    r = eng.runner
+    n_graphs = len(r._graphs)
+    assert 1 <= n_graphs <= (2 if eng.ecfg.double_buffer else 1)
+    # a rerun may add prefill graphs only for tails past a prefix the first
+    # run left in the paged pool's cache; a second rerun adds nothing
+    shapes = {k[0] for k in r._prefills}
+    for _ in range(2):
+        programs = eng.compiled_programs
+        rids = [eng.submit(p, max_new=20) for p in prompts]
+        eng.run_all()
+    assert eng.compiled_programs == programs and len(r._graphs) == n_graphs
+    assert all(pfx > 0 for *_, pfx in {k[0] for k in r._prefills} - shapes)
+
+
+@pytest.mark.gpu
+def test_ttq_gemm_at_the_verify_width(cuda):
+    """``ttq_gemm`` at T = 16 (4 slots × a window of 4) against its plain
+    version: within one bf16 rounding (rtol 2^-7) and the f32 sums' order
+    (atol 2e-4·√(d/256))."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for dp, d in ((512, 256), (256, 512)):
+        W = torch.randn((dp, d), generator=g, device=cuda)
+        D = torch.rand((d,), generator=g, device=cuda) + 0.5
+        pk, S, Z = ops.ttq_quantize(W, D, bits=4, group_size=32)
+        x = torch.randn((4, 4, d), generator=g, device=cuda).to(torch.bfloat16)
+        y = ops.ttq_gemm(x, pk, S, Z, 1.0 / D, bits=4, group_size=32)
+        want = ref.ttq_gemm_ref(x.reshape(16, d), pk, S, Z, bits=4,
+                                group_size=32, dinv=1.0 / D)
+        torch.testing.assert_close(y.reshape(16, dp).float(),
+                                   want.to(torch.bfloat16).float(),
+                                   rtol=2 ** -7,
+                                   atol=2e-4 * (d / 256) ** 0.5)
+
+
+@pytest.mark.gpu
+def test_gptq_on_the_card_matches_the_cpu(cuda):
+    """The column-serial GPTQ at d = 512 on the card against the CPU: the
+    same f32 algorithm on two devices, whose inverse and Cholesky differ in
+    the last bits.  At least 99% of the weights within rtol 1e-3 / atol
+    1e-4 (a value near a rounding tie may take the other code, and its row
+    then carries another error forward), and the activation-aware error
+    ‖X(W − Ŵ)ᵀ‖² within 1% of the CPU's."""
+    from repro_torch.core import QuantConfig, gptq_qdq
+    rng = np.random.default_rng(11)
+    W = torch.from_numpy(rng.standard_normal((64, 512)).astype(np.float32))
+    X = torch.from_numpy(rng.standard_normal((1024, 512)).astype(np.float32))
+    cfg = QuantConfig(bits=4, group_size=32)
+    want = gptq_qdq(W, X, cfg)
+    got = gptq_qdq(W.to(cuda), X.to(cuda), cfg).cpu()
+    close = torch.isclose(got, want, rtol=1e-3, atol=1e-4)
+    assert close.float().mean() >= 0.99
+    err = lambda Q: float(((X @ (W - Q).T) ** 2).sum())
+    assert abs(err(got) - err(want)) <= 1e-2 * err(want)

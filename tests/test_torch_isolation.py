@@ -98,11 +98,14 @@ def test_engine_options_of_later_slices_raise():
     cfg = get("gemma_7b", smoke=True)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    for kw in ({}, dict(guards=False, speculate_k=2),
-               dict(guards=False, prefill_chunk=16)):
+    for kw in ({}, dict(guards=False, prefill_chunk=16)):
         with pytest.raises(NotImplementedError):
             TTQEngine(cfg, params, ttq_policy(rank=0), EngineConfig(**kw),
                       device="cpu")
+    # speculation is ported: it constructs, with the policy's draft variant
+    eng = TTQEngine(cfg, params, ttq_policy(rank=0),
+                    EngineConfig(guards=False, speculate_k=2), device="cpu")
+    assert eng.ecfg.speculate_k == 2 and eng.draft_policy.qcfg.bits == 4
 
 
 @pytest.mark.parametrize("ecfg", [dict(requant_threshold=0.1),
