@@ -65,6 +65,21 @@
    speculative and not, launches per block, captures, the draft requant's
    ``ttq_quantize`` time and peak memory.  [2] also times ``ttq_gemm`` at
    the verify window's 16 rows.
+3f. Robustness and streaming on [3]'s policy at full width: (a) the
+   default guards against guards=False (tokens and host syncs equal, ms
+   per decode step in turns, the gated requant's wall); (b) a
+   ``decode.logits`` fault on one lane, dense and paged, retried or failed
+   alone; (c) ``requant.tree`` NaN once (retried) and twice (rolled back:
+   the served tree bit for bit the last good one); (d) ``calib.stats`` nan
+   and outlier quarantined, the next requant bit for bit a dropped
+   update's; (e) ``pool.steal``: the degradation ladder to rung 3 and
+   back, one K = 1 graph, tokens unchanged; (f) chunked prefill at
+   max_len 512, dense and paged, every chunk replay bit for bit the eager
+   chunk, tokens equal to the unchunked run's or near-ties, TTFT/ITL
+   p50/p99; (g) ``TTQServer``: streams equal the batch engine's, graphs on
+   the worker thread, a dropped stream cancelled, ``stop()`` drains; (h)
+   ``python -m repro_torch.launch.serve`` in a subprocess, its summary
+   parsed.  Prints each part's seconds.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -75,6 +90,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -134,6 +150,13 @@ REL_L2_ONE_LAYER = 1e-2
 WITNESS_RATIO = 1.5
 REL_L2_BOUND = 3e-2
 SPEC_W = 3                     # phase 3e: drafted tokens per window
+# phase 3f: chunked prefill at max_len 512 in chunks of 64, two per round,
+# 8 slots so the long prompts are ingested while the short ones decode;
+# the pool theft of (e) takes every free block for 4 engine steps
+CHUNK_3F, BUDGET_3F, MAXLEN_3F, SLOTS_3F = 64, 128, 512, 8
+STEAL_3F = 64
+NEVER = 10 ** 6                # a requant cadence that never fires: the
+                               # tree is fixed by one manual requant
 
 
 class CheckFailed(RuntimeError):
@@ -662,8 +685,8 @@ def build_engine(torch, dev, cfg=None, params=None, policy=None,
         policy = ttq_policy(bits=4, group_size=32, rank=0, packed=True,
                             kvcache=KVCacheConfig(dtype="int8"),
                             kernel=KernelConfig(use_pallas=True))
-    ecfg = EngineConfig(max_slots=4, max_len=256, decode_chunk=0,
-                        guards=False, **ecfg_kw)
+    ecfg = EngineConfig(**{**dict(max_slots=4, max_len=256, decode_chunk=0,
+                                  guards=False), **ecfg_kw})
     return cfg, ecfg, TTQEngine(cfg, params, policy, ecfg, device=dev,
                                 **(engine_kw or {}))
 
@@ -845,12 +868,12 @@ def graph_vs_eager(torch, cfg, eng, prompts):
     p = {"graph": 0.0, "eager": 0.0, "replayed": 0, "captured": 0,
          "shapes": set()}
 
-    def run(params, draft=None):
+    def run(params, draft=None, small_chunk=False):
         snap = snapshot(torch, r)
         programs = r.compiled_programs
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks, valid, done = real(params, draft)
+        toks, valid, done, fault = real(params, draft, small_chunk)
         t1 = time.perf_counter()
         want = eager_block(torch, cfg, eng, params, snap,
                            draft if r.W > 0 else None)
@@ -867,7 +890,7 @@ def graph_vs_eager(torch, cfg, eng, prompts):
             t["blocks"] += 1
             t["graph"] += t1 - t0
             t["eager"] += t2 - t1
-        return toks, valid, done
+        return toks, valid, done, fault
 
     def admit(params, group):
         snap = clone_tree(torch, r.state)
@@ -1418,8 +1441,8 @@ def recorded(eng, swaps=None):
     log, per = [], []
     real_block, real_ready, real_rq = r.decode_block, qm._ready, eng._requantize
 
-    def block(params, draft=None):
-        out = real_block(params, draft)
+    def block(*a, **kw):
+        out = real_block(*a, **kw)
         n["blocks"] += 1
         return out
 
@@ -1959,6 +1982,628 @@ def speculation(torch, dev, cfg, params, factors) -> dict:
     return res
 
 
+# --------------------------------------------------------------- phase 3f
+
+def free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def guarded(torch, dev, cfg, params, faults=None, **ecfg_kw):
+    """[3]'s engine with the default guards (and ``faults``)."""
+    return build_engine(torch, dev, cfg, params, guards=True,
+                        engine_kw=dict(faults=faults), **ecfg_kw)[2]
+
+
+def fixed_tree(eng, prompts):
+    """Admit ``prompts`` and requantize once: with ``recalibrate_every``
+    at NEVER the engine decodes on that tree for the rest of its life."""
+    rids = [eng.submit(p, max_new=MAX_NEW) for p in prompts]
+    eng.admit()
+    eng._requantize()
+    return rids
+
+
+def synced_requant(torch, eng) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._requantize()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def guards_on_off(torch, dev, cfg, params, prompts) -> tuple:
+    """(a) [3]'s traffic and policy, the default guards against
+    guards=False: greedy tokens bit for bit equal and the same host syncs
+    (one per block and admission group); warm runs in turns (off, on, on,
+    off) for ms per decode step; each engine's synced requant (the gated
+    one writes the spare tree, validates it and swaps); the spare's
+    one-time clone; decode graphs and peak memory."""
+    from repro_torch.quant.model import _clone_written
+    engs, res = {}, {}
+    for name in ("off", "on"):
+        free(torch)
+        before = torch.cuda.memory_allocated()
+        eng = (guarded(torch, dev, cfg, params) if name == "on" else
+               build_engine(torch, dev, cfg, params)[2])
+        outs, wall = serve(torch, eng, prompts)
+        check_outputs(cfg, outs, f"[3f] (a) guards {name}")
+        engs[name] = eng
+        free(torch)
+        res[name] = dict(outputs=[list(o) for o in outs], cold_s=wall,
+                         host_syncs=eng.host_syncs,
+                         held_gb=(torch.cuda.memory_allocated() - before)
+                         / 1e9)
+    check(res["on"]["outputs"] == res["off"]["outputs"],
+          "[3f] (a): guarded tokens differ from the unguarded run's: "
+          + str([leading_equal(a, b) for a, b in zip(
+              res["on"]["outputs"], res["off"]["outputs"])]))
+    check(res["on"]["host_syncs"] == res["off"]["host_syncs"],
+          f"[3f] (a): host syncs {res['on']['host_syncs']} guarded vs "
+          f"{res['off']['host_syncs']}")
+    n_tok = sum(len(o) for o in res["on"]["outputs"])
+    ms = {"on": [], "off": []}
+    for name in ("off", "on", "on", "off"):
+        ms[name].append(warm_phases(torch, engs[name], prompts,
+                                    n_tok)["decode_ms_per_step"])
+    rq = {k: [synced_requant(torch, engs[k]) for _ in range(2)]
+          for k in ("off", "on")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spare = _clone_written(engs["on"].qparams)
+    torch.cuda.synchronize()
+    clone_s = time.perf_counter() - t0
+    del spare
+    graphs = {k: len(e.runner._graphs) for k, e in engs.items()}
+    check(graphs == {"off": 1, "on": 2}, f"[3f] (a) decode graphs {graphs}: "
+          f"want 1 unguarded, 2 guarded (its two alternating trees)")
+    step = {k: statistics.mean(v) for k, v in ms.items()}
+    out = dict(ms_per_step=ms, guard_cost=step["on"] / step["off"] - 1.0,
+               requant_s=rq, spare_clone_s=clone_s, decode_graphs=graphs,
+               host_syncs=res["on"]["host_syncs"],
+               held_gb={k: v["held_gb"] for k, v in res.items()})
+    print(f"  (a) guards on vs off: tokens bit for bit equal, host syncs "
+          f"{res['on']['host_syncs']} each (one per block and admission "
+          f"group); ms per decode step (warm, in turns off/on/on/off) off "
+          f"{ms['off']}, on {ms['on']}: {out['guard_cost']:+.2%}; synced "
+          f"requant ungated (in place) {[round(x * 1e3, 2) for x in rq['off']]}"
+          f" ms, gated (spare, validate, swap) "
+          f"{[round(x * 1e3, 2) for x in rq['on']]} ms; the spare's one-time "
+          f"clone {clone_s * 1e3:.1f} ms; decode graphs {graphs}; device "
+          f"memory each engine holds after its cold run (its trees, KV, "
+          f"graph pools) {out['held_gb']} GB")
+    del engs["off"]
+    return out, engs["on"]
+
+
+def lane_faults(torch, dev, cfg, params, prompts) -> dict:
+    """(b) decode.logits on request 1's lane, dense and paged, max_retries
+    1 and 0, against a fault-free run on the same fixed tree: only that
+    request faults (then retries, or fails with "non-finite logits"), the
+    others' tokens bit for bit the fault-free run's; the pool quiescent."""
+    from repro_torch.quant import GuardConfig
+    from repro_torch.serving import Fault, FaultInjector
+    res = {}
+    for paged in (False, True):
+        kw = dict(kv_paged=True, kv_block_size=BLOCK) if paged else {}
+        label = "paged" if paged else "dense"
+        ref = None
+        for retries in (None, 1, 0):
+            faults = None if retries is None else FaultInjector(
+                [Fault("decode.logits", rid=1, count=1)])
+            eng = guarded(torch, dev, cfg, params, faults,
+                          recalibrate_every=NEVER,
+                          guard_cfg=GuardConfig(max_retries=retries or 0),
+                          **kw)
+            rids = fixed_tree(eng, prompts[:4])
+            out = eng.run_all()
+            outs = [out[r] for r in rids]
+            if paged:
+                eng.allocator.assert_quiescent()
+            if retries is None:
+                ref = [list(o) for o in outs]
+                check(eng.lane_faults == 0 and not any(o.error for o in outs),
+                      f"[3f] (b) {label}: the fault-free run faulted")
+                del eng
+                free(torch)
+                continue
+            want = ["", "" if retries else "non-finite logits", "", ""]
+            others = [i for i in range(4) if i != 1]
+            same = [list(outs[i]) == ref[i] for i in others]
+            retried = leading_equal(outs[1], ref[1])
+            check(eng.lane_faults == 1 and [o.error for o in outs] == want
+                  and all(same),
+                  f"[3f] (b) {label} max_retries={retries}: lane faults "
+                  f"{eng.lane_faults}, errors {[o.error for o in outs]}, "
+                  f"others equal to the fault-free run {same}")
+            res[f"{label} retries {retries}"] = dict(
+                lane_faults=eng.lane_faults, errors=want,
+                request1_leading_equal=retried)
+            print(f"  (b) {label}, max_retries={retries}: request 1 "
+                  f"{'retried' if retries else 'failed: non-finite logits'}"
+                  f", lane faults 1; requests 0, 2, 3 bit for bit the "
+                  f"fault-free run's (the tree fixed by one requant)"
+                  + (f"; request 1's retry equals it in its first "
+                     f"{retried} of {len(ref[1])} tokens" if retries else "")
+                  + ("; pool quiescent" if paged else ""))
+            del eng
+            free(torch)
+    return res
+
+
+def requant_faults(torch, eng, prompts) -> dict:
+    """(c) requant.tree NaN on the guarded engine of (a): once (the
+    gate's retry writes a clean tree and swaps it in; the tree it replaced
+    is untouched) and twice (rolled back: the served tree, its storage and
+    the gate's snapshots stay bit for bit what they were).  Then traffic
+    again: no decode graph beyond the two of the alternating trees."""
+    from repro_torch.serving import Fault, FaultInjector
+    qm, r = eng.qmodel, eng.runner
+    res = {}
+    for count in (1, 2):
+        served = qm.decode_params
+        snap = clone_qt_tree(torch, served)
+        by_path = dict(qm._qt_by_path)
+        last_d = {k: v.clone() for k, v in qm._last_D.items()}
+        n0, rej0, upd0 = qm.n_requants, qm.requant_rejections, \
+            qm.session.n_updates
+        qm._fault_hook = FaultInjector(
+            [Fault("requant.tree", at=0, count=count)]).requant_hook
+        try:
+            wall = synced_requant(torch, eng)
+        finally:
+            qm._fault_hook = None
+        check(qm.requant_rejections - rej0 == count,
+              f"[3f] (c) {count} faults: {qm.requant_rejections - rej0} "
+              f"rejections")
+        if count == 2:
+            check(qm.n_requants == n0 and qm.decode_params is served
+                  and qm.session.n_updates == upd0 - 1
+                  and qt_tree_equal(torch, served, snap)
+                  and all(qm._qt_by_path[k] is v for k, v in by_path.items())
+                  and all(torch.equal(qm._last_D[k], v)
+                          for k, v in last_d.items()),
+                  "[3f] (c) sustained: the served tree or the gate's "
+                  "snapshots changed, or nothing was rolled back")
+        else:
+            stats, cnt = qm.session.as_calib()
+            fresh = qm._plan.run(qm.params, stats, cnt)
+            check(qm.n_requants == n0 + 1 and qm._spare is served
+                  and qt_tree_equal(torch, served, snap)
+                  and qt_tree_equal(torch, qm.decode_params, fresh),
+                  "[3f] (c) transient: the retried tree is not a clean "
+                  "requant's, or the tree it replaced changed")
+            del fresh
+        del snap
+        free(torch)
+        res[count] = dict(wall_s=wall, rejections=count)
+    outs, _ = serve(torch, eng, prompts[:4])
+    check(all(len(o) == MAX_NEW and not o.error for o in outs)
+          and len(r._graphs) == 2,
+          f"[3f] (c): after the faults {len(r._graphs)} decode graphs "
+          f"(want 2), outputs {[len(o) for o in outs]}")
+    print(f"  (c) requant.tree NaN once: rejected, retried, swapped in "
+          f"({res[1]['wall_s'] * 1e3:.1f} ms synced, two candidates); twice: "
+          f"rolled back, the served tree, its storage and the gate's "
+          f"snapshots bit for bit the last good ones "
+          f"({res[2]['wall_s'] * 1e3:.1f} ms); then 4 requests served, "
+          f"decode graphs still 2; requant rejections "
+          f"{qm.requant_rejections}")
+    return res
+
+
+def calib_faults(torch, dev, cfg, params, prompts) -> dict:
+    """(d) calib.stats nan and outlier on the second admission group:
+    quarantined with its provenance, and the next requant's codes bit for
+    bit a run whose fault drops that update."""
+    from repro_torch.serving import Fault, FaultInjector
+    trees, res = {}, {}
+    for kind in ("drop", "nan", "outlier"):
+        faults = FaultInjector([Fault("calib.stats", at=1, kind=kind)])
+        eng = guarded(torch, dev, cfg, params, faults,
+                      recalibrate_every=NEVER)
+        fixed_tree(eng, prompts)
+        check(len(faults.fired) == 1, f"[3f] (d) {kind}: fired "
+              f"{faults.fired}")
+        q = [(x.reason, x.update_idx, x.provenance) for x in eng.quarantine]
+        res[kind] = q
+        if kind == "drop":
+            trees["drop"] = eng.qparams
+            check(not q, f"[3f] (d) drop quarantined {q}")
+        else:
+            reason = {"nan": "non-finite-stats",
+                      "outlier": "outlier-stats"}[kind]
+            check(q == [(reason, 1, (3,))] and qt_tree_equal(
+                torch, eng.qparams, trees["drop"]),
+                f"[3f] (d) {kind}: quarantine {q}, or the requant's codes "
+                f"differ from the drop run's")
+        del eng
+        free(torch)
+    print(f"  (d) calib.stats nan and outlier on the second admission group "
+          f"(request 3): quarantined {res['nan']} / {res['outlier']}; the "
+          f"next requant's codes, S, Z and 1/D bit for bit the drop run's")
+    return res
+
+
+def pool_theft(torch, dev, cfg, params, prompts) -> dict:
+    """(e) pool.steal of every free block for 4 steps on the paged pool:
+    the ladder climbs to rung 3 (speculation off, K = 1 blocks, cached
+    prefixes dropped) and back to 0; the K = 1 graph is captured once; the
+    tokens equal the unpressured run's bit for bit."""
+    from repro_torch.serving import Fault, FaultInjector
+    res = {}
+    for theft in (False, True):
+        faults = FaultInjector([Fault("pool.steal", at=1, magnitude=STEAL_3F,
+                                      count=4)]) if theft else None
+        eng = guarded(torch, dev, cfg, params, faults, kv_paged=True,
+                      kv_block_size=BLOCK)
+        levels, real = [], eng._update_ladder
+
+        def ladder():
+            real()
+            levels.append(eng.degrade_level)
+        eng._update_ladder = ladder
+        outs, wall = serve(torch, eng, prompts)
+        eng.allocator.assert_quiescent()
+        k1 = sum(1 for k in eng.runner._graphs if k[0] == 1)
+        res[theft] = dict(outputs=[list(o) for o in outs], levels=levels,
+                          events=eng.degrade_events, k1_graphs=k1,
+                          wall_s=wall)
+        del eng, ladder
+        free(torch)
+    t = res[True]
+    check(max(t["levels"]) == 3 and t["levels"][-1] == 0
+          and t["events"] == 3 and t["k1_graphs"] == 1
+          and res[False]["k1_graphs"] == 0,
+          f"[3f] (e) ladder levels {t['levels']}, events {t['events']}, "
+          f"K = 1 graphs {t['k1_graphs']}")
+    check(t["outputs"] == res[False]["outputs"],
+          "[3f] (e): tokens under pool theft differ from the unpressured "
+          f"run's: {[leading_equal(a, b) for a, b in zip(t['outputs'], res[False]['outputs'])]}")
+    print(f"  (e) pool.steal ({STEAL_3F} blocks, 4 steps): ladder levels per "
+          f"step {t['levels']}, {t['events']} climbs, one K = 1 graph; "
+          f"tokens bit for bit the unpressured run's; pool quiescent; wall "
+          f"{t['wall_s']:.2f} s vs {res[False]['wall_s']:.2f} s")
+    return dict(levels=t["levels"], events=t["events"],
+                wall_s=[res[False]["wall_s"], t["wall_s"]])
+
+
+def long_prompts(n, lo, hi, seed) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256000, size=int(k)).tolist()
+            for k in rng.integers(lo, hi + 1, size=n)]
+
+
+def chunk_shadowed(torch, eng) -> dict:
+    """Hold every chunk replay of ``eng`` to the eager chunk body on a clone
+    of the state it started from: the last real row's logits, the
+    statistics and every state leaf after the writes (a paged pool's sink
+    block aside), bit for bit."""
+    r = eng.runner
+    real = r._replay
+    seen = {"replayed": 0}
+
+    def replay(g):
+        if not any(g is v for v in r._chunks.values()):
+            return real(g)
+        snap = clone_tree(torch, r.state)
+        last, stats = real(g)
+        start = next(k[1] for k, v in r._chunks.items() if v is g)
+        inp = {k: v.clone() for k, v in g.inputs.items()}
+        want, want_stats = r._chunk(eng.params, snap, inp, start)
+        check(torch.equal(last, want) and tree_equal(torch, stats, want_stats)
+              and kv_equal(torch, eng, r.state, snap),
+              f"[3f] (f): chunk replay at start {start} differs from the "
+              f"eager chunk")
+        seen["replayed"] += 1
+        return last, stats
+    r._replay = replay
+    return seen
+
+
+def chunk_near_tie(torch, cfg, params, tree, kvcfg, kcfg, batch, i, agreed,
+                   a, b) -> tuple:
+    """At request ``i``'s first disagreement between the unchunked and the
+    chunked run (tokens ``a``, ``b`` after ``agreed``; ``batch``: the
+    prompts submitted with it), recompute its logits on ``tree`` two ways:
+    prefilled as the unchunked engine did (in its admission group, padded
+    to the group's bucket), and in chunks of CHUNK_3F over the rows written
+    so far; each then decodes ``agreed``, on the dense slab (a paged
+    read equals the dense one, [3b]).  Returns (|logit a − logit b| of the
+    first, the largest |Δlogit| between the two)."""
+    from repro_torch.models import lm
+    from repro_torch.serving.runner import _gather_dense_prefix, _write_rows
+    dev, ML = params["embed"].device, MAXLEN_3F
+    kvcfg = dataclasses.replace(kvcfg, paged=False)
+    prompt, P = batch[i], len(batch[i])
+
+    def bucket(n):
+        return next(x for x in (16, 32, 64, 128, 256) if n <= x)
+    bk = bucket(P)
+    group = [q for q in batch if bucket(len(q)) == bk]
+    j = sum(1 for q in batch[:i] if bucket(len(q)) == bk)
+    toks = torch.zeros((len(group), bk), dtype=torch.long, device=dev)
+    for k, q in enumerate(group):
+        toks[k, :len(q)] = torch.tensor(q)
+    lg, st, _ = lm.prefill(cfg, params, {"tokens": toks}, ML,
+                           collect_stats=False, full_logits=True, kvcfg=kvcfg)
+    lw = lg[j:j + 1, P - 1]
+    st_w = {"stack": [{u: {k: v[:, j:j + 1].clone() for k, v in run[u].items()}
+                       for u in run} for run in st["stack"]]}
+    del lg, st
+    st_c = lm.init_decode_state(cfg, 1, ML, kvcfg, device=dev)
+    slot = torch.zeros((1,), dtype=torch.long, device=dev)
+    for start in range(0, P, CHUNK_3F):
+        n = min(CHUNK_3F, P - start)
+        toks = torch.zeros((1, CHUNK_3F), dtype=torch.long, device=dev)
+        toks[0, :n] = torch.tensor(prompt[start:start + n])
+        pkv = (_gather_dense_prefix(st_c["stack"], slot, start, kvcfg)
+               if start else None)
+        lg, cst, _ = lm.prefill(cfg, params, {"tokens": toks}, ML,
+                                collect_stats=False, full_logits=True,
+                                kvcfg=kvcfg, prefix_kv=pkv, pos0=start,
+                                compact_state=True)
+        _write_rows(st_c["stack"], cst["stack"], slot, start, ML)
+    lc = lg[:, n - 1]
+    tok = lambda x: torch.tensor([[x]], dtype=torch.int32, device=dev)
+    at = lambda p: torch.tensor([p], dtype=torch.int32, device=dev)
+    for k, x in enumerate(agreed):
+        lw, _ = lm.decode_step(cfg, tree, st_w, tok(x), at(P + k),
+                               kvcfg=kvcfg, kcfg=kcfg)
+        lc, _ = lm.decode_step(cfg, tree, st_c, tok(x), at(P + k),
+                               kvcfg=kvcfg, kcfg=kcfg)
+    lw, lc = lw[0], lc[0]
+    return float((lw[a] - lw[b]).abs()), float((lw - lc).abs().max())
+
+
+def chunked_prefill(torch, dev, cfg, params, prompts) -> dict:
+    """(f) max_len 512, SLOTS_3F slots, dense slab and paged pool (block
+    16, no prefix cache so that a warm rerun admits as the cold run did):
+    4 short prompts admitted and one requant fixing the tree, then 4
+    prompts of 200-256 tokens, which the unchunked engine also takes,
+    chunked (CHUNK_3F, BUDGET_3F padded tokens per round) while the short
+    ones decode.  Tokens equal to the unchunked run's or, at a first
+    disagreement, a near-tie (:func:`chunk_near_tie`); every chunk replay
+    bit for bit the eager chunk; compiled programs flat over a warm rerun;
+    TTFT and ITL p50/p99 of the warm runs, chunked and not.  Then one
+    400-token prompt, which only the chunked engine takes."""
+    shorts = prompts[:4]
+    longs = long_prompts(4, 200, 256, SEED + 5)
+    res = {}
+    for paged in (False, True):
+        kw = dict(kv_paged=True, kv_block_size=BLOCK, prefix_cache=False) \
+            if paged else {}
+        label = "paged" if paged else "dense"
+        outs = {}
+        for chunk in (0, CHUNK_3F):
+            eng = guarded(torch, dev, cfg, params, max_slots=SLOTS_3F,
+                          max_len=MAXLEN_3F, recalibrate_every=NEVER,
+                          prefill_chunk=chunk,
+                          prefill_budget=BUDGET_3F if chunk else 0, **kw)
+            seen = chunk_shadowed(torch, eng)
+            rids = fixed_tree(eng, shorts)
+            rids += [eng.submit(p, max_new=MAX_NEW) for p in longs]
+            t0 = time.perf_counter()
+            out = eng.run_all()
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            outs[chunk] = [list(out[r]) for r in rids]
+            check_outputs(cfg, [out[r] for r in rids],
+                          f"[3f] (f) {label} chunk {chunk}")
+            programs = eng.compiled_programs
+            del eng.runner._replay          # the warm run is not shadowed
+            eng.scheduler.finished.clear()
+            warm, wall = serve(torch, eng, shorts + longs)
+            check([list(o) for o in warm] == outs[chunk]
+                  and eng.compiled_programs == programs,
+                  f"[3f] (f) {label} chunk {chunk}: the warm rerun differs "
+                  f"or captured ({programs} → {eng.compiled_programs})")
+            lat = eng.latency_percentiles()
+            row = dict(cold_s=cold, warm_s=wall, programs=programs,
+                       latency=lat)
+            if chunk:
+                check(seen["replayed"] > 0 and eng.prefill_chunks > 0,
+                      f"[3f] (f) {label}: no chunk replayed")
+                row.update(chunks=eng.prefill_chunks,
+                           chunk_graphs=len(eng.runner._chunks),
+                           replays_held=seen["replayed"])
+                if not paged:
+                    v = long_prompts(1, 400, 400, SEED + 6)[0]
+                    rid = eng.submit(v, max_new=MAX_NEW)
+                    o = eng.run_all()[rid]
+                    check_outputs(cfg, [o], "[3f] (f) 400-token prompt")
+                    row["prompt_400_ok"] = True
+                else:
+                    eng.allocator.assert_quiescent()
+                tree, kvcfg, kcfg = eng.decode_params, eng.kvcfg, eng.kncfg
+            res[f"{label} chunk {chunk}"] = row
+            print(f"  (f) {label}, prefill_chunk {chunk}: cold {cold:.2f} s, "
+                  f"warm {wall:.2f} s; TTFT p50/p99 {lat['ttft_p50'] * 1e3:.1f}"
+                  f"/{lat['ttft_p99'] * 1e3:.1f} ms, ITL p50/p99 "
+                  f"{lat['itl_p50'] * 1e3:.2f}/{lat['itl_p99'] * 1e3:.2f} ms "
+                  f"({lat['n_streams']} streams); compiled programs "
+                  f"{programs}, flat over the warm run"
+                  + (f"; {row['chunks']} chunks, {row['chunk_graphs']} chunk "
+                     f"graphs, {row['replays_held']} replays bit for bit the "
+                     f"eager chunk" if chunk else "")
+                  + ("; a 400-token prompt served" if chunk and not paged
+                     else ""))
+            if not chunk or paged:
+                del eng
+                free(torch)
+        ties = []
+        for i, (a, b) in enumerate(zip(outs[0], outs[CHUNK_3F])):
+            t = leading_equal(a, b)
+            if t == len(a):
+                continue
+            batch, k = (shorts, i) if i < 4 else (longs, i - 4)
+            margin, delta = chunk_near_tie(torch, cfg, params, tree, kvcfg,
+                                           kcfg, batch, k, a[:t], a[t], b[t])
+            ties.append(dict(request=i, t=t, margin=margin, delta=delta))
+            check(margin <= delta, f"[3f] (f) {label} request {i}: the "
+                  f"disagreement at token {t} is no near-tie ({margin} > "
+                  f"{delta})")
+        res[f"{label} ties"] = ties
+        print(f"  (f) {label}: chunked tokens "
+              + ("bit for bit the unchunked run's" if not ties else
+                 f"equal to the unchunked run's but at {len(ties)} first "
+                 f"disagreements, each a near-tie (margin / recomputed "
+                 f"whole-vs-chunked |Δlogit|): "
+                 + ", ".join(f"r{x['request']}@{x['t']} {x['margin']:.4g}/"
+                             f"{x['delta']:.4g}" for x in ties)))
+        del tree
+        free(torch)
+    return res
+
+
+def server_phase(torch, dev, cfg, params) -> dict:
+    """(g) TTQServer over a guarded paged engine (block 16, chunks of 16,
+    no prefix cache) on a tree fixed by one requant: 8 streams of 17-64
+    token prompts (each chunk-ingested alone, so arrival timing cannot
+    change a prefill) equal the batch engine's tokens bit for bit; every
+    capture and replay of the server run on its worker thread; a stream
+    dropped mid-prefill cancels its request; ``stop()`` drains; the pool
+    ends quiescent."""
+    import asyncio
+    import threading
+
+    from repro_torch.serving import TTQServer
+    prompts = long_prompts(N_REQUESTS, 17, 64, SEED + 7)
+    eng = guarded(torch, dev, cfg, params, kv_paged=True, kv_block_size=BLOCK,
+                  prefix_cache=False, prefill_chunk=16,
+                  recalibrate_every=NEVER)
+    fixed_tree(eng, prompts[:1])
+    eng.run_all()
+    want, wall_batch = serve(torch, eng, prompts)
+    want = [list(o) for o in want]
+    r = eng.runner
+    threads = set()
+    real_capture, real_replay = r._capture, r._replay
+
+    def capture(*a, **k):
+        threads.add(threading.get_ident())
+        return real_capture(*a, **k)
+
+    def replay(g):
+        threads.add(threading.get_ident())
+        return real_replay(g)
+    r._capture, r._replay = capture, replay
+
+    async def main():
+        server = TTQServer(eng)
+        await server.start()
+
+        async def stream(p):
+            return [t async for t in server.generate(p, max_new=MAX_NEW)]
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*[stream(p) for p in prompts])
+        wall = time.perf_counter() - t0
+        dropped = asyncio.ensure_future(server.complete(
+            long_prompts(1, 64, 64, SEED + 8)[0], max_new=MAX_NEW))
+        await asyncio.sleep(0)
+        dropped.cancel()
+        try:
+            await dropped
+        except asyncio.CancelledError:
+            pass
+        last = asyncio.ensure_future(server.complete(prompts[0],
+                                                     max_new=MAX_NEW))
+        await asyncio.sleep(0)
+        await server.stop()                 # drains the in-flight request
+        return got, wall, await last, server._thread.ident
+
+    got, wall, last, worker = asyncio.run(main())
+    check(got == want, "[3f] (g): streamed tokens differ from the batch "
+          f"engine's: {[leading_equal(a, b) for a, b in zip(got, want)]}")
+    check(list(last) == want[0], "[3f] (g): stop() did not drain the "
+          "in-flight request")
+    check(threads == {worker} and worker != threading.get_ident(),
+          f"[3f] (g): graphs captured or replayed off the worker thread")
+    cancelled = [q for q in eng.scheduler.finished.values() if q.cancelled]
+    check(len(cancelled) == 1, f"[3f] (g): {len(cancelled)} cancelled")
+    eng.allocator.assert_quiescent()
+    print(f"  (g) TTQServer: 8 streams bit for bit the batch engine's "
+          f"({wall:.2f} s streamed, {wall_batch:.2f} s batch); every capture "
+          f"and replay on the worker thread; a stream dropped mid-prefill "
+          f"cancelled; stop() drained; pool quiescent")
+    del eng
+    free(torch)
+    return dict(stream_s=wall, batch_s=wall_batch)
+
+
+CLI_ARGS = ["--arch", "gemma_7b", "--kv-paged", "--kv-dtype", "int8",
+            "--use-kernels", "--prefill-chunk", "64", "--deadline-s", "60",
+            "--inject", "bad-requant"]
+
+
+def cli_phase() -> dict:
+    """(h) ``python -m repro_torch.launch.serve`` once at full width, in a
+    subprocess (its own weights: this process has freed its engines): its
+    summary lines must parse, every request finish, and the injected bad
+    requant be caught."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        *CLI_ARGS], cwd=ROOT, capture_output=True, text=True,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    out = p.stdout.splitlines()
+    check(p.returncode == 0, f"[3f] (h): the CLI exited {p.returncode}: "
+          f"{p.stderr[-2000:]}")
+    summ = next((ln for ln in out if ln.startswith("arch=")), "")
+    kv = dict(re.findall(r"([\w/]+)=([^\s]+)", summ))
+    lat = next((ln for ln in out if ln.startswith("latency:")), "")
+    lat_ms = re.search(r"ttft p50/p99 ([\d.]+)/([\d.]+) ms, itl p50/p99 "
+                       r"([\d.]+)/([\d.]+) ms", lat)
+    g = dict(re.findall(r"(\w+)=(\d+)", next(
+        (ln for ln in out if ln.startswith("guards: calib")), "")))
+    check(kv.get("requests") == "8" and kv.get("tokens") == "96"
+          and lat_ms is not None and g.get("requant_rejections") == "1"
+          and any(ln.startswith("slo:") for ln in out)
+          and any(ln.startswith("kv-pool:") for ln in out),
+          f"[3f] (h): summary lines did not parse: {out}")
+    print(f"  (h) CLI {' '.join(CLI_ARGS)}: {wall:.1f} s in a subprocess; "
+          f"{summ}; {lat}; guards {g}")
+    return dict(wall_s=wall, summary=kv,
+                latency_ms=[float(x) for x in lat_ms.groups()], guards=g)
+
+
+def robustness(torch, dev, cfg, params, prompts) -> dict:
+    """Phase 3f: guards, fault isolation, chunked prefill, the server and
+    the CLI at full width; each part's seconds.  The kernels' launches are
+    counted over (a)-(g)."""
+    from repro_torch.kernels import build
+    build.reset_launches()
+    res, secs = {}, {}
+    t = time.perf_counter()
+    res["a"], eng = guards_on_off(torch, dev, cfg, params, prompts)
+    secs["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["c"] = requant_faults(torch, eng, prompts)
+    secs["c"] = time.perf_counter() - t
+    del eng
+    free(torch)
+    for key, fn in (("b", lane_faults), ("d", calib_faults),
+                    ("e", pool_theft), ("f", chunked_prefill)):
+        t = time.perf_counter()
+        res[key] = fn(torch, dev, cfg, params, prompts)
+        secs[key] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["g"] = server_phase(torch, dev, cfg, params)
+    secs["g"] = time.perf_counter() - t
+    res["launches"] = dict(build.LAUNCHES)
+    check(all(n > 0 for n in res["launches"].values()),
+          f"[3f]: a kernel never launched: {res['launches']}")
+    t = time.perf_counter()
+    res["h"] = cli_phase()
+    secs["h"] = time.perf_counter() - t
+    res["seconds"] = secs
+    print(f"  [3f] seconds per part: "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items())
+          + f"; launches {res['launches']}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2063,22 +2708,34 @@ def main() -> int:
           f"{cfg.n_layers} layers, dense and paged; (c) (b) on one layer")
     spec = speculation(torch, dev, cfg, params, factors)
     print("    speculation: " + json.dumps(spec))
+    del factors
+    free(torch)
+
+    print(f"[3f] robustness and streaming: guards, faults, chunked prefill "
+          f"(max_len {MAXLEN_3F}, chunks of {CHUNK_3F}, budget {BUDGET_3F}), "
+          f"TTQServer and the CLI; gemma-7b full width, [3]'s policy")
+    rob = robustness(torch, dev, cfg, params, prompts)
+    print("    robustness: " + json.dumps(rob, default=str))
 
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "
-          "[3b]) and the speculative path's ([3e]), counted per replay")
+          "[3b]), the speculative path's ([3e]) and the robustness and "
+          "streaming path's ([3f] (a)-(g)), counted per replay")
     kernels = []
     spec_cases = ("a", "b", "b paged", "c")
     for name, (src, replaces, m) in rows.items():
         main_n = (paged if name == "ttq_paged_decode_attention"
                   else res)["launches"][name]
         spec_n = sum(spec[k]["launches"][name] for k in spec_cases)
+        rob_n = rob["launches"][name]
         print(f"  {name} launches: main path {main_n}, speculative path "
               f"{spec_n} ([3e] cold runs "
               + ", ".join(f"({k}) {spec[k]['launches'][name]}"
-                          for k in spec_cases) + ")")
+                          for k in spec_cases) + f"), robustness and "
+              f"streaming path {rob_n}")
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=main_n + spec_n, **m))
+                            replaces=replaces,
+                            launches=main_n + spec_n + rob_n, **m))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

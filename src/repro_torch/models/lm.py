@@ -5,11 +5,15 @@
                                                    → decode state
     prefill(cfg, params, batch, max_len, ...)      → (logits, state, stats)
     decode_step(cfg, params, state, token, pos)    → (logits, state)
-    decode_many(cfg, params, state, token, pos, done, remaining, gen, K=...)
-                                                   → ((tokens, valid), carry)
+    decode_many(cfg, params, state, token, pos, done, remaining, gen,
+                poison=None, K=..., detect_faults=False)
+                                                   → ((tokens, valid[, fault]),
+                                                      carry)
     verify_window(cfg, params, state, tokens, pos) → (logits, state)
     speculate_many(cfg, draft_params, params, state, token, pos, done,
-                   remaining, gen, K=..., W=...)  → ((tokens, valid), carry)
+                   remaining, gen, poison=None, K=..., W=...,
+                   detect_faults=False)      → ((tokens, valid[, fault]),
+                                                carry)
 
 ``batch`` is a dict {'tokens': (B,S) int}.  Decode updates the KV caches of
 ``state`` in place; a paged state's ``block_table`` addresses its pools.
@@ -80,7 +84,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int, *,
             collect_stats=True, full_logits=False, kvcfg=None,
-            prefix_kv=None, pos0: int = 0):
+            prefix_kv=None, pos0: int = 0, compact_state: bool = False):
     """Run the prompt in full precision: decode state + TTQ statistics.
 
     Returns (logits, state, stats): logits (B, V) for the last position, or
@@ -89,13 +93,14 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, *,
     prefix-cache hits): the tokens are the prompt's tail, attending to the
     cached prefix k/v (per run, (k, v) with a leading layer dim, post-RoPE)
     at offset ``pos0``.  A paged state holds this call's rows only, at the
-    storage dtype."""
+    storage dtype; ``compact_state`` gives a dense cache that layout too
+    (chunked prefill: the runner writes the rows)."""
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
     x, run_stats, states = S.apply_stack_seq(
         cfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
         want_state=True, max_len=max_len, kvcfg=kvcfg, pos0=pos0,
-        prefix_kv=prefix_kv)
+        prefix_kv=prefix_kv, compact_state=compact_state)
     x = norm(x, params["final_norm"])
     logits = _head(cfg, params, x if full_logits else x[:, -1:])
     if not full_logits:
@@ -119,9 +124,9 @@ def decode_step(cfg: ModelConfig, params, state, token, pos, *, kvcfg=None,
 
 
 def decode_many(cfg: ModelConfig, params, state, token, pos, done, remaining,
-                generator=None, *, K: int, max_len: int,
-                temperature: float = 0.0, eos_token: int = -1, kvcfg=None,
-                kcfg=None):
+                generator=None, poison=None, *, K: int, max_len: int,
+                temperature: float = 0.0, eos_token: int = -1,
+                detect_faults: bool = False, kvcfg=None, kcfg=None):
     """K fused decode steps with sampling, EOS, per-slot done masking, budget
     accounting and position advance on the device: nothing inside reads a
     value back to the host, so a K-token block costs one host transfer.
@@ -130,14 +135,28 @@ def decode_many(cfg: ModelConfig, params, state, token, pos, done, remaining,
     lane: it computes but emits nothing, pos/token held); remaining (B,)
     int32.  A live slot finishes on ``eos_token``, an exhausted budget, or a
     full cache.  Returns ((tokens (B,K) int32, valid (B,K) bool),
-    (state, token, pos, done, remaining, generator))."""
-    toks, valids = [], []
+    (state, token, pos, done, remaining, generator)).
+
+    Fault isolation: with ``detect_faults`` each step's logits are checked
+    for finiteness on the device; a lane whose logits are not finite emits
+    nothing from that step on (its done flag trips, token and position
+    hold), and the outputs gain ``fault`` (B,) bool.  ``poison`` ((B,) bool
+    or None), the injection site, forces the flagged lanes' logits to NaN.
+    With both off the steps are exactly the unguarded ones."""
+    toks, valids, flts = [], [], []
     tok, p, dn, rem = token, pos, done, remaining
     for _ in range(K):
         p_in = torch.clamp(p, max=max_len - 1)   # done lanes: in-bounds writes
         logits, state = decode_step(cfg, params, state, tok, p_in,
                                     kvcfg=kvcfg, kcfg=kcfg)
+        if poison is not None:
+            logits = torch.where(poison[:, None], float("nan"), logits)
         live = ~dn
+        if detect_faults:
+            flt = live & ~torch.isfinite(logits).all(dim=-1)
+            live = live & ~flt              # faulted lane: emits nothing,
+            dn = dn | flt                   # holds token/pos, trips done
+            flts.append(flt)
         nxt = sample_logits(logits, generator, temperature)
         nxt = torch.where(live, nxt, tok[:, 0])
         rem = rem - live.to(torch.int32)
@@ -147,8 +166,10 @@ def decode_many(cfg: ModelConfig, params, state, token, pos, done, remaining,
         tok = nxt[:, None]
         toks.append(nxt)
         valids.append(live)
-    return ((torch.stack(toks, dim=1), torch.stack(valids, dim=1)),
-            (state, tok, p, dn, rem, generator))
+    ys = (torch.stack(toks, dim=1), torch.stack(valids, dim=1))
+    if detect_faults:
+        ys += (torch.stack(flts).any(dim=0),)
+    return ys, (state, tok, p, dn, rem, generator)
 
 
 def verify_window(cfg: ModelConfig, params, state, tokens, pos, *, kvcfg=None,
@@ -170,9 +191,9 @@ def verify_window(cfg: ModelConfig, params, state, tokens, pos, *, kvcfg=None,
 
 
 def speculate_many(cfg: ModelConfig, draft_params, params, state, token, pos,
-                   done, remaining, generator=None, *, K: int, W: int,
-                   max_len: int, eos_token: int = -1, kvcfg=None,
-                   kcfg=None):
+                   done, remaining, generator=None, poison=None, *, K: int,
+                   W: int, max_len: int, eos_token: int = -1,
+                   detect_faults: bool = False, kvcfg=None, kcfg=None):
     """Self-speculative fused decode: K draft/verify windows, greedy only.
 
     Each window drafts W tokens with ``draft_params`` (W :func:`decode_step`
@@ -186,8 +207,13 @@ def speculate_many(cfg: ModelConfig, draft_params, params, state, token, pos,
 
     The carry protocol of :func:`decode_many`; returns ((tokens (B,
     K·(W+1)) int32, valid (B, K·(W+1)) bool), (state, token, pos, done,
-    remaining, generator)), window-major per slot."""
-    toks, valids = [], []
+    remaining, generator)), window-major per slot.
+
+    ``poison``/``detect_faults`` as in :func:`decode_many`, on the verify
+    logits (the verify tree decides every emitted token): a lane whose
+    verify window is not finite emits nothing from that window on, and the
+    outputs gain ``fault`` (B,) bool."""
+    toks, valids, flts = [], [], []
     tok, p, dn, rem = token, pos, done, remaining
     for _ in range(K):
         tk, pp, drafts = tok, p, []
@@ -202,6 +228,12 @@ def speculate_many(cfg: ModelConfig, draft_params, params, state, token, pos,
         logits, state = verify_window(cfg, params, state,
                                       torch.cat([tok, drafts], dim=1), p,
                                       kvcfg=kvcfg, kcfg=kcfg)
+        if poison is not None:
+            logits = torch.where(poison[:, None, None], float("nan"), logits)
+        if detect_faults:
+            flt = ~dn & ~torch.isfinite(logits).all(dim=-1).all(dim=-1)
+            dn = dn | flt                   # faulted lane: window out
+            flts.append(flt)
         v = torch.argmax(logits, dim=-1).to(torch.int32)         # (B, W+1)
         # candidate i is the verifier's token after window token i; it is
         # emitted iff the first i drafts all agree
@@ -216,5 +248,7 @@ def speculate_many(cfg: ModelConfig, draft_params, params, state, token, pos,
             tok = nxt[:, None]
             toks.append(nxt)
             valids.append(use)
-    return ((torch.stack(toks, dim=1), torch.stack(valids, dim=1)),
-            (state, tok, p, dn, rem, generator))
+    ys = (torch.stack(toks, dim=1), torch.stack(valids, dim=1))
+    if detect_faults:
+        ys += (torch.stack(flts).any(dim=0),)
+    return ys, (state, tok, p, dn, rem, generator)

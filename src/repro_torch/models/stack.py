@@ -104,19 +104,20 @@ def _mlp_apply(cfg, p, x, stats, prefix, kcfg=None):
 
 def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
                     want_state: bool = False, max_len: int = 0, kvcfg=None,
-                    kcfg=None, pos0: int = 0, kv_prefix=None):
+                    kcfg=None, pos0: int = 0, kv_prefix=None,
+                    compact_state: bool = False):
     """Prefill through one layer.  Returns (x, state|None).  ``kv_prefix``
     (k, v) is cached context in front of this call's tokens, which start at
-    ``pos0``.  A paged cache returns this call's
+    ``pos0``.  A paged cache (or ``compact_state``) returns this call's
     k/v rows at the storage dtype instead of a max_len slab; the runner
-    writes them into the pool."""
+    writes them into the pool or the slab."""
     h = norm(x, p["ln1"])
     st = None
     if want_state:
         y, (k, v) = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
                                  pos0=pos0, return_kv=True,
                                  kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg)
-        if kvcfg is not None and kvcfg.paged:
+        if compact_state or (kvcfg is not None and kvcfg.paged):
             st = L.build_kv_compact(k, v, kvcfg)
         else:
             S = min(k.shape[2], max_len)
@@ -157,7 +158,8 @@ def apply_layer_verify(cfg: ModelConfig, kind: str, p, x, state, pos, *,
 
 def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
                     want_state=False, max_len=0, kvcfg=None, kcfg=None,
-                    pos0: int = 0, prefix_kv=None):
+                    pos0: int = 0, prefix_kv=None,
+                    compact_state: bool = False):
     """Prefill over all runs.  Returns (x, stats_list, state_list) with
     stats and states stacked over each run's layers.  ``prefix_kv`` (tail
     prefill over a cached prefix of ``pos0`` tokens): per run, (k, v) with
@@ -175,7 +177,8 @@ def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
                 x, st = apply_layer_seq(cfg, kind, up[f"u{j}"], x, stats,
                                         f"u{j}.", want_state=want_state,
                                         max_len=max_len, kvcfg=kvcfg,
-                                        kcfg=kcfg, pos0=pos0, kv_prefix=kvp)
+                                        kcfg=kcfg, pos0=pos0, kv_prefix=kvp,
+                                        compact_state=compact_state)
                 if st is not None:
                     states[f"u{j}"] = st
             per_layer_stats.append(stats)

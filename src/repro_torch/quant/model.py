@@ -34,6 +34,21 @@ the quantized tree(s).
   the plan; it refuses the delta gate and a draft tree.
 * ``fork()`` shares params and low-rank factors with a fresh copy of the
   session; ``adopt(session)`` merges a forked stream's statistics back.
+* **Health gate** (``health_gate=GuardConfig``): every candidate tree is
+  validated (:func:`~repro_torch.quant.guards.qt_health`: finite scales,
+  zeros and D⁻¹, bounded D⁻¹ drift) before it is swapped in or refreshes
+  the delta gate's snapshots.  A rejected candidate is retried once; a
+  second rejection rolls the session's newest accepted update back and
+  keeps the last-good tree (a rejected draft tree beside a healthy verify
+  tree keeps its old draft).  A candidate must never land where decode
+  reads, so under the gate every requant after the first writes the tree
+  decode is not reading (the double buffer's spare, cloned once), validates
+  it and swaps it in at once: two trees alternate, each with its own decode
+  graph.  With the double buffer as well, a pending tree is first waited
+  for and swapped in, so a candidate never overwrites the newest good
+  codes.  ``_fault_hook`` (the fault injector's ``requant.tree`` site)
+  sees each candidate before the gate and returns a tree built of new
+  tensors.
 """
 from __future__ import annotations
 
@@ -48,6 +63,7 @@ from repro_torch.core.ttq import QuantizedTensor
 
 from .api import (FusedRequantPlan, _tree_get, _walk, lowrank_tree,
                   quantize_params)
+from .guards import GuardConfig, qt_health
 from .registry import get_quantizer
 from .session import CalibrationSession
 
@@ -113,7 +129,8 @@ class QuantizedModel:
                  session: Optional[CalibrationSession] = None,
                  lowrank: Any = _AUTO, fused: bool = True,
                  double_buffer: bool = False,
-                 draft_policy: Optional[QuantPolicy] = None):
+                 draft_policy: Optional[QuantPolicy] = None,
+                 health_gate: Optional[GuardConfig] = None):
         self.params = params
         self.policy = policy
         self.acfg = acfg
@@ -143,6 +160,10 @@ class QuantizedModel:
         self.last_skipped_layers = 0
         self.total_requant_layers = 0
         self.total_skipped_layers = 0
+        self.health_gate = health_gate
+        self.requant_rejections = 0      # candidates the gate refused
+        self.last_health_drift = 0.0
+        self._fault_hook = None          # called with each candidate tree
 
     # the verify tree's state, under the names the single-tree model had
     qparams = property(lambda self: self._v.qparams)
@@ -167,9 +188,12 @@ class QuantizedModel:
     def _trees(self):
         return [t for t in (self._v, self._d) if t is not None]
 
-    def calibrate(self, stats: Any, tokens: float) -> "QuantizedModel":
-        """Fold one prefill's activation statistics into the session."""
-        self.session.update(stats, tokens)
+    def calibrate(self, stats: Any, tokens: float,
+                  provenance: tuple = ()) -> "QuantizedModel":
+        """Fold one prefill's activation statistics into the session;
+        ``provenance`` (request ids) goes into the quarantine log when a
+        guarded session rejects the update."""
+        self.session.update(stats, tokens, provenance=provenance)
         return self
 
     def _active(self) -> bool:
@@ -224,27 +248,57 @@ class QuantizedModel:
                     lowrank_tree=t.lowrank) if t.policy.any_enabled else None
                 t.reset()
             self._plan_key = key
+        gated = self.health_gate is not None
+        if gated:                        # never overwrite the newest codes
+            for t in self._trees():
+                if t.pending is not None and t.done is not None:
+                    t.done.synchronize()
+            self._swap_ready()
         written = []
         for t in self._trees():
             if t.plan is None:           # draft-only: the verify tree is fp
                 continue
-            buffered = self.double_buffer and t.qparams is not None
-            side = buffered and next(_walk(self.params))[1].is_cuda
-            with self._side(stats, t) if side else contextlib.nullcontext():
-                tree = self._write(t, stats, count, threshold, buffered)
-            if buffered:
-                t.pending = tree
-                if not side:
-                    t.done = None
-            else:
-                t.qparams = tree
+            tree = None
+            for _ in range(2 if gated else 1):   # one retry under the gate
+                tree = self._try(t, stats, count, threshold)
+                if tree is not None:
+                    break
+            if tree is None:
+                if not written:          # the primary tree: keep the last
+                    self.session.rollback(1)   # good one, drop the newest
+                    return None                # update (prime suspect)
+                continue                 # a rejected draft keeps its old one
             written.append(tree)
         self.n_requants += 1
         return written[0]
 
+    def _try(self, t: _Tree, stats, count, threshold):
+        """One candidate for ``t``: written where decode is not reading
+        (double buffer or gate) or in place, held to the gate, then made
+        pending (double buffer) or current.  Returns the tree, or None when
+        the gate rejected it (snapshots untouched)."""
+        db = self.double_buffer and t.qparams is not None
+        gated = self.health_gate is not None
+        side = db and next(_walk(self.params))[1].is_cuda
+        with self._side(stats, t) if side else contextlib.nullcontext():
+            tree = self._write(t, stats, count, threshold, buffered=db or (
+                gated and t.qparams is not None))
+        if tree is None:
+            return None
+        if db:
+            t.pending = tree
+            if not side:
+                t.done = None
+        else:
+            if gated and t.qparams is not None and t.qparams is not tree:
+                t.spare = t.qparams
+            t.qparams = tree
+        return tree
+
     def _write(self, t: _Tree, stats, count, threshold, buffered):
-        """Gate, pick the tree to write, fill it, refresh the snapshots;
-        returns the written tree."""
+        """Gate, pick the tree to write, fill it, hold it to the health
+        gate, refresh the snapshots; returns the written tree, or None when
+        the health gate rejected it."""
         plan = t.plan
         only, n_requant, n_skip = None, plan.n_layers, 0
         if threshold is not None and t.qt_by_path:
@@ -272,6 +326,18 @@ class QuantizedModel:
                                 getattr(dst, f).copy_(getattr(src, f))
         tree = plan.run(self.params, stats, count, t.lowrank, only=only,
                         into=into)
+        if self._fault_hook is not None:
+            tree = self._fault_hook(tree)
+        if self.health_gate is not None:
+            prev = {p: qt.dinv for p, qt in t.qt_by_path.items()
+                    if qt.dinv is not None}
+            ok, self.last_health_drift = qt_health(
+                tree, prev, self.health_gate.requant_max_drift)
+            if not ok:
+                self.requant_rejections += 1
+                if buffered:
+                    t.spare = into           # rewritten by the retry
+                return None
         for key, members in plan.families.items():
             for m in members:
                 qt = _tree_get(tree, m.path)
@@ -328,7 +394,8 @@ class QuantizedModel:
                               session=self.session.fork(),
                               lowrank=self.lowrank_tree, fused=self.fused,
                               double_buffer=self.double_buffer,
-                              draft_policy=self.draft_policy)
+                              draft_policy=self.draft_policy,
+                              health_gate=self.health_gate)
 
     def adopt(self, session: CalibrationSession) -> "QuantizedModel":
         """Join a forked stream's statistics into this model's session."""

@@ -112,6 +112,19 @@ class BlockAllocator:
         else:
             self.free.append(blk)
 
+    def drop_cached(self) -> int:
+        """Evict every unreferenced cached prefix block to the plain free
+        list (degradation-ladder rung 3: prefix reuse traded for headroom).
+        Live shared blocks are untouched.  Returns the blocks reclaimed."""
+        n = 0
+        while self.cached:
+            blk, _ = self.cached.popitem(last=False)
+            h = self.block_hash.pop(blk)
+            del self.trie[h]
+            self.free.append(blk)
+            n += 1
+        return n
+
     # ------------------------------------------------------------ admission
 
     def match_prefix(self, prompt) -> Tuple[List[int], List[int]]:
@@ -141,14 +154,17 @@ class BlockAllocator:
         span = min(plen + max_new, max_len)
         return -(-span // self.block_size)
 
-    def allocate(self, prompt, max_new: int,
-                 max_len: int) -> Tuple[List[int], int]:
+    def allocate(self, prompt, max_new: int, max_len: int,
+                 register: bool = True) -> Tuple[List[int], int]:
         """Reserve the request's blocks.  Returns (physical blocks in logical
         order, prefix_len in tokens).  Shared prefix blocks are retained,
         the rest freshly taken, and the fresh shareable blocks registered in
         the trie.  Raises MemoryError, leaving
         nothing reserved, when the pool cannot cover the request (the caller
-        preempts and retries)."""
+        preempts and retries).  ``register=False`` defers the registration
+        (chunked prefill writes the rows over several rounds, and no other
+        request may match a block before its rows land; the caller registers
+        them with :meth:`register_blocks` as they are written)."""
         shared, hashes = self.match_prefix(prompt)
         need = self.blocks_needed(len(prompt), max_new, max_len)
         # exact capacity check: reviving a shared block that sits in the
@@ -165,7 +181,7 @@ class BlockAllocator:
                 blocks.append(blk)
             for i in range(len(shared), need):
                 blk = self._take()
-                if self.prefix_cache and i < len(hashes):
+                if register and self.prefix_cache and i < len(hashes):
                     self._hook(hashes[i], blk)
                 blocks.append(blk)
         except MemoryError:
@@ -189,6 +205,22 @@ class BlockAllocator:
                 self.free.append(old)
         self.trie[h] = blk
         self.block_hash[blk] = h
+
+    def register_blocks(self, prompt, blocks: List[int], written: int):
+        """Register the shareable prefix blocks of ``prompt`` whose rows are
+        all written (``written`` tokens resident so far): the incremental
+        form of ``allocate(register=True)``'s registration, so the trie only
+        ever points at rows that exist.  Blocks already registered (shared
+        ones) are skipped."""
+        if not self.prefix_cache:
+            return
+        n = min(self._shareable_blocks(len(prompt)),
+                written // self.block_size, len(blocks))
+        hashes = chain_hashes(prompt, self.block_size, n)
+        for i in range(n):
+            if self.block_hash.get(blocks[i]) == hashes[i]:
+                continue
+            self._hook(hashes[i], blocks[i])
 
     def free_request(self, blocks: List[int]):
         """Release a finished, preempted or cancelled request's blocks."""

@@ -41,6 +41,21 @@ consumed before the next.  On the CPU both run eagerly, the plain
 version.  There is no switch between the two and no fallback: a capture
 or replay that fails raises.
 
+With ``EngineConfig.guards`` (the default) a block runs the guarded
+program: ``lm.decode_many(detect_faults=True)`` checks each step's logits
+for finiteness on the device and reports a per-lane fault flag as one more
+column of the block's one transfer, and a static (B,) poison mask, written
+in place by :meth:`set_poison`, is the fault injector's ``decode.logits``
+site.  ``decode_block(small_chunk=True)`` (the degradation ladder's rung 2)
+runs a K = 1 block, its own graph, captured once per layout.
+
+Chunked prefill (:meth:`prefill_chunk`) ingests a long prompt C =
+``prefill_chunk`` tokens at a time into its parked slot: the chunk, padded
+to C, attends to the rows earlier chunks wrote (gathered from the slot's
+pool blocks or slab rows) and writes its own.  On the card each chunk is a
+replay of a graph keyed by (C, rows already resident, parameter-tree
+layout), in the prefill graphs' memory pool.
+
 ``host_syncs`` counts blocking device→host transfers.
 """
 from __future__ import annotations
@@ -87,6 +102,41 @@ def _write_paged(pools, compact, phys: torch.Tensor, block_size: int):
                     cl = torch.nn.functional.pad(cl, (0, 0, 0, nbw * bs - Sb))
                 blk = cl.reshape(L, n, Hkv, nbw, bs, D).permute(0, 1, 3, 2, 4, 5)
                 pool[:, idx] = blk.to(pool.dtype)
+
+
+def _write_rows(stack_state, compact, slot: torch.Tensor, start: int,
+                max_len: int):
+    """Write a compact chunk state into rows [start, start + C) of one slot
+    of the dense slab, in place: per run {'u0': {leaf: (L, B, Hkv, ML, ·)}}
+    ← (L, 1, Hkv, C, ·) leaves; ``slot`` (1,) int64.  The last chunk's pad
+    columns may overhang the slab and are dropped (they hold pad rows)."""
+    for run_b, run_c in zip(stack_state, compact):
+        for u in run_b:
+            for k, leaf in run_b[u].items():
+                cl = run_c[u][k]
+                n = min(cl.shape[3], max_len - start)
+                leaf[:, slot, :, start:start + n] = cl[:, :, :, :n].to(
+                    leaf.dtype)
+
+
+def _gather_dense_prefix(stack_state, slot: torch.Tensor, pfx: int, kvcfg):
+    """One slot's first ``pfx`` slab rows as the context of a prefill
+    chunk, the dense twin of :func:`_gather_prefix`: quantized layouts
+    dequantized to f32, the values the chunk's own attention read uses.
+    ``slot`` (1,) int64.  Per run (k, v), each (L, 1, Hkv, pfx, ·)."""
+    out = []
+    for run in stack_state:
+        st = run["u0"]
+        if "k" in st:
+            out.append((st["k"][:, slot, :, :pfx], st["v"][:, slot, :, :pfx]))
+        else:
+            out.append(tuple(
+                dequantize_kv(st[nm + "_q"][:, slot, :, :pfx],
+                              st[nm + "_s"][:, slot, :, :pfx],
+                              torch.float32, bits=kvcfg.bits,
+                              group_size=kvcfg.group_size)
+                for nm in ("k", "v")))
+    return out
 
 
 def _gather_pool(pool: torch.Tensor, ptab: torch.Tensor) -> torch.Tensor:
@@ -162,9 +212,16 @@ class DeviceRunner:
         self.cur_tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         self.done = torch.ones((B,), dtype=torch.bool, device=dev)
         self.remaining = torch.zeros((B,), dtype=torch.int32, device=dev)
+        # fault isolation: the guarded program and its injection site, a
+        # static mask that set_poison writes in place (all False outside
+        # fault-injection runs)
+        self.detect_faults = bool(ecfg.guards)
+        self._poison = (torch.zeros((B,), dtype=torch.bool, device=dev)
+                        if self.detect_faults else None)
         self.host_syncs = 0
-        self._graphs: dict = {}         # layout → decode _Graph (CUDA)
+        self._graphs: dict = {}         # K, layout → decode _Graph (CUDA)
         self._prefills: dict = {}       # shape, layout → prefill _Graph
+        self._chunks: dict = {}         # C, start, layout → chunk _Graph
         self._pool = None               # the prefill graphs' memory pool
         self._stream = None             # the side stream of warm + capture
         self.capture_s = 0.0            # wall time of warm blocks + captures
@@ -175,6 +232,17 @@ class DeviceRunner:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def set_poison(self, slots):
+        """Arm the ``decode.logits`` injection site: the lanes ``slots`` get
+        NaN logits at every step of the next block.  Written in place, so a
+        replay reads it where its graph captured it.  Needs guards (the
+        fault-detecting program)."""
+        if self._poison is None:
+            raise RuntimeError("fault injection needs EngineConfig.guards")
+        mask = np.zeros((self.ecfg.max_slots,), bool)
+        mask[list(slots)] = True
+        self._poison.copy_(torch.from_numpy(mask))
 
     def _prefill_inputs(self, group) -> dict:
         """A group's prefill inputs as host arrays: tokens (n, bucket) — the
@@ -271,27 +339,129 @@ class DeviceRunner:
         return first_h, fin_h, stats
 
     def _prefill_graph(self, params, host: dict, group):
-        """Replay the prefill graph of this group's key after writing its
-        inputs into the graph's buffers; capture it first if there is none
-        (the warm-up admission's results are returned)."""
+        """The prefill graph of this group's key (see :meth:`_pooled`)."""
         pfx = group.prefix_len
         shape = (group.bucket, len(group.requests), pfx)
-        key = (shape, _layout(params))
-        g = self._prefills.get(key)
+        out, dt = self._pooled(
+            self._prefills, (shape, _layout(params)), host,
+            lambda inp: self._prefill(params, self.state, inp, pfx,
+                                      self.generator))
+        if dt:
+            self.prefill_capture_s[shape] = \
+                self.prefill_capture_s.get(shape, 0.0) + dt
+        return out
+
+    def _pooled(self, graphs: dict, key, host: dict, body):
+        """Replay ``graphs[key]`` (a graph of the prefill memory pool) after
+        writing ``host``'s arrays into its input buffers; capture it first
+        if there is none, from ``body(inputs)``, and return the warm run's
+        results.  Returns (outputs, capture seconds or 0)."""
+        g = graphs.get(key)
         if g is None:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             inputs = {k: self._tensor(v) for k, v in host.items()}
-            warm, dt = self._capture(
-                lambda: self._prefill(params, self.state, inputs, pfx,
-                                      self.generator),
-                self._prefills, key, pool=self._pool, inputs=inputs)
-            self.prefill_capture_s[shape] = \
-                self.prefill_capture_s.get(shape, 0.0) + dt
-            return warm
+            return self._capture(lambda: body(inputs), graphs, key,
+                                 pool=self._pool, inputs=inputs)
         for k, buf in g.inputs.items():
             buf.copy_(torch.from_numpy(host[k]))
-        return self._replay(g)
+        return self._replay(g), 0.0
+
+    # -------------------------------------------------------- chunked prefill
+
+    def _chunk_inputs(self, plan) -> dict:
+        """A chunk's inputs as host arrays: tokens (1, C), the last real
+        row, the slot; paged, the physical block of each of the chunk's C/bs
+        logical blocks (the sink past the prompt) and, past the first chunk,
+        the blocks of the rows already written."""
+        req, C, start, n = plan.req, self.ecfg.prefill_chunk, plan.start, \
+            plan.length
+        toks = np.zeros((1, C), np.int32)
+        toks[0, :n] = req.prompt[start:start + n]
+        inp = dict(tokens=toks, last=np.asarray([n - 1], np.int64),
+                   slot=np.asarray([plan.slot], np.int64))
+        if self.paged:
+            bs = self.kvcfg.block_size
+            pb0, end = start // bs, start + n
+            phys = np.full((1, C // bs), SINK, np.int32)
+            for j in range(C // bs):
+                lb = pb0 + j
+                if lb * bs < end and lb < len(req.blocks):
+                    phys[0, j] = req.blocks[lb]
+            inp["phys"] = phys
+            if start:
+                inp["ptab"] = np.asarray([req.blocks[:pb0]], np.int32)
+        return inp
+
+    def _chunk(self, params, state, inp: dict, start: int):
+        """A chunk's device work, the body of a chunk graph: the stack with
+        the stats tap on over the resident rows' context, the cache writes
+        into ``state``, and the last real row's logits (1, V)."""
+        prefix_kv = None
+        if start:
+            prefix_kv = (_gather_prefix(state["stack"], inp["ptab"],
+                                        self.kvcfg) if self.paged else
+                         _gather_dense_prefix(state["stack"], inp["slot"],
+                                              start, self.kvcfg))
+        logits, sstate, stats = lm.prefill(
+            self.cfg, params, {"tokens": inp["tokens"]}, self.ecfg.max_len,
+            collect_stats=True, full_logits=True, kvcfg=self.kvcfg,
+            prefix_kv=prefix_kv, pos0=start, compact_state=True)
+        if self.paged:
+            _write_paged(state["stack"], sstate["stack"], inp["phys"],
+                         self.kvcfg.block_size)
+        else:
+            _write_rows(state["stack"], sstate["stack"], inp["slot"], start,
+                        self.ecfg.max_len)
+        return logits[0, inp["last"]], stats
+
+    def prefill_chunk(self, params, plan):
+        """One chunked-prefill step: prompt rows [start, start + length) of
+        one request into its parked slot (padded to ``prefill_chunk``;
+        causal masking keeps the pad columns out of the real rows, and they
+        land past the prompt, in sink blocks or slab rows decode overwrites
+        before reading).  On the card a replay of the chunk graph of
+        (C, start, tree layout), captured at its first use.
+
+        A non-final chunk returns (None, None, stats) and the lane stays
+        parked.  The final one samples the first token from the last real
+        row's logits, installs the slot's block-table row (paged), arms the
+        lane and returns (first (1,), finished (1,)) host arrays, one sync,
+        and the stats (a graph's outputs: the next replay overwrites them)."""
+        host = self._chunk_inputs(plan)
+        if self.device.type == "cuda":
+            last, stats = self._chunk_graph(params, host, plan.start)
+        else:
+            inp = {k: self._tensor(v) for k, v in host.items()}
+            last, stats = self._chunk(params, self.state, inp, plan.start)
+        if not plan.final:
+            return None, None, stats
+        ecfg, req, slot = self.ecfg, plan.req, plan.slot
+        first = sample_logits(last, self.generator, ecfg.temperature)
+        if self.paged:
+            rows = np.full((1, ecfg.max_len // self.kvcfg.block_size), SINK,
+                           np.int32)
+            rows[0, :len(req.blocks)] = req.blocks
+            self.state["block_table"][slot] = self._tensor(rows[0])
+        plen, budget = len(req.prompt), req.remaining - 1
+        self.pos[slot] = plen
+        self.cur_tok[slot] = first
+        self.remaining[slot] = budget
+        first_h = first.cpu().numpy()           # the one sync of the prompt
+        self.host_syncs += 1
+        fin_h = np.asarray([plen >= ecfg.max_len or budget <= 0
+                            or int(first_h[0]) == ecfg.eos_token])
+        self.done[slot] = bool(fin_h[0])
+        return first_h, fin_h, stats
+
+    def _chunk_graph(self, params, host: dict, start: int):
+        """The chunk graph of (C, start, tree layout) (see
+        :meth:`_pooled`)."""
+        out, dt = self._pooled(
+            self._chunks, (self.ecfg.prefill_chunk, start, _layout(params)),
+            host, lambda inp: self._chunk(params, self.state, inp, start))
+        self.capture_s += dt
+        return out
 
     def release_slots(self, slots):
         """Deactivate freed slots (finished, preempted, cancelled): done
@@ -299,8 +469,11 @@ class DeviceRunner:
         writes land in its last row, which the next admission overwrites
         with the whole slab — or, paged, the slot's block-table row pointed
         at the sink, so those writes never reach blocks the allocator has
-        handed to someone else.  In place: a decode graph reads these
-        tensors where it captured them."""
+        handed to someone else.  Also parks a lane whose prompt is being
+        chunk-ingested: its held writes go to row max_len - 1, which no
+        chunk's context gather reads (a chunk reads rows before its own).
+        In place: a decode graph reads these tensors where it captured
+        them."""
         mask_h = np.zeros((self.ecfg.max_slots,), bool)
         mask_h[list(slots)] = True
         mask = torch.from_numpy(mask_h).to(self.device)
@@ -313,35 +486,42 @@ class DeviceRunner:
     @property
     def compiled_programs(self) -> int:
         """Graphs held, the reference's count of its decode and prefill jit
-        caches: decode graphs (one per layout of the tree(s) a block reads:
-        the full-precision tree before the first requant, then each
-        quantized tree; a speculative block's pair of trees) and prefill
-        graphs (one per admission key); 0 on the CPU."""
-        return len(self._graphs) + len(self._prefills)
+        caches: decode graphs (one per K and layout of the tree(s) a block
+        reads: the full-precision tree before the first requant, then each
+        quantized tree; a speculative block's pair of trees; the K = 1
+        graph of the degradation ladder), prefill graphs (one per admission
+        key) and chunk graphs (one per chunk key); 0 on the CPU."""
+        return len(self._graphs) + len(self._prefills) + len(self._chunks)
 
-    def _eager_block(self, params, draft=None) -> torch.Tensor:
-        """One block from the runner's state: ``decode_chunk`` steps of
-        ``lm.decode_many``, or with ``draft`` ``decode_chunk`` windows of
+    def _eager_block(self, params, draft=None, K=None) -> torch.Tensor:
+        """One block from the runner's state: K (default ``decode_chunk``)
+        steps of ``lm.decode_many``, or with ``draft`` K windows of
         ``lm.speculate_many``; the carry is copied back into the same
         tensors.  Returns (B, 2C+1) int32, C columns: tokens, valid flags,
-        done flags."""
+        done flags; with guards (B, 2C+2), the last column the fault
+        flags."""
         ecfg = self.ecfg
-        kw = dict(K=self.K, max_len=ecfg.max_len, eos_token=ecfg.eos_token,
-                  kvcfg=self.kvcfg, kcfg=self.kncfg)
+        kw = dict(K=K or self.K, max_len=ecfg.max_len,
+                  eos_token=ecfg.eos_token, kvcfg=self.kvcfg, kcfg=self.kncfg,
+                  detect_faults=self.detect_faults)
         if draft is None:
-            (toks, valid), (_, tok, pos, done, rem, _) = lm.decode_many(
+            ys, (_, tok, pos, done, rem, _) = lm.decode_many(
                 self.cfg, params, self.state, self.cur_tok, self.pos,
-                self.done, self.remaining, self.generator,
+                self.done, self.remaining, self.generator, self._poison,
                 temperature=ecfg.temperature, **kw)
         else:
-            (toks, valid), (_, tok, pos, done, rem, _) = lm.speculate_many(
+            ys, (_, tok, pos, done, rem, _) = lm.speculate_many(
                 self.cfg, draft, params, self.state, self.cur_tok, self.pos,
-                self.done, self.remaining, self.generator, W=self.W, **kw)
+                self.done, self.remaining, self.generator, self._poison,
+                W=self.W, **kw)
         for dst, src in ((self.cur_tok, tok), (self.pos, pos),
                          (self.done, done), (self.remaining, rem)):
             dst.copy_(src)
-        return torch.cat([toks, valid.to(torch.int32),
-                          self.done.to(torch.int32)[:, None]], dim=1)
+        cols = [ys[0], ys[1].to(torch.int32),
+                self.done.to(torch.int32)[:, None]]
+        if self.detect_faults:
+            cols.append(ys[2].to(torch.int32)[:, None])
+        return torch.cat(cols, dim=1)
 
     def _capture(self, fn, graphs: dict, key, pool=None, inputs=None):
         """Run ``fn`` once eagerly on the side stream (the warm-up: cuBLAS
@@ -375,41 +555,48 @@ class DeviceRunner:
             build.LAUNCHES[k] += n
         return g.out
 
-    def _key(self, params, draft=None):
-        return _layout((params, draft, self.state, self.cur_tok, self.pos,
-                        self.done, self.remaining))
+    def _key(self, params, draft=None, K=None):
+        return (K or self.K, _layout((params, draft, self.state, self.cur_tok,
+                                      self.pos, self.done, self.remaining,
+                                      self._poison)))
 
-    def block(self, params, draft=None) -> torch.Tensor:
-        """Enqueue one fused block over every slot (speculative with
-        ``draft``) and return its (B, 2C+1) int32 result on the device
-        (tokens, valid flags, done flags); reads nothing back.  CUDA: a
-        replay of the graph captured at this layout (captured first if
-        there is none); CPU: the eager loop."""
+    def block(self, params, draft=None, K=None) -> torch.Tensor:
+        """Enqueue one fused block of K (default ``decode_chunk``) steps
+        over every slot (speculative with ``draft``) and return its result
+        on the device (see :meth:`_eager_block`); reads nothing back.  CUDA:
+        a replay of the graph captured at this K and layout (captured first
+        if there is none); CPU: the eager loop."""
         if self.device.type != "cuda":
-            return self._eager_block(params, draft)
-        key = self._key(params, draft)
+            return self._eager_block(params, draft, K)
+        key = self._key(params, draft, K)
         g = self._graphs.get(key)
         if g is None:
-            warm, dt = self._capture(lambda: self._eager_block(params, draft),
-                                     self._graphs, key)
+            warm, dt = self._capture(
+                lambda: self._eager_block(params, draft, K), self._graphs,
+                key)
             self.capture_s += dt
             return warm
         return self._replay(g)
 
-    def decode_block(self, params, draft=None):
+    def decode_block(self, params, draft=None, small_chunk=False):
         """One fused block over every slot; with ``draft`` (and
-        ``speculate_k`` > 0) the speculative block.  Returns host copies
-        (tokens (B,C), valid (B,C), done (B,)), C = K or K·(W+1)."""
-        spec = draft is not None and self.W > 0
-        out = self.block(params, draft if spec else None).cpu().numpy()
+        ``speculate_k`` > 0) the speculative block; with ``small_chunk``
+        (ladder rung 2, which comes after speculation is off) one step.
+        Returns host copies (tokens (B,C), valid (B,C), done (B,), fault
+        (B,) or None without guards), C = K or K·(W+1): one transfer."""
+        spec = draft is not None and self.W > 0 and not small_chunk
+        out = self.block(params, draft if spec else None,
+                         1 if small_chunk else None).cpu().numpy()
         self.host_syncs += 1                    # the ONE sync per block
-        C = (out.shape[1] - 1) // 2
+        f = int(self.detect_faults)
+        C = (out.shape[1] - 1 - f) // 2
         toks, valid, done = (out[:, :C], out[:, C:2 * C].astype(bool),
                              out[:, 2 * C].astype(bool))
+        fault = out[:, 2 * C + 1].astype(bool) if f else None
         if spec:
             v = valid.reshape(valid.shape[0], -1, self.W + 1)
             live = int(v[:, :, 0].sum())        # a live window emits
             self.spec_windows += live
             self.spec_drafted += live * self.W
             self.spec_accepted += int(np.maximum(v.sum(axis=2) - 1, 0).sum())
-        return toks, valid, done
+        return toks, valid, done, fault

@@ -120,25 +120,29 @@ def _snapshot(r):
             r.done.clone(), r.remaining.clone(), gen)
 
 
-def _eager(eng, params, snap, carry=False, draft=None):
-    """One eager ``lm.decode_many`` block from ``snap`` (its state and
-    generator are consumed), or with ``draft`` one ``lm.speculate_many``
-    block: the (B, 2C+1) host array the runner's block returns [, and the
-    carry (token, pos, done, remaining)]."""
+def _eager(eng, params, snap, carry=False, draft=None, K=None,
+           poison=None):
+    """One eager ``lm.decode_many`` block of K (default the runner's) steps
+    from ``snap`` (its state and generator are consumed), or with ``draft``
+    one ``lm.speculate_many`` block: the host array the runner's block
+    returns ((B, 2C+1); with guards (B, 2C+2), the fault flags last, under
+    the ``poison`` mask) [, and the carry (token, pos, done, remaining)]."""
     r, e = eng.runner, eng.ecfg
     st, tok, pos, done, rem, gen = snap
-    kw = dict(K=r.K, max_len=e.max_len, eos_token=e.eos_token,
-              kvcfg=eng.kvcfg, kcfg=eng.kncfg)
+    kw = dict(K=K or r.K, max_len=e.max_len, eos_token=e.eos_token,
+              kvcfg=eng.kvcfg, kcfg=eng.kncfg, detect_faults=r.detect_faults)
     if draft is None:
-        (toks, valid), (_, *rest, _) = tlm.decode_many(
-            eng.cfg, params, st, tok, pos, done, rem, gen,
+        ys, (_, *rest, _) = tlm.decode_many(
+            eng.cfg, params, st, tok, pos, done, rem, gen, poison,
             temperature=e.temperature, **kw)
     else:
-        (toks, valid), (_, *rest, _) = tlm.speculate_many(
-            eng.cfg, draft, params, st, tok, pos, done, rem, gen, W=r.W,
-            **kw)
-    out = torch.cat([toks, valid.to(torch.int32),
-                     rest[2].to(torch.int32)[:, None]], dim=1).cpu().numpy()
+        ys, (_, *rest, _) = tlm.speculate_many(
+            eng.cfg, draft, params, st, tok, pos, done, rem, gen, poison,
+            W=r.W, **kw)
+    cols = [ys[0], ys[1].to(torch.int32), rest[2].to(torch.int32)[:, None]]
+    if r.detect_faults:
+        cols.append(ys[2].to(torch.int32)[:, None])
+    out = torch.cat(cols, dim=1).cpu().numpy()
     return (out, rest) if carry else out
 
 
@@ -330,17 +334,21 @@ def _shadowed(eng):
     real = r.decode_block
     seen = {"blocks": 0}
 
-    def run(params, draft=None):
+    def run(params, draft=None, small_chunk=False):
         snap = _snapshot(r)
-        toks, valid, done = real(params, draft)
+        poison = None if r._poison is None else r._poison.clone()
+        toks, valid, done, fault = real(params, draft, small_chunk)
         want = _eager(eng, params, snap,
-                      draft=draft if r.W > 0 else None)
+                      draft=draft if r.W > 0 and not small_chunk else None,
+                      K=1 if small_chunk else None, poison=poison)
         C = toks.shape[1]
         assert np.array_equal(toks, want[:, :C])
         assert np.array_equal(valid, want[:, C:2 * C].astype(bool))
         assert np.array_equal(done, want[:, 2 * C].astype(bool))
+        if fault is not None:
+            assert np.array_equal(fault, want[:, 2 * C + 1].astype(bool))
         seen["blocks"] += 1
-        return toks, valid, done
+        return toks, valid, done, fault
     r.decode_block = run
     try:
         yield seen
@@ -781,3 +789,165 @@ def test_gptq_on_the_card_matches_the_cpu(cuda):
     assert close.float().mean() >= 0.99
     err = lambda Q: float(((X @ (W - Q).T) ** 2).sum())
     assert abs(err(got) - err(want)) <= 1e-2 * err(want)
+
+
+# ------------------------------------------- guards, K = 1, chunks, server
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_guarded_graph_block_equals_eager(gpu_params, cuda, paged):
+    """Guards on (the default): every block, a replay of the guarded
+    graph, bit for bit the eager guarded block (tokens, valid, done and
+    fault flags), one host transfer per block."""
+    kw = dict(kv_paged=True, kv_block_size=16) if paged else {}
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, max_slots=3,
+                  guards=True, **kw)
+    rids = [eng.submit(p, max_new=12)
+            for p in _prompts(30, 5, GPU_CFG.vocab, 5, 30)]
+    with _shadowed(eng) as seen:
+        out = eng.run_all()
+    assert all(len(out[i]) == 12 and not out[i].error for i in rids)
+    assert seen["blocks"] >= 4 and eng.runner.detect_faults
+
+
+@pytest.mark.gpu
+def test_poison_between_replays_fails_one_lane(gpu_params, cuda):
+    """``set_poison`` writes the static mask in place: the next replay of
+    the captured graph sees it and faults only that lane, whose output is
+    dropped; the other lane's tokens equal the eager unpoisoned block's."""
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, guards=True,
+                  recalibrate_every=100)
+    for p in _prompts(31, 2, GPU_CFG.vocab, 9, 10):
+        eng.submit(p, max_new=30)
+    eng.admit()
+    r = eng.runner
+    params = eng.decode_params
+    r.decode_block(params)                          # warm + capture
+    (g,) = r._graphs.values()
+    snap = _snapshot(r)
+    want = _eager(eng, params, snap)                # unpoisoned
+    r.set_poison([1])
+    toks, valid, done, fault = r.decode_block(params)
+    assert len(r._graphs) == 1 and list(fault) == [False, True]
+    C = toks.shape[1]
+    assert np.array_equal(toks[0], want[0, :C]) and not valid[1].any()
+    assert bool(done[1])
+    r.set_poison([])
+    assert not r._poison.any()
+
+
+@pytest.mark.gpu
+def test_k1_graph_is_captured_once(gpu_params, cuda):
+    """Rung 2's K = 1 block is its own graph, keyed apart from the K-step
+    one, captured at the first climb and replayed at every later one."""
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, guards=True,
+                  recalibrate_every=100)
+    for p in _prompts(32, 2, GPU_CFG.vocab, 9, 10):
+        eng.submit(p, max_new=40)
+    eng.admit()
+    r = eng.runner
+    params = eng.decode_params
+    with _shadowed(eng) as seen:
+        for small in (False, True, False, True, True, False, True):
+            r.decode_block(params, small_chunk=small)
+    keys = sorted(k[0] for k in r._graphs)
+    assert keys == [1, r.K] and seen["blocks"] == 7
+    assert eng.compiled_programs == 2 + len(r._prefills)
+
+
+def _chunk_shadowed(eng):
+    """Hold every chunk replay to the eager chunk body on a clone of the
+    state it started from: last-row logits, statistics and every state
+    leaf after the writes, bit for bit."""
+    r = eng.runner
+    real = r._replay
+    seen = {"replayed": 0}
+
+    def replay(g):
+        if g not in r._chunks.values():
+            return real(g)
+        snap = _clone(r.state)
+        last, stats = real(g)
+        start = next(k[1] for k, v in r._chunks.items() if v is g)
+        inp = {k: v.clone() for k, v in g.inputs.items()}
+        want_last, want_stats = r._chunk(eng.params, snap, inp, start)
+        assert torch.equal(last, want_last)
+        assert _tree_equal(stats, want_stats)
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(r.state),
+                                                     _leaves(snap)))
+        seen["replayed"] += 1
+        return last, stats
+    r._replay = replay
+    return seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_chunk_replay_equals_eager(gpu_params, cuda, paged):
+    """Chunked prefill on the card: each chunk a replay of the graph of
+    (C, start, tree layout), bit for bit the eager chunk; tokens equal the
+    unchunked engine's; compiled programs flat over a warm rerun."""
+    kw = dict(kv_paged=True, kv_block_size=16) if paged else {}
+    prompts = _prompts(33, 4, GPU_CFG.vocab, 20, 60)
+    outs = []
+    for chunk in (0, 16):
+        eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, guards=True,
+                      max_len=128, prefill_chunk=chunk,
+                      recalibrate_tokens=10**9, **kw)
+        seen = _chunk_shadowed(eng)
+        got = []
+        for _ in range(2):                           # cold, then warm
+            rids = [eng.submit(p, max_new=8) for p in prompts]
+            res = eng.run_all()
+            got.append([list(res[i]) for i in rids])
+            programs = eng.compiled_programs
+        assert got[0] == got[1] and eng.compiled_programs == programs
+        outs.append(got[0])
+        if chunk:
+            assert eng.prefill_chunks > 4 and seen["replayed"] > 0
+            assert len(eng.runner._chunks) >= 3
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.gpu
+def test_server_captures_and_replays_on_its_worker(gpu_params, cuda):
+    """``TTQServer`` drives the engine from its worker thread: every graph
+    capture and replay happens there, and the streams equal the batch
+    engine's tokens."""
+    import asyncio
+    import threading
+
+    from repro_torch.serving import TTQServer
+    prompts = _prompts(34, 4, GPU_CFG.vocab, 5, 40)
+    kw = dict(guards=True, prefill_chunk=16, recalibrate_tokens=10**9,
+              kv_paged=True, kv_block_size=16)
+    batch = _engine(GPU_CFG, gpu_params, _policy(), cuda, **kw)
+    rids = [batch.submit(p, max_new=6) for p in prompts]
+    res = batch.run_all()
+    want = [list(res[i]) for i in rids]
+    eng = _engine(GPU_CFG, gpu_params, _policy(), cuda, **kw)
+    r = eng.runner
+    threads = set()
+    real_capture, real_replay = r._capture, r._replay
+
+    def capture(*a, **k):
+        threads.add(threading.get_ident())
+        return real_capture(*a, **k)
+
+    def replay(g):
+        threads.add(threading.get_ident())
+        return real_replay(g)
+    r._capture, r._replay = capture, replay
+
+    async def main():
+        async with TTQServer(eng) as server:
+            async def stream(p):
+                return [t async for t in server.generate(p, max_new=6)]
+            got = await asyncio.gather(*[stream(p) for p in prompts])
+            return got, server._thread.ident
+
+    got, worker = asyncio.run(main())
+    assert got == want
+    assert threads == {worker} and worker != threading.get_ident()
+    assert eng.compiled_programs > 0
+    eng.allocator.assert_quiescent()

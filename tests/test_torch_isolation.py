@@ -55,8 +55,7 @@ def test_entry_points_refuse_missing_card(no_card):
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
-        TTQEngine(cfg, params, ttq_policy(rank=0),
-                  EngineConfig(guards=False))
+        TTQEngine(cfg, params, ttq_policy(rank=0), EngineConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         lm.init_decode_state(cfg, 2, 16)
 
@@ -91,20 +90,39 @@ def test_kernel_wrappers_never_compute_off_card(no_card):
 
 
 def test_engine_options_of_later_slices_raise():
+    """No ``EngineConfig`` field raises any more: the reference's default
+    engine (guards on) and a chunked one construct, and every field takes a
+    non-default value."""
+    import dataclasses as dc
     from repro_torch.configs import get
     from repro_torch.core import ttq_policy
     from repro_torch.models import lm
+    from repro_torch.quant import GuardConfig
     from repro_torch.serving import EngineConfig, TTQEngine
     cfg = get("gemma_7b", smoke=True)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    for kw in ({}, dict(guards=False, prefill_chunk=16)):
-        with pytest.raises(NotImplementedError):
-            TTQEngine(cfg, params, ttq_policy(rank=0), EngineConfig(**kw),
-                      device="cpu")
-    # speculation is ported: it constructs, with the policy's draft variant
+    dflt = TTQEngine(cfg, params, ttq_policy(rank=0), EngineConfig(),
+                     device="cpu")
+    assert dflt.ecfg.guards and dflt.runner.detect_faults
+    assert dflt.qmodel.health_gate == GuardConfig()
+    chunked = TTQEngine(cfg, params, ttq_policy(rank=0),
+                        EngineConfig(prefill_chunk=16, prefill_budget=32,
+                                     max_queue=4, deadline_s=5.0,
+                                     guard_cfg=GuardConfig(max_retries=0)),
+                        device="cpu")
+    assert chunked.scheduler.max_prompt_len == chunked.ecfg.max_len
+    off = {"guards": False, "guard_cfg": GuardConfig(max_retries=3),
+           "deadline_s": 1.0, "prefill_chunk": 16, "prefill_budget": 16,
+           "max_queue": 2, "speculate_k": 2, "double_buffer": True,
+           "requant_threshold": 0.1}
+    for f in dc.fields(EngineConfig):
+        if f.name in off:
+            TTQEngine(cfg, params, ttq_policy(rank=0),
+                      EngineConfig(**{f.name: off[f.name]}), device="cpu")
+    # speculation: it constructs, with the policy's draft variant
     eng = TTQEngine(cfg, params, ttq_policy(rank=0),
-                    EngineConfig(guards=False, speculate_k=2), device="cpu")
+                    EngineConfig(speculate_k=2), device="cpu")
     assert eng.ecfg.speculate_k == 2 and eng.draft_policy.qcfg.bits == 4
 
 
@@ -125,7 +143,7 @@ def test_engine_serves_the_reference_default_policy(ecfg):
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     eng = TTQEngine(cfg, params, ttq_policy(),
-                    EngineConfig(guards=False, max_slots=2, max_len=64,
+                    EngineConfig(max_slots=2, max_len=64,
                                  decode_chunk=2, **ecfg), device="cpu")
     rids = [eng.submit([5 + i, 9, 17, 3], max_new=4) for i in range(3)]
     out = eng.run_all()

@@ -137,9 +137,10 @@ def test_pick_decode_chunk_speculation_aware():
 def test_auto_chunk_counts_windows(params):
     eng = _engine(params, speculate_k=3, slots=4, decode_chunk=0)
     assert eng.ecfg.decode_chunk == 2
-    toks, valid, done = eng.runner.decode_block(eng.decode_params,
-                                                eng.draft_params)
+    toks, valid, done, fault = eng.runner.decode_block(eng.decode_params,
+                                                       eng.draft_params)
     assert toks.shape == valid.shape == (4, 2 * 4) and done.shape == (4,)
+    assert fault is None                    # guards off: no fault column
 
 
 # ------------------------------------------------------ dual-tree requant
