@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--full-depth-3d]
 
 1. Device: the card's name and power limit; builds the CUDA kernels of
    ``src/repro_torch/kernels/csrc/`` with nvcc (sm_90a) into ``build/``;
@@ -21,7 +21,9 @@
    rounding; paged bit for bit dense on the gathered cache; two calls
    bitwise equal) and print their time at every
    C beside the rule's; then the same at gemma-7b's own context (S = 8192,
-   cur_pos = LONG_CUR), with the byte bound and the share of it reached.
+   cur_pos = LONG_CUR), with the byte bound and the share of it reached;
+   then both at [3g]'s GQA groups (G = 3, 12, 48, Dh 128; ATTN_GROUPS),
+   checked the same way and timed against both bounds and SDPA.
 3. The main path: ``TTQEngine`` on full-width gemma-7b (random weights from
    a seed) serves 8 requests through the three kernels of the dense slab,
    each decode block one replay of a captured CUDA graph; every kernel
@@ -29,7 +31,8 @@
    not change over a warm rerun of the traffic.  A third run holds every
    graph block to an eager ``lm.decode_many`` on clones of the state it
    started from (tokens bit for bit) and times both, eager and graph
-   blocks in turns.  One synced requant is split into its 7
+   blocks in turns; WARM_REPEATS more warm runs give the median and spread
+   of ms per decode step and tokens/s.  One synced requant is split into its 7
    ``ttq_quantize`` launches' device time and the rest, beside one that
    builds a fresh tree instead of landing in place.  On 4 fresh
    admissions, an eager block and a replay must not sync the host, and
@@ -50,7 +53,8 @@
    constrained traffic at full depth holds every graph block to the eager
    loop, through preemption and prefix hits.
 3d. The reference's default policy (rank 16, delta gate, double buffer)
-   at full width on DEPTH_3D layers, checks (a)-(e).
+   at full width on DEPTH_3D layers (all 28 with ``--full-depth-3d``),
+   checks (a)-(e).
 3e. Self-speculative decoding (``speculate_k=SPEC_W``): (a) [3d]'s policy
    and factors with its int4 rank-0 draft; (b) bf16 weights, int8 KV and
    an int4 g32 draft (draft-only quantization) at full depth, on the dense
@@ -80,6 +84,13 @@
    the worker thread, a dropped stream cancelled, ``stop()`` drains; (h)
    ``python -m repro_torch.launch.serve`` in a subprocess, its summary
    parsed.  Prints each part's seconds.
+3g. The other dense families at full width through [3]'s policy with the
+   default guards, dense slab then paged pool: minitron-4b and
+   starcoder2-15b at full depth, granite-34b at the depth the card's
+   memory holds (``granite_depth``).  Per engine: every kernel of its path
+   launched, greedy tokens printed (paged equal to dense), the graph
+   readings and shadowed run of [3], two synced gated requants, peak
+   memory; dense: a one-layer depth witness.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -129,9 +140,14 @@ DEPTHS = (1, 7, 28)
 BLOCK = 16
 POOL_3C = 18
 LONG_CUR = [8191, 6143, 4095, 2047]   # phase 2's long-context attention
+# phase 2's attention at [3g]'s groups: (config, kv heads, G), Dh 128
+ATTN_GROUPS = (("minitron_4b", 8, 3), ("starcoder2_15b", 4, 12),
+               ("granite_34b", 1, 48))
 # the attention instantiations gemma-7b's int8 KV runs (G = 1, Dh 256, one
 # scale group per row)
 MAIN_PATH_ATTN = ("attn_kernel<1,1,8,1>", "paged_attn_kernel<1,1,8,1>")
+# the one [3g]'s families run: G = 3, 12 and 48 at Dh 128 in tiles of 4
+FAMILY_ATTN = ("attn_kernel<4,1,8,1>", "paged_attn_kernel<4,1,8,1>")
 # the quantize instantiation a requant runs: bits 4, one vector per lane
 # and group of 32 (four lanes), bf16 weights
 MAIN_PATH_QUANT = "quant_kernel<4,1,1,__nv_bfloat16>"
@@ -149,12 +165,17 @@ SVD_TOL = 1e-4                 # relative, against a float64 CPU SVD
 REL_L2_ONE_LAYER = 1e-2
 WITNESS_RATIO = 1.5
 REL_L2_BOUND = 3e-2
+WARM_REPEATS = 10              # phase 3: warm runs for a median and spread
 SPEC_W = 3                     # phase 3e: drafted tokens per window
 # phase 3f: chunked prefill at max_len 512 in chunks of 64, two per round,
 # 8 slots so the long prompts are ingested while the short ones decode;
 # the pool theft of (e) takes every free block for 4 engine steps
 CHUNK_3F, BUDGET_3F, MAXLEN_3F, SLOTS_3F = 64, 128, 512, 8
 STEAL_3F = 64
+# phase 3g: the other dense families at full width; granite-34b at the
+# depth its weights and two quantized trees leave room for
+FAMILIES_3G = ("minitron_4b", "starcoder2_15b", "granite_34b")
+GRANITE_RESERVE_GB = 8
 NEVER = 10 ** 6                # a requant cadence that never fires: the
                                # tree is fixed by one manual requant
 
@@ -434,14 +455,18 @@ def gemm_at_splits(torch, lib, xb, pk, S, Z, dinv, flush):
             for s in SPLITS if d % (32 * s) == 0}
 
 
-def attn_bound_ms(H, Dh, bits, cur, *small) -> float:
-    """Least time of one decode-attention launch: each live cached row's
-    codes and one f32 scale, for k and v, read once; ``small`` (q, the
-    output, cur_pos, a block table) once; or its f32 operations."""
-    row = Dh * bits // 8 + 4
-    moved = 2 * H * row * sum(c + 1 for c in cur) + nbytes(*small)
-    ops = 4 * H * Dh * sum(c + 1 for c in cur)
-    return max(moved / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
+def attn_bounds_ms(Hkv, G, Dh, bits, cur, *small) -> tuple:
+    """Least times of one decode-attention launch over ``Hkv`` kv heads of
+    ``G`` query heads each: (bytes, operations).  Bytes: each live cached
+    row's codes and one f32 scale, for k and v, read once, and ``small``
+    (q, the output, cur_pos, a block table) once, over the memory rate;
+    operations: 4·G f32 flops per cached element (a score and a weighted
+    value for each query head), over the f32 rate outside the tensor
+    cores."""
+    rows = sum(c + 1 for c in cur)
+    moved = 2 * Hkv * (Dh * bits // 8 + 4) * rows + nbytes(*small)
+    ops = 4 * G * Hkv * Dh * rows
+    return moved / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
 
 
 def sdpa_ms(torch, qb, kq, ks, vq, vs, pos, bits, flush):
@@ -457,9 +482,10 @@ def sdpa_ms(torch, qb, kq, ks, vq, vs, pos, bits, flush):
             for c, s_ in ((kq, ks), (vq, vs)))
     mask = (torch.arange(n, device=pos.device)[None, :]
             <= pos[:, None])[:, None, None, :]
+    kw = dict(enable_gqa=True) if qb.shape[1] != k.shape[1] else {}
     t = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qb, k, v, attn_mask=mask), flush=flush)
-    return t, F.scaled_dot_product_attention(qb, k, v, attn_mask=mask)
+        qb, k, v, attn_mask=mask, **kw), flush=flush)
+    return t, F.scaled_dot_product_attention(qb, k, v, attn_mask=mask, **kw)
 
 
 def attn_checked(torch, q, dense, pool, bt, pos, bits, what):
@@ -497,19 +523,21 @@ def attn_checked(torch, q, dense, pool, bt, pos, bits, what):
     return worst
 
 
-def attn_case(torch, dev, seed, nblk, cur, bits_list=(8, 4)):
-    """4 slots × 16 heads of 256 in a pool of blocks of BLOCK rows under a
-    seeded permuted block table (nblk blocks per slot), and the same cache
-    gathered into the dense (4, 16, nblk·BLOCK, ·) layout; yields per bits
-    (bits, f32 q, dense leaves, pool leaves, table, cur_pos)."""
+def attn_case(torch, dev, seed, nblk, cur, bits_list=(8, 4), Hkv=16, G=1,
+              Dh=256):
+    """4 slots × Hkv kv heads of Dh (gemma-7b: 16 of 256, G = 1) in a pool
+    of blocks of BLOCK rows under a seeded permuted block table (nblk blocks
+    per slot), and the same cache gathered into the dense (4, Hkv,
+    nblk·BLOCK, ·) layout; yields per bits (bits, f32 q of Hkv·G heads,
+    dense leaves, pool leaves, table, cur_pos)."""
     from repro_torch.core.kvquant import quantize_kv
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(seed)
-    B, H, Dh = 4, 16, 256
+    B = 4
     NB = B * nblk + 1
-    pk = torch.randn((NB, H, BLOCK, Dh), generator=gen, device=dev)
-    pv = torch.randn((NB, H, BLOCK, Dh), generator=gen, device=dev)
-    q = torch.randn((B, H, 1, Dh), generator=gen, device=dev)
+    pk = torch.randn((NB, Hkv, BLOCK, Dh), generator=gen, device=dev)
+    pv = torch.randn((NB, Hkv, BLOCK, Dh), generator=gen, device=dev)
+    q = torch.randn((B, Hkv * G, 1, Dh), generator=gen, device=dev)
     perm = np.random.default_rng(seed).permutation(np.arange(1, NB))
     bt = torch.from_numpy(perm.reshape(B, nblk).astype(np.int32)).to(dev)
     pos = torch.tensor(cur, dtype=torch.int32, device=dev)
@@ -573,8 +601,9 @@ def kernel_attention(torch, dev, flush, cur_main):
             qb, *pool, bt, pos, bits=bits), flush=flush)
         t_l, o_l = sdpa_ms(torch, qb, *dense, pos, bits, flush)
         o = ref.kv_attn_ref(qb, *dense, pos, bits=bits)
-        b_d = attn_bound_ms(16, 256, bits, cur_main, qb, qb, pos)
-        b_p = attn_bound_ms(16, 256, bits, cur_main, qb, qb, pos, bt)
+        b_d = max(attn_bounds_ms(16, 1, 256, bits, cur_main, qb, qb, pos))
+        b_p = max(attn_bounds_ms(16, 1, 256, bits, cur_main, qb, qb, pos,
+                                 bt))
         for kind, t_p, b in (("dense", t_pd, b_d), ("paged", t_pp, b_p)):
             print(f"  ttq_{'paged_' if kind == 'paged' else ''}decode_attention"
                   f" int{bits} cur_pos={cur_main}: {t[kind, None] * 1e3:.1f} "
@@ -617,7 +646,8 @@ def kernel_attention_long(torch, dev, flush):
         t = attn_timed(torch, qb, dense, pool, bt, pos, bits, flush)
         t_l, _ = sdpa_ms(torch, qb, *dense, pos, bits, flush)
         for kind, extra in (("dense", ()), ("paged", (bt,))):
-            b = attn_bound_ms(16, 256, bits, LONG_CUR, qb, qb, pos, *extra)
+            b = max(attn_bounds_ms(16, 1, 256, bits, LONG_CUR, qb, qb, pos,
+                                   *extra))
             t_k = t[kind, None]
             print(f"  long: ttq_{'paged_' if kind == 'paged' else ''}"
                   f"decode_attention int{bits} S=8192 cur_pos={LONG_CUR}: "
@@ -627,6 +657,60 @@ def kernel_attention_long(torch, dev, flush):
                   f"max |diff| from the plain version {worst:.3g}; at every "
                   f"C (us): {at_every_c(t, kind)}")
             res[kind, bits] = (t_k, b, t_l)
+    return res
+
+
+def kernel_attention_groups(torch, dev, flush, cur_main):
+    """Both attention kernels at the GQA groups of [3g]'s families
+    (ATTN_GROUPS: minitron-4b G = 3 over 8 kv heads, starcoder2-15b 12 over
+    4, granite-34b 48 over 1; Dh 128), 4 slots of capacity 256 at the main
+    path's ``cur_pos``, int8 and int4: checked as at gemma-7b's shape (every
+    C, f32 and bf16 q, paged bit for bit dense, two calls bitwise equal);
+    timed with bf16 q at the rule's C beside the plain version, both bounds
+    (bytes, f32 operations) and one ``scaled_dot_product_attention`` call
+    (``enable_gqa``) on the dequantized cache.  Returns {(kernel, G,
+    bits): (ms, plain ms, bytes bound ms, operations bound ms, sdpa ms)}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ttq_attn import _launch, attn_splits, head_tile
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblk = 256 // BLOCK
+    res = {}
+    for arch, Hkv, G in ATTN_GROUPS:
+        gt, tiles = head_tile(G, 128)
+        c_rule = attn_splits(4, Hkv * tiles, nblk * BLOCK, n_sm)
+        for bits, q, dense, pool, bt, pos in attn_case(
+                torch, dev, SEED + 5 + G, nblk, cur_main, Hkv=Hkv, G=G,
+                Dh=128):
+            worst = attn_checked(torch, q, dense, pool, bt, pos, bits,
+                                 f"attention G = {G}")
+            qb = q.to(torch.bfloat16)
+            for kind, tab in (("dense", None), ("paged", bt)):
+                cache = pool if tab is not None else dense
+                plain = ref.kv_paged_attn_ref if tab is not None else \
+                    ref.kv_attn_ref
+                targs = (tab,) if tab is not None else ()
+                t_k = time_ms(torch, lambda: _launch(
+                    qb, *cache, tab, pos, None, bits=bits), flush=flush)
+                t_p = time_ms(torch, lambda: plain(
+                    qb, *cache, *targs, pos, bits=bits), flush=flush)
+                t_l, _ = sdpa_ms(torch, qb, *dense, pos, bits, flush)
+                b_b, b_o = attn_bounds_ms(Hkv, G, 128, bits, cur_main, qb,
+                                          qb, pos, *targs)
+                name = f"ttq_{'paged_' if tab is not None else ''}" \
+                    f"decode_attention"
+                print(f"  {name} G = {G} ({arch}: {Hkv} kv heads of 128, "
+                      f"{tiles} tiles of {gt}) int{bits} cur_pos={cur_main}: "
+                      f"{t_k * 1e3:.1f} us at C = {c_rule} "
+                      f"({4 * Hkv * tiles * c_rule} blocks), bound "
+                      f"{max(b_b, b_o) * 1e3:.2f} us (bytes {b_b * 1e3:.2f}, "
+                      f"operations {b_o * 1e3:.2f}), plain {t_p * 1e3:.1f} "
+                      f"us, scaled_dot_product_attention bf16 "
+                      f"{t_l * 1e3:.1f} us; max |diff| from the plain "
+                      f"version {worst:.3g}")
+                res[name, G, bits] = (t_k, t_p, b_b, b_o, t_l)
+    print("  every group: both kernels at every C, f32 and bf16 q, within "
+          "1e-5 of the plain version (bf16: and one rounding); paged bit "
+          "for bit dense; two calls bitwise equal")
     return res
 
 
@@ -640,10 +724,11 @@ def clone_tree(torch, tree):
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
-def make_prompts() -> list[list[int]]:
-    """The main path's traffic: N_REQUESTS prompts of 16-64 tokens."""
+def make_prompts(vocab: int = 256000) -> list[list[int]]:
+    """The main path's traffic: N_REQUESTS prompts of 16-64 tokens drawn
+    from a vocabulary of ``vocab`` (gemma-7b's by default)."""
     rng = np.random.default_rng(SEED)
-    return [rng.integers(0, 256000, size=int(n)).tolist()
+    return [rng.integers(0, vocab, size=int(n)).tolist()
             for n in rng.integers(16, 65, size=N_REQUESTS)]
 
 
@@ -953,7 +1038,9 @@ def graph_vs_eager(torch, cfg, eng, prompts):
 
 
 def graph_phases(torch, cfg, eng, prompts, n_tok) -> dict:
-    """The graph readings shared by [3] and [3b], after the cold run:
+    """The graph readings shared by [3], [3b] and [3g], after the cold run
+    (one decode graph, or two under the guards: one per tree of the
+    spare's swap):
     decode and prefill graphs, capture times (prefill per shape) and peak
     memory, a warm rerun, and the shadowed run of :func:`graph_vs_eager`.
     A rerun adds no decode graph, and a prefill graph only for a shape the
@@ -961,6 +1048,7 @@ def graph_phases(torch, cfg, eng, prompts, n_tok) -> dict:
     the paged pool's cache.  Where the warm run added such graphs, it is
     run once more and must add none; the shadowed run adds none."""
     r = eng.runner
+    decode_graphs = 2 if eng.ecfg.guards else 1
     cold = eng.compiled_programs
     shapes = {k[0] for k in r._prefills}
     res = dict(compiled_programs_cold=cold,
@@ -980,17 +1068,18 @@ def graph_phases(torch, cfg, eng, prompts, n_tok) -> dict:
                capture_s=r.capture_s,
                prefill_capture_s={str(k): v for k, v in
                                   r.prefill_capture_s.items()})
-    check(eng.compiled_programs == 1 + len(r._prefills)
-          and len(r._graphs) == 1,
+    check(eng.compiled_programs == decode_graphs + len(r._prefills)
+          and len(r._graphs) == decode_graphs,
           f"compiled programs {eng.compiled_programs}: {len(r._graphs)} "
-          f"decode graphs (want 1) and {len(r._prefills)} prefill graphs")
+          f"decode graphs (want {decode_graphs}) and {len(r._prefills)} "
+          f"prefill graphs")
     shadow, _ = graph_vs_eager(torch, cfg, eng, prompts)
     check(eng.compiled_programs == res["compiled_programs_warm"],
           f"the shadowed run captured: {res['compiled_programs_warm']} → "
           f"{eng.compiled_programs}")
     res.update(shadow)
-    print(f"  captures: {len(r._graphs)} decode graph (warm block and capture "
-          f"{res['capture_s']:.3f} s), {len(r._prefills)} prefill graphs "
+    print(f"  captures: {len(r._graphs)} decode graphs (warm block and "
+          f"capture {res['capture_s']:.3f} s), {len(r._prefills)} prefill graphs "
           f"(warm admission and capture, s per (bucket, group, prefix): "
           + ", ".join(f"{k} {v:.3f}" for k, v in r.prefill_capture_s.items())
           + f"); compiled programs {cold} after the cold run, "
@@ -1060,9 +1149,9 @@ def held_to_plain(torch, gaps):
     return gemm, attn
 
 
-def depth_witness(torch, cfg, eng, r):
+def depth_witness(torch, cfg, eng, r, depths=DEPTHS):
     """Relative L2 distance of one decode step's logits on the first L
-    layers (L in DEPTHS) from the plain path's, on the same state and tree,
+    layers (L in ``depths``) from the plain path's, on the same state and tree,
     for: both kernels; the GEMM kernel alone; the attention kernel alone;
     the plain path with its GEMM sums split in two halves (another f32
     order, no kernel); the plain path run again.  At full depth each kernel
@@ -1079,7 +1168,7 @@ def depth_witness(torch, cfg, eng, r):
                 "plain again": (kvplain, off, ())}
     gaps = {}
     out = {}
-    for L in DEPTHS:
+    for L in depths:
         cfg_l = dataclasses.replace(cfg, n_layers=L)
         p_l = dict(eng.decode_params, stack=[
             layer_slice(run, slice(0, L)) for run in eng.decode_params["stack"]])
@@ -1094,7 +1183,7 @@ def depth_witness(torch, cfg, eng, r):
         lg_p = step(kvplain, off)
         out[L] = {}
         for name, (kv, kc, route) in variants.items():
-            if L == DEPTHS[-1] and name == "kernels":
+            if L == depths[-1] and name == "kernels":
                 route = held_to_plain(torch, gaps)
             lg = step(kv, kc, route)
             check(lg.shape == (4, cfg.vocab) and bool(torch.isfinite(lg).all()),
@@ -1103,12 +1192,12 @@ def depth_witness(torch, cfg, eng, r):
         print(f"  decode_step on {L:2d} layers, rel-L2 to plain: "
               + ", ".join(f"{k} {v:.2e}" for k, v in out[L].items()))
     for key, (n, n_diff, most) in gaps.items():
-        print(f"  {key} in one {DEPTHS[-1]}-layer step: {n_diff} of {n} "
+        print(f"  {key} in one {depths[-1]}-layer step: {n_diff} of {n} "
               f"outputs differ from the plain version's, by at most {most:.3g}")
     return out, gaps
 
 
-def warm_phases(torch, eng, prompts, n_tok):
+def warm_phases(torch, eng, prompts, n_tok, quiet=False):
     """A second, warm run of the same traffic with each phase timed (a
     synchronize around each call): where the wall time goes."""
     phase = {"prefill": 0.0, "requant": 0.0, "decode": 0.0}
@@ -1135,10 +1224,30 @@ def warm_phases(torch, eng, prompts, n_tok):
                decode_ms_per_step=phase["decode"] * 1e3 / (
                    N_REQUESTS // eng.ecfg.max_slots
                    * -(-(MAX_NEW - 1) // K) * K))
+    if quiet:
+        return res
     print(f"  warm run: {n_tok / wall2:.1f} tok/s; phases (synced) "
           + ", ".join(f"{k} {v:.3f} s" for k, v in phase.items())
           + f"; decode {res['decode_ms_per_step']:.2f} ms per step")
     return res
+
+
+def warm_repeats(torch, eng, prompts, n_tok) -> dict:
+    """WARM_REPEATS more warm runs of the same traffic back to back: the
+    median and spread (min, max) of ms per decode step and tokens/s."""
+    runs = [warm_phases(torch, eng, prompts, n_tok, quiet=True)
+            for _ in range(WARM_REPEATS)]
+    out = {}
+    for key in ("decode_ms_per_step", "warm_tok_per_s"):
+        xs = [r[key] for r in runs]
+        out[key] = dict(median=statistics.median(xs), min=min(xs),
+                        max=max(xs), runs=xs)
+    d, t = out["decode_ms_per_step"], out["warm_tok_per_s"]
+    print(f"  {WARM_REPEATS} warm runs: ms per decode step median "
+          f"{d['median']:.3f} (min {d['min']:.3f}, max {d['max']:.3f}); "
+          f"tokens/s median {t['median']:.1f} (min {t['min']:.1f}, max "
+          f"{t['max']:.1f})")
+    return out
 
 
 def requant_split(torch, eng):
@@ -1208,6 +1317,7 @@ def main_path(torch, dev, prompts, cfg, params):
           f"({res['syncs_per_token']:.4f}/token); launches {launches}")
 
     res.update(graph_phases(torch, cfg, eng, prompts, n_tok))
+    res["warm_repeats"] = warm_repeats(torch, eng, prompts, n_tok)
 
     res.update(requant_split(torch, eng))
 
@@ -1401,7 +1511,10 @@ def svd_against_f64(torch, params):
 def residual_quantize_checked(torch, eng) -> dict:
     """(b) ``ttq_quantize`` on the f32 residual W − B·A of every stack (D
     from the session's statistics, as the requant forms them) against its
-    plain version: the dequantized weights differ by at most 0."""
+    plain version: the dequantized weights differ by at most 0.  Each
+    stack is checked a chunk of layers at a time (at most 1 GiB of f32
+    residual), so the plain version's temporaries fit beside the trees at
+    full depth."""
     from repro_torch.core.lowrank import residual
     from repro_torch.kernels import ops, ref
     from repro_torch.quant.api import _tree_get
@@ -1412,17 +1525,26 @@ def residual_quantize_checked(torch, eng) -> dict:
     for members in plan.families.values():
         for m in members:
             ba = _tree_get(qm.lowrank_tree, m.path)
-            R = residual(_tree_get(qm.params, m.path), ba["B"], ba["A"])
+            W = _tree_get(qm.params, m.path)
             D = m.eff.quantizer.diag(plan._stat(stats, m).reshape(-1, m.d),
                                      count, m.eff.acfg, m.d)
-            off, sz, err = quant_mismatch(
-                torch, ops.ttq_quantize(R, D, bits=4, group_size=32),
-                ref.ttq_quantize_ref(R, D, bits=4, group_size=32), m.d, 4)
+            step = max(1, (1 << 30) // (m.dp * m.d * 4))
+            off, sz, err = 0, True, 0.0
+            for i in range(0, W.shape[0], step):
+                j = slice(i, i + step)
+                R = residual(W[j], ba["B"][j], ba["A"][j])
+                o, z, e = quant_mismatch(
+                    torch, ops.ttq_quantize(R, D[j], bits=4, group_size=32),
+                    ref.ttq_quantize_ref(R, D[j], bits=4, group_size=32),
+                    m.d, 4)
+                off, sz = off + o, sz and z
+                if not e <= err:                 # NaN propagates
+                    err = e
+                del R
             out[m.path_str] = dict(codes_differ=off, sz_equal=sz,
                                    max_abs_err=err)
             check(err == 0.0, f"{m.path_str}: ttq_quantize on the residual "
                   f"differs from its plain version by {err} ({off} codes)")
-            del R
     print(f"  (b) ttq_quantize on the residual of every stack ({len(out)}): "
           f"dequantized weights equal to the plain version's (max |diff| "
           f"{max(v['max_abs_err'] for v in out.values())}; codes differing "
@@ -1493,10 +1615,10 @@ def requant_wall(torch, eng, threshold) -> dict:
                 skipped=qm.last_skipped_layers)
 
 
-def default_policy(torch, dev, cfg, params, base) -> dict:
+def default_policy(torch, dev, cfg, params, base, depth=DEPTH_3D) -> dict:
     """Phase 3d: the reference's default serving policy, ttq_policy(bits=4,
     group_size=32, rank=16, packed=True) with the delta gate and the double
-    buffer, at full width and DEPTH_3D layers, on [3]'s traffic.  Checks
+    buffer, at full width and ``depth`` layers, on [3]'s traffic.  Checks
     (a) the factors against a float64 SVD, (b) the residual's quantization
     against its plain version, (c) the double-buffered run's tokens against
     a rerun that forces each swap at the block where the first run saw it,
@@ -1509,8 +1631,8 @@ def default_policy(torch, dev, cfg, params, base) -> dict:
     from repro_torch.models.stack import layer_slice
 
     res = {"svd": svd_against_f64(torch, params)}
-    cfg_d = dataclasses.replace(cfg, n_layers=DEPTH_3D)
-    params_d = dict(params, stack=[layer_slice(run, slice(0, DEPTH_3D))
+    cfg_d = dataclasses.replace(cfg, n_layers=depth)
+    params_d = dict(params, stack=[layer_slice(run, slice(0, depth))
                                    for run in params["stack"]])
     policy = ttq_policy(bits=4, group_size=32, rank=RANK_3D, packed=True,
                         kvcache=KVCacheConfig(dtype="int8"),
@@ -1521,7 +1643,7 @@ def default_policy(torch, dev, cfg, params, base) -> dict:
     _, _, eng = build_engine(torch, dev, cfg_d, params_d, policy, **kw)
     torch.cuda.synchronize()
     res["factor_s"] = time.perf_counter() - t0
-    print(f"  factors: {7 * DEPTH_3D} top-{RANK_3D} SVDs at engine "
+    print(f"  factors: {7 * depth} top-{RANK_3D} SVDs at engine "
           f"construction, {res['factor_s']:.1f} s")
     prompts = make_prompts()
     build.reset_launches()
@@ -1595,8 +1717,8 @@ def default_policy(torch, dev, cfg, params, base) -> dict:
     check_outputs(cfg, o0, "3d rank-0 baseline")
     res["rank0_same_depth"] = warm_phases(torch, flat, prompts, n_tok)
     print(f"  ms per decode step (warm, synced): rank {RANK_3D} with gate and "
-          f"double buffer {res['decode_ms_per_step']:.2f} at {DEPTH_3D} "
-          f"layers; rank 0 at {DEPTH_3D} layers "
+          f"double buffer {res['decode_ms_per_step']:.2f} at {depth} "
+          f"layers; rank 0 at {depth} layers "
           f"{res['rank0_same_depth']['decode_ms_per_step']:.2f}; [3] (rank 0, "
           f"{cfg.n_layers} layers) {base['decode_ms_per_step']:.2f}")
     del flat
@@ -1612,6 +1734,14 @@ def cut(cfg, params, depth):
     return (dataclasses.replace(cfg, n_layers=depth),
             dict(params, stack=[layer_slice(run, slice(0, depth))
                                 for run in params["stack"]]))
+
+
+def first_layers(tree, depth):
+    """The first ``depth`` layers of a stacked tree whose leaves may be
+    None (a low-rank factor tree from a deeper [3d] run; views)."""
+    if isinstance(tree, dict):
+        return {k: first_layers(v, depth) for k, v in tree.items()}
+    return None if tree is None else tree[:depth]
 
 
 def clone_qt_tree(torch, tree):
@@ -1913,8 +2043,9 @@ def near_ties(torch, cfg, out, prompts, label, tree_one) -> list:
 
 def speculation(torch, dev, cfg, params, factors) -> dict:
     """Phase 3e: self-speculative decoding, W = SPEC_W, at full width.
-    (a) the reference's default policy (rank 16 with [3d]'s factors, gate,
-    double buffer) on DEPTH_3D layers with its default int4 rank-0 draft;
+    (a) the reference's default policy (rank 16 with [3d]'s factors of its
+    first DEPTH_3D layers, gate, double buffer) on DEPTH_3D layers with its
+    default int4 rank-0 draft;
     (b) draft-only, bf16 weights with an int4 g32 draft, at full depth on
     the dense slab and on the paged pool (block 16); (c) (b) on the first
     layer alone, the witness that rounding is not amplified there.
@@ -1926,6 +2057,8 @@ def speculation(torch, dev, cfg, params, factors) -> dict:
     kern, kv8 = KernelConfig(use_pallas=True), KVCacheConfig(dtype="int8")
     res, outs = {}, {}
     cfg_d, params_d = cut(cfg, params, DEPTH_3D)
+    factors = dict(factors, stack=[first_layers(run, DEPTH_3D)
+                                   for run in factors["stack"]])
     pol_a = ttq_policy(bits=4, group_size=32, rank=RANK_3D, packed=True,
                        kvcache=kv8, kernel=kern)
     res["a"], outs["a"] = spec_case(
@@ -2604,7 +2737,140 @@ def robustness(torch, dev, cfg, params, prompts) -> dict:
     return res
 
 
-def main() -> int:
+# ------------------------------------------------------------- phase 3g
+
+def granite_depth(torch, cfg) -> int:
+    """The most granite-34b layers the card holds beside its quantized
+    trees under the guards: each layer's bf16 weights (2 B per linear
+    parameter) and two int4 g32 trees (the served one and the guards'
+    spare, 0.75 B per parameter each: packed codes and f32 S, Z per 32),
+    after the bf16 embedding and GRANITE_RESERVE_GB for the KV cache, the
+    graphs' pools, activations and the allocator."""
+    D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    per_layer = (2 * D * cfg.n_heads * hd + 2 * D * cfg.n_kv_heads * hd
+                 + 2 * D * F) * (2 + 2 * 0.75)
+    total = torch.cuda.get_device_properties(0).total_memory
+    room = total - cfg.vocab * D * 2 - GRANITE_RESERVE_GB * 1e9
+    return min(cfg.n_layers, int(room // per_layer))
+
+
+def init_family(torch, dev, arch, depth=None):
+    """Full-width ``arch`` (the first ``depth`` layers, None: all), random
+    weights from seed 0."""
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    cfg = get(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.name} full width, {cfg.n_layers} layers: "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return cfg, params
+
+
+def family_engine(torch, dev, cfg, params, prompts, paged, dense=None):
+    """[3]'s policy (int4 g32 packed, rank 0, int8 KV) under the default
+    guards on the dense slab or the paged pool (block 16): the cold run
+    (every kernel of the path launched; paged tokens equal ``dense``'s),
+    greedy tokens printed, the graph readings of [3] (a warm run, every
+    graph block and prefill replay bit for bit eager on a copy), two synced
+    gated requants, peak memory, and (dense) a one-layer depth witness on
+    4 fresh admissions with every kernel call held to its plain version."""
+    from repro_torch.kernels import build
+    what = f"[3g] {cfg.name} {'paged' if paged else 'dense'}"
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(kv_paged=True, kv_block_size=BLOCK) if paged else {}
+    _, _, eng = build_engine(torch, dev, cfg, params, guards=True, **kw)
+    build.reset_launches()
+    outs, wall = serve(torch, eng, prompts)
+    launches = dict(build.LAUNCHES)
+    n_tok = sum(len(o) for o in outs)
+    check_outputs(cfg, outs, what)
+    attn = "ttq_paged_decode_attention" if paged else "ttq_decode_attention"
+    other = "ttq_decode_attention" if paged else "ttq_paged_decode_attention"
+    check(all(launches[k] > 0 for k in ("ttq_quantize", "ttq_gemm", attn))
+          and launches[other] == 0, f"{what}: launches {launches}")
+    outs = [list(o) for o in outs]
+    if dense is not None:
+        check(outs == dense["outputs"], f"{what}: greedy tokens differ from "
+              f"the dense run's: leading tokens equal per request "
+              f"{[leading_equal(o, d) for o, d in zip(outs, dense['outputs'])]}")
+    res = dict(outputs=outs, tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+               requants=eng.n_requants, launches=launches,
+               host_syncs=eng.host_syncs)
+    print(f"  {what}: served {len(prompts)} requests, {n_tok} tokens in "
+          f"{wall:.2f} s cold ({n_tok / wall:.1f} tok/s); requants "
+          f"{eng.n_requants}; launches {launches}"
+          + ("; greedy tokens equal to the dense run's" if dense else ""))
+    for i, o in enumerate(outs):
+        print(f"    greedy tokens, request {i}: {o}")
+    res.update(graph_phases(torch, cfg, eng, prompts, n_tok))
+    rq = [synced_requant(torch, eng) * 1e3 for _ in range(2)]
+    res["requant_synced_ms"] = rq
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {what}: warm ms per decode step "
+          f"{res['decode_ms_per_step']:.2f}, warm prefill "
+          f"{res['warm_phase_s']['prefill']:.3f} s, synced gated requant "
+          f"{', '.join(f'{x:.1f}' for x in rq)} ms; peak "
+          f"{res['peak_gb']:.2f} GB")
+    if paged:
+        eng.allocator.assert_quiescent()
+        return res
+    for p in prompts[:4]:
+        eng.submit(p, max_new=MAX_NEW)
+    eng.admit()
+    wit, gaps = depth_witness(torch, cfg, eng, eng.runner, depths=(1,))
+    res["decode_step_rel_l2"], res["kernel_gaps"] = wit, gaps
+    check(wit[1]["kernels"] <= REL_L2_ONE_LAYER,
+          f"{what}: kernel vs plain decode_step on 1 layer: rel-L2 "
+          f"{wit[1]['kernels']}")
+    check(wit[1]["plain again"] == 0.0, f"{what}: the plain path is not "
+          f"deterministic")
+    return res
+
+
+def families(torch, dev) -> dict:
+    """Phase 3g: minitron-4b and starcoder2-15b at full depth, granite-34b
+    at :func:`granite_depth` layers, each at full width through
+    :func:`family_engine` on the dense slab and then the paged pool (the
+    weights of one family on the card at a time).  Returns per family its
+    readings and the kernels' launches over all of them."""
+    from repro_torch.configs import get
+    out, launches = {}, {}
+    for arch in FAMILIES_3G:
+        depth = granite_depth(torch, get(arch)) if arch == "granite_34b" \
+            else None
+        cfg, params = init_family(torch, dev, arch, depth)
+        prompts = make_prompts(cfg.vocab)
+        t0 = time.perf_counter()
+        dense = family_engine(torch, dev, cfg, params, prompts, False)
+        free(torch)
+        paged = family_engine(torch, dev, cfg, params, prompts, True, dense)
+        del params
+        free(torch)
+        for r in (dense, paged):
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        out[arch] = dict(layers=cfg.n_layers, dense=dense, paged=paged,
+                         seconds=time.perf_counter() - t0)
+        print(f"  [3g] {cfg.name}: {cfg.n_layers} layers, "
+              f"{out[arch]['seconds']:.1f} s for both engines")
+    out["launches"] = launches
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--full-depth-3d", action="store_true",
+                    help="run [3d] (the default policy, rank 16) at all 28 "
+                         f"of gemma-7b's layers instead of {DEPTH_3D} "
+                         "(about 3 minutes more of exact SVD)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2631,8 +2897,9 @@ def main() -> int:
           + "; ".join(f"{n} {v}" for n, v in sorted(attn_ptx.items())))
     check(len(attn_ptx) == 40, f"the ptxas log lists {len(attn_ptx)} "
           f"attention kernels, not 40")
-    check(not any(n in spilled for n in MAIN_PATH_ATTN),
-          f"an attention instantiation of the main path spills: {spilled}")
+    check(not any(n in spilled for n in MAIN_PATH_ATTN + FAMILY_ATTN),
+          f"an attention instantiation of the main path or of [3g]'s "
+          f"families spills: {spilled}")
     quant_ptx = {n: v for n, v in ptx.items() if n.startswith("quant_kernel")}
     print("    quantize kernels (registers, spill stores, spill loads): "
           + "; ".join(f"{n} {v}" for n, v in sorted(quant_ptx.items())))
@@ -2664,6 +2931,7 @@ def main() -> int:
         "src/repro_torch/kernels/csrc/ttq_attn.cu",
         "src/repro/kernels/ttq_attn.py:203", paged_row)
     kernel_attention_long(torch, dev, flush)
+    groups = kernel_attention_groups(torch, dev, flush, cur_main)
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2692,18 +2960,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
+    depth_3d = cfg.n_layers if args.full_depth_3d else DEPTH_3D
     print(f"[3d] the reference's default policy: ttq_policy(bits=4, "
           f"group_size=32, rank={RANK_3D}, packed=True), int8 KV, "
           f"requant_threshold={THRESHOLD_3D}, double_buffer=True; gemma-7b "
-          f"full width, {DEPTH_3D} of {cfg.n_layers} layers (exact SVD at "
+          f"full width, {depth_3d} of {cfg.n_layers} layers (exact SVD at "
           f"~6 s per layer)")
-    dflt, factors = default_policy(torch, dev, cfg, params, res)
+    dflt, factors = default_policy(torch, dev, cfg, params, res, depth_3d)
     print("    default policy: " + json.dumps(dflt))
     gc.collect()
     torch.cuda.empty_cache()
 
     print(f"[3e] self-speculative decoding, speculate_k={SPEC_W}: (a) the "
-          f"default policy of [3d] with its int4 rank-0 draft, {DEPTH_3D} "
+          f"default policy of [3d] (its first {DEPTH_3D} layers' factors) "
+          f"with its int4 rank-0 draft, {DEPTH_3D} "
           f"layers; (b) bf16 weights, int8 KV, an int4 g32 draft, "
           f"{cfg.n_layers} layers, dense and paged; (c) (b) on one layer")
     spec = speculation(torch, dev, cfg, params, factors)
@@ -2716,11 +2986,20 @@ def main() -> int:
           f"TTQServer and the CLI; gemma-7b full width, [3]'s policy")
     rob = robustness(torch, dev, cfg, params, prompts)
     print("    robustness: " + json.dumps(rob, default=str))
+    del params
+    free(torch)
+
+    print(f"[3g] the other dense families at full width: "
+          f"{', '.join(FAMILIES_3G)} (granite-34b at reduced depth), [3]'s "
+          f"policy with the default guards, dense slab and paged pool")
+    fam = families(torch, dev)
+    print("    families: " + json.dumps(fam, default=str))
 
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "
-          "[3b]), the speculative path's ([3e]) and the robustness and "
-          "streaming path's ([3f] (a)-(g)), counted per replay")
+          "[3b]), the speculative path's ([3e]), the robustness and "
+          "streaming path's ([3f] (a)-(g)) and the families' ([3g]), "
+          "counted per replay")
     kernels = []
     spec_cases = ("a", "b", "b paged", "c")
     for name, (src, replaces, m) in rows.items():
@@ -2728,14 +3007,21 @@ def main() -> int:
                   else res)["launches"][name]
         spec_n = sum(spec[k]["launches"][name] for k in spec_cases)
         rob_n = rob["launches"][name]
+        fam_n = fam["launches"][name]
+        check(fam_n > 0, f"{name} never launched in [3g]")
         print(f"  {name} launches: main path {main_n}, speculative path "
               f"{spec_n} ([3e] cold runs "
               + ", ".join(f"({k}) {spec[k]['launches'][name]}"
                           for k in spec_cases) + f"), robustness and "
-              f"streaming path {rob_n}")
+              f"streaming path {rob_n}, families {fam_n}")
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
-                            launches=main_n + spec_n + rob_n, **m))
+                            launches=main_n + spec_n + rob_n + fam_n, **m))
+    for (name, G, bits), (t_k, t_p, b_b, b_o, t_l) in groups.items():
+        print(f"  {name} at G = {G} int{bits}: {t_k:.4f} ms, bound "
+              f"{max(b_b, b_o):.4f} ms ({'operations' if b_o > b_b else 'bytes'}"
+              f"; bytes {b_b:.4f}, operations {b_o:.4f}), plain {t_p:.4f} ms, "
+              f"scaled_dot_product_attention {t_l:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

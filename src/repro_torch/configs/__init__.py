@@ -2,19 +2,20 @@
 
 ``get(name, smoke=False)`` resolves ``<name>.config()`` (the published
 shape) or ``<name>.smoke()`` (a reduced same-family config for CPU tests).
-Only ``gemma_7b`` is ported so far; other families come in later slices.
+The dense families are ported (``ARCH_IDS``); the others come in later
+slices.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["gemma_7b"]
+ARCH_IDS = ["gemma_7b", "minitron_4b", "starcoder2_15b", "granite_34b"]
 
 
 def get(name: str, smoke: bool = False):
     if name not in ARCH_IDS:
         raise NotImplementedError(
-            f"config {name!r} is not ported yet (slice 1 ports {ARCH_IDS}); "
+            f"config {name!r} is not ported yet (ported: {ARCH_IDS}); "
             f"other families come with their layers in a later slice")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.smoke() if smoke else mod.config()

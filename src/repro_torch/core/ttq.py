@@ -11,11 +11,11 @@ that dim; :func:`qt_index` slices one layer out.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
-from .awq import awq_quantize
+from .awq import AWQConfig, awq_quantize, diag_from_stats
 from .policy import QuantPolicy
 from .qdq import QuantConfig, dequantize, pack_bits, unpack_bits
 
@@ -48,6 +48,23 @@ def qt_index(qt: QuantizedTensor, i) -> QuantizedTensor:
     return dataclasses.replace(qt, **{
         f: (None if getattr(qt, f) is None else getattr(qt, f)[i])
         for f in _QT_TENSORS})
+
+
+def calibrate(stats: Any, counts: Any, acfg: AWQConfig) -> Any:
+    """Map an accumulated Σ|x|^p stats tree → the D tree of the same
+    structure; ``counts`` has that structure too (dicts, lists and tuples
+    are walked in step; None leaves stay None).  As in the reference, each
+    leaf is one statistic: the blend form's mean runs over all of a
+    stacked leaf's entries, not per layer row as in the fused plan."""
+    if stats is None:
+        return None
+    if isinstance(stats, dict):
+        return {k: calibrate(v, counts[k], acfg) for k, v in stats.items()}
+    if isinstance(stats, (list, tuple)):
+        return type(stats)(calibrate(s, n, acfg)
+                           for s, n in zip(stats, counts, strict=True))
+    return diag_from_stats(stats.reshape(1, -1), counts,
+                           acfg).reshape(stats.shape)
 
 
 def quantize_weight(W: torch.Tensor, D: torch.Tensor, policy: QuantPolicy,

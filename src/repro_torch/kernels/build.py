@@ -36,15 +36,15 @@ SIGNATURES = {
     # x, x_is_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, split, stream
     "ttq_gemm_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
-    # q, q_is_bf16, scale, kq, ks, vq, vs, cur_pos, out, B, Hkv, G, S, Dh,
-    # n_groups, bits, soft_cap, splits, stream
+    # q, q_is_bf16, scale, kq, ks, vq, vs, cur_pos, out, B, Hkv, G, Gt, S,
+    # Dh, n_groups, bits, soft_cap, splits, stream
     "ttq_decode_attention_launch": [_P, _I, _F, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                                    _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, q_is_bf16, scale, kq, ks, vq, vs, block_table, cur_pos, out, B,
-    # Hkv, G, bs, nblk, Dh, n_groups, bits, soft_cap, splits, stream
+    # Hkv, G, Gt, bs, nblk, Dh, n_groups, bits, soft_cap, splits, stream
     "ttq_paged_decode_attention_launch": [_P, _I, _F, _P, _P, _P, _P, _P, _P,
                                           _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                          _F, _I, _P],
+                                          _I, _F, _I, _P],
 }
 
 # launches per kernel, counted by the wrappers where they launch

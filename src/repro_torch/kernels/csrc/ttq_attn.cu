@@ -16,16 +16,29 @@
 // (B, Hkv, S, ·); the paged cache is a (NB, Hkv, bs, ·) pool whose logical
 // block j of slot b is physical block block_table[b, j].
 //
-// Bound on the card: bytes.  Each live cached row is read once and feeds
-// 4·G flops per element, far below the H100's ridge; in practice the
-// instructions per row bind first (below).
+// Bound on the card: bytes at small G.  Each live cached row is read once
+// and feeds 4·G flops per element (f32, CUDA cores): at G <= 4 far below
+// the H100's ridge, where the instructions per row bind first (below); at
+// G = 12 or 48 past it (about 20 flops per byte), so those are bound by
+// the flops.
+//
+// Heads: the G query heads of a kv head are cut into ceil(G / Gt) tiles of
+// Gt in {1, 2, 4} heads (Gt·NCH <= 4, for registers; the wrapper's
+// head_tile picks Gt), one tile per cluster: the tile is another grid axis
+// next to (b, kv head).  Heads past G in the last tile run on q = 0 and are
+// never stored (G = 3: one tile of 4, one head masked).  Each tile walks
+// the rows of its (b, kv head) itself, so a row is read ceil(G / Gt) times,
+// the later reads mostly from L2 (the tiles of one kv head are neighbours
+// in the grid).  G in {1, 2, 4} is one tile: the walk of a single tile is
+// the one it was before tiles.
 //
 // Split: the C blocks of one cluster (C in {1, 2, 4, 8}, from the wrapper's
-// attn_splits) share one (b, kv head); rank r takes the contiguous slice r
-// of rows 0..min(cur_pos[b], capacity - 1) cut into C slices of
-// ceil(n / C) rows, computed on the device (the host never reads cur_pos).
-// So B·Hkv·C blocks fill the card where B·Hkv alone (64 for gemma-7b at 4
-// slots) leaves half the SMs idle, and a long slot is walked by C SMs.
+// attn_splits) share one (b, kv head, head tile); rank r takes the
+// contiguous slice r of rows 0..min(cur_pos[b], capacity - 1) cut into C
+// slices of ceil(n / C) rows, computed on the device (the host never reads
+// cur_pos).  So B·Hkv·T·C blocks fill the card where B·Hkv alone (64 for
+// gemma-7b at 4 slots) leaves half the SMs idle, and a long slot is walked
+// by C SMs.
 // Rows past cur_pos contribute exactly 0 in the reference too and are never
 // read (the paged kernel never reads the sink block 0); a rank with no rows
 // keeps m = -1e30, l = 0, acc = 0 and adds exactly nothing in the merge.
@@ -177,14 +190,16 @@ __device__ __forceinline__ void slice_rows(int last, int C, int rank, int& lo,
   hi = min(n, lo + chunk);
 }
 
-// The shared walk: rows [lo, hi) of (b, h) = ``bh`` in this rank, merged
-// across the cluster into out[bh] (G·Dh values in q's dtype).
+// The shared walk: rows [lo, hi) of one (b, kv head) in this rank for a
+// tile of G query heads starting at query head qh0, of which the first gv
+// are real (the rest run on q = 0 and are not stored), merged across the
+// cluster into out[qh0 .. qh0 + gv) (Dh values each, in q's dtype).
 template <int G, int NCH, int BITS, bool RS, class Rows>
 __device__ __forceinline__ void attn_split(
     const void* __restrict__ q, int q_bf16, float scale,
     const void* __restrict__ kq, const float* __restrict__ ks,
     const void* __restrict__ vq, const float* __restrict__ vs,
-    void* __restrict__ out, int bh, int lo, int hi, int Dh, int ngr,
+    void* __restrict__ out, int qh0, int gv, int lo, int hi, int Dh, int ngr,
     float soft_cap, const Rows rows) {
   constexpr int P = G * NCH == 1 ? 8 : G * NCH == 2 ? 4 : 2;
   __shared__ float sm_m[kWarps][G];
@@ -208,8 +223,8 @@ __device__ __forceinline__ void attn_split(
       const int d0 = (ch * 32 + lane) * 8;
 #pragma unroll
       for (int e = 0; e < 8; ++e) qr[gi][ch][e] = acc[gi][ch][e] = 0.0f;
-      if (d0 < Dh) {
-        const long long off = ((long long)bh * G + gi) * Dh + d0;
+      if (d0 < Dh && gi < gv) {
+        const long long off = ((long long)qh0 + gi) * Dh + d0;
         if (q_bf16) {
           ttq::load4(static_cast<const __nv_bfloat16*>(q) + off, qr[gi][ch]);
           ttq::load4(static_cast<const __nv_bfloat16*>(q) + off + 4, qr[gi][ch] + 4);
@@ -381,7 +396,7 @@ __device__ __forceinline__ void attn_split(
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * Dh; i += kThreads) {
+  for (int i = threadIdx.x; i < gv * Dh; i += kThreads) {
     const int gi = i / Dh, dd = i - gi * Dh;
     float M = kNegInf;
 #pragma unroll
@@ -400,7 +415,7 @@ __device__ __forceinline__ void attn_split(
 
   // the cluster: rank r's Dh/C columns, ranks merged in rank order
   const int cols = Dh / C;
-  for (int i = threadIdx.x; i < G * cols; i += kThreads) {
+  for (int i = threadIdx.x; i < gv * cols; i += kThreads) {
     const int gi = i / cols, dd = rank * cols + (i - gi * cols);
     float mr[kMaxSplit];
     float M = kNegInf;
@@ -419,12 +434,23 @@ __device__ __forceinline__ void attn_split(
       }
     }
     const float o = A / fmaxf(L, 1e-30f);
-    const long long off = ((long long)bh * G + gi) * Dh + dd;
+    const long long off = ((long long)qh0 + gi) * Dh + dd;
     if (q_bf16) ttq::store1(static_cast<__nv_bfloat16*>(out) + off, o);
     else ttq::store1(static_cast<float*>(out) + off, o);
   }
   cluster.sync();                       // no rank's state is read any more
 }
+
+// cluster blockIdx.x / C → (b·Hkv + h, tile t): the first query head of
+// tile t of the GQ heads of kv head bh, and how many of its G are real
+struct Tile {
+  int bh, qh0, gv;
+  template <int G>
+  __device__ __forceinline__ static Tile of(int cluster_id, int GQ, int T) {
+    const int bh = cluster_id / T, t = cluster_id - bh * T;
+    return Tile{bh, bh * GQ + t * G, min(G, GQ - t * G)};
+  }
+};
 
 template <int G, int NCH, int BITS, bool RS>
 __global__ void __launch_bounds__(kThreads) attn_kernel(
@@ -432,16 +458,16 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
     const void* __restrict__ kq, const float* __restrict__ ks,
     const void* __restrict__ vq, const float* __restrict__ vs,
     const int32_t* __restrict__ cur_pos, void* __restrict__ out, int Hkv,
-    int S, int Dh, int ngr, float soft_cap) {
+    int GQ, int T, int S, int Dh, int ngr, float soft_cap) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
-  const int bh = blockIdx.x / C;
+  const Tile tl = Tile::of<G>(blockIdx.x / C, GQ, T);
   int lo, hi;
-  slice_rows(min(cur_pos[bh / Hkv], S - 1), C, (int)cluster.block_rank(), lo,
-             hi);
-  attn_split<G, NCH, BITS, RS>(q, q_bf16, scale, kq, ks, vq, vs, out, bh, lo,
-                               hi, Dh, ngr, soft_cap,
-                               DenseRows{(uint32_t)bh * S});
+  slice_rows(min(cur_pos[tl.bh / Hkv], S - 1), C, (int)cluster.block_rank(),
+             lo, hi);
+  attn_split<G, NCH, BITS, RS>(q, q_bf16, scale, kq, ks, vq, vs, out, tl.qh0,
+                               tl.gv, lo, hi, Dh, ngr, soft_cap,
+                               DenseRows{(uint32_t)tl.bh * S});
 }
 
 template <int G, int NCH, int BITS, bool RS>
@@ -451,12 +477,12 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(
     const void* __restrict__ vq, const float* __restrict__ vs,
     const int32_t* __restrict__ block_table,
     const int32_t* __restrict__ cur_pos, void* __restrict__ out, int Hkv,
-    int bs, int nblk, int Dh, int ngr, float soft_cap) {
+    int GQ, int T, int bs, int nblk, int Dh, int ngr, float soft_cap) {
   extern __shared__ int32_t sm_bt[];    // the slice's blocks, at most nblk
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
-  const int bh = blockIdx.x / C;
-  const int b = bh / Hkv, h = bh - b * Hkv;
+  const Tile tl = Tile::of<G>(blockIdx.x / C, GQ, T);
+  const int b = tl.bh / Hkv, h = tl.bh - b * Hkv;
   int lo, hi;
   slice_rows(min(cur_pos[b], nblk * bs - 1), C, (int)cluster.block_rank(), lo,
              hi);
@@ -465,24 +491,24 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(
     sm_bt[i] = block_table[(long long)b * nblk + b0 + i];
   __syncthreads();
   attn_split<G, NCH, BITS, RS>(
-      q, q_bf16, scale, kq, ks, vq, vs, out, bh, lo, hi, Dh, ngr, soft_cap,
-      PagedRows{sm_bt, b0, Hkv, h, bs, 0xFFFFFFFFu / (uint32_t)bs + 1u});
+      q, q_bf16, scale, kq, ks, vq, vs, out, tl.qh0, tl.gv, lo, hi, Dh, ngr,
+      soft_cap, PagedRows{sm_bt, b0, Hkv, h, bs, 0xFFFFFFFFu / (uint32_t)bs + 1u});
 }
 
-// Launch geometry shared by both entry points: grid B·Hkv·C in clusters of
-// C, 8 warps per block.
+// Launch geometry shared by both entry points: grid B·Hkv·T·C in clusters
+// of C, 8 warps per block; T = ceil(GQ / Gt) head tiles per kv head.
 struct Args {
   const void* q; int q_bf16; float scale;
   const void* kq; const float* ks; const void* vq; const float* vs;
   const int32_t* block_table; const int32_t* cur_pos; void* out;
-  int B, Hkv, S, bs, nblk, Dh, ngr; float soft_cap; int splits;
+  int B, Hkv, GQ, S, bs, nblk, Dh, ngr; float soft_cap; int splits, tiles;
   cudaStream_t stream;
 };
 
 template <int G, int NCH, int BITS, bool RS>
 int launch_kernel(const Args& a) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.B * a.Hkv * a.splits);
+  cfg.gridDim = dim3(a.B * a.Hkv * a.tiles * a.splits);
   cfg.blockDim = dim3(kThreads);
   cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
@@ -496,13 +522,13 @@ int launch_kernel(const Args& a) {
   if (a.block_table == nullptr) {
     e = cudaLaunchKernelEx(&cfg, attn_kernel<G, NCH, BITS, RS>, a.q, a.q_bf16,
                            a.scale, a.kq, a.ks, a.vq, a.vs, a.cur_pos, a.out,
-                           a.Hkv, a.S, a.Dh, a.ngr, a.soft_cap);
+                           a.Hkv, a.GQ, a.tiles, a.S, a.Dh, a.ngr, a.soft_cap);
   } else {
     cfg.dynamicSmemBytes = a.nblk * sizeof(int32_t);
     e = cudaLaunchKernelEx(&cfg, paged_attn_kernel<G, NCH, BITS, RS>, a.q,
                            a.q_bf16, a.scale, a.kq, a.ks, a.vq, a.vs,
-                           a.block_table, a.cur_pos, a.out, a.Hkv, a.bs,
-                           a.nblk, a.Dh, a.ngr, a.soft_cap);
+                           a.block_table, a.cur_pos, a.out, a.Hkv, a.GQ,
+                           a.tiles, a.bs, a.nblk, a.Dh, a.ngr, a.soft_cap);
   }
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
@@ -515,15 +541,21 @@ int launch_bits(const Args& a) {
                     : launch_kernel<G, NCH, BITS, false>(a);
 }
 
-int launch(const Args& a, int G, int bits) {
-  if (a.B <= 0 || a.Hkv <= 0 || a.Dh % 8 || a.Dh > 512 || a.ngr <= 0 ||
-      a.Dh % a.ngr || (a.Dh / a.ngr) % 8 || (bits != 4 && bits != 8) ||
+// Gt: the heads of one tile (the template's G), in {1, 2, 4} with
+// Gt·NCH <= 4
+int launch(Args a, int gt, int bits) {
+  if (a.B <= 0 || a.Hkv <= 0 || a.GQ <= 0 || a.Dh % 8 || a.Dh > 512 ||
+      a.ngr <= 0 || a.Dh % a.ngr || (a.Dh / a.ngr) % 8 ||
+      (bits != 4 && bits != 8) ||
       (a.splits != 1 && a.splits != 2 && a.splits != 4 &&
        a.splits != kMaxSplit))
     return (int)cudaErrorInvalidValue;
+  a.tiles = (a.GQ + gt - 1) / gt;
+  if ((long long)a.B * a.Hkv * a.tiles * a.splits >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   const int nch = (a.Dh + 255) / 256;
 #define TTQ_A(GG, NN)                                               \
-  if (G == GG && nch == NN)                                         \
+  if (gt == GG && nch == NN)                                        \
     return bits == 8 ? launch_bits<GG, NN, 8>(a) : launch_bits<GG, NN, 4>(a);
   TTQ_A(1, 1) TTQ_A(2, 1) TTQ_A(4, 1)
   TTQ_A(1, 2) TTQ_A(2, 2)
@@ -536,27 +568,27 @@ int launch(const Args& a, int G, int bits) {
 extern "C" int ttq_decode_attention_launch(
     const void* q, int q_bf16, float scale, const void* kq, const float* ks,
     const void* vq, const float* vs, const int32_t* cur_pos, void* out, int B,
-    int Hkv, int G, int S, int Dh, int ngr, int bits, float soft_cap,
+    int Hkv, int G, int gt, int S, int Dh, int ngr, int bits, float soft_cap,
     int splits, void* stream_ptr) {
   if (S <= 0 || (long long)B * Hkv * S >= (1LL << 31))  // 32-bit rows
     return (int)cudaErrorInvalidValue;
   return launch(Args{q, q_bf16, scale, kq, ks, vq, vs, nullptr, cur_pos, out,
-                     B, Hkv, S, 0, 0, Dh, ngr, soft_cap, splits,
+                     B, Hkv, G, S, 0, 0, Dh, ngr, soft_cap, splits, 0,
                      (cudaStream_t)stream_ptr},
-                G, bits);
+                gt, bits);
 }
 
 extern "C" int ttq_paged_decode_attention_launch(
     const void* q, int q_bf16, float scale, const void* kq, const float* ks,
     const void* vq, const float* vs, const int32_t* block_table,
-    const int32_t* cur_pos, void* out, int B, int Hkv, int G, int bs,
+    const int32_t* cur_pos, void* out, int B, int Hkv, int G, int gt, int bs,
     int nblk, int Dh, int ngr, int bits, float soft_cap, int splits,
     void* stream_ptr) {
   if (block_table == nullptr || bs <= 0 || bs > 1024 || nblk <= 0 ||
       nblk > 2048)
     return (int)cudaErrorInvalidValue;
   return launch(Args{q, q_bf16, scale, kq, ks, vq, vs, block_table, cur_pos,
-                     out, B, Hkv, 0, bs, nblk, Dh, ngr, soft_cap, splits,
+                     out, B, Hkv, G, 0, bs, nblk, Dh, ngr, soft_cap, splits, 0,
                      (cudaStream_t)stream_ptr},
-                G, bits);
+                gt, bits);
 }

@@ -24,8 +24,9 @@ BLOCKS_PER_SM = 2       # blocks to aim for on each SM
 @functools.lru_cache(maxsize=None)      # called per decode layer: host time
 def attn_splits(B: int, Hkv: int, capacity_rows: int, n_sm: int) -> int:
     """The kernels' split C: how many blocks of one cluster share the rows
-    of one (slot, kv head).  From static shapes only (the rows in use,
-    ``cur_pos``, live on the device).
+    of one (slot, kv head, head tile).  From static shapes only (the rows
+    in use, ``cur_pos``, live on the device); ``Hkv`` counts kv heads times
+    their head tiles (:func:`head_tile`).
 
     Allowed: C in SPLITS with, for C > 1, at least MIN_ROWS rows of the
     capacity (S, or nblk·bs) per rank: two batches of 8 rows for each of a
@@ -40,6 +41,18 @@ def attn_splits(B: int, Hkv: int, capacity_rows: int, n_sm: int) -> int:
         if B * Hkv * c >= BLOCKS_PER_SM * n_sm:
             return c
     return allowed[-1]
+
+
+def head_tile(G: int, Dh: int) -> tuple[int, int]:
+    """(Gt, T): the kernels take the G query heads of a kv head in T =
+    ceil(G / Gt) tiles of Gt heads, one tile per cluster; Gt is the power of
+    two in {1, 2, 4} nearest above G, at most 4 / NCH (NCH = ceil(Dh / 256)
+    head-dim chunks per lane), so the tile's q and accumulators stay in
+    registers.  The last tile's heads past G are masked (G = 3: one tile
+    of 4; G = 12: three of 4; G = 48 at Dh 512: 24 of 2)."""
+    gmax = 4 // -(-Dh // 256)
+    gt = min(gmax, 1 << (G - 1).bit_length())
+    return gt, -(-G // gt)
 
 
 def _prepare(name, q, kq, ks, vq, vs, cur_pos, bits, group_size, scale,
@@ -72,9 +85,8 @@ def _prepare(name, q, kq, ks, vq, vs, cur_pos, bits, group_size, scale,
         raise ValueError(f"{name}: {rows} cache rows do not fit 32-bit "
                          f"row indices")
     G = H // Hkv
-    nch = -(-Dh // 256)
-    if Dh % 8 or Dh % g or g % 8 or G not in (1, 2, 4) or G * nch > 4:
-        raise ValueError(f"{name}: unsupported Dh={Dh}, group={g}, G={G}")
+    if Dh % 8 or Dh > 512 or Dh % g or g % 8:
+        raise ValueError(f"{name}: unsupported Dh={Dh}, group={g}")
     sc = scale if scale is not None else Dh ** -0.5
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     return aligned(q), G, ngr, float(sc), out
@@ -139,8 +151,9 @@ def _launch(q, kq, ks, vq, vs, block_table, cur_pos, splits, *, bits=8,
                              f"block size {rows} not in 1..1024")
     q, G, ngr, sc, out = _prepare(name, q, kq, ks, vq, vs, cur_pos, bits,
                                   group_size, scale, (lead, Hkv, rows))
+    gt, tiles = head_tile(G, Dh)
     if splits is None:
-        splits = attn_splits(B, Hkv, nblk * rows if paged else rows,
+        splits = attn_splits(B, Hkv * tiles, nblk * rows if paged else rows,
                              sm_count(q.device))
     kq, ks, vq, vs, cur_pos = map(aligned, (kq, ks, vq, vs, cur_pos))
     head = (q.data_ptr(), int(q.dtype == torch.bfloat16), sc, kq.data_ptr(),
@@ -151,10 +164,11 @@ def _launch(q, kq, ks, vq, vs, block_table, cur_pos, splits, *, bits=8,
         block_table = aligned(block_table)
         err = build.lib().ttq_paged_decode_attention_launch(
             *head, block_table.data_ptr(), cur_pos.data_ptr(), out.data_ptr(),
-            B, Hkv, G, rows, nblk, *tail)
+            B, Hkv, G, gt, rows, nblk, *tail)
     else:
         err = build.lib().ttq_decode_attention_launch(
-            *head, cur_pos.data_ptr(), out.data_ptr(), B, Hkv, G, rows, *tail)
+            *head, cur_pos.data_ptr(), out.data_ptr(), B, Hkv, G, gt, rows,
+            *tail)
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return out

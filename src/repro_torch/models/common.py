@@ -1,5 +1,6 @@
-"""Shared model blocks — linear with the stats tap, norm, RoPE, attention,
-GLU MLP, sampling.  Plain PyTorch; the reference's layouts and dtypes.
+"""Shared model blocks — linear with the stats tap, norms, RoPE, attention,
+the GLU and plain MLPs, sampling.  Plain PyTorch; the reference's layouts
+and dtypes.
 
 * Linear weights are (out_features, in_features); :func:`linear` dispatches
   on plain tensors vs ``QuantizedTensor`` and optionally taps the TTQ
@@ -44,10 +45,32 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     return (nx * (1.0 + gamma.float())).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5):
+    """LayerNorm (gamma·x̂ + beta), f32 inside."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    nx = (xf - mu) * torch.rsqrt(var + eps)
+    return (nx * gamma.float() + beta.float()).to(x.dtype)
+
+
 def norm(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """LayerNorm where the parameters hold ``beta``, else RMSNorm."""
     if "beta" in p:
-        raise NotImplementedError("LayerNorm families come in a later slice")
+        return layernorm(x, p["gamma"], p["beta"])
     return rmsnorm(x, p["gamma"])
+
+
+def init_norm(d: int, kind: str, n: int | None = None, device="cpu") -> dict:
+    """Norm parameters (``n`` stacked layers, or one): RMSNorm gamma zeros
+    (the 1 + gamma form); LayerNorm gamma ones and beta zeros."""
+    shape = (d,) if n is None else (n, d)
+    z = lambda: torch.zeros(shape, dtype=torch.float32, device=device)
+    if kind == "rms":
+        return {"gamma": z()}
+    return {"gamma": torch.ones(shape, dtype=torch.float32, device=device),
+            "beta": z()}
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -168,6 +191,13 @@ def glu_mlp(x, p, stats=None, prefix="mlp", act="silu", kcfg=None):
     u = linear(x, p["wu"], None, kcfg=kcfg)   # same input as wg — tap once
     h = ACT[act](g.float()).to(x.dtype) * u
     return linear(h, p["wd"], stats, f"{prefix}.wd", kcfg)
+
+
+def plain_mlp(x, p, stats=None, prefix="mlp", act="gelu", kcfg=None):
+    """Plain MLP: act(x@W1) @ W2."""
+    h = linear(x, p["w1"], stats, f"{prefix}.w1", kcfg)
+    h = ACT[act](h.float()).to(x.dtype)
+    return linear(h, p["w2"], stats, f"{prefix}.w2", kcfg)
 
 
 def sample_logits(logits: torch.Tensor, generator=None,

@@ -1,6 +1,7 @@
 """Language model entry points — embed → stack → norm → tied vocab head.
 
     init_params(cfg, generator, device)            → params tree
+    forward(cfg, params, batch, collect_stats=)    → (logits, stats, states)
     init_decode_state(cfg, batch, max_len, kvcfg, num_blocks=)
                                                    → decode state
     prefill(cfg, params, batch, max_len, ...)      → (logits, state, stats)
@@ -25,7 +26,7 @@ import torch
 from repro_torch._device import resolve_device
 
 from . import stack as S
-from .common import linear, norm, sample_logits
+from .common import init_norm, linear, norm, sample_logits
 from .config import ModelConfig
 
 
@@ -48,12 +49,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                                         device=dev) * D ** -0.5).to(embed.dtype)
     return {"embed": embed,
             "stack": S.init_stack(generator, cfg, S.stack_spec(cfg), dev),
-            "final_norm": {"gamma": torch.zeros((D,), dtype=torch.float32,
-                                                device=dev)}}
+            "final_norm": init_norm(D, "rms" if cfg.norm == "rms" else "layer",
+                                    device=dev)}
 
 
 def _head(cfg, params, x, kcfg=None):
     return linear(x, params["embed"], kcfg=kcfg).float()
+
+
+def forward(cfg: ModelConfig, params, batch, *, collect_stats=False,
+            want_state=False, max_len=0, kcfg=None):
+    """Full-sequence forward: logits (B, S, V) f32 for every position.
+    Returns (logits, stats, states): stats {'stack': [per-run dict of (L, d)
+    Σx² leaves]} keyed by parameter path when ``collect_stats``, else None;
+    states the per-run decode states when ``want_state`` (a ``max_len``
+    slab), else empty."""
+    x = params["embed"][batch["tokens"].long()]
+    x, run_stats, states = S.apply_stack_seq(
+        cfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
+        want_state=want_state, max_len=max_len, kcfg=kcfg)
+    x = norm(x, params["final_norm"])
+    logits = _head(cfg, params, x, kcfg)
+    return logits, ({"stack": run_stats} if collect_stats else None), states
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,

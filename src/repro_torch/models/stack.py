@@ -14,7 +14,7 @@ import torch
 from repro_torch.core.ttq import QuantizedTensor, qt_index
 
 from . import layers as L
-from .common import glu_mlp, norm
+from .common import glu_mlp, init_norm, norm, plain_mlp
 from .config import ModelConfig
 
 
@@ -53,16 +53,21 @@ def init_layer(gen, cfg: ModelConfig, kind: str, n: int, device):
     """``n`` stacked layers of ``kind``."""
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r}: later slice")
-    if cfg.mlp != "glu" or cfg.norm != "rms":
-        raise NotImplementedError("only the RMSNorm + GLU MLP block is ported")
+    if cfg.mlp not in ("glu", "plain"):
+        raise NotImplementedError(f"mlp {cfg.mlp!r}: later slice")
     D, F = cfg.d_model, cfg.d_ff
-    zeros = lambda: torch.zeros((n, D), dtype=torch.float32, device=device)
-    return {"ln1": {"gamma": zeros()},
-            "mix": L.init_attn(gen, cfg, n, device),
-            "ln2": {"gamma": zeros()},
-            "mlp": {"wg": L.init_linear(gen, n, F, D, device),
+    nk = "rms" if cfg.norm == "rms" else "layer"
+    p = {"ln1": init_norm(D, nk, n, device),
+         "mix": L.init_attn(gen, cfg, n, device),
+         "ln2": init_norm(D, nk, n, device)}
+    if cfg.mlp == "glu":
+        p["mlp"] = {"wg": L.init_linear(gen, n, F, D, device),
                     "wu": L.init_linear(gen, n, F, D, device),
-                    "wd": L.init_linear(gen, n, D, F, device)}}
+                    "wd": L.init_linear(gen, n, D, F, device)}
+    else:
+        p["mlp"] = {"w1": L.init_linear(gen, n, F, D, device),
+                    "w2": L.init_linear(gen, n, D, F, device)}
+    return p
 
 
 def init_stack(gen, cfg: ModelConfig, spec, device):
@@ -99,7 +104,8 @@ def init_stack_state(cfg: ModelConfig, spec, batch: int, max_len: int,
 
 def _mlp_apply(cfg, p, x, stats, prefix, kcfg=None):
     h = norm(x, p["ln2"])
-    return x + glu_mlp(h, p["mlp"], stats, prefix + "mlp", cfg.act, kcfg)
+    mlp = glu_mlp if cfg.mlp == "glu" else plain_mlp
+    return x + mlp(h, p["mlp"], stats, prefix + "mlp", cfg.act, kcfg)
 
 
 def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,

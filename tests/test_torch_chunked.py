@@ -22,13 +22,14 @@ import torch
 
 from repro_torch.bridge import params_from_jax
 from repro_torch.core import NO_QUANT as T_NO_QUANT
+from repro_torch.models import lm as tlm
 from repro_torch.models.config import HybridCfg
 from repro_torch.models.config import ModelConfig as TCfg
 from repro_torch.serving import EngineConfig as TECfg
 from repro_torch.serving import QueueFull, Request, Scheduler
 from repro_torch.serving import TTQEngine as TEngine
 
-from test_torch_robustness import hold
+from test_torch_robustness import NEAR_TIE, hold
 
 LONG = [((7 * i + 3) % 126) + 1 for i in range(40)]     # > chunk: chunked
 SHORT = [((11 * i + 5) % 126) + 1 for i in range(8)]    # <= chunk: a group
@@ -128,6 +129,27 @@ def test_chunking_lifts_bucket_cap(jx, bridged):
     hold(_JX(jx), bridged, [long100], want, got)
     with pytest.raises(ValueError):
         _tengine(bridged, max_len=128).submit(long100, max_new=4)
+
+
+def test_chunking_lifts_bucket_cap_matches_forward(bridged):
+    """The same 100-token prompt in chunks of 16, held to the port's own
+    ``lm.forward``: greedy continuation by full recomputation, equal to the
+    engine's tokens up to a first disagreement whose two tokens' forward
+    logits lie within the near-tie bound of ``hold``."""
+    _, _, tcfg, tp = bridged
+    long100 = [((5 * i + 1) % 126) + 1 for i in range(100)]
+    got = _run(_tengine(bridged, max_len=128, prefill_chunk=16), [long100],
+               max_new=4)[0]
+    seq = list(long100)
+    for t, tok in enumerate(got):
+        lg, _, _ = tlm.forward(tcfg, tp, {"tokens": torch.tensor([seq])})
+        lg = lg[0, -1]
+        want = int(lg.argmax())
+        if want != tok:
+            assert abs(float(lg[want]) - float(lg[tok])) <= NEAR_TIE, \
+                (t, want, tok)
+            break
+        seq.append(tok)
 
 
 # -------------------------------------------------------------- interleaving

@@ -1,13 +1,18 @@
 """The port's core quantization math against the JAX package's, on the CPU.
 
 Inputs come from numpy with a seed; both sides get the same arrays."""
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import awq as t_awq
 from repro_torch.core import kvquant as t_kv
-from repro_torch.core import qdq as t_qdq
+
+# the module: the package exports the function ``qdq`` under that name, as
+# the reference's does
+t_qdq = importlib.import_module("repro_torch.core.qdq")
 
 RNG_SEED = 7
 

@@ -14,7 +14,8 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ttq_attn import (MIN_ROWS, SPLITS, _launch,
-                                          attn_splits, ttq_decode_attention,
+                                          attn_splits, head_tile,
+                                          ttq_decode_attention,
                                           ttq_paged_decode_attention)
 from repro_torch.kernels.ttq_gemm import gemm_splits
 from repro_torch.kernels.ttq_quantize import (
@@ -267,6 +268,26 @@ def test_attn_splits_leave_each_rank_rows(B, Hkv, capacity):
     assert c == 1 or capacity // c >= MIN_ROWS
 
 
+# the GQA groups of the reference configs (and their smoke configs)
+GROUPS = [1, 2, 3, 4, 5, 6, 8, 12, 16, 48]
+
+
+@pytest.mark.parametrize("Dh", [16, 128, 256, 512])
+@pytest.mark.parametrize("G", GROUPS)
+def test_head_tile_covers_every_group(G, Dh):
+    """Tiles of Gt in {1, 2, 4} heads with Gt·ceil(Dh/256) <= 4 cover the G
+    heads with fewer than Gt heads masked; G in {1, 2, 4} is one tile
+    where it fits (the walk of before)."""
+    gt, tiles = head_tile(G, Dh)
+    nch = -(-Dh // 256)
+    assert gt in (1, 2, 4) and gt * nch <= 4
+    assert tiles == -(-G // gt) and 0 <= gt * tiles - G < gt
+    if G in (1, 2, 4) and G * nch <= 4:
+        assert (gt, tiles) == (G, 1)
+    if G == 3 and nch == 1:
+        assert (gt, tiles) == (4, 1)
+
+
 def _cache(seed, B, Hkv, S, Dh, H):
     rng = np.random.default_rng(seed)
     k = rng.standard_normal((B, Hkv, S, Dh)).astype("float32")
@@ -301,6 +322,29 @@ def test_attention_plain_matches_jax(jx, bits, group_size, cur):
                                    torch.from_numpy(pos), bits=bits,
                                    group_size=group_size)
     # f32 softmax over the same dequantized values: the JAX test's 1e-5
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("G", [3, 12, 48])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_attention_plain_matches_jax_any_group(jx, bits, G):
+    """The plain version at the new configs' groups (minitron 3, starcoder2
+    12, granite 48) against the Pallas kernel in interpret mode: the JAX
+    test's 1e-5, soft cap on."""
+    B, Hkv, S, Dh = 2, 1, 40, 16
+    k, v, q = _cache(7, B, Hkv, S, Dh, G * Hkv)
+    jnp = jx["jnp"]
+    pos = np.asarray([17, 39], np.int32)
+    kq, ks = jx["quantize_kv"](jnp.asarray(k), bits=bits)
+    vq, vs = jx["quantize_kv"](jnp.asarray(v), bits=bits)
+    o_j = jx["ops"].kv_decode_attention(jnp.asarray(q), kq, ks, vq, vs,
+                                        jnp.asarray(pos), bits=bits,
+                                        soft_cap=30.0, bs=8)
+    tk = lambda a: torch.from_numpy(np.array(a))
+    o_t = tops.kv_decode_attention(torch.from_numpy(q), tk(kq), tk(ks),
+                                   tk(vq), tk(vs), torch.from_numpy(pos),
+                                   bits=bits, soft_cap=30.0)
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=1e-5,
                                atol=1e-5)
 
@@ -695,6 +739,74 @@ def test_attention_q_dtype_folds_scale_and_cast(cuda, dtype, paged):
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
         dict(rtol=2 ** -7, atol=1e-5)
     torch.testing.assert_close(o.float(), o_r.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [0.0, 30.0], ids=["no-cap", "soft-cap"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("Dh", [128, 256])
+@pytest.mark.parametrize("G", GROUPS)
+def test_attention_kernels_any_group(cuda, G, Dh, bits, cap):
+    """Both kernels at every GQA group of the reference configs, over 2 kv
+    heads, at the split the rule picks: within 1e-5 of the plain version
+    on f32 q (bf16 q: one more rounding), the paged kernel bit for bit the
+    dense one on the gathered cache, two calls bitwise equal; the slots end
+    mid-block, at the first row and at the last."""
+    q, pool, bt, gathered = _paged_case(cuda, bits, Hkv=2, H=2 * G, nblk=8,
+                                        Dh=Dh, gsz=0, seed=G)
+    pos = torch.tensor([70, 0, 127], dtype=torch.int32, device=cuda)
+    kw = dict(bits=bits, soft_cap=cap)
+    for x, tol in ((q, dict(rtol=1e-5, atol=1e-5)),
+                   (q.to(torch.bfloat16), dict(rtol=2 ** -7, atol=1e-5))):
+        o_d = ttq_decode_attention(x, *gathered, pos, **kw)
+        o_p = ttq_paged_decode_attention(x, *pool, bt, pos, **kw)
+        o_r = tref.kv_attn_ref(x, *gathered, pos, **kw)
+        torch.cuda.synchronize()
+        assert o_d.shape == x.shape and o_d.dtype == x.dtype
+        torch.testing.assert_close(o_d.float(), o_r.float(), **tol)
+        assert torch.equal(o_p, o_d)
+        assert torch.equal(ttq_decode_attention(x, *gathered, pos, **kw), o_d)
+        assert torch.equal(ttq_paged_decode_attention(x, *pool, bt, pos,
+                                                      **kw), o_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [12, 6, 1])
+@pytest.mark.parametrize("splits", [1, 8])
+@pytest.mark.parametrize("G", [3, 5, 12, 48])
+def test_paged_attention_any_group_odd_blocks(cuda, G, splits, bs):
+    """Head tiles with block sizes 12, 6 and 1 at C = 1 and 8: within 1e-5
+    of the plain version and bit for bit the dense kernel."""
+    q, pool, bt, gathered = _paged_case(cuda, 8, Hkv=2, H=2 * G, bs=bs,
+                                        nblk=16, Dh=128, gsz=0)
+    S = 16 * bs
+    pos = torch.tensor([S // 2 + 3, 1, S - 1], dtype=torch.int32,
+                       device=cuda)
+    o_d = _launch(q, *gathered, None, pos, splits)
+    o_p = _launch(q, *pool, bt, pos, splits)
+    o_r = tref.kv_attn_ref(q, *gathered, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o_d, o_r, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o_p, o_d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gsz", [0, 16], ids=["row-scale", "group-16"])
+@pytest.mark.parametrize("G", [3, 5, 6])
+def test_attention_any_group_two_chunks(cuda, G, gsz):
+    """Dh 512 (two head-dim chunks per lane, tiles of 2 heads) at groups
+    past 2, with one scale per row and per group of 16: within 1e-5 of the
+    plain version, paged bit for bit dense."""
+    q, pool, bt, gathered = _paged_case(cuda, 4, Hkv=2, H=2 * G, nblk=8,
+                                        Dh=512, gsz=gsz)
+    pos = torch.tensor([70, 9, 127], dtype=torch.int32, device=cuda)
+    kw = dict(bits=4, group_size=gsz, soft_cap=30.0)
+    o_d = ttq_decode_attention(q, *gathered, pos, **kw)
+    o_p = ttq_paged_decode_attention(q, *pool, bt, pos, **kw)
+    o_r = tref.kv_attn_ref(q, *gathered, pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o_d, o_r, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o_p, o_d)
 
 
 @pytest.mark.gpu
