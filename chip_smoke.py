@@ -86,11 +86,24 @@
    parsed.  Prints each part's seconds.
 3g. The other dense families at full width through [3]'s policy with the
    default guards, dense slab then paged pool: minitron-4b and
-   starcoder2-15b at full depth, granite-34b at the depth the card's
-   memory holds (``granite_depth``).  Per engine: every kernel of its path
-   launched, greedy tokens printed (paged equal to dense), the graph
+   starcoder2-15b at full depth, granite-34b at GRANITE_DEPTH_3G layers.
+   Per engine: every kernel of its path launched, greedy tokens printed (paged equal to dense), the graph
    readings and shadowed run of [3], two synced gated requants, peak
    memory; dense: a one-layer depth witness.
+3h. The vlm and hybrid families and long prefill attention: (c) first, on
+   an empty card: one layer's prefill attention at S = LONG_ATTN_S keys
+   (gemma-7b's 16 heads at Dh 256; recurrentgemma's G = 16 at its window of
+   2,048), ``attention``'s own dispatch (the KV-chunked online softmax)
+   against ``full_attention`` on the same f32 q/k/v, with both times and
+   peak memories; (a) recurrentgemma-9b at full width and depth through
+   [3g]'s ``family_engine`` (dense slab; one prefill graph per distinct
+   prompt length), then one prompt of HYBRID_LONG tokens past its window
+   (the rolling layout in prefill, decode wrapping the 2,048-row slab):
+   every kernel of the path launched, graph blocks and the prefill replay
+   bit for bit eager, compiled programs flat over a warm rerun, and a
+   one-unit (rec, rec, lattn) witness at the wrapped window; (b)
+   chameleon-34b (qk-norm, G = 8) at ``fit_depth`` layers, dense then
+   paged, as [3g].
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -175,7 +188,16 @@ STEAL_3F = 64
 # phase 3g: the other dense families at full width; granite-34b at the
 # depth its weights and two quantized trees leave room for
 FAMILIES_3G = ("minitron_4b", "starcoder2_15b", "granite_34b")
-GRANITE_RESERVE_GB = 8
+# granite-34b's depth in [3g]: a reduced-depth witness of its G = 48 at
+# full width (fit_depth, which would give 57 layers on an 80 GB card, is
+# held by chameleon-34b in [3h]), so that the whole script stays near 600 s
+GRANITE_DEPTH_3G = 16
+FIT_RESERVE_GB = 8             # card memory kept from fit_depth's weights
+# phase 3h: a prompt past recurrentgemma-9b's window of 2,048, and the key
+# count of the long prefill attention (over gemma-7b's 8,192 chunk
+# threshold, whole chunks of 1,024)
+HYBRID_LONG = 2100
+LONG_ATTN_S = 9216
 NEVER = 10 ** 6                # a requant cadence that never fires: the
                                # tree is fixed by one manual requant
 
@@ -1151,14 +1173,15 @@ def held_to_plain(torch, gaps):
 
 def depth_witness(torch, cfg, eng, r, depths=DEPTHS):
     """Relative L2 distance of one decode step's logits on the first L
-    layers (L in ``depths``) from the plain path's, on the same state and tree,
+    layers (L in ``depths``; whole units of a hybrid pattern) from the plain
+    path's, on the same state and tree,
     for: both kernels; the GEMM kernel alone; the attention kernel alone;
     the plain path with its GEMM sums split in two halves (another f32
     order, no kernel); the plain path run again.  At full depth each kernel
     call of the "kernels" step is also held against its plain version."""
     from repro_torch.core import KernelConfig
     from repro_torch.models import lm
-    from repro_torch.models.stack import layer_slice
+    from repro_torch.models.stack import layer_slice, stack_spec
     kvplain = dataclasses.replace(eng.kvcfg, use_pallas=False)
     on, off = KernelConfig(use_pallas=True), KernelConfig(use_pallas=False)
     variants = {"kernels": (eng.kvcfg, on, ()),
@@ -1170,10 +1193,12 @@ def depth_witness(torch, cfg, eng, r, depths=DEPTHS):
     out = {}
     for L in depths:
         cfg_l = dataclasses.replace(cfg, n_layers=L)
+        cut = [n for _, n in stack_spec(cfg_l)]     # the first L layers
         p_l = dict(eng.decode_params, stack=[
-            layer_slice(run, slice(0, L)) for run in eng.decode_params["stack"]])
-        st = {"stack": [layer_slice(run, slice(0, L))
-                        for run in r.state["stack"]]}
+            layer_slice(run, slice(0, n))
+            for run, n in zip(eng.decode_params["stack"], cut)])
+        st = {"stack": [layer_slice(run, slice(0, n))
+                        for run, n in zip(r.state["stack"], cut)]}
 
         def step(kv, kc, route=()):
             with routed(*route):
@@ -1186,7 +1211,8 @@ def depth_witness(torch, cfg, eng, r, depths=DEPTHS):
             if L == depths[-1] and name == "kernels":
                 route = held_to_plain(torch, gaps)
             lg = step(kv, kc, route)
-            check(lg.shape == (4, cfg.vocab) and bool(torch.isfinite(lg).all()),
+            check(lg.shape == (r.pos.shape[0], cfg.vocab)
+                  and bool(torch.isfinite(lg).all()),
                   f"{name} logits at {L} layers not finite / wrong shape")
             out[L][name] = float((lg - lg_p).norm() / lg_p.norm())
         print(f"  decode_step on {L:2d} layers, rel-L2 to plain: "
@@ -2739,19 +2765,41 @@ def robustness(torch, dev, cfg, params, prompts) -> dict:
 
 # ------------------------------------------------------------- phase 3g
 
-def granite_depth(torch, cfg) -> int:
-    """The most granite-34b layers the card holds beside its quantized
-    trees under the guards: each layer's bf16 weights (2 B per linear
-    parameter) and two int4 g32 trees (the served one and the guards'
-    spare, 0.75 B per parameter each: packed codes and f32 S, Z per 32),
-    after the bf16 embedding and GRANITE_RESERVE_GB for the KV cache, the
-    graphs' pools, activations and the allocator."""
-    D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
-    per_layer = (2 * D * cfg.n_heads * hd + 2 * D * cfg.n_kv_heads * hd
-                 + 2 * D * F) * (2 + 2 * 0.75)
+def layer_params(cfg, kind) -> tuple:
+    """(linear parameters, other bf16 parameters) of one layer of ``kind``:
+    the attention and MLP linears (a GLU MLP 3·D·F, a plain one 2·D·F), or
+    an RG-LRU block's three linears and MLP beside its gates and conv,
+    which stay in bf16."""
+    D, hd = cfg.d_model, cfg.hd
+    mlp = (3 if cfg.mlp == "glu" else 2) * D * cfg.d_ff
+    if kind == "rec":
+        dr = cfg.hybrid.d_rnn or D
+        return 3 * D * dr + mlp, 2 * dr * dr // 16 + cfg.hybrid.conv_width * dr
+    return 2 * D * cfg.n_heads * hd + 2 * D * cfg.n_kv_heads * hd + mlp, 0
+
+
+def fit_depth(torch, cfg) -> int:
+    """The most layers of ``cfg`` the card holds beside its quantized trees
+    under the guards: each layer's bf16 weights (2 B per parameter) and two
+    int4 g32 trees of its linears (the served one and the guards' spare,
+    0.75 B per parameter each: packed codes and f32 S, Z per 32), after the
+    bf16 embedding and FIT_RESERVE_GB for the KV cache, the graphs' pools,
+    activations and the allocator.  A hybrid stack that does not fit whole
+    is cut to whole units of its pattern."""
+    from repro_torch.models.stack import stack_spec
+    kinds = [k for ks, n in stack_spec(cfg) for _ in range(n) for k in ks]
     total = torch.cuda.get_device_properties(0).total_memory
-    room = total - cfg.vocab * D * 2 - GRANITE_RESERVE_GB * 1e9
-    return min(cfg.n_layers, int(room // per_layer))
+    room = total - cfg.vocab * cfg.d_model * 2 - FIT_RESERVE_GB * 1e9
+    n = 0
+    for kind in kinds:
+        lin, kept = layer_params(cfg, kind)
+        room -= lin * (2 + 2 * 0.75) + kept * 2
+        if room < 0:
+            break
+        n += 1
+    if cfg.family == "hybrid" and n < len(kinds):
+        n -= n % len(cfg.hybrid.pattern)
+    return n
 
 
 def init_family(torch, dev, arch, depth=None):
@@ -2772,7 +2820,8 @@ def init_family(torch, dev, arch, depth=None):
     return cfg, params
 
 
-def family_engine(torch, dev, cfg, params, prompts, paged, dense=None):
+def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
+                  phase="[3g]"):
     """[3]'s policy (int4 g32 packed, rank 0, int8 KV) under the default
     guards on the dense slab or the paged pool (block 16): the cold run
     (every kernel of the path launched; paged tokens equal ``dense``'s),
@@ -2781,7 +2830,7 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None):
     gated requants, peak memory, and (dense) a one-layer depth witness on
     4 fresh admissions with every kernel call held to its plain version."""
     from repro_torch.kernels import build
-    what = f"[3g] {cfg.name} {'paged' if paged else 'dense'}"
+    what = f"{phase} {cfg.name} {'paged' if paged else 'dense'}"
     torch.cuda.reset_peak_memory_stats()
     kw = dict(kv_paged=True, kv_block_size=BLOCK) if paged else {}
     _, _, eng = build_engine(torch, dev, cfg, params, guards=True, **kw)
@@ -2823,27 +2872,39 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None):
     for p in prompts[:4]:
         eng.submit(p, max_new=MAX_NEW)
     eng.admit()
-    wit, gaps = depth_witness(torch, cfg, eng, eng.runner, depths=(1,))
-    res["decode_step_rel_l2"], res["kernel_gaps"] = wit, gaps
-    check(wit[1]["kernels"] <= REL_L2_ONE_LAYER,
-          f"{what}: kernel vs plain decode_step on 1 layer: rel-L2 "
-          f"{wit[1]['kernels']}")
-    check(wit[1]["plain again"] == 0.0, f"{what}: the plain path is not "
-          f"deterministic")
+    res.update(unit_witness(torch, cfg, eng, what))
     return res
+
+
+def unit_witness(torch, cfg, eng, what) -> dict:
+    """:func:`depth_witness` on the first unit of the stack (one layer, or
+    a hybrid's (rec, rec, lattn)) of the admitted slots, held to
+    REL_L2_ONE_LAYER, every kernel call to its plain version."""
+    from repro_torch.models.stack import stack_spec
+    L = len(stack_spec(cfg)[0][0])
+    wit, gaps = depth_witness(torch, cfg, eng, eng.runner, depths=(L,))
+    check(wit[L]["kernels"] <= REL_L2_ONE_LAYER,
+          f"{what}: kernel vs plain decode_step on {L} layers: rel-L2 "
+          f"{wit[L]['kernels']}")
+    check(wit[L]["plain again"] == 0.0, f"{what}: the plain path is not "
+          f"deterministic")
+    return dict(decode_step_rel_l2=wit, kernel_gaps=gaps)
 
 
 def families(torch, dev) -> dict:
     """Phase 3g: minitron-4b and starcoder2-15b at full depth, granite-34b
-    at :func:`granite_depth` layers, each at full width through
+    at GRANITE_DEPTH_3G layers, each at full width through
     :func:`family_engine` on the dense slab and then the paged pool (the
     weights of one family on the card at a time).  Returns per family its
     readings and the kernels' launches over all of them."""
     from repro_torch.configs import get
     out, launches = {}, {}
     for arch in FAMILIES_3G:
-        depth = granite_depth(torch, get(arch)) if arch == "granite_34b" \
-            else None
+        depth = None
+        if arch == "granite_34b":
+            depth = GRANITE_DEPTH_3G
+            print(f"  [3g] granite-34b at {depth} layers (fit_depth: "
+                  f"{fit_depth(torch, get(arch))})")
         cfg, params = init_family(torch, dev, arch, depth)
         prompts = make_prompts(cfg.vocab)
         t0 = time.perf_counter()
@@ -2860,6 +2921,190 @@ def families(torch, dev) -> dict:
         print(f"  [3g] {cfg.name}: {cfg.n_layers} layers, "
               f"{out[arch]['seconds']:.1f} s for both engines")
     out["launches"] = launches
+    return out
+
+
+# ------------------------------------------------------------- phase 3h
+
+def long_attention(torch, dev) -> dict:
+    """[3h] (c): one layer's prefill attention over LONG_ATTN_S keys on f32
+    q/k/v: ``attention``'s own dispatch, which must take the KV-chunked
+    online softmax, against ``full_attention`` (its (B, Hkv, G, S, Sk) f32
+    scores are 5.4 GB here), at gemma-7b's 16 heads of Dh 256 (causal) and
+    at recurrentgemma-9b's G = 16 over one kv head at its window of 2,048.
+    Each path's median time (CUDA events) and peak memory above what was
+    allocated before it."""
+    from repro_torch.models import common
+    S, out = LONG_ATTN_S, {}
+    real, calls = common.chunked_attention, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    cases = (("gemma-7b causal", 16, 16, 0),
+             ("recurrentgemma-9b window 2048", 16, 1, 2048))
+    for name, H, Hkv, window in cases:
+        free(torch)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        q = torch.randn((1, H, S, 256), generator=gen, device=dev)
+        k, v = (torch.randn((1, Hkv, S, 256), generator=gen, device=dev)
+                for _ in range(2))
+        paths = {"chunked": lambda: common.attention(q, k, v, window=window),
+                 "full": lambda: common.full_attention(q, k, v,
+                                                       window=window)}
+        res = {}
+        common.chunked_attention = counted
+        try:
+            for path, fn in paths.items():
+                calls.clear()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                o = fn()
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+                check(len(calls) == (path == "chunked"), f"[3h] (c) {name}: "
+                      f"the {path} path made {len(calls)} chunked calls")
+                res[path] = dict(ms=time_ms(torch, fn, iters=3, warmup=1),
+                                 peak_gb=peak)
+                res[path]["out"] = o
+        finally:
+            common.chunked_attention = real
+        oc, of = res["chunked"].pop("out"), res["full"].pop("out")
+        check(bool(torch.isfinite(oc).all()), f"[3h] (c) {name}: not finite")
+        err = float((oc - of).abs().max())
+        rel = float((oc - of).norm() / of.norm())
+        res.update(max_abs_err=err, rel_l2=rel)
+        check(err <= 1e-4 and rel <= 1e-5, f"[3h] (c) {name}: chunked vs "
+              f"full attention max |diff| {err}, rel-L2 {rel}")
+        print(f"  [3h] (c) {name}, S = {S}: chunked {res['chunked']['ms']:.2f}"
+              f" ms, peak {res['chunked']['peak_gb']:.2f} GB; full "
+              f"{res['full']['ms']:.2f} ms, peak {res['full']['peak_gb']:.2f}"
+              f" GB; max |diff| {err:.2e}, rel-L2 {rel:.2e}")
+        out[name] = res
+        del q, k, v, oc, of
+    free(torch)
+    return out
+
+
+def hybrid_long(torch, dev, cfg, params) -> dict:
+    """[3h] (a), past the window: one prompt of HYBRID_LONG tokens plus
+    MAX_NEW through [3]'s policy under the default guards (one slot): the
+    prefill stores the rolling layout and decode wraps the 2,048-row slab.
+    The cold run (every kernel of the dense path launched), a rerun (the
+    spare tree's decode graph), a timed warm run (no new graph), the
+    shadowed run of :func:`graph_vs_eager` (every
+    block and the prefill replay bit for bit eager), and the one-unit
+    witness on the admitted prompt, whose first decode step reads the
+    wrapped window."""
+    from repro_torch.kernels import build
+    what = f"[3h] {cfg.name} {HYBRID_LONG}-token prompt"
+    prompt = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, size=HYBRID_LONG).tolist()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, eng = build_engine(torch, dev, cfg, params, guards=True,
+                             max_slots=1, max_len=HYBRID_LONG + 2 * MAX_NEW)
+    build.reset_launches()
+    outs, wall = serve(torch, eng, [prompt])
+    launches = dict(build.LAUNCHES)
+    check_outputs(cfg, outs, what)
+    check(all(launches[k] > 0 for k in ("ttq_quantize", "ttq_gemm",
+                                        "ttq_decode_attention"))
+          and launches["ttq_paged_decode_attention"] == 0,
+          f"{what}: launches {launches}")
+    cold = eng.compiled_programs
+    # one admission per run, one requant each: the cold run decodes on one
+    # tree of the guards' swap, the first rerun on the other (its graph)
+    serve(torch, eng, [prompt])
+    r = eng.runner
+    programs = eng.compiled_programs
+    check(len(r._graphs) == 2 and len(r._prefills) == 1 and programs == 3,
+          f"{what}: compiled programs {cold} cold, {programs} after a "
+          f"rerun: {len(r._graphs)} decode and {len(r._prefills)} prefill "
+          f"graphs (want 2 and 1)")
+    warm = warm_phases(torch, eng, [prompt], MAX_NEW, quiet=True)
+    K = eng.ecfg.decode_chunk
+    step_ms = warm["warm_phase_s"]["decode"] * 1e3 / (
+        -(-(MAX_NEW - 1) // K) * K)
+    check(eng.compiled_programs == programs, f"{what}: the warm run "
+          f"captured: {programs} → {eng.compiled_programs}")
+    shadow, _ = graph_vs_eager(torch, cfg, eng, [prompt])
+    check(shadow["prefills_replayed"] == 1
+          and eng.compiled_programs == programs,
+          f"{what}: prefill replays {shadow['prefills_replayed']}, programs "
+          f"{programs} → {eng.compiled_programs}")
+    res = dict(outputs=[list(o) for o in outs], cold_wall_s=wall,
+               launches=launches, compiled_programs=programs,
+               decode_ms_per_step=step_ms,
+               warm_prefill_s=warm["warm_phase_s"]["prefill"],
+               prefill_graph_ms=shadow["prefill_graph_ms"],
+               prefill_capture_s={str(k): v for k, v in
+                                  eng.runner.prefill_capture_s.items()},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"  {what}: greedy tokens {res['outputs'][0]}; warm ms per decode "
+          f"step {step_ms:.2f}, warm prefill {res['warm_prefill_s']:.3f} s "
+          f"(graph replay {shadow['prefill_graph_ms']:.1f} ms); compiled "
+          f"programs {cold} cold, {programs} after a rerun and flat over two "
+          f"more; peak {res['peak_gb']:.2f} GB")
+    eng.submit(prompt, max_new=MAX_NEW)
+    eng.admit()
+    res.update(unit_witness(torch, cfg, eng, what))
+    return res
+
+
+def hybrid_and_vlm(torch, dev) -> dict:
+    """Phase 3h: (c) long prefill attention; (a) recurrentgemma-9b at full
+    width and depth, [3g]'s engine readings on the dense slab plus
+    :func:`hybrid_long`; (b) chameleon-34b at :func:`fit_depth` layers,
+    dense then paged.  Returns the readings, each part's seconds and the
+    kernels' launches over (a) and (b)'s engines."""
+    from repro_torch.configs import get
+    from repro_torch.models.stack import stack_spec
+    out, secs, launches = {}, {}, {}
+    t = time.perf_counter()
+    out["c"] = long_attention(torch, dev)
+    secs["c"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    cfg, params = init_family(torch, dev, "recurrentgemma_9b")
+    prompts = make_prompts(cfg.vocab)
+    dense = family_engine(torch, dev, cfg, params, prompts, False,
+                          phase="[3h]")
+    lens = {len(p) for p in prompts}
+    check(dense["prefill_graphs"] == len(lens), f"[3h] {cfg.name}: "
+          f"{dense['prefill_graphs']} prefill graphs for {len(lens)} "
+          f"distinct prompt lengths")
+    print(f"  [3h] {cfg.name}: {dense['prefill_graphs']} prefill captures "
+          f"for {len(lens)} distinct prompt lengths (exact-length prefill); "
+          f"stack {stack_spec(cfg)}")
+    free(torch)
+    long = hybrid_long(torch, dev, cfg, params)
+    del params
+    free(torch)
+    out["a"] = dict(layers=cfg.n_layers, dense=dense, long=long,
+                    distinct_prompt_lengths=len(lens))
+    secs["a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    depth = fit_depth(torch, get("chameleon_34b"))
+    cfg, params = init_family(torch, dev, "chameleon_34b", depth)
+    prompts = make_prompts(cfg.vocab)
+    dense_v = family_engine(torch, dev, cfg, params, prompts, False,
+                            phase="[3h]")
+    free(torch)
+    paged_v = family_engine(torch, dev, cfg, params, prompts, True, dense_v,
+                            phase="[3h]")
+    del params
+    free(torch)
+    out["b"] = dict(layers=cfg.n_layers, dense=dense_v, paged=paged_v)
+    secs["b"] = time.perf_counter() - t
+    for r in (dense, long, dense_v, paged_v):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"], out["seconds"] = launches, secs
+    print(f"  [3h] seconds per part: "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items())
+          + f"; chameleon-34b at {depth} of 48 layers; launches {launches}")
     return out
 
 
@@ -2994,12 +3239,21 @@ def main(argv=None) -> int:
           f"policy with the default guards, dense slab and paged pool")
     fam = families(torch, dev)
     print("    families: " + json.dumps(fam, default=str))
+    free(torch)
+
+    print(f"[3h] the vlm and hybrid families: (c) prefill attention over "
+          f"{LONG_ATTN_S} keys, chunked against full; (a) recurrentgemma-9b "
+          f"full width and depth, dense slab, then a {HYBRID_LONG}-token "
+          f"prompt past its window; (b) chameleon-34b at the depth the card "
+          f"holds, dense slab and paged pool; [3]'s policy, default guards")
+    hyb = hybrid_and_vlm(torch, dev)
+    print("    hybrid and vlm: " + json.dumps(hyb, default=str))
 
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "
           "[3b]), the speculative path's ([3e]), the robustness and "
-          "streaming path's ([3f] (a)-(g)) and the families' ([3g]), "
-          "counted per replay")
+          "streaming path's ([3f] (a)-(g)) and the families' ([3g], "
+          "[3h]), counted per replay")
     kernels = []
     spec_cases = ("a", "b", "b paged", "c")
     for name, (src, replaces, m) in rows.items():
@@ -3008,15 +3262,19 @@ def main(argv=None) -> int:
         spec_n = sum(spec[k]["launches"][name] for k in spec_cases)
         rob_n = rob["launches"][name]
         fam_n = fam["launches"][name]
+        hyb_n = hyb["launches"][name]
         check(fam_n > 0, f"{name} never launched in [3g]")
+        check(hyb_n > 0, f"{name} never launched in [3h]")
         print(f"  {name} launches: main path {main_n}, speculative path "
               f"{spec_n} ([3e] cold runs "
               + ", ".join(f"({k}) {spec[k]['launches'][name]}"
                           for k in spec_cases) + f"), robustness and "
-              f"streaming path {rob_n}, families {fam_n}")
+              f"streaming path {rob_n}, families {fam_n} ([3g]) and "
+              f"{hyb_n} ([3h])")
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
-                            launches=main_n + spec_n + rob_n + fam_n, **m))
+                            launches=main_n + spec_n + rob_n + fam_n + hyb_n,
+                            **m))
     for (name, G, bits), (t_k, t_p, b_b, b_o, t_l) in groups.items():
         print(f"  {name} at G = {G} int{bits}: {t_k:.4f} ms, bound "
               f"{max(b_b, b_o):.4f} ms ({'operations' if b_o > b_b else 'bytes'}"

@@ -2,14 +2,15 @@
 
 ``get(name, smoke=False)`` resolves ``<name>.config()`` (the published
 shape) or ``<name>.smoke()`` (a reduced same-family config for CPU tests).
-The dense families are ported (``ARCH_IDS``); the others come in later
-slices.
+The dense, vlm and hybrid families are ported (``ARCH_IDS``); MoE, SSM
+and encoder-decoder come in later slices.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["gemma_7b", "minitron_4b", "starcoder2_15b", "granite_34b"]
+ARCH_IDS = ["gemma_7b", "minitron_4b", "starcoder2_15b", "granite_34b",
+            "chameleon_34b", "recurrentgemma_9b"]
 
 
 def get(name: str, smoke: bool = False):

@@ -118,21 +118,31 @@ def cache_update_batched(cache: torch.Tensor, new: torch.Tensor,
     return cache.scatter_(2, idx, new.to(cache.dtype))
 
 
-def full_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                   soft_cap: float = 0.0) -> torch.Tensor:
+def _attn_mask(qi, ki, causal: bool, window: int):
+    """(S, Sk) bool: key ki visible to query qi (causal: ki ≤ qi; a window
+    W > 0: qi − ki < W)."""
+    mask = torch.ones((qi.shape[0], ki.shape[0]), dtype=torch.bool,
+                      device=qi.device)
+    if causal:
+        mask &= qi[:, None] >= ki[None, :]
+    if window > 0:
+        mask &= qi[:, None] - ki[None, :] < window
+    return mask
+
+
+def full_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                   q_offset: int = 0, soft_cap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention.  q (B,H,S,Dh), k/v (B,Hkv,Sk,Dh) →
     (B,H,S,Dh).  q is scaled in f32 and cast to k's dtype; both products
     accumulate in f32 (the reference's preferred_element_type).  The
-    queries sit at positions ``q_offset + i`` of the key axis."""
+    queries sit at positions ``q_offset + i`` of the key axis; a ``window``
+    W > 0 also hides keys W or more positions back."""
     B, H, S, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
     scale = Dh ** -0.5
-    qi = torch.arange(S, device=q.device) + q_offset
-    ki = torch.arange(Sk, device=q.device)
-    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qi[:, None] >= ki[None, :]
+    mask = _attn_mask(torch.arange(S, device=q.device) + q_offset,
+                      torch.arange(Sk, device=q.device), causal, window)
     qg = (q.float() * scale).to(k.dtype).reshape(B, Hkv, G, S, Dh)
     s = torch.einsum("bhgsd,bhkd->bhgsk", qg.float(), k.float())
     if soft_cap > 0:
@@ -143,13 +153,62 @@ def full_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return o.reshape(B, H, S, -1).to(q.dtype)
 
 
-def attention(q, k, v, *, causal=True, soft_cap=0.0, q_offset: int = 0):
-    """Prefill attention: plain PyTorch math (the reference leaves it to XLA;
-    its chunked long-context form is the same function).  A nonzero
-    ``q_offset`` is tail prefill over a cached prefix: the queries start at
-    that position of the keys."""
-    return full_attention(q, k, v, causal=causal, q_offset=q_offset,
-                          soft_cap=soft_cap)
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      kv_chunk: int = 1024, soft_cap: float = 0.0
+                      ) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``kv_chunk`` keys: a
+    running max, denominator and f32 accumulator per query, so the live
+    scores are (B,Hkv,G,S,kv_chunk) instead of (…,S,Sk).  The queries sit
+    at positions 0..S-1 (prefill from the start).  :func:`full_attention`
+    up to f32 rounding; the reference's scan is a loop over the chunks."""
+    B, H, S, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Sk % kv_chunk:
+        raise ValueError(f"Sk={Sk} must divide by kv_chunk={kv_chunk}")
+    G = H // Hkv
+    qg = (q.float() * Dh ** -0.5).to(k.dtype).reshape(B, Hkv, G, S, Dh) \
+        .float()
+    qi = torch.arange(S, device=q.device)
+    m = torch.full((B, Hkv, G, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, G, S, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, Sk, kv_chunk):
+        kc = k[:, :, c0:c0 + kv_chunk]
+        vc = v[:, :, c0:c0 + kv_chunk]
+        mask = _attn_mask(qi, torch.arange(c0, c0 + kv_chunk,
+                                           device=q.device), causal, window)
+        s = torch.einsum("bhgsd,bhkd->bhgsk", qg, kc.float())
+        if soft_cap > 0:
+            s = soft_cap * torch.tanh(s / soft_cap)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        den = den * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgsk,bhkd->bhgsd", p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    o = acc / torch.clamp(den[..., None], min=1e-30)
+    return o.reshape(B, H, S, -1).to(q.dtype)
+
+
+def attention(q, k, v, *, causal=True, window: int = 0, soft_cap=0.0,
+              q_offset: int = 0, chunk_threshold: int = 8192,
+              kv_chunk: int = 1024):
+    """Prefill attention, plain PyTorch math (the reference leaves it to
+    XLA), dispatched as the reference does: :func:`chunked_attention` when
+    the queries start at 0 and there are more than ``chunk_threshold``
+    keys in whole chunks of ``kv_chunk``, else :func:`full_attention`.  A
+    nonzero ``q_offset`` is tail prefill over a cached prefix: the queries
+    start at that position of the keys."""
+    Sk = k.shape[2]
+    if q_offset == 0 and Sk > chunk_threshold and Sk % kv_chunk == 0:
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 kv_chunk=kv_chunk, soft_cap=soft_cap)
+    return full_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, soft_cap=soft_cap)
 
 
 def decode_attention(q, k_cache, v_cache, cur_pos, *, soft_cap: float = 0.0):

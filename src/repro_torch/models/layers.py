@@ -1,11 +1,15 @@
-"""Attention layer (the ``attn`` kind) — init, sequence mode, decode.
+"""Mixer layers — attention (the ``attn`` and windowed ``lattn`` kinds)
+and the RG-LRU recurrent block (``rec``): init, sequence mode, decode.
 
   init_attn(gen, cfg, n, device)             → stacked param dict (n layers)
   attn_apply(cfg, p, x, stats, prefix, ...)  → prefill output [, (k, v)]
   attn_decode(cfg, p, x, state, pos, ...)    → (y, state) single token
+  attn_decode_rolling(cfg, p, x, state, ...) → (y, state) windowed, O(W)
   attn_verify(cfg, p, x, state, pos, ...)    → (y, state) a drafted window
   attn_init_state / build_kv_state           → one layer's decode cache
   build_kv_compact                           → prefill rows for the pool
+  init_rec / rec_apply / rec_decode / rec_init_state
+                                             → the RG-LRU block
 
 Stats taps use parameter-path names (``prefix + "wq"``) so the quantizer
 joins statistics to weights by path.  Decode writes the new token's k/v
@@ -19,9 +23,9 @@ import torch
 
 from repro_torch.core.kvquant import dequantize_kv, quantize_kv
 
-from .common import (apply_rope, attention, cache_update_batched,
-                     decode_attention, linear, rope_decode, rope_window,
-                     suffix_attention)
+from .common import (ACT, apply_rope, attention, cache_update_batched,
+                     decode_attention, init_norm, linear, rmsnorm,
+                     rope_decode, rope_window, suffix_attention)
 from .config import ModelConfig
 
 DTYPE = torch.bfloat16
@@ -39,28 +43,40 @@ def init_linear(gen, n: int, d_out: int, d_in: int, device,
 
 
 def init_attn(gen, cfg: ModelConfig, n: int, device):
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm families come in a later slice")
+    """Stacked wq/wk/wv/wo; a qk-norm family also gets per-head RMSNorm
+    gammas ``qnorm`` and ``knorm`` (hd,) (``*norm*`` leaves: never
+    quantized)."""
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {"wq": init_linear(gen, n, H * hd, D, device),
-            "wk": init_linear(gen, n, Hkv * hd, D, device),
-            "wv": init_linear(gen, n, Hkv * hd, D, device),
-            "wo": init_linear(gen, n, D, H * hd, device)}
+    p = {"wq": init_linear(gen, n, H * hd, D, device),
+         "wk": init_linear(gen, n, Hkv * hd, D, device),
+         "wv": init_linear(gen, n, Hkv * hd, D, device),
+         "wo": init_linear(gen, n, D, H * hd, device)}
+    if cfg.qk_norm:
+        p["qnorm"] = init_norm(hd, "rms", n, device)
+        p["knorm"] = init_norm(hd, "rms", n, device)
+    return p
 
 
 def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None):
+    """q, k, v (B, heads, S, hd); qk-norm (RMSNorm per head, before RoPE)
+    here, so prefill, decode, verify and chunked prefill all take it."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = linear(x, p["wq"], stats, prefix + "wq", kcfg).reshape(B, -1, H, hd)
     k = linear(x, p["wk"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
     v = linear(x, p["wv"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["qnorm"]["gamma"])
+        k = rmsnorm(k, p["knorm"]["gamma"])
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
 def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
-               causal: bool = True, pos0: int = 0, return_kv: bool = False,
-               kv_prefix=None, kvcfg=None, kcfg=None):
-    """Sequence-mode attention, x (B,S,D) at absolute positions pos0.. .
+               causal: bool = True, window: int = 0, pos0: int = 0,
+               return_kv: bool = False, kv_prefix=None, kvcfg=None,
+               kcfg=None):
+    """Sequence-mode attention, x (B,S,D) at absolute positions pos0.. ;
+    a ``window`` W > 0 is local attention over the last W positions.
     With a quantized ``kvcfg`` the attention reads the quantize→dequantize
     of k/v: exactly the values the cache will hold and every later decode
     step will read (so a re-prefill after preemption resumes on the same
@@ -87,8 +103,8 @@ def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
         kf = torch.cat([pk.to(kf.dtype), kf], dim=2)
         vf = torch.cat([pv.to(vf.dtype), vf], dim=2)
         q_off = pk.shape[2]
-    o = attention(q, kf, vf, causal=causal, soft_cap=cfg.attn_soft_cap,
-                  q_offset=q_off)
+    o = attention(q, kf, vf, causal=causal, window=window,
+                  soft_cap=cfg.attn_soft_cap, q_offset=q_off)
     y = linear(o.transpose(1, 2).reshape(x.shape[0], S, -1), p["wo"], stats,
                prefix + "wo", kcfg)
     if return_kv:
@@ -305,6 +321,30 @@ def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
     return y, st
 
 
+def attn_decode_rolling(cfg: ModelConfig, p, x, state, pos, window: int, *,
+                        kvcfg=None, kcfg=None):
+    """Windowed decode over a rolling (B,Hkv,W,·) cache, O(W) per step:
+    position p lives in row p % W, written in place; the read covers rows
+    0..min(pos, W-1) (the cache fills left to right before it wraps, and a
+    softmax needs no order), so the slab itself is the window and no
+    window mask enters the dense attention kernel."""
+    q, k, v = _qkv(cfg, p, x, None, "", kcfg)
+    q = rope_decode(q, pos, cfg.rope_theta)
+    k = rope_decode(k, pos, cfg.rope_theta)
+    wpos = torch.remainder(pos, window)
+    cur = torch.clamp(pos, max=window - 1)
+    if kvcfg is not None and kvcfg.quantized:
+        _kv_append(state, k, v, wpos, kvcfg)
+        o = _kv_attention(q, state, cur, kvcfg, soft_cap=cfg.attn_soft_cap)
+    else:
+        cache_update_batched(state["k"], k, wpos)
+        cache_update_batched(state["v"], v, wpos)
+        o = decode_attention(q, state["k"], state["v"], cur,
+                             soft_cap=cfg.attn_soft_cap)
+    y = linear(o.reshape(x.shape[0], 1, -1), p["wo"], kcfg=kcfg)
+    return y, state
+
+
 def attn_verify(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None, kcfg=None,
                 block_table=None, rows=None):
     """Score a drafted window at once: x (B,S,D) are the window's tokens at
@@ -347,3 +387,126 @@ def attn_verify(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None, kcfg=None,
         o = suffix_attention(q, st["k"], st["v"], pos, soft_cap=cap)
     y = linear(o.transpose(1, 2).reshape(B, S, -1), p["wo"], kcfg=kcfg)
     return y, st
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ---------------------------------------------------------------------------
+
+RG_BLOCKS = 16      # block-diagonal gates (Griffin §2.4)
+RG_C = 8.0
+
+
+def init_rec(gen, cfg: ModelConfig, n: int, device):
+    """``n`` stacked RG-LRU blocks: the gelu branch ``w_branch`` and the
+    recurrent branch ``w_in`` (dr, D), ``w_out`` (D, dr), the depthwise
+    causal conv ``conv_w`` (W, dr), the block-diagonal gates ``w_gate_a``
+    and ``w_gate_x`` (16, dr/16, dr/16) and ``log_lambda`` (dr,) f32, the
+    softplus⁻¹ of a decay drawn from U(0.9, 0.999)."""
+    h = cfg.hybrid
+    D, dr = cfg.d_model, (h.d_rnn or cfg.d_model)
+    nb, bw = RG_BLOCKS, dr // RG_BLOCKS
+
+    def draw(shape, sd):
+        return (torch.randn((n, *shape), generator=gen, device=device)
+                * sd).to(DTYPE)
+    u = torch.rand((n, dr), generator=gen, device=device) * 0.099 + 0.9
+    return {"w_branch": init_linear(gen, n, dr, D, device),
+            "w_in": init_linear(gen, n, dr, D, device),
+            "conv_w": draw((h.conv_width, dr), 0.1),
+            "w_gate_a": draw((nb, bw, bw), bw ** -0.5),
+            "w_gate_x": draw((nb, bw, bw), bw ** -0.5),
+            "log_lambda": torch.log(torch.expm1(-torch.log(u))),
+            "w_out": init_linear(gen, n, D, dr, device)}
+
+
+def _block_diag(u, w):
+    """u (B,S,dr) through the block-diagonal w (nb, o, i) → (B,S,dr)."""
+    nb = w.shape[0]
+    ub = u.reshape(*u.shape[:-1], nb, u.shape[-1] // nb)
+    return torch.einsum("bsgi,goi->bsgo", ub, w.to(u.dtype)).reshape(u.shape)
+
+
+def _rglru_coeffs(p, u):
+    """u (B,S,dr), the conv output → the f32 (a, b) of h_t = a·h_{t-1} +
+    b: a = exp(-c·softplus(Λ)·σ(gate_a)), b = sqrt(1 - a²)·σ(gate_x)·u."""
+    rf = torch.sigmoid(_block_diag(u, p["w_gate_a"]).float())
+    inp = torch.sigmoid(_block_diag(u, p["w_gate_x"]).float())
+    log_a = -RG_C * torch.nn.functional.softplus(
+        p["log_lambda"].float()) * rf
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (inp * u.float())
+    return a, b
+
+
+def _causal_conv(u, w, state=None):
+    """Depthwise causal conv of u (B,S,dr) with w (W,dr) over the history
+    ``state`` (B,W-1,dr) (zeros if None) → (out (B,S,dr), new history)."""
+    W = w.shape[0]
+    if state is None:
+        pad = u.new_zeros((u.shape[0], W - 1, u.shape[2]))
+    else:
+        pad = state.to(u.dtype)
+    ext = torch.cat([pad, u], dim=1)
+    S = u.shape[1]
+    out = ext[:, 0:S] * w[0].to(u.dtype)
+    for i in range(1, W):
+        out = out + ext[:, i:i + S] * w[i].to(u.dtype)
+    return out, ext[:, -(W - 1):]
+
+
+def _linear_scan(a, b):
+    """h_t = a_t·h_{t-1} + b_t from h_{-1} = 0 along dim 1, f32: a doubling
+    (Hillis–Steele) scan of ⌈log₂ S⌉ elementwise steps, the port of the
+    reference's ``associative_scan`` with its combine (a, b)∘(a', b') =
+    (a'·a, a'·b + b'), so a prefill graph stays small at long S."""
+    S, d = a.shape[1], 1
+    while d < S:
+        a_hi, b_hi = a[:, d:], b[:, d:]
+        b = torch.cat([b[:, :d], a_hi * b[:, :-d] + b_hi], dim=1)
+        a = torch.cat([a[:, :d], a_hi * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def rec_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
+              return_state: bool = False, kcfg=None):
+    """Sequence-mode RG-LRU block from a zero state, x (B,S,D) → y (B,S,D)
+    [, state]: gelu branch × recurrence over the causally convolved
+    ``w_in`` branch.  ``return_state`` adds the decode state {'h' (B,dr)
+    f32, 'conv' (B,W-1,dr)}."""
+    br = ACT["gelu"](linear(x, p["w_branch"], stats, prefix + "w_branch",
+                            kcfg).float())
+    u = linear(x, p["w_in"], None, kcfg=kcfg)
+    u, conv_state = _causal_conv(u, p["conv_w"])
+    h = _linear_scan(*_rglru_coeffs(p, u))
+    y = linear((br * h).to(x.dtype), p["w_out"], stats, prefix + "w_out",
+               kcfg)
+    if return_state:
+        return y, {"h": h[:, -1], "conv": conv_state}
+    return y
+
+
+def rec_init_state(cfg: ModelConfig, batch: int, device="cuda"):
+    h = cfg.hybrid
+    dr = h.d_rnn or cfg.d_model
+    return {"h": torch.zeros((batch, dr), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, h.conv_width - 1, dr), dtype=DTYPE,
+                                device=device)}
+
+
+def rec_decode(cfg: ModelConfig, p, x, state, *, kcfg=None):
+    """One token x (B,1,D) through the block.  The new ``h`` and conv
+    history are copied into ``state``'s tensors in place (the reference
+    returns fresh ones): a decode graph reads the state at fixed addresses,
+    and the stack keeps no returned state."""
+    br = ACT["gelu"](linear(x, p["w_branch"], kcfg=kcfg).float())
+    u = linear(x, p["w_in"], kcfg=kcfg)
+    u, conv_state = _causal_conv(u, p["conv_w"], state["conv"])
+    a, b = _rglru_coeffs(p, u)
+    h = a[:, 0] * state["h"] + b[:, 0]
+    y = linear((br[:, 0] * h)[:, None].to(x.dtype), p["w_out"], kcfg=kcfg)
+    state["h"].copy_(h)
+    state["conv"].copy_(conv_state)
+    return y, state

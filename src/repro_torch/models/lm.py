@@ -16,8 +16,11 @@
                    detect_faults=False)      → ((tokens, valid[, fault]),
                                                 carry)
 
-``batch`` is a dict {'tokens': (B,S) int}.  Decode updates the KV caches of
-``state`` in place; a paged state's ``block_table`` addresses its pools.
+``batch`` is a dict {'tokens': (B,S) int}.  Decode updates ``state`` in
+place (the KV caches, and a hybrid stack's recurrent h and conv history);
+a paged state's ``block_table`` addresses its pools.  The stack is a list
+of runs of units (``models/stack.py``): one run of ``attn`` layers for
+the dense and vlm families, runs of (rec, rec, lattn) for the hybrid.
 """
 from __future__ import annotations
 

@@ -1,11 +1,14 @@
-"""Layer stack — the ``attn`` kind (dense decoder families).
+"""Layer stack — runs of units of layer kinds: ``attn`` (dense and vlm
+decoders), and the hybrid family's ``rec`` (RG-LRU) and ``lattn`` (local
+attention over a window).
 
-Parameters keep the reference's stacked layout: ``stack[run]["u0"][...]``
-holds every layer of a run with a leading layer dim, e.g.
-``stack[0]["u0"]["mix"]["wq"]`` is (L, H·hd, D).  The reference's
-``lax.scan`` over layers is a Python loop over :func:`layer_slice`.
-Stats leaves come back stacked (L, d) under the same path keys
-(``u0.mix.wq``); decode states are (L, B, ...).
+A stack is a list of runs; a run repeats a unit (a tuple of kinds) n
+times.  Parameters keep the reference's stacked layout:
+``stack[run]["u<j>"][...]`` holds the j-th layer of every repeat of a
+run's unit with a leading repeat dim, e.g. ``stack[0]["u0"]["mix"]["wq"]``
+is (n, H·hd, D).  The reference's ``lax.scan`` over repeats is a Python
+loop over :func:`layer_slice`.  Stats leaves come back stacked (n, d) under
+the same path keys (``u0.mix.wq``); decode states are (n, B, ...).
 """
 from __future__ import annotations
 
@@ -31,12 +34,22 @@ def mixer_kinds(cfg: ModelConfig) -> set:
 
 
 def stack_spec(cfg: ModelConfig):
-    """[(unit_kinds, n_repeat)]: one run of plain attention layers."""
+    """[(unit_kinds, n_repeat)]: one run of plain attention layers, or for
+    the hybrid family its pattern repeated (``attn`` → ``lattn``) and a
+    run of the pattern's head for the layers left over (recurrentgemma-9b:
+    12 × (rec, rec, lattn) and 1 × (rec, rec))."""
+    if cfg.family == "hybrid":
+        pat = tuple("lattn" if k == "attn" else k for k in cfg.hybrid.pattern)
+        n_full, rem = divmod(cfg.n_layers, len(pat))
+        runs = [(pat, n_full)] if n_full else []
+        if rem:
+            runs.append((pat[:rem], 1))
+        return runs
     if cfg.family not in ("dense", "vlm") or cfg.mla is not None \
             or cfg.moe is not None:
         raise NotImplementedError(
-            f"family {cfg.family!r} (MoE/MLA/recurrent/SSM/enc-dec layers) "
-            f"is ported in a later slice")
+            f"family {cfg.family!r} (MoE/MLA/SSM/enc-dec layers) is ported "
+            f"in a later slice")
     return [(("attn",), cfg.n_layers)]
 
 
@@ -51,14 +64,15 @@ def layer_slice(tree, i):
 
 def init_layer(gen, cfg: ModelConfig, kind: str, n: int, device):
     """``n`` stacked layers of ``kind``."""
-    if kind != "attn":
+    if kind not in ("attn", "lattn", "rec"):
         raise NotImplementedError(f"layer kind {kind!r}: later slice")
     if cfg.mlp not in ("glu", "plain"):
         raise NotImplementedError(f"mlp {cfg.mlp!r}: later slice")
     D, F = cfg.d_model, cfg.d_ff
     nk = "rms" if cfg.norm == "rms" else "layer"
+    mix = L.init_rec if kind == "rec" else L.init_attn
     p = {"ln1": init_norm(D, nk, n, device),
-         "mix": L.init_attn(gen, cfg, n, device),
+         "mix": mix(gen, cfg, n, device),
          "ln2": init_norm(D, nk, n, device)}
     if cfg.mlp == "glu":
         p["mlp"] = {"wg": L.init_linear(gen, n, F, D, device),
@@ -77,12 +91,19 @@ def init_stack(gen, cfg: ModelConfig, spec, device):
 
 def layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 kvcfg=None, num_blocks: int = 0, device="cuda"):
-    """One layer's decode state.  A paged cache holds plain attention
-    layers only (windowed, latent and recurrent states stay dense)."""
+    """One layer's decode state: an ``attn`` cache of max_len rows, an
+    ``lattn`` one of min(max_len, window) rows (the rolling window), the
+    ``rec`` block's h and conv history.  A paged cache holds plain
+    attention layers only (windowed and recurrent states stay dense)."""
     if kvcfg is not None and kvcfg.paged and kind != "attn":
         raise ValueError(f"paged KV cache supports plain attention layers "
-                         f"only, got {kind!r}")
-    if kind != "attn":
+                         f"only, got {kind!r} (windowed/latent/recurrent "
+                         f"states stay dense)")
+    if kind == "rec":
+        return L.rec_init_state(cfg, batch, device)
+    if kind == "lattn":
+        max_len = min(max_len, cfg.hybrid.window)
+    elif kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r}: later slice")
     return L.attn_init_state(cfg, batch, max_len, kvcfg, device, num_blocks)
 
@@ -116,22 +137,39 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
     (k, v) is cached context in front of this call's tokens, which start at
     ``pos0``.  A paged cache (or ``compact_state``) returns this call's
     k/v rows at the storage dtype instead of a max_len slab; the runner
-    writes them into the pool or the slab."""
+    writes them into the pool or the slab.  An ``lattn`` layer attends
+    over its window and keeps the last min(max_len, window) rows, rolled
+    so that position p lies in row p % window once the prompt fills the
+    window; a ``rec`` layer returns its recurrent state."""
     h = norm(x, p["ln1"])
     st = None
+    if kind == "rec":
+        if want_state:
+            y, st = L.rec_apply(cfg, p["mix"], h, stats, prefix + "mix.",
+                                return_state=True, kcfg=kcfg)
+        else:
+            y = L.rec_apply(cfg, p["mix"], h, stats, prefix + "mix.",
+                            kcfg=kcfg)
+        return _mlp_apply(cfg, p, x + y, stats, prefix, kcfg), st
+    window = cfg.hybrid.window if kind == "lattn" else 0
     if want_state:
         y, (k, v) = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                                 pos0=pos0, return_kv=True,
+                                 window=window, pos0=pos0, return_kv=True,
                                  kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg)
         if compact_state or (kvcfg is not None and kvcfg.paged):
             st = L.build_kv_compact(k, v, kvcfg)
         else:
-            S = min(k.shape[2], max_len)
-            st = L.build_kv_state(cfg, x.shape[0], max_len, k[:, :, -S:],
-                                  v[:, :, -S:], kvcfg)
+            ml = min(max_len, window) if window else max_len
+            S = min(k.shape[2], ml)
+            k, v = k[:, :, -S:], v[:, :, -S:]
+            if window and S == window:
+                shift = (pos0 + x.shape[1]) % window
+                k, v = (torch.roll(t, shift, dims=2) for t in (k, v))
+            st = L.build_kv_state(cfg, x.shape[0], ml, k, v, kvcfg)
     else:
-        y = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.", pos0=pos0,
-                         kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg)
+        y = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
+                         window=window, pos0=pos0, kv_prefix=kv_prefix,
+                         kvcfg=kvcfg, kcfg=kcfg)
     x = x + y
     return _mlp_apply(cfg, p, x, stats, prefix, kcfg), st
 
@@ -140,8 +178,15 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
                        kvcfg=None, kcfg=None, block_table=None, rows=None):
     """One token through one layer; ``state`` is updated in place."""
     h = norm(x, p["ln1"])
-    y, st = L.attn_decode(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
-                          kcfg=kcfg, block_table=block_table, rows=rows)
+    if kind == "rec":
+        y, st = L.rec_decode(cfg, p["mix"], h, state, kcfg=kcfg)
+    elif kind == "lattn":
+        y, st = L.attn_decode_rolling(cfg, p["mix"], h, state, pos,
+                                      cfg.hybrid.window, kvcfg=kvcfg,
+                                      kcfg=kcfg)
+    else:
+        y, st = L.attn_decode(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
+                              kcfg=kcfg, block_table=block_table, rows=rows)
     x = x + y
     return _mlp_apply(cfg, p, x, None, "", kcfg), st
 

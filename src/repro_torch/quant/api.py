@@ -161,6 +161,8 @@ def quantize_params(params, stats, policy: QuantPolicy, *, count=1.0,
         if qz.requires_stats and stat is None:
             continue
         if stat is None:
+            if (leaf.dim() < 3) if path[0] == "stack" else leaf.dim() != 2:
+                continue        # a stacked (L, d) vector is no weight
             stat = torch.zeros(leaf.shape[:-2] + leaf.shape[-1:],
                                dtype=torch.float32, device=leaf.device)
         lead = leaf.shape[:-2]

@@ -178,7 +178,9 @@ class TTQEngine:
                                        guard=guard),
             double_buffer=ecfg.double_buffer, draft_policy=self.draft_policy,
             lowrank=lowrank, health_gate=guard)
-        self.scheduler = Scheduler(ecfg, self.kvcfg, self.num_blocks)
+        self.scheduler = Scheduler(
+            ecfg, self.kvcfg, self.num_blocks,
+            exact_buckets=cfg.family in ("hybrid", "ssm"))
         self.requant_wall_s = 0.0
         self.faults = faults
         self._clock = time.monotonic

@@ -126,8 +126,12 @@ class ChunkPlan:
 
 
 class Scheduler:
-    def __init__(self, ecfg, kvcfg=None, num_blocks: int = 0):
+    def __init__(self, ecfg, kvcfg=None, num_blocks: int = 0, *,
+                 exact_buckets: bool = False):
         self.ecfg = ecfg
+        # a recurrent state would absorb pad tokens: prefill at the exact
+        # prompt length
+        self.exact_buckets = exact_buckets
         self.queue: deque = deque()
         self.slot_req: List[Optional[Request]] = [None] * ecfg.max_slots
         self.finished: Dict[int, Request] = {}
@@ -163,9 +167,9 @@ class Scheduler:
     @property
     def max_prompt_len(self) -> int:
         """The cache must hold a prompt and the largest bucket must fit it;
-        chunked prefill lifts the bucket limit (chunks are padded, not the
-        prompt)."""
-        if self.ecfg.prefill_chunk > 0:
+        exact-length prefill and chunked prefill lift the bucket limit
+        (nothing is padded, or the chunks are, not the prompt)."""
+        if self.exact_buckets or self.ecfg.prefill_chunk > 0:
             return self.ecfg.max_len
         return min(max(self.ecfg.prompt_buckets), self.ecfg.max_len)
 
@@ -237,6 +241,8 @@ class Scheduler:
         return bool(self.queue) or any(r is not None for r in self.slot_req)
 
     def bucket(self, n: int) -> int:
+        if self.exact_buckets:
+            return n
         for b in self.ecfg.prompt_buckets:
             if n <= b:
                 return min(b, self.ecfg.max_len)

@@ -576,6 +576,36 @@ def test_attention_kernel_matches_plain(cuda, bits, geom):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("geom", [(2, 1, 16, 2048, 256), (2, 8, 64, 256, 128)],
+                         ids=["rolling-G16-Dh256", "G8-Dh128"])
+def test_attention_kernel_on_rolling_slab(cuda, bits, geom):
+    """The dense kernel at the hybrid and vlm families' decode shapes:
+    recurrentgemma-9b's rolling 2,048-row window slab (one kv head, G = 16,
+    Dh 256) read at cur_pos = W − 1 (wrapped: every row live) and below,
+    and chameleon-34b's G = 8 at Dh 128; within 1e-5 of the plain version
+    on f32 q, one bf16 rounding on bf16 q."""
+    B, Hkv, H, S, Dh = geom
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    k = torch.randn((B, Hkv, S, Dh), generator=gen, device=cuda)
+    v = torch.randn((B, Hkv, S, Dh), generator=gen, device=cuda)
+    q = torch.randn((B, H, 1, Dh), generator=gen, device=cuda)
+    kq, ks = t_quantize_kv(k, bits=bits)
+    vq, vs = t_quantize_kv(v, bits=bits)
+    for cur in ([S - 1] * B, [S - 1, S // 2 + 5], [0, 17]):
+        pos = torch.tensor(cur, dtype=torch.int32, device=cuda)
+        o = tops.kv_decode_attention(q, kq, ks, vq, vs, pos, bits=bits)
+        o_r = tref.kv_attn_ref(q, kq, ks, vq, vs, pos, bits=bits)
+        qb = q.to(torch.bfloat16)
+        ob = tops.kv_decode_attention(qb, kq, ks, vq, vs, pos, bits=bits)
+        ob_r = tref.kv_attn_ref(qb, kq, ks, vq, vs, pos, bits=bits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(ob.float(), ob_r.float(), rtol=2 ** -7,
+                                   atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("geom", [(2, 2, 4, 16, 4, 9, 32, 16),
                                   (4, 16, 16, 16, 16, 65, 256, 0),
                                   (3, 2, 8, 8, 8, 30, 64, 0),
