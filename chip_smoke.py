@@ -104,6 +104,20 @@
    one-unit (rec, rec, lattn) witness at the wrapped window; (b)
    chameleon-34b (qk-norm, G = 8) at ``fit_depth`` layers, dense then
    paged, as [3g].
+3i. The MoE family, [3]'s policy with the default guards through [3g]'s
+   ``family_engine``: (a) deepseek-v2-lite (MLA, 64 experts top-6, 2
+   shared) at full width and all 27 layers, dense slab only: every kernel
+   of its path launched (``ttq_gemm``, the expert-batched
+   ``ttq_gemm_experts`` 3 times per layer and decode step, counted per
+   replay, ``ttq_quantize``), graph blocks and prefill replays bit for bit
+   eager, the ms per step of the 27 ``wkv_b`` expansions of the latent
+   cache, the three refusals (paged pool, speculation, chunked prefill),
+   and a one-layer witness whose routing choices are held to the plain
+   path's (each first disagreement of a token a near-tie of router
+   probabilities); (b) llama4-scout (16 experts top-1 and a shared one, G
+   = 5) at full width and ``fit_depth`` layers, dense then paged (paged
+   tokens equal to dense).  [2] also times ``ttq_gemm_experts`` at both
+   configs' expert shapes.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -200,6 +214,14 @@ HYBRID_LONG = 2100
 LONG_ATTN_S = 9216
 NEVER = 10 ** 6                # a requant cadence that never fires: the
                                # tree is fixed by one manual requant
+# phase 2 and 3i: the expert weights of the two MoE configs, (E, d', d,
+# launches per layer); decode runs 4 slots, so T = 4
+EXPERT_SHAPES = {
+    "deepseek-v2-lite": (("wg/wu", 64, 1408, 2048, 2),
+                         ("wd", 64, 2048, 1408, 1)),
+    "llama4-scout": (("wg/wu", 16, 8192, 5120, 2),
+                     ("wd", 16, 5120, 8192, 1))}
+MOE_3I = ("deepseek_v2_lite_16b", "llama4_scout_17b_a16e")
 
 
 class CheckFailed(RuntimeError):
@@ -475,6 +497,103 @@ def gemm_at_splits(torch, lib, xb, pk, S, Z, dinv, flush):
             f"ttq_gemm at split {s} refused")
     return {s: time_ms(torch, lambda: launch(s), flush=flush)
             for s in SPLITS if d % (32 * s) == 0}
+
+
+def kernel_gemm_experts(torch, dev, flush, depths) -> dict:
+    """``ttq_gemm_experts`` at both MoE configs' expert shapes, int4 g32, T
+    = 4 bf16 tokens (shared by every expert for wg/wu, one set per expert
+    for wd), L2 flushed: against the plain version (one bf16 rounding),
+    expert 0 and E-1 bit for bit a 2-D ``ttq_gemm`` launch at the same
+    split, two calls bitwise equal; its time, the bound (packed codes, S,
+    Z, x, D⁻¹ and y over the memory rate, or the f32 operations, the
+    larger), the plain version's and one ``torch.bmm`` on the dequantized
+    bf16 stack.  Per decode step at ``depths`` (config → layers): the
+    kernels-line row is deepseek-v2-lite's; every config's is returned."""
+    from repro_torch.core.qdq import unpack_bits
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.ttq_gemm import gemm_splits, ttq_gemm_experts
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows, worst = {}, 0.0
+    for cfg_name, shapes in EXPERT_SHAPES.items():
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   launches=0)
+        for name, E, dp, d, per_layer in shapes:
+            pk = torch.empty((E, dp, d // 8), dtype=torch.int32, device=dev)
+            S = torch.empty((E, dp, d // 32), device=dev)
+            Z = torch.empty_like(S)
+            D = torch.exp(0.3 * torch.randn((E, d), generator=gen,
+                                            device=dev))
+            for e in range(E):              # one expert's f32 at a time
+                W = torch.randn((dp, d), generator=gen, device=dev) \
+                    * d ** -0.5
+                pk[e], S[e], Z[e] = ref.ttq_quantize_ref(W, D[e], bits=4,
+                                                         group_size=32)
+            dinv = 1.0 / D
+            shared = name != "wd"
+            xb = torch.randn((4, d) if shared else (E, 4, d), generator=gen,
+                             device=dev).to(torch.bfloat16)
+            y = ttq_gemm_experts(xb, pk, S, Z, dinv, bits=4, group_size=32)
+            y2 = ttq_gemm_experts(xb, pk, S, Z, dinv, bits=4, group_size=32)
+            y_r = ref.ttq_gemm_experts_ref(xb, pk, S, Z, bits=4,
+                                           group_size=32, dinv=dinv)
+            scale = (d / 256) ** 0.5
+            torch.testing.assert_close(y.float(), y_r, rtol=2 ** -7,
+                                       atol=2e-4 * scale)
+            check(torch.equal(y, y2), f"ttq_gemm_experts {cfg_name} {name}: "
+                  f"two calls differ")
+            split = gemm_splits(dp, d, 4, 4, 32, n_sm, E)
+            for e in (0, E - 1):
+                x2 = (xb if shared else xb[e]).contiguous()
+                y1 = torch.empty((4, dp), dtype=xb.dtype, device=dev)
+                check(build.lib().ttq_gemm_launch(
+                    x2.data_ptr(), 1, pk[e].data_ptr(), S[e].data_ptr(),
+                    Z[e].data_ptr(), dinv[e].data_ptr(), y1.data_ptr(), 4,
+                    dp, d, 4, 32, split, stream) == 0, "2-D launch refused")
+                check(torch.equal(y[e], y1), f"ttq_gemm_experts {cfg_name} "
+                      f"{name}: expert {e} is not the 2-D launch's")
+            worst = max(worst, float((y.float() - y_r).abs().max()))
+            w_lib = torch.stack([
+                ((unpack_bits(pk[e], d, 4).float()
+                  * S[e].repeat_interleave(32, 1)
+                  + Z[e].repeat_interleave(32, 1)) * dinv[e]).to(
+                      torch.bfloat16) for e in range(E)])
+            xl = xb.expand(E, 4, d) if shared else xb
+            t_k = time_ms(torch, lambda: ttq_gemm_experts(
+                xb, pk, S, Z, dinv, bits=4, group_size=32), flush=flush)
+            t_p = time_ms(torch, lambda: ref.ttq_gemm_experts_ref(
+                xb, pk, S, Z, bits=4, group_size=32, dinv=dinv), iters=3,
+                warmup=1, flush=flush)
+            t_l = time_ms(torch, lambda: torch.bmm(xl, w_lib.transpose(1, 2)),
+                          flush=flush)
+            moved = nbytes(pk, S, Z, dinv, xb) + E * 4 * dp * 2
+            b = max(moved / HBM_BYTES_PER_S,
+                    2 * E * 4 * dp * d / F32_FLOP_PER_S) * 1e3
+            L = depths[cfg_name]
+            n = L * per_layer
+            for k, v in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b),
+                         ("library_ms", t_l)):
+                tot[k] += n * v
+            tot["launches"] += n
+            print(f"  ttq_gemm_experts {cfg_name} {name} E={E} {dp}x{d} T=4 "
+                  f"int4: {t_k * 1e3:.1f} us, bound {b * 1e3:.1f} us "
+                  f"({b / t_k:.1%} of it reached), plain {t_p * 1e3:.1f} us, "
+                  f"torch.bmm bf16 {t_l * 1e3:.1f} us; split {split}, "
+                  f"{E * -(-dp // 32) * split} blocks; experts 0 and {E - 1} "
+                  f"bit for bit 2-D launches, two calls bitwise equal")
+            del pk, S, Z, D, dinv, w_lib, xb, xl, y, y2, y_r
+            torch.cuda.empty_cache()
+        print(f"  ttq_gemm_experts {cfg_name} per decode step "
+              f"({depths[cfg_name]} layers, {tot['launches']} launches): "
+              f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+              f"({tot['bound_ms'] / tot['ms']:.1%}), plain "
+              f"{tot['plain_ms']:.3f} ms, torch.bmm {tot['library_ms']:.3f} ms")
+        rows[cfg_name] = tot
+    main = rows["deepseek-v2-lite"]
+    return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], library_ms=main["library_ms"],
+                bound_by="bytes"), rows
 
 
 def attn_bounds_ms(Hkv, G, Dh, bits, cur, *small) -> tuple:
@@ -1128,18 +1247,85 @@ def split_sum_gemm(x, packed, scale, zero, dinv, *, bits, group_size):
     return y.reshape(*x.shape[:-1], -1).to(x.dtype)
 
 
+def split_sum_experts(x, packed, scale, zero, dinv, *, bits, group_size):
+    """:func:`split_sum_gemm` on each expert of an expert-batched GEMM."""
+    import torch
+    return torch.stack([split_sum_gemm(
+        x if x.dim() == 2 else x[e], packed[e], scale[e], zero[e], dinv[e],
+        bits=bits, group_size=group_size) for e in range(packed.shape[0])])
+
+
 @contextlib.contextmanager
-def routed(gemm=None, attn=None):
-    """Send the port's GEMM and KV-attention dispatch through other
-    functions (None: leave it as it is) for the duration of the block."""
+def routed(gemm=None, attn=None, experts=None):
+    """Send the port's GEMM, KV-attention and expert-GEMM dispatch through
+    other functions (None: leave it as it is) for the duration of the
+    block."""
     from repro_torch.kernels import ops
-    saved = ops.ttq_gemm, ops.kv_decode_attention
+    saved = ops.ttq_gemm, ops.kv_decode_attention, ops.ttq_gemm_experts
     ops.ttq_gemm = gemm or saved[0]
     ops.kv_decode_attention = attn or saved[1]
+    ops.ttq_gemm_experts = experts or saved[2]
     try:
         yield
     finally:
-        ops.ttq_gemm, ops.kv_decode_attention = saved
+        ops.ttq_gemm, ops.kv_decode_attention, ops.ttq_gemm_experts = saved
+
+
+@contextlib.contextmanager
+def recorded_routes(torch, rec):
+    """Append each MoE router call's (top-k indices, f32 probabilities) to
+    ``rec`` for the duration of the block."""
+    from repro_torch.models import layers
+    real = layers._router
+
+    def spy(cfg, p, x2, stats, prefix):
+        top_p, top_i = real(cfg, p, x2, stats, prefix)
+        rec.append((top_i, torch.softmax(x2.float() @ p["router"].float().T,
+                                         dim=-1)))
+        return top_p, top_i
+    layers._router = spy
+    try:
+        yield rec
+    finally:
+        layers._router = real
+
+
+def routing_agreement(torch, rec_k, rec_p, what) -> dict:
+    """The kernel step's routing (``rec_k``) against the plain step's
+    (``rec_p``), layer by layer: the share of (token, layer, k) choices
+    equal, and each token's first disagreement held to a near-tie: the
+    plain probabilities of the experts it swapped differ by no more than
+    twice the largest change of any of that token's router probabilities
+    between the two steps at that layer (the rounding that moved them).
+    Later layers of a token that flipped are its consequence, not held."""
+    equal = total = 0
+    flipped, ties = set(), []
+    for layer, ((ik, pk), (ip, pp)) in enumerate(zip(rec_k, rec_p)):
+        ik, pk, ip, pp = (t.cpu() for t in (ik, pk, ip, pp))
+        same = (ik[:, :, None] == ip[:, None, :]).any(-1)     # (T, k)
+        equal += int(same.sum())
+        total += same.numel()
+        for t in range(ik.shape[0]):
+            if bool(same[t].all()) or t in flipped:
+                continue
+            flipped.add(t)
+            gone = set(ip[t].tolist()) - set(ik[t].tolist())
+            came = set(ik[t].tolist()) - set(ip[t].tolist())
+            gap = max(abs(float(pp[t, a] - pp[t, b]))
+                      for a in gone for b in came)
+            bound = 2 * float((pk[t] - pp[t]).abs().max())
+            ties.append(dict(layer=layer, token=t, gap=gap, bound=bound))
+            check(gap <= bound, f"{what}: routing of token {t} at layer "
+                  f"{layer} differs from the plain path's by a probability "
+                  f"gap {gap:.3g}, beyond twice the rounding's {bound / 2:.3g}")
+    share = equal / max(total, 1)
+    print(f"  {what}: routing {equal} of {total} (token, layer, k) choices "
+          f"equal to the plain path's ({share:.2%}); {len(ties)} first "
+          f"disagreements, each a near-tie: "
+          + (", ".join(f"layer {x['layer']} token {x['token']} gap "
+                       f"{x['gap']:.2e} <= {x['bound']:.2e}" for x in ties)
+             or "none"))
+    return dict(equal=equal, total=total, share=share, near_ties=ties)
 
 
 def held_to_plain(torch, gaps):
@@ -1148,7 +1334,7 @@ def held_to_plain(torch, gaps):
     atol as in phase 2) and record per call shape [outputs, outputs that
     differ, largest |difference|] in ``gaps``."""
     from repro_torch.kernels import ops
-    kernels = ops.ttq_gemm, ops.kv_decode_attention
+    kernels = ops.ttq_gemm, ops.kv_decode_attention, ops.ttq_gemm_experts
 
     def held(kernel, key, atol):
         def run(*a, **kw):
@@ -1168,7 +1354,10 @@ def held_to_plain(torch, gaps):
                 lambda x, *_: 2e-4 * (x.shape[-1] / 256) ** 0.5)
     attn = held(kernels[1], lambda *_: "ttq_decode_attention",
                 lambda *_: 1e-5)
-    return gemm, attn
+    experts = held(kernels[2], lambda x, pk, *_: f"ttq_gemm_experts "
+                   f"{pk.shape[0]}x{pk.shape[1]}x{x.shape[-1]}",
+                   lambda x, *_: 2e-4 * (x.shape[-1] / 256) ** 0.5)
+    return gemm, attn, experts
 
 
 def depth_witness(torch, cfg, eng, r, depths=DEPTHS):
@@ -1178,7 +1367,9 @@ def depth_witness(torch, cfg, eng, r, depths=DEPTHS):
     for: both kernels; the GEMM kernel alone; the attention kernel alone;
     the plain path with its GEMM sums split in two halves (another f32
     order, no kernel); the plain path run again.  At full depth each kernel
-    call of the "kernels" step is also held against its plain version."""
+    call of the "kernels" step is also held against its plain version.  A
+    MoE config's "kernels" step is also held to the plain step's routing
+    (:func:`routing_agreement`; its ``routing`` entry)."""
     from repro_torch.core import KernelConfig
     from repro_torch.models import lm
     from repro_torch.models.stack import layer_slice, stack_spec
@@ -1187,7 +1378,8 @@ def depth_witness(torch, cfg, eng, r, depths=DEPTHS):
     variants = {"kernels": (eng.kvcfg, on, ()),
                 "gemm kernel": (kvplain, on, ()),
                 "attention kernel": (eng.kvcfg, off, ()),
-                "split-sum plain": (kvplain, on, (split_sum_gemm,)),
+                "split-sum plain": (kvplain, on, (split_sum_gemm, None,
+                                                  split_sum_experts)),
                 "plain again": (kvplain, off, ())}
     gaps = {}
     out = {}
@@ -1205,18 +1397,24 @@ def depth_witness(torch, cfg, eng, r, depths=DEPTHS):
                 lg, _ = lm.decode_step(cfg_l, p_l, clone_tree(torch, st),
                                        r.cur_tok, r.pos, kvcfg=kv, kcfg=kc)
             return lg
-        lg_p = step(kvplain, off)
+        rec_p, rec_k = [], []
+        with recorded_routes(torch, rec_p):
+            lg_p = step(kvplain, off)
         out[L] = {}
         for name, (kv, kc, route) in variants.items():
             if L == depths[-1] and name == "kernels":
                 route = held_to_plain(torch, gaps)
-            lg = step(kv, kc, route)
+            with recorded_routes(torch, rec_k if name == "kernels" else []):
+                lg = step(kv, kc, route)
             check(lg.shape == (r.pos.shape[0], cfg.vocab)
                   and bool(torch.isfinite(lg).all()),
                   f"{name} logits at {L} layers not finite / wrong shape")
             out[L][name] = float((lg - lg_p).norm() / lg_p.norm())
         print(f"  decode_step on {L:2d} layers, rel-L2 to plain: "
               + ", ".join(f"{k} {v:.2e}" for k, v in out[L].items()))
+        if cfg.moe is not None:
+            out[L]["routing"] = routing_agreement(
+                torch, rec_k, rec_p, f"{cfg.name} decode_step on {L} layers")
     for key, (n, n_diff, most) in gaps.items():
         print(f"  {key} in one {depths[-1]}-layer step: {n_diff} of {n} "
               f"outputs differ from the plain version's, by at most {most:.3g}")
@@ -2751,8 +2949,10 @@ def robustness(torch, dev, cfg, params, prompts) -> dict:
     res["g"] = server_phase(torch, dev, cfg, params)
     secs["g"] = time.perf_counter() - t
     res["launches"] = dict(build.LAUNCHES)
-    check(all(n > 0 for n in res["launches"].values()),
-          f"[3f]: a kernel never launched: {res['launches']}")
+    check(all(n > 0 for k, n in res["launches"].items()
+              if k != "ttq_gemm_experts"),
+          f"[3f]: a kernel of gemma-7b's path never launched: "
+          f"{res['launches']}")
     t = time.perf_counter()
     res["h"] = cli_phase()
     secs["h"] = time.perf_counter() - t
@@ -2766,16 +2966,30 @@ def robustness(torch, dev, cfg, params, prompts) -> dict:
 # ------------------------------------------------------------- phase 3g
 
 def layer_params(cfg, kind) -> tuple:
-    """(linear parameters, other bf16 parameters) of one layer of ``kind``:
-    the attention and MLP linears (a GLU MLP 3·D·F, a plain one 2·D·F), or
-    an RG-LRU block's three linears and MLP beside its gates and conv,
-    which stay in bf16."""
-    D, hd = cfg.d_model, cfg.hd
-    mlp = (3 if cfg.mlp == "glu" else 2) * D * cfg.d_ff
+    """(linear parameters, bytes of the parameters kept unquantized) of one
+    layer of ``kind``: the mixer's linears (attention's four; MLA's wq,
+    wkv_a, wkv_b and wo; an RG-LRU block's three, beside its gates and conv
+    in bf16) and the MLP's (a GLU 3·D·F, a plain one 2·D·F; a MoE layer's
+    experts 3·E·D·F_e and shared GLU 3·D·F_e·n_shared, beside its router
+    kept in f32, 4 B per parameter)."""
+    D, hd, H = cfg.d_model, cfg.hd, cfg.n_heads
+    if cfg.moe is not None:
+        e = cfg.moe
+        mlp = 3 * D * e.d_ff_expert * (e.n_experts + e.n_shared)
+        kept = 4 * e.n_experts * D
+    else:
+        mlp, kept = (3 if cfg.mlp == "glu" else 2) * D * cfg.d_ff, 0
     if kind == "rec":
         dr = cfg.hybrid.d_rnn or D
-        return 3 * D * dr + mlp, 2 * dr * dr // 16 + cfg.hybrid.conv_width * dr
-    return 2 * D * cfg.n_heads * hd + 2 * D * cfg.n_kv_heads * hd + mlp, 0
+        return (3 * D * dr + mlp,
+                kept + 2 * (2 * dr * dr // 16 + cfg.hybrid.conv_width * dr))
+    if kind == "mla":
+        m = cfg.mla
+        return (D * H * (m.qk_nope_dim + m.qk_rope_dim)
+                + D * (m.kv_lora_rank + m.qk_rope_dim)
+                + m.kv_lora_rank * H * (m.qk_nope_dim + m.v_head_dim)
+                + H * m.v_head_dim * D + mlp, kept)
+    return 2 * D * H * hd + 2 * D * cfg.n_kv_heads * hd + mlp, kept
 
 
 def fit_depth(torch, cfg) -> int:
@@ -2793,7 +3007,7 @@ def fit_depth(torch, cfg) -> int:
     n = 0
     for kind in kinds:
         lin, kept = layer_params(cfg, kind)
-        room -= lin * (2 + 2 * 0.75) + kept * 2
+        room -= lin * (2 + 2 * 0.75) + kept
         if room < 0:
             break
         n += 1
@@ -2824,7 +3038,10 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
                   phase="[3g]"):
     """[3]'s policy (int4 g32 packed, rank 0, int8 KV) under the default
     guards on the dense slab or the paged pool (block 16): the cold run
-    (every kernel of the path launched; paged tokens equal ``dense``'s),
+    (every kernel of the path launched, no other: an MLA stack reads its
+    latent cache through plain attention, a MoE stack's experts run the
+    batched GEMM 3 times per layer and decode step; paged tokens equal
+    ``dense``'s),
     greedy tokens printed, the graph readings of [3] (a warm run, every
     graph block and prefill replay bit for bit eager on a copy), two synced
     gated requants, peak memory, and (dense) a one-layer depth witness on
@@ -2835,14 +3052,24 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
     kw = dict(kv_paged=True, kv_block_size=BLOCK) if paged else {}
     _, _, eng = build_engine(torch, dev, cfg, params, guards=True, **kw)
     build.reset_launches()
-    outs, wall = serve(torch, eng, prompts)
+    with counted_steps(eng) as steps:
+        outs, wall = serve(torch, eng, prompts)
     launches = dict(build.LAUNCHES)
     n_tok = sum(len(o) for o in outs)
     check_outputs(cfg, outs, what)
-    attn = "ttq_paged_decode_attention" if paged else "ttq_decode_attention"
-    other = "ttq_decode_attention" if paged else "ttq_paged_decode_attention"
-    check(all(launches[k] > 0 for k in ("ttq_quantize", "ttq_gemm", attn))
-          and launches[other] == 0, f"{what}: launches {launches}")
+    want = {"ttq_quantize", "ttq_gemm"}
+    if cfg.mla is None:
+        want.add("ttq_paged_decode_attention" if paged
+                 else "ttq_decode_attention")
+    if cfg.moe is not None:
+        want.add("ttq_gemm_experts")
+    check(all((launches[k] > 0) == (k in want) for k in launches),
+          f"{what}: launches {launches}, want {sorted(want)}")
+    if cfg.moe is not None:
+        check(launches["ttq_gemm_experts"] == 3 * cfg.n_layers * steps["n"],
+              f"{what}: {launches['ttq_gemm_experts']} ttq_gemm_experts "
+              f"launches in {steps['n']} decode steps of {cfg.n_layers} MoE "
+              f"layers (want 3 per layer and step)")
     outs = [list(o) for o in outs]
     if dense is not None:
         check(outs == dense["outputs"], f"{what}: greedy tokens differ from "
@@ -2872,8 +3099,32 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
     for p in prompts[:4]:
         eng.submit(p, max_new=MAX_NEW)
     eng.admit()
+    if cfg.mla is not None:
+        exp = res["wkv_b_expansion"] = expansion_ms(torch, cfg, eng)
+        print(f"  {what}: the {cfg.n_layers} wkv_b expansions of the latent "
+              f"cache ({exp['rows']} rows each) take {exp['ms_per_step']:.3f}"
+              f" ms per decode step ({exp['ms_per_layer'] * 1e3:.1f} us "
+              f"each), {exp['ms_per_step'] / res['decode_ms_per_step']:.1%} "
+              f"of the warm step's {res['decode_ms_per_step']:.2f} ms")
     res.update(unit_witness(torch, cfg, eng, what))
     return res
+
+
+@contextlib.contextmanager
+def counted_steps(eng):
+    """Count the decode steps of ``eng``'s blocks (K each, 1 for a K = 1
+    ladder block) in ``["n"]``."""
+    r = eng.runner
+    real, n = r.decode_block, {"n": 0}
+
+    def run(params, draft=None, small_chunk=False):
+        n["n"] += 1 if small_chunk else r.K
+        return real(params, draft, small_chunk)
+    r.decode_block = run
+    try:
+        yield n
+    finally:
+        del r.decode_block
 
 
 def unit_witness(torch, cfg, eng, what) -> dict:
@@ -2889,6 +3140,86 @@ def unit_witness(torch, cfg, eng, what) -> dict:
     check(wit[L]["plain again"] == 0.0, f"{what}: the plain path is not "
           f"deterministic")
     return dict(decode_step_rel_l2=wit, kernel_gaps=gaps)
+
+
+# ------------------------------------------------------------- phase 3i
+
+def refusals(torch, dev, cfg, params) -> list:
+    """The reference's ValueErrors of a family without plain attention:
+    the paged pool, speculation and chunked prefill."""
+    out = []
+    for kw, match in ((dict(kv_paged=True), "paged KV cache supports plain"),
+                      (dict(speculate_k=2), "speculate_k needs a plain"),
+                      (dict(prefill_chunk=16), "prefill_chunk needs a plain")):
+        try:
+            build_engine(torch, dev, cfg, params, guards=True, **kw)
+        except ValueError as e:
+            check(match in str(e), f"[3i] {cfg.name} {kw}: {e}")
+            out.append(f"{next(iter(kw))}: {e}")
+            continue
+        check(False, f"[3i] {cfg.name}: {kw} did not raise")
+    print(f"  [3i] {cfg.name} refuses: " + "; ".join(out))
+    return out
+
+
+def expansion_ms(torch, cfg, eng) -> dict:
+    """MLA's decode expands the whole latent cache through ``wkv_b`` every
+    step (the reference's math): one ``ttq_gemm`` over the B·max_len latent
+    rows per layer, timed alone (CUDA events, median) on the served tree
+    and the live cache, times the layer count, beside the warm decode step
+    it is part of."""
+    from repro_torch.kernels import ops
+    qt = eng.decode_params["stack"][0]["u0"]["mix"]["wkv_b"]
+    lat = eng.runner.state["stack"][0]["u0"]["latent"][0]
+    x = lat.reshape(-1, lat.shape[-1])
+    one = time_ms(torch, lambda: ops.ttq_gemm(
+        x, qt.packed[0], qt.scale[0], qt.zero[0], qt.dinv[0], bits=qt.bits,
+        group_size=qt.group_size), iters=20)
+    return dict(rows=x.shape[0], ms_per_layer=one,
+                ms_per_step=one * cfg.n_layers)
+
+
+def moe_family(torch, dev) -> dict:
+    """Phase 3i: (a) deepseek-v2-lite at full width and depth, dense slab
+    (MLA has no paged pool), through :func:`family_engine`, then the
+    ``wkv_b`` expansion's time and the three refusals; (b) llama4-scout at
+    :func:`fit_depth` layers, dense then paged.  Returns the readings,
+    each part's seconds and the kernels' launches over the engines."""
+    from repro_torch.configs import get
+    out, secs, launches = {}, {}, {}
+    t = time.perf_counter()
+    cfg, params = init_family(torch, dev, MOE_3I[0])
+    prompts = make_prompts(cfg.vocab)
+    dense = family_engine(torch, dev, cfg, params, prompts, False,
+                          phase="[3i]")
+    free(torch)
+    dense["refusals"] = refusals(torch, dev, cfg, params)
+    del params
+    free(torch)
+    out["a"] = dict(layers=cfg.n_layers, dense=dense)
+    secs["a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    depth = fit_depth(torch, get(MOE_3I[1]))
+    cfg, params = init_family(torch, dev, MOE_3I[1], depth)
+    prompts = make_prompts(cfg.vocab)
+    dense_l = family_engine(torch, dev, cfg, params, prompts, False,
+                            phase="[3i]")
+    free(torch)
+    paged_l = family_engine(torch, dev, cfg, params, prompts, True, dense_l,
+                            phase="[3i]")
+    del params
+    free(torch)
+    out["b"] = dict(layers=cfg.n_layers, dense=dense_l, paged=paged_l)
+    secs["b"] = time.perf_counter() - t
+    for r in (dense, dense_l, paged_l):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"], out["seconds"] = launches, secs
+    print(f"  [3i] seconds per part: "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items())
+          + f"; llama4-scout at {depth} of 48 layers; launches {launches}")
+    return out
 
 
 def families(torch, dev) -> dict:
@@ -3145,6 +3476,9 @@ def main(argv=None) -> int:
     check(not any(n in spilled for n in MAIN_PATH_ATTN + FAMILY_ATTN),
           f"an attention instantiation of the main path or of [3g]'s "
           f"families spills: {spilled}")
+    gemm_ptx = {n: v for n, v in ptx.items() if n.startswith("gemm_")}
+    print("    gemm kernels (registers, spill stores, spill loads): "
+          + "; ".join(f"{n} {v}" for n, v in sorted(gemm_ptx.items())))
     quant_ptx = {n: v for n, v in ptx.items() if n.startswith("quant_kernel")}
     print("    quantize kernels (registers, spill stores, spill loads): "
           + "; ".join(f"{n} {v}" for n, v in sorted(quant_ptx.items())))
@@ -3177,6 +3511,14 @@ def main(argv=None) -> int:
         "src/repro/kernels/ttq_attn.py:203", paged_row)
     kernel_attention_long(torch, dev, flush)
     groups = kernel_attention_groups(torch, dev, flush, cur_main)
+    from repro_torch.configs import get
+    moe_depths = {"deepseek-v2-lite": get(MOE_3I[0]).n_layers,
+                  "llama4-scout": fit_depth(torch, get(MOE_3I[1]))}
+    experts_row, experts_by_cfg = kernel_gemm_experts(torch, dev, flush,
+                                                      moe_depths)
+    rows["ttq_gemm_experts"] = (
+        "src/repro_torch/kernels/csrc/ttq_gemm.cu",
+        "src/repro/kernels/ttq_gemm.py:125", experts_row)
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3248,12 +3590,21 @@ def main(argv=None) -> int:
           f"holds, dense slab and paged pool; [3]'s policy, default guards")
     hyb = hybrid_and_vlm(torch, dev)
     print("    hybrid and vlm: " + json.dumps(hyb, default=str))
+    free(torch)
+
+    print(f"[3i] the MoE family: (a) deepseek-v2-lite (MLA, 64 experts "
+          f"top-6) full width and depth, dense slab; (b) llama4-scout (16 "
+          f"experts top-1, G = 5) full width at the depth the card holds, "
+          f"dense slab and paged pool; [3]'s policy, default guards")
+    moe = moe_family(torch, dev)
+    print("    moe: " + json.dumps(moe, default=str))
 
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "
           "[3b]), the speculative path's ([3e]), the robustness and "
           "streaming path's ([3f] (a)-(g)) and the families' ([3g], "
-          "[3h]), counted per replay")
+          "[3h], [3i]), counted per replay; ttq_gemm_experts per decode "
+          "step at deepseek-v2-lite's 27 layers")
     kernels = []
     spec_cases = ("a", "b", "b paged", "c")
     for name, (src, replaces, m) in rows.items():
@@ -3263,18 +3614,26 @@ def main(argv=None) -> int:
         rob_n = rob["launches"][name]
         fam_n = fam["launches"][name]
         hyb_n = hyb["launches"][name]
-        check(fam_n > 0, f"{name} never launched in [3g]")
-        check(hyb_n > 0, f"{name} never launched in [3h]")
+        moe_n = moe["launches"][name]
+        if name != "ttq_gemm_experts":
+            check(fam_n > 0, f"{name} never launched in [3g]")
+            check(hyb_n > 0, f"{name} never launched in [3h]")
+        check(moe_n > 0, f"{name} never launched in [3i]")
         print(f"  {name} launches: main path {main_n}, speculative path "
               f"{spec_n} ([3e] cold runs "
               + ", ".join(f"({k}) {spec[k]['launches'][name]}"
                           for k in spec_cases) + f"), robustness and "
-              f"streaming path {rob_n}, families {fam_n} ([3g]) and "
-              f"{hyb_n} ([3h])")
+              f"streaming path {rob_n}, families {fam_n} ([3g]), "
+              f"{hyb_n} ([3h]) and {moe_n} ([3i])")
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
-                            launches=main_n + spec_n + rob_n + fam_n + hyb_n,
-                            **m))
+                            launches=main_n + spec_n + rob_n + fam_n + hyb_n
+                            + moe_n, **m))
+    for cfg_name, t in experts_by_cfg.items():
+        print(f"  ttq_gemm_experts per decode step at {cfg_name} "
+              f"({moe_depths[cfg_name]} layers): {t['ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+              f"torch.bmm {t['library_ms']:.3f} ms")
     for (name, G, bits), (t_k, t_p, b_b, b_o, t_l) in groups.items():
         print(f"  {name} at G = {G} int{bits}: {t_k:.4f} ms, bound "
               f"{max(b_b, b_o):.4f} ms ({'operations' if b_o > b_b else 'bytes'}"

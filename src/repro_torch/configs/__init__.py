@@ -2,7 +2,7 @@
 
 ``get(name, smoke=False)`` resolves ``<name>.config()`` (the published
 shape) or ``<name>.smoke()`` (a reduced same-family config for CPU tests).
-The dense, vlm and hybrid families are ported (``ARCH_IDS``); MoE, SSM
+The dense, vlm, hybrid and MoE families are ported (``ARCH_IDS``); SSM
 and encoder-decoder come in later slices.
 """
 from __future__ import annotations
@@ -10,7 +10,8 @@ from __future__ import annotations
 import importlib
 
 ARCH_IDS = ["gemma_7b", "minitron_4b", "starcoder2_15b", "granite_34b",
-            "chameleon_34b", "recurrentgemma_9b"]
+            "chameleon_34b", "recurrentgemma_9b", "llama4_scout_17b_a16e",
+            "deepseek_v2_lite_16b"]
 
 
 def get(name: str, smoke: bool = False):

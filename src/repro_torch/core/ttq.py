@@ -110,7 +110,10 @@ def ttq_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
     goes through the ``ttq_gemm`` kernel, the D⁻¹ prescale fused into its
     prologue; otherwise the plain path prescales x∘D⁻¹ in f32 and multiplies
     the dequantized f32 weight.  The low-rank branch runs on the unscaled x
-    either way."""
+    either way.  A weight with a leading expert axis (scale (E, d', d/g))
+    is :func:`ttq_matmul_experts`."""
+    if qt.scale.dim() == 3:
+        return ttq_matmul_experts(x, qt, kcfg=kcfg)
     if kcfg is not None and kcfg.use_pallas and qt.packed is not None:
         from repro_torch.kernels import ops as kops
         y = kops.ttq_gemm(x, qt.packed, qt.scale, qt.zero, qt.dinv,
@@ -126,6 +129,32 @@ def ttq_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
         y = row_matmul(xs, Wd.T).reshape(*lead, -1).to(x.dtype)
     if qt.B is not None:
         y = y + (x @ qt.A.to(x.dtype).T) @ qt.B.to(x.dtype).T
+    return y
+
+
+def ttq_matmul_experts(x: torch.Tensor, qt: QuantizedTensor, *,
+                       kcfg=None) -> torch.Tensor:
+    """E expert weights at once, the reference's ``jax.vmap(ttq_matmul)``
+    over the expert axis (``models/layers.py:_expert_mm`` there): x (E, C,
+    d), or (C, d) shared by every expert; ``qt`` with (E, ...) fields →
+    y (E, C, d') in x's dtype.  The kernel path is one ``ttq_gemm_experts``
+    launch; the plain path prescales and dequantizes expert by expert, as
+    :func:`ttq_matmul`'s plain path does for one weight; the low-rank
+    branch B(Ax) is one batched product per factor on the unscaled x."""
+    E = qt.scale.shape[0]
+    if kcfg is not None and kcfg.use_pallas and qt.packed is not None:
+        from repro_torch.kernels import ops as kops
+        y = kops.ttq_gemm_experts(x, qt.packed, qt.scale, qt.zero, qt.dinv,
+                                  bits=qt.bits, group_size=qt.group_size)
+    else:
+        one = dataclasses.replace(qt, B=None, A=None)
+        y = torch.stack([ttq_matmul(x if x.dim() == 2 else x[e],
+                                    qt_index(one, e))
+                         for e in range(E)])
+    if qt.B is not None:
+        xe = x.expand(E, *x.shape) if x.dim() == 2 else x
+        y = y + torch.bmm(torch.bmm(xe, qt.A.to(x.dtype).transpose(1, 2)),
+                          qt.B.to(x.dtype).transpose(1, 2))
     return y
 
 

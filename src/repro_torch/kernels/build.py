@@ -36,6 +36,10 @@ SIGNATURES = {
     # x, x_is_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, split, stream
     "ttq_gemm_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
+    # x, x_is_bf16, x_shared, packed, S, Z, dinv, y, E, T, dp, d, bits, g,
+    # split, stream
+    "ttq_gemm_experts_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _P],
     # q, q_is_bf16, scale, kq, ks, vq, vs, cur_pos, out, B, Hkv, G, Gt, S,
     # Dh, n_groups, bits, soft_cap, splits, stream
     "ttq_decode_attention_launch": [_P, _I, _F, _P, _P, _P, _P, _P, _P, _I,
@@ -48,8 +52,8 @@ SIGNATURES = {
 }
 
 # launches per kernel, counted by the wrappers where they launch
-LAUNCHES = {"ttq_quantize": 0, "ttq_gemm": 0, "ttq_decode_attention": 0,
-            "ttq_paged_decode_attention": 0}
+LAUNCHES = {"ttq_quantize": 0, "ttq_gemm": 0, "ttq_gemm_experts": 0,
+            "ttq_decode_attention": 0, "ttq_paged_decode_attention": 0}
 
 _lib = None
 build_seconds = 0.0

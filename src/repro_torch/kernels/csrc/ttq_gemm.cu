@@ -41,6 +41,23 @@
 // read it.  No atomics and no workspace: for a given shape and S the sum
 // order is fixed, so two calls are bitwise equal.  T > 8 runs more token
 // tiles on the grid's y axis, so the kernel is right at every T.
+//
+// Experts: gridDim.z = E batches E independent problems of one shape in one
+// launch (the reference vmaps ttq_gemm over the expert axis of a MoE weight,
+// src/repro/models/layers.py:_expert_mm, one pallas_call with a leading
+// batch grid axis).  Slice z reads x, codes, S, Z and D⁻¹ and writes y at
+// per-expert offsets (x's stride may be 0: the gate and up projections read
+// the same tokens for every expert).  A block's work inside its slice is the
+// 2-D kernel's, so expert e's rows are bit for bit a 2-D launch on expert e
+// at the same split.  The 2-D entry is the batched one at E = 1.
+//
+// Other group sizes: the tile above needs g a power of two, at least one
+// code word (32/bits), and rows of whole uint4 words (d % (4·32/bits) = 0).
+// Every other (d, g, bits) with whole words and groups (the reference's
+// Pallas kernel takes d <= 256 with g and 32/bits dividing d, or 256 | d
+// with g dividing 256) runs gemm_generic: the same 32-row tile, one int32
+// word per lane at a time, the group index by division and x read through
+// the cache, no K split.  It is right, not fast: no served shape runs it.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -64,19 +81,123 @@ __host__ __device__ __forceinline__ int stage_stride4(int kc) {
   return (kc / 4 + 7) & ~7;
 }
 
-// NG: groups per uint4 of codes (1, 2 or 4; g is a power of two >= 32/BITS)
-template <int TT, int BITS, int NG>
+// Per-expert element strides of one batched launch (all 0 at E = 1; x's
+// and D⁻¹'s may be 0 for operands every expert shares).
+struct Strides {
+  long long x, packed, sz, dinv, y;
+};
+
+// a kernel's operands moved to expert blockIdx.z's slice
+#define TTQ_AT_EXPERT(st)                                         \
+  do {                                                            \
+    const size_t e_ = blockIdx.z, es_ = x_bf16 ? 2 : 4;           \
+    x = static_cast<const char*>(x) + e_ * (size_t)(st).x * es_;  \
+    y = static_cast<char*>(y) + e_ * (size_t)(st).y * es_;        \
+    packed += e_ * (size_t)(st).packed;                           \
+    S += e_ * (size_t)(st).sz;                                    \
+    Z += e_ * (size_t)(st).sz;                                    \
+    if (dinv != nullptr) dinv += e_ * (size_t)(st).dinv;          \
+  } while (0)
+
+__device__ __forceinline__ float load1(const void* x, int x_bf16,
+                                       size_t off) {
+  return x_bf16 ? __bfloat162float(
+                      static_cast<const __nv_bfloat16*>(x)[off])
+                : static_cast<const float*>(x)[off];
+}
+
+// Any g dividing d, and rows of whole int32 words: the generic tile (see the
+// note above).  Lane l of a warp takes words l, l + 32, ... of its warp's R
+// rows; each code's group is k / g; x∘D⁻¹ is formed per element as the fast
+// kernel stages it.  A warp closes its rows with a shuffle tree.
+template <int TT, int BITS>
+__global__ void __launch_bounds__(kThreads) gemm_generic(
+    const void* __restrict__ x, int x_bf16, const int32_t* __restrict__ packed,
+    const float* __restrict__ S, const float* __restrict__ Z,
+    const float* __restrict__ dinv, void* __restrict__ y, int T, int dp, int d,
+    int g, Strides st) {
+  constexpr int R = kRowsPerWarp;
+  constexpr int PER = 32 / BITS;
+  constexpr uint32_t MASK = (1u << BITS) - 1u;
+  TTQ_AT_EXPERT(st);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * kRows + warp * R;
+  const int t0 = blockIdx.y * TT;
+  const int wpr = d / PER, gpr = d / g;
+  float acc[R][TT];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int t = 0; t < TT; ++t) acc[r][t] = 0.0f;
+  for (int wi = lane; wi < wpr; wi += 32) {
+    uint32_t wd[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      wd[r] = row0 + r < dp
+                  ? (uint32_t)__ldg(packed + (size_t)(row0 + r) * wpr + wi)
+                  : 0u;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int k = wi * PER + i, gi = k / g;
+      const float dv = dinv != nullptr ? __ldg(dinv + k) : 1.0f;
+      float xv[TT];
+#pragma unroll
+      for (int t = 0; t < TT; ++t)
+        xv[t] = t0 + t < T ? load1(x, x_bf16, (size_t)(t0 + t) * d + k) * dv
+                           : 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (row0 + r >= dp) continue;
+        const size_t gix = (size_t)(row0 + r) * gpr + gi;
+        const float w = fmaf((float)((wd[r] >> (i * BITS)) & MASK),
+                             __ldg(S + gix), __ldg(Z + gix));
+#pragma unroll
+        for (int t = 0; t < TT; ++t) acc[r][t] = fmaf(xv[t], w, acc[r][t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      const float v = ttq::warp_sum(acc[r][t]);
+      const int row = row0 + r;
+      if (lane == 0 && row < dp && t0 + t < T) {
+        const size_t off = (size_t)(t0 + t) * dp + row;
+        if (x_bf16) ttq::store1(static_cast<__nv_bfloat16*>(y) + off, v);
+        else ttq::store1(static_cast<float*>(y) + off, v);
+      }
+    }
+}
+
+template <int TT, int BITS>
+int launch_generic(const void* x, int x_bf16, const int32_t* packed,
+                   const float* S, const float* Z, const float* dinv, void* y,
+                   int E, int T, int dp, int d, int g, Strides st,
+                   cudaStream_t stream) {
+  const dim3 grid((dp + kRows - 1) / kRows, (T + TT - 1) / TT, E);
+  gemm_generic<TT, BITS><<<grid, kThreads, 0, stream>>>(
+      x, x_bf16, packed, S, Z, dinv, y, T, dp, d, g, st);
+  return (int)cudaGetLastError();
+}
+
+// NG: groups per uint4 of codes (1, 2 or 4; g is a power of two >= 32/BITS).
+// EXPERTS: whether blockIdx.z picks an expert's slice; a 2-D launch (E = 1)
+// takes the instantiation without it, whose code is the 2-D kernel's alone
+// (moving the operand pointers costs registers the 2-D tile has no room for).
+template <int TT, int BITS, int NG, bool EXPERTS>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(
     const void* __restrict__ x, int x_bf16, const int32_t* __restrict__ packed,
     const float* __restrict__ S, const float* __restrict__ Z,
     const float* __restrict__ dinv, void* __restrict__ y, int T, int dp, int d,
-    int gshift, int ks, int kc) {
+    int gshift, int ks, int kc, Strides st) {
   constexpr int R = kRowsPerWarp;
   constexpr int PER = 32 / BITS;
   constexpr int EPV = 4 * PER;            // elements per uint4 of codes
   constexpr uint32_t MASK = (1u << BITS) - 1u;
   extern __shared__ float4 xs[];          // TT rows of kc4 float4
   __shared__ float part[kRows * TT];      // this block's partial sums
+  if constexpr (EXPERTS) TTQ_AT_EXPERT(st);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int split = (int)cluster.num_blocks();
@@ -247,12 +368,13 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
   cluster.sync();                         // rank 0 has read every part
 }
 
-template <int TT, int BITS, int NG>
-int launch(const void* x, int x_bf16, const int32_t* packed, const float* S,
-           const float* Z, const float* dinv, void* y, int T, int dp, int d,
-           int gshift, int split, cudaStream_t stream) {
+template <int TT, int BITS, int NG, bool EXPERTS>
+int launch_tile(const void* x, int x_bf16, const int32_t* packed,
+                const float* S, const float* Z, const float* dinv, void* y,
+                int E, int T, int dp, int d, int gshift, int split, Strides st,
+                cudaStream_t stream) {
   constexpr int EPV = 4 * (32 / BITS);
-  auto kern = gemm_kernel<TT, BITS, NG>;
+  auto kern = gemm_kernel<TT, BITS, NG, EXPERTS>;
   const int ks = d / split;
   // the largest chunk of whole uint4 words whose TT staged rows fit
   const int cap = kStageBytes / (TT * 4) / 64 * 64;
@@ -264,7 +386,8 @@ int launch(const void* x, int x_bf16, const int32_t* packed, const float* S,
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((dp + kRows - 1) / kRows) * split, (T + TT - 1) / TT);
+  cfg.gridDim =
+      dim3(((dp + kRows - 1) / kRows) * split, (T + TT - 1) / TT, E);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -276,39 +399,89 @@ int launch(const void* x, int x_bf16, const int32_t* packed, const float* S,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kern, x, x_bf16, packed, S, Z, dinv, y, T, dp, d, gshift, ks, kc);
+      &cfg, kern, x, x_bf16, packed, S, Z, dinv, y, T, dp, d, gshift, ks, kc,
+      st);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }
 
+template <int TT, int BITS, int NG>
+int launch(const void* x, int x_bf16, const int32_t* packed, const float* S,
+           const float* Z, const float* dinv, void* y, int E, int T, int dp,
+           int d, int gshift, int split, Strides st, cudaStream_t stream) {
+  if (E > 1)
+    return launch_tile<TT, BITS, NG, true>(x, x_bf16, packed, S, Z, dinv, y,
+                                           E, T, dp, d, gshift, split, st,
+                                           stream);
+  return launch_tile<TT, BITS, NG, false>(x, x_bf16, packed, S, Z, dinv, y,
+                                          E, T, dp, d, gshift, split, st,
+                                          stream);
+}
+
+// One launch's arguments past the template parameters.
+struct Args {
+  const void* x;
+  int x_bf16;
+  const int32_t* packed;
+  const float *S, *Z, *dinv;
+  void* y;
+  int E, T, dp, d, g, gshift, split;
+  Strides st;
+  cudaStream_t stream;
+};
+
 template <int TT, int BITS>
-int by_groups(const void* x, int x_bf16, const int32_t* packed,
-              const float* S, const float* Z, const float* dinv, void* y,
-              int T, int dp, int d, int gshift, int split,
-              cudaStream_t stream) {
-  const int ng = (4 * (32 / BITS)) >> gshift;  // 0 where a group spans vectors
-  if (ng >= 4)
-    return launch<TT, BITS, 4>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
-                               gshift, split, stream);
-  if (ng == 2)
-    return launch<TT, BITS, 2>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
-                               gshift, split, stream);
-  return launch<TT, BITS, 1>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
-                             gshift, split, stream);
+int by_groups(const Args& a) {
+  if (a.gshift < 0)                       // the generic tile
+    return launch_generic<TT, BITS>(a.x, a.x_bf16, a.packed, a.S, a.Z, a.dinv,
+                                    a.y, a.E, a.T, a.dp, a.d, a.g, a.st,
+                                    a.stream);
+  const int ng = (4 * (32 / BITS)) >> a.gshift;  // 0: a group spans vectors
+#define TTQ_GEMM_NG(N)                                                      \
+  return launch<TT, BITS, N>(a.x, a.x_bf16, a.packed, a.S, a.Z, a.dinv, a.y, \
+                             a.E, a.T, a.dp, a.d, a.gshift, a.split, a.st,   \
+                             a.stream)
+  if (ng >= 4) TTQ_GEMM_NG(4);
+  if (ng == 2) TTQ_GEMM_NG(2);
+  TTQ_GEMM_NG(1);
+#undef TTQ_GEMM_NG
 }
 
 template <int TT>
-int by_bits(const void* x, int x_bf16, const int32_t* packed, const float* S,
-            const float* Z, const float* dinv, void* y, int T, int dp, int d,
-            int bits, int gshift, int split, cudaStream_t stream) {
-  if (bits == 2)
-    return by_groups<TT, 2>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
-                            gshift, split, stream);
-  if (bits == 4)
-    return by_groups<TT, 4>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d,
-                            gshift, split, stream);
-  return by_groups<TT, 8>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, gshift,
-                          split, stream);
+int by_bits(const Args& a, int bits) {
+  if (bits == 2) return by_groups<TT, 2>(a);
+  if (bits == 4) return by_groups<TT, 4>(a);
+  return by_groups<TT, 8>(a);
+}
+
+// Checks one launch and picks its tile: the fast one where g is a power of
+// two >= 32/bits and rows are whole uint4 words (then the split's slice must
+// be whole groups and words too), else the generic one at split 1.
+int run(Args a, int bits) {
+  if (bits != 2 && bits != 4 && bits != 8) return (int)cudaErrorInvalidValue;
+  const int per = 32 / bits;
+  if (a.E <= 0 || a.T <= 0 || a.dp <= 0 || a.d <= 0 || a.g <= 0 ||
+      a.d % per || a.d % a.g)
+    return (int)cudaErrorInvalidValue;
+  const bool fast =
+      a.g >= per && !(a.g & (a.g - 1)) && a.d % (4 * per) == 0;
+  if (fast) {
+    if ((a.split != 1 && a.split != 2 && a.split != 4 &&
+         a.split != kMaxSplit) ||
+        a.d % a.split)
+      return (int)cudaErrorInvalidValue;
+    const int ks = a.d / a.split;
+    if (ks % (4 * per) || ks % a.g) return (int)cudaErrorInvalidValue;
+    a.gshift = 0;
+    while ((1 << a.gshift) < a.g) ++a.gshift;
+  } else {
+    if (a.split != 1) return (int)cudaErrorInvalidValue;
+    a.gshift = -1;
+  }
+  if (a.T <= 1) return by_bits<1>(a, bits);
+  if (a.T <= 2) return by_bits<2>(a, bits);
+  if (a.T <= 4) return by_bits<4>(a, bits);
+  return by_bits<8>(a, bits);
 }
 
 }  // namespace
@@ -318,24 +491,24 @@ extern "C" int ttq_gemm_launch(const void* x, int x_bf16, const int32_t* packed,
                                const float* dinv, void* y, int T, int dp,
                                int d, int bits, int g, int split,
                                void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (bits != 2 && bits != 4 && bits != 8) return (int)cudaErrorInvalidValue;
-  const int per = 32 / bits;
-  if (T <= 0 || dp <= 0 || g < per || (g & (g - 1)))
+  return run(Args{x, x_bf16, packed, S, Z, dinv, y, 1, T, dp, d, g, 0, split,
+                  Strides{0, 0, 0, 0, 0}, (cudaStream_t)stream_ptr},
+             bits);
+}
+
+// E experts in one launch: x (E, T, d), or (T, d) shared by every expert when
+// x_shared; packed (E, d', d·bits/32); S, Z (E, d', d/g); dinv (E, d) or
+// null; y (E, T, d').  All contiguous.
+extern "C" int ttq_gemm_experts_launch(
+    const void* x, int x_bf16, int x_shared, const int32_t* packed,
+    const float* S, const float* Z, const float* dinv, void* y, int E, int T,
+    int dp, int d, int bits, int g, int split, void* stream_ptr) {
+  if ((bits != 2 && bits != 4 && bits != 8) || g <= 0)
     return (int)cudaErrorInvalidValue;
-  if ((split != 1 && split != 2 && split != 4 && split != kMaxSplit) ||
-      d % split)
-    return (int)cudaErrorInvalidValue;
-  const int ks = d / split;
-  if (ks <= 0 || ks % (4 * per) || ks % g) return (int)cudaErrorInvalidValue;
-  int gshift = 0;
-  while ((1 << gshift) < g) ++gshift;
-#define TTQ_GEMM_TT(TT)                                                   \
-  return by_bits<TT>(x, x_bf16, packed, S, Z, dinv, y, T, dp, d, bits,     \
-                     gshift, split, stream)
-  if (T <= 1) TTQ_GEMM_TT(1);
-  if (T <= 2) TTQ_GEMM_TT(2);
-  if (T <= 4) TTQ_GEMM_TT(4);
-  TTQ_GEMM_TT(8);
-#undef TTQ_GEMM_TT
+  const Strides st{x_shared ? 0 : (long long)T * d,
+                   (long long)dp * (d / (32 / bits)), (long long)dp * (d / g),
+                   d, (long long)T * dp};
+  return run(Args{x, x_bf16, packed, S, Z, dinv, y, E, T, dp, d, g, 0, split,
+                  st, (cudaStream_t)stream_ptr},
+             bits);
 }

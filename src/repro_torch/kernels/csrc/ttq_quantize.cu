@@ -55,6 +55,15 @@
 //   adjacent codes per lane, i.e. lanes that do not read adjacent
 //   addresses.  S and Z: one lane per group, a warp's values adjacent.
 //
+// Other group sizes: the walk above needs g a power of two in [32/bits,
+// 512].  Every other (d, g, bits) with whole groups and code words (the
+// reference's Pallas kernel takes d <= 512, or a block of 512 columns, with
+// g and 32/bits dividing the block) runs quant_generic: one block per row,
+// one thread per group for its min and max (S and Z, written to device
+// memory), a barrier, then one thread per code word, each code by the
+// plain version's quotient __fdiv_rn.  Right, not fast: no served shape
+// runs it.
+//
 // Exactness: the multiply by D, the subtraction and the scale use
 // __fmul_rn/__fsub_rn so the compiler cannot contract them into an FMA, and
 // the build takes no --use_fast_math (kernels/build.py).
@@ -342,6 +351,68 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocksPerSm) quant_kernel(
   cp_async_wait<0>();
 }
 
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f32(float v) { return v; }
+
+// One block per (layer, row): see "Other group sizes" above.  S and Z are
+// read back after the barrier, so they are not restrict-qualified.
+template <int BITS, typename T>
+__global__ void __launch_bounds__(128) quant_generic(
+    const T* __restrict__ W, const float* __restrict__ D,
+    int32_t* __restrict__ packed, float* S, float* Z, int dp, int d, int g) {
+  constexpr int PER = 32 / BITS;
+  constexpr float kQmax = (float)((1 << BITS) - 1);
+  constexpr float kInvQmax = 1.0f / kQmax;
+  const long long rw = blockIdx.x;            // layer · d' + row
+  const int ngr = d / g, nwords = d / PER;
+  const T* wr = W + rw * d;
+  const float* dl = D + (rw / dp) * d;
+  float* sr = S + rw * ngr;
+  float* zr = Z + rw * ngr;
+  for (int gi = threadIdx.x; gi < ngr; gi += blockDim.x) {
+    float mn = __fmul_rn(to_f32(wr[gi * g]), dl[gi * g]), mx = mn;
+    for (int j = 1; j < g; ++j) {
+      const float w = __fmul_rn(to_f32(wr[gi * g + j]), dl[gi * g + j]);
+      mn = min_nan(mn, w);
+      mx = max_nan(mx, w);
+    }
+    sr[gi] = max_nan(__fmul_rn(__fsub_rn(mx, mn), kInvQmax), 1e-12f);
+    zr[gi] = mn;
+  }
+  __syncthreads();
+  for (int wi = threadIdx.x; wi < nwords; wi += blockDim.x) {
+    uint32_t acc = 0u;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int k = wi * PER + i, gi = k / g;
+      const float w = __fmul_rn(to_f32(wr[k]), dl[k]);
+      const float q = fminf(fmaxf(__fdiv_rn(__fsub_rn(w, zr[gi]), sr[gi]),
+                                  0.0f), kQmax);
+      acc |= (uint32_t)rintf(q) << (BITS * i);
+    }
+    packed[rw * nwords + wi] = (int32_t)acc;
+  }
+}
+
+template <typename T>
+int launch_generic(const T* W, const float* D, int32_t* packed, float* S,
+                   float* Z, int n, int dp, int d, int bits, int g,
+                   cudaStream_t stream) {
+  const unsigned rows = (unsigned)n * (unsigned)dp;
+#define TTQ_QG(B)                                                        \
+  if (bits == B) {                                                       \
+    quant_generic<B, T><<<rows, 128, 0, stream>>>(W, D, packed, S, Z, dp, \
+                                                 d, g);                  \
+    return (int)cudaGetLastError();                                      \
+  }
+  TTQ_QG(2) TTQ_QG(4) TTQ_QG(8)
+#undef TTQ_QG
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int BITS, int GPC, int CPG, typename T>
 int launch(const T* W, const float* D, int32_t* packed, float* S, float* Z,
            int n, int dp, int d, int g, int blocks, int strips,
@@ -396,8 +467,15 @@ extern "C" int ttq_quantize_launch(const void* W, int w_bf16, const float* D,
   if (warps != kWarps || blocks_per_sm != kMinBlocksPerSm)
     return (int)cudaErrorInvalidValue;
   if (n <= 0 || dp <= 0 || blocks <= 0 || (bits != 2 && bits != 4 && bits != 8)
-      || g < 32 / bits || g > 512 || (g & (g - 1)) || d % g || d % V)
+      || g <= 0 || d % g || d % (32 / bits))
     return (int)cudaErrorInvalidValue;
+  if (g < 32 / bits || g > 512 || (g & (g - 1)) || d % V) {
+    if (w_bf16)
+      return launch_generic((const __nv_bfloat16*)W, D, packed, S, Z, n, dp,
+                            d, bits, g, stream);
+    return launch_generic((const float*)W, D, packed, S, Z, n, dp, d, bits, g,
+                          stream);
+  }
   if (w_bf16)
     return dispatch((const __nv_bfloat16*)W, D, packed, S, Z, n, dp, d, bits,
                     g, blocks, strips, stream);

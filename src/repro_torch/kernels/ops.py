@@ -13,6 +13,7 @@ from . import ref as _ref
 from .ttq_attn import ttq_decode_attention as _attn_kernel
 from .ttq_attn import ttq_paged_decode_attention as _paged_attn_kernel
 from .ttq_gemm import ttq_gemm as _gemm_kernel
+from .ttq_gemm import ttq_gemm_experts as _gemm_experts_kernel
 from .ttq_quantize import ttq_quantize as _quantize_kernel
 
 _PACKABLE = (2, 4, 8)
@@ -28,6 +29,18 @@ def ttq_gemm(x, packed, scale, zero, dinv=None, *, bits=4, group_size=32,
     y = _ref.ttq_gemm_ref(x.reshape(-1, x.shape[-1]), packed, scale, zero,
                           bits=bits, group_size=group_size, dinv=dinv)
     return y.reshape(*lead, -1).to(x.dtype)
+
+
+def ttq_gemm_experts(x, packed, scale, zero, dinv=None, *, bits=4,
+                     group_size=32, use_pallas=True):
+    """E expert weights in one launch (the reference's vmapped ``ttq_gemm``):
+    x (E, T, d) or (T, d) shared → (E, T, d')."""
+    if use_pallas and bits in _PACKABLE:
+        return _gemm_experts_kernel(x, packed, scale, zero, dinv, bits=bits,
+                                    group_size=group_size)
+    return _ref.ttq_gemm_experts_ref(x, packed, scale, zero, bits=bits,
+                                     group_size=group_size,
+                                     dinv=dinv).to(x.dtype)
 
 
 def kv_decode_attention(q, kq, ks, vq, vs, cur_pos, *, bits=8, group_size=0,

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the four kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving path (the four
+Pallas kernels' and the expert-batched GEMM's).
 
 Each repeats its kernel's arithmetic in f32 with PyTorch ops.  The kernel
 wrappers use them for CPU tensors; the tests and ``chip_smoke.py`` hold
@@ -44,6 +45,21 @@ def ttq_gemm_ref(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if dinv is not None:
         xf = xf * dinv[None, :].float()
     return row_matmul(xf, W.T)
+
+
+def ttq_gemm_experts_ref(x: torch.Tensor, packed: torch.Tensor,
+                         scale: torch.Tensor, zero: torch.Tensor, *,
+                         bits: int, group_size: int,
+                         dinv: torch.Tensor | None = None) -> torch.Tensor:
+    """y (E, T, d') f32: :func:`ttq_gemm_ref` on each expert e, x (E, T, d)
+    or (T, d) shared by every expert, packed (E, d', ·), S, Z (E, d', d/g),
+    dinv (E, d) or None.  A loop over the experts, so expert e's rows are a
+    2-D call on expert e bit for bit."""
+    return torch.stack([
+        ttq_gemm_ref(x if x.dim() == 2 else x[e], packed[e], scale[e],
+                     zero[e], bits=bits, group_size=group_size,
+                     dinv=None if dinv is None else dinv[e])
+        for e in range(packed.shape[0])])
 
 
 def _attend(q, k, v, cur_pos, sc, soft_cap, window):

@@ -1,7 +1,11 @@
-"""Wrapper of the ``ttq_gemm`` CUDA kernel (``csrc/ttq_gemm.cu``).
+"""Wrappers of the ``ttq_gemm`` CUDA kernel (``csrc/ttq_gemm.cu``): one
+2-D weight (:func:`ttq_gemm`), or E expert weights of one shape in one
+launch (:func:`ttq_gemm_experts`, the reference's ``ttq_gemm`` under
+``jax.vmap`` in ``_expert_mm``).
 
-CPU tensors take the plain version (:func:`repro_torch.kernels.ref.
-ttq_gemm_ref`); CUDA tensors launch the kernel or raise.
+CPU tensors take the plain versions (:func:`repro_torch.kernels.ref.
+ttq_gemm_ref`, :func:`~repro_torch.kernels.ref.ttq_gemm_experts_ref`);
+CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from . import build, ref
 from ._checks import aligned, dtype_in, on_cuda, sm_count
 
 NAME = "ttq_gemm"
+NAME_EXPERTS = "ttq_gemm_experts"
 ROW_TILE = 32           # output rows per block (csrc/ttq_gemm.cu: kRows)
 TOKEN_TILE = 8          # tokens per block at most (the kernel's largest TT)
 SPLITS = (1, 2, 4, 8)   # blocks per cluster; 8 is the portable cluster limit
@@ -20,8 +25,18 @@ MIN_SLICE = 512         # fewest K elements a split block takes
 BLOCKS_PER_SM = 1       # blocks to aim for on each SM
 
 
+def fast_shape(d: int, g: int, bits: int) -> bool:
+    """Whether the kernel's fast tile takes (d, g, bits): g a power of two of
+    at least one code word (32/bits) and rows of whole uint4 words of codes.
+    Every other shape of whole words and groups runs its generic tile, at
+    split 1 (``csrc/ttq_gemm.cu``, "Other group sizes")."""
+    per = 32 // bits
+    return g >= per and not g & (g - 1) and d % (4 * per) == 0
+
+
 @functools.lru_cache(maxsize=None)      # called per decode linear: host time
-def gemm_splits(dp: int, d: int, T: int, bits: int, g: int, n_sm: int) -> int:
+def gemm_splits(dp: int, d: int, T: int, bits: int, g: int, n_sm: int,
+                E: int = 1) -> int:
     """The kernel's K split S: how many blocks of one cluster share a row tile.
 
     Allowed: S in SPLITS whose slice d/S is a whole number of groups (g) and
@@ -33,12 +48,18 @@ def gemm_splits(dp: int, d: int, T: int, bits: int, g: int, n_sm: int) -> int:
     split: past one block per SM, more splits only add blocks whose staging
     and cluster reduction cost more than they bring.  At gemma-7b
     int4 g32, T = 4, 132 SMs: wq/wk/wv (4096 × 3072) 2, wo (3072 × 4096) 2,
-    wg/wu (24576 × 3072) 1, wd (3072 × 24576) 2."""
+    wg/wu (24576 × 3072) 1, wd (3072 × 24576) 2.  A batched launch counts
+    its E experts' blocks: at deepseek-v2-lite's experts (E = 64, wg/wu
+    1408 × 2048, wd 2048 × 1408) and llama4-scout's (E = 16, 8192 × 5120
+    and 5120 × 8192) every split is 1.  A shape off the fast tile
+    (:func:`fast_shape`) takes 1."""
+    if not fast_shape(d, g, bits):
+        return 1
     epv = 4 * (32 // bits)
     allowed = [s for s in SPLITS
                if d % s == 0 and (d // s) % g == 0 and (d // s) % epv == 0
                and (s == 1 or d // s >= MIN_SLICE)]
-    blocks = -(-dp // ROW_TILE) * -(-T // TOKEN_TILE)
+    blocks = E * -(-dp // ROW_TILE) * -(-T // TOKEN_TILE)
     for s in allowed:
         if blocks * s >= BLOCKS_PER_SM * n_sm:
             return s
@@ -49,8 +70,8 @@ def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
              zero: torch.Tensor, dinv: torch.Tensor | None = None, *,
              bits: int = 4, group_size: int = 32) -> torch.Tensor:
     """x (..., d) → (..., d') in x's dtype.  packed (d', d·bits/32) int32;
-    scale, zero (d', d/g) f32; dinv (d,) f32 or None.  On the card the group
-    size is a power of two (as ``ttq_quantize`` makes it)."""
+    scale, zero (d', d/g) f32; dinv (d,) f32 or None.  g and 32/bits must
+    divide d."""
     lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)
     if x.device.type == "cpu":
@@ -73,9 +94,7 @@ def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(
             f"{NAME}: shapes x {tuple(x.shape)}, packed {tuple(packed.shape)},"
             f" scale {tuple(scale.shape)}, zero {tuple(zero.shape)} disagree")
-    if d % (4 * per) or d % g or g < per or g & (g - 1):
-        raise ValueError(f"{NAME}: d={d} must divide by {4 * per} and by "
-                         f"group_size={g}, a power of two >= {per}")
+    _check_dg(NAME, d, g, per)
     T = x2.shape[0]
     split = gemm_splits(dp, d, T, bits, g, sm_count(x.device))
     x2, packed, scale, zero = map(aligned, (x2, packed, scale, zero))
@@ -90,3 +109,60 @@ def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     return y.reshape(*lead, dp)
+
+
+def _check_dg(name, d, g, per):
+    if g <= 0 or d % per or d % g:
+        raise ValueError(f"{name}: d={d} must divide by {per} (codes per "
+                         f"word) and by group_size={g}")
+
+
+def ttq_gemm_experts(x: torch.Tensor, packed: torch.Tensor,
+                     scale: torch.Tensor, zero: torch.Tensor,
+                     dinv: torch.Tensor | None = None, *, bits: int = 4,
+                     group_size: int = 32) -> torch.Tensor:
+    """E experts in one launch: x (E, T, d), or (T, d) shared by every
+    expert; packed (E, d', d·bits/32) int32; scale, zero (E, d', d/g) f32;
+    dinv (E, d) f32 or None → y (E, T, d') in x's dtype.  Expert e's rows
+    equal :func:`ttq_gemm` on expert e bit for bit (the same split)."""
+    E, dp = packed.shape[:2]
+    d = x.shape[-1]
+    if x.device.type == "cpu":
+        return ref.ttq_gemm_experts_ref(
+            x, packed, scale, zero, bits=bits, group_size=group_size,
+            dinv=dinv).to(x.dtype)
+    extra = () if dinv is None else (dinv,)
+    on_cuda(NAME_EXPERTS, x, packed, scale, zero, *extra)
+    dtype_in(NAME_EXPERTS, "x", x, (torch.bfloat16, torch.float32))
+    dtype_in(NAME_EXPERTS, "packed", packed, (torch.int32,))
+    for nm, t in zip(("scale", "zero", "dinv"), (scale, zero, *extra)):
+        dtype_in(NAME_EXPERTS, nm, t, (torch.float32,))
+    if bits not in (2, 4, 8):
+        raise ValueError(f"{NAME_EXPERTS}: bits={bits} not in (2, 4, 8)")
+    per, g = 32 // bits, group_size
+    shared = x.dim() == 2
+    T = x.shape[-2]
+    if (x.dim() not in (2, 3) or (not shared and x.shape[0] != E)
+            or packed.shape != (E, dp, d // per)
+            or scale.shape != (E, dp, d // g) or zero.shape != scale.shape
+            or (dinv is not None and dinv.shape != (E, d))):
+        raise ValueError(
+            f"{NAME_EXPERTS}: shapes x {tuple(x.shape)}, packed "
+            f"{tuple(packed.shape)}, scale {tuple(scale.shape)}, zero "
+            f"{tuple(zero.shape)}"
+            + ("" if dinv is None else f", dinv {tuple(dinv.shape)}")
+            + " disagree")
+    _check_dg(NAME_EXPERTS, d, g, per)
+    split = gemm_splits(dp, d, T, bits, g, sm_count(x.device), E)
+    x, packed, scale, zero = map(aligned, (x, packed, scale, zero))
+    dinv = None if dinv is None else aligned(dinv)
+    y = torch.empty((E, T, dp), dtype=x.dtype, device=x.device)
+    err = build.lib().ttq_gemm_experts_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), int(shared),
+        packed.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+        None if dinv is None else dinv.data_ptr(), y.data_ptr(),
+        E, T, dp, d, bits, g, split,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, NAME_EXPERTS)
+    build.LAUNCHES[NAME_EXPERTS] += 1
+    return y

@@ -64,7 +64,9 @@ def _outputs(out, n, dp, d, per, g, device):
 def ttq_quantize(W: torch.Tensor, D: torch.Tensor, *, bits: int = 4,
                  group_size: int = 32, out=None):
     """W (n, d', d) or (d', d), bf16 or f32; D (n, d) or (d,) f32 →
-    (packed int32 (..., d', d·bits/32), S, Z f32 (..., d', d/g)).  With
+    (packed int32 (..., d', d·bits/32), S, Z f32 (..., d', d/g)).  A g that
+    is not a power of two in [32/bits, 512] runs the kernel's generic
+    walk (``csrc/ttq_quantize.cu``, "Other group sizes").  With
     ``out`` = (packed, S, Z) of those shapes the results are written there
     and ``out`` is returned."""
     if W.device.type == "cpu":
@@ -89,9 +91,9 @@ def ttq_quantize(W: torch.Tensor, D: torch.Tensor, *, bits: int = 4,
     if bits not in (2, 4, 8):
         raise ValueError(f"{NAME}: bits={bits} not in (2, 4, 8)")
     per = 32 // bits
-    if g & (g - 1) or g < per or g > 512 or d % g:
-        raise ValueError(f"{NAME}: group_size={g} must be a power of two in "
-                         f"[{per}, 512] dividing d={d}")
+    if g <= 0 or d % g or d % per:
+        raise ValueError(f"{NAME}: d={d} must divide by group_size={g} and "
+                         f"by {per} (codes per word)")
     if W.dtype == torch.bfloat16 and d % 8:
         W = W.float()   # bf16 rows of 16-byte multiples only (bits 8, g 4)
     W, D = aligned(W), aligned(D)

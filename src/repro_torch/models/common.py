@@ -118,6 +118,16 @@ def cache_update_batched(cache: torch.Tensor, new: torch.Tensor,
     return cache.scatter_(2, idx, new.to(cache.dtype))
 
 
+def seq_update_batched(cache: torch.Tensor, new: torch.Tensor,
+                       pos: torch.Tensor) -> torch.Tensor:
+    """cache (B,Smax,D) ← new (B,1,D) at per-batch row pos (B,), in place
+    (a scatter: no host sync; a decode graph reads the cache at a fixed
+    address) — MLA's latent and rope-key caches."""
+    B, _, D = new.shape
+    idx = pos.long().view(B, 1, 1).expand(B, 1, D)
+    return cache.scatter_(1, idx, new.to(cache.dtype))
+
+
 def _attn_mask(qi, ki, causal: bool, window: int):
     """(S, Sk) bool: key ki visible to query qi (causal: ki ≤ qi; a window
     W > 0: qi − ki < W)."""
@@ -131,16 +141,18 @@ def _attn_mask(qi, ki, causal: bool, window: int):
 
 
 def full_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                   q_offset: int = 0, soft_cap: float = 0.0) -> torch.Tensor:
-    """Grouped-query attention.  q (B,H,S,Dh), k/v (B,Hkv,Sk,Dh) →
-    (B,H,S,Dh).  q is scaled in f32 and cast to k's dtype; both products
-    accumulate in f32 (the reference's preferred_element_type).  The
-    queries sit at positions ``q_offset + i`` of the key axis; a ``window``
-    W > 0 also hides keys W or more positions back."""
+                   q_offset: int = 0, scale: float | None = None,
+                   soft_cap: float = 0.0) -> torch.Tensor:
+    """Grouped-query attention.  q (B,H,S,Dh), k (B,Hkv,Sk,Dh), v
+    (B,Hkv,Sk,Dv) → (B,H,S,Dv).  q is scaled (default Dh^-1/2) in f32 and
+    cast to k's dtype; both products accumulate in f32 (the reference's
+    preferred_element_type).  The queries sit at positions ``q_offset + i``
+    of the key axis; a ``window`` W > 0 also hides keys W or more positions
+    back."""
     B, H, S, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
-    scale = Dh ** -0.5
+    scale = scale if scale is not None else Dh ** -0.5
     mask = _attn_mask(torch.arange(S, device=q.device) + q_offset,
                       torch.arange(Sk, device=q.device), causal, window)
     qg = (q.float() * scale).to(k.dtype).reshape(B, Hkv, G, S, Dh)
@@ -154,8 +166,8 @@ def full_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                      kv_chunk: int = 1024, soft_cap: float = 0.0
-                      ) -> torch.Tensor:
+                      kv_chunk: int = 1024, scale: float | None = None,
+                      soft_cap: float = 0.0) -> torch.Tensor:
     """Online-softmax attention over KV chunks of ``kv_chunk`` keys: a
     running max, denominator and f32 accumulator per query, so the live
     scores are (B,Hkv,G,S,kv_chunk) instead of (…,S,Sk).  The queries sit
@@ -166,8 +178,8 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if Sk % kv_chunk:
         raise ValueError(f"Sk={Sk} must divide by kv_chunk={kv_chunk}")
     G = H // Hkv
-    qg = (q.float() * Dh ** -0.5).to(k.dtype).reshape(B, Hkv, G, S, Dh) \
-        .float()
+    scale = scale if scale is not None else Dh ** -0.5
+    qg = (q.float() * scale).to(k.dtype).reshape(B, Hkv, G, S, Dh).float()
     qi = torch.arange(S, device=q.device)
     m = torch.full((B, Hkv, G, S), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -194,8 +206,8 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return o.reshape(B, H, S, -1).to(q.dtype)
 
 
-def attention(q, k, v, *, causal=True, window: int = 0, soft_cap=0.0,
-              q_offset: int = 0, chunk_threshold: int = 8192,
+def attention(q, k, v, *, causal=True, window: int = 0, scale=None,
+              soft_cap=0.0, q_offset: int = 0, chunk_threshold: int = 8192,
               kv_chunk: int = 1024):
     """Prefill attention, plain PyTorch math (the reference leaves it to
     XLA), dispatched as the reference does: :func:`chunked_attention` when
@@ -206,18 +218,21 @@ def attention(q, k, v, *, causal=True, window: int = 0, soft_cap=0.0,
     Sk = k.shape[2]
     if q_offset == 0 and Sk > chunk_threshold and Sk % kv_chunk == 0:
         return chunked_attention(q, k, v, causal=causal, window=window,
-                                 kv_chunk=kv_chunk, soft_cap=soft_cap)
+                                 kv_chunk=kv_chunk, scale=scale,
+                                 soft_cap=soft_cap)
     return full_attention(q, k, v, causal=causal, window=window,
-                          q_offset=q_offset, soft_cap=soft_cap)
+                          q_offset=q_offset, scale=scale, soft_cap=soft_cap)
 
 
-def decode_attention(q, k_cache, v_cache, cur_pos, *, soft_cap: float = 0.0):
-    """Single-token attention over a bf16 (B,Hkv,Smax,Dh) cache; rows past
-    ``cur_pos`` masked.  q (B,H,1,Dh) → (B,H,1,Dh)."""
+def decode_attention(q, k_cache, v_cache, cur_pos, *, scale=None,
+                     soft_cap: float = 0.0):
+    """Single-token attention over a bf16 (B,Hkv,Smax,Dh) cache (values
+    (B,Hkv,Smax,Dv)); rows past ``cur_pos`` masked; q scaled by ``scale``
+    (default Dh^-1/2).  q (B,H,1,Dh) → (B,H,1,Dv)."""
     B, H, _, Dh = q.shape
     Hkv, Smax = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
-    scale = Dh ** -0.5
+    scale = scale if scale is not None else Dh ** -0.5
     ki = torch.arange(Smax, device=q.device)
     mask = ki[None, :] <= cur_pos[:, None]
     qg = (q[:, :, 0].float() * scale).to(k_cache.dtype).reshape(B, Hkv, G, Dh)

@@ -1,5 +1,6 @@
-"""Mixer layers — attention (the ``attn`` and windowed ``lattn`` kinds)
-and the RG-LRU recurrent block (``rec``): init, sequence mode, decode.
+"""Mixer layers — attention (the ``attn`` and windowed ``lattn`` kinds),
+DeepSeek's latent attention (``mla``) and the RG-LRU recurrent block
+(``rec``): init, sequence mode, decode; and the MoE MLP.
 
   init_attn(gen, cfg, n, device)             → stacked param dict (n layers)
   attn_apply(cfg, p, x, stats, prefix, ...)  → prefill output [, (k, v)]
@@ -10,6 +11,10 @@ and the RG-LRU recurrent block (``rec``): init, sequence mode, decode.
   build_kv_compact                           → prefill rows for the pool
   init_rec / rec_apply / rec_decode / rec_init_state
                                              → the RG-LRU block
+  init_mla / mla_apply / mla_decode / mla_init_state
+                                             → latent attention (MLA)
+  init_moe / moe_apply_dense                 → the MoE MLP (every expert
+                                               computes every token)
 
 Stats taps use parameter-path names (``prefix + "wq"``) so the quantizer
 joins statistics to weights by path.  Decode writes the new token's k/v
@@ -25,7 +30,8 @@ from repro_torch.core.kvquant import dequantize_kv, quantize_kv
 
 from .common import (ACT, apply_rope, attention, cache_update_batched,
                      decode_attention, init_norm, linear, rmsnorm,
-                     rope_decode, rope_window, suffix_attention)
+                     rope_decode, rope_window, seq_update_batched,
+                     suffix_attention)
 from .config import ModelConfig
 
 DTYPE = torch.bfloat16
@@ -510,3 +516,191 @@ def rec_decode(cfg: ModelConfig, p, x, state, *, kcfg=None):
     state["h"].copy_(h)
     state["conv"].copy_(conv_state)
     return y, state
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention (compressed KV cache)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ModelConfig, n: int, device):
+    """``n`` stacked MLA blocks: ``wq`` (H·(nope+rope), D), ``wkv_a``
+    (r+rope, D) — the latent and the shared rope key —, its RMSNorm
+    ``kv_norm`` (r,), ``wkv_b`` (H·(nope+v), r) and ``wo`` (D, H·v)."""
+    m, D, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    return {"wq": init_linear(gen, n, H * qd, D, device),
+            "wkv_a": init_linear(gen, n, m.kv_lora_rank + m.qk_rope_dim, D,
+                                 device),
+            "kv_norm": init_norm(m.kv_lora_rank, "rms", n, device),
+            "wkv_b": init_linear(gen, n, H * (m.qk_nope_dim + m.v_head_dim),
+                                 m.kv_lora_rank, device),
+            "wo": init_linear(gen, n, D, H * m.v_head_dim, device)}
+
+
+def _mla_expand(cfg: ModelConfig, p, latent, stats=None, prefix: str = "",
+                kcfg=None):
+    """latent (B,S,r) → k_nope (B,H,S,nope), v (B,H,S,vd) through
+    ``wkv_b``."""
+    m, H = cfg.mla, cfg.n_heads
+    kv = linear(latent, p["wkv_b"], stats, prefix + "wkv_b", kcfg)
+    B, S = kv.shape[0], kv.shape[1]
+    kv = kv.reshape(B, S, H, m.qk_nope_dim + m.v_head_dim).transpose(1, 2)
+    return kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+
+
+def _mla_q(cfg: ModelConfig, p, x, stats, prefix, kcfg):
+    """q (B,H,S,nope+rope) split into its nope and rope parts, and
+    ``wkv_a``'s output (B,S,r+rope) (it shares x with ``wq``: one tap)."""
+    m, H = cfg.mla, cfg.n_heads
+    B = x.shape[0]
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    q = linear(x, p["wq"], stats, prefix + "wq", kcfg).reshape(
+        B, -1, H, qd).transpose(1, 2)
+    a = linear(x, p["wkv_a"], None, kcfg=kcfg)
+    return q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:], a
+
+
+def mla_apply(cfg: ModelConfig, p, x, stats, prefix: str, *, pos0: int = 0,
+              return_cache: bool = False, kcfg=None):
+    """Sequence-mode MLA, x (B,S,D) at positions pos0..: the latent is
+    expanded to per-head k_nope and v, the rope key is shared by every
+    head, and attention scales by (nope+rope)^-1/2.  ``return_cache`` adds
+    {'latent' (B,S,r), 'k_rope' (B,S,rope)}."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    q_nope, q_rope, a = _mla_q(cfg, p, x, stats, prefix, kcfg)
+    latent = rmsnorm(a[..., :m.kv_lora_rank], p["kv_norm"]["gamma"])
+    k_rope = a[..., m.kv_lora_rank:][:, None]          # (B,1,S,rope)
+    pos = torch.arange(S, device=x.device) + pos0
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    k_rope = apply_rope(k_rope, pos, cfg.rope_theta)
+    k_nope, v = _mla_expand(cfg, p, latent, stats, prefix, kcfg)
+    k = torch.cat([k_nope, k_rope.expand(B, H, S, m.qk_rope_dim)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    o = attention(qf, k, v, causal=True,
+                  scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
+    y = linear(o.transpose(1, 2).reshape(B, S, -1), p["wo"], stats,
+               prefix + "wo", kcfg)
+    if return_cache:
+        return y, {"latent": latent, "k_rope": k_rope[:, 0]}
+    return y
+
+
+def mla_init_state(cfg: ModelConfig, batch: int, max_len: int,
+                   device="cuda"):
+    """The compressed cache: 'latent' (B, max_len, r) and 'k_rope' (B,
+    max_len, rope), bf16, no head axis."""
+    m = cfg.mla
+    return {"latent": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                  dtype=DTYPE, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim),
+                                  dtype=DTYPE, device=device)}
+
+
+def mla_decode(cfg: ModelConfig, p, x, state, pos, *, kcfg=None):
+    """One token x (B,1,D) at per-slot positions pos (B,): its latent and
+    rope key are written into the caches in place, then the whole latent
+    cache is expanded through ``wkv_b`` (the reference's math: B·max_len
+    rows every step) and read by plain decode attention."""
+    m, H = cfg.mla, cfg.n_heads
+    B = x.shape[0]
+    q_nope, q_rope, a = _mla_q(cfg, p, x, None, "", kcfg)
+    latent_t = rmsnorm(a[..., :m.kv_lora_rank], p["kv_norm"]["gamma"])
+    q_rope = rope_decode(q_rope, pos, cfg.rope_theta)
+    k_rope_t = rope_decode(a[..., m.kv_lora_rank:][:, None], pos,
+                           cfg.rope_theta)[:, 0]
+    latent = seq_update_batched(state["latent"], latent_t, pos)
+    k_rope = seq_update_batched(state["k_rope"], k_rope_t, pos)
+    k_nope, v = _mla_expand(cfg, p, latent, kcfg=kcfg)
+    k = torch.cat([k_nope, k_rope[:, None].expand(B, H, k_rope.shape[1],
+                                                  m.qk_rope_dim)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    o = decode_attention(qf, k, v, pos,
+                         scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
+    y = linear(o.reshape(B, 1, -1), p["wo"], kcfg=kcfg)
+    return y, state
+
+
+# ---------------------------------------------------------------------------
+# MoE MLP — dense compute: every expert computes every token
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg: ModelConfig, n: int, device):
+    """``n`` stacked MoE MLPs: the f32 ``router`` (E, D), the ``experts``'
+    GLU stacks wg/wu (n, E, F, D) and wd (n, E, D, F), and a ``shared``
+    GLU expert of hidden F·n_shared where the config has one."""
+    e, D = cfg.moe, cfg.d_model
+    E, F = e.n_experts, e.d_ff_expert
+
+    def stack(d_out, d_in):
+        return init_linear(gen, n * E, d_out, d_in, device).reshape(
+            n, E, d_out, d_in)
+    p = {"router": init_linear(gen, n, E, D, device, dtype=torch.float32),
+         "experts": {"wg": stack(F, D), "wu": stack(F, D),
+                     "wd": stack(D, F)}}
+    if e.n_shared:
+        Fs = F * e.n_shared
+        p["shared"] = {"wg": init_linear(gen, n, Fs, D, device),
+                       "wu": init_linear(gen, n, Fs, D, device),
+                       "wd": init_linear(gen, n, D, Fs, device)}
+    return p
+
+
+def _router(cfg: ModelConfig, p, x2, stats, prefix: str):
+    """f32 router logits → softmax → top-k, the k weights renormalised to
+    sum 1.  (T, k) weights and expert indices, on the device."""
+    logits = linear(x2.float(), p["router"], stats, prefix + "router")
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return top_p, top_i
+
+
+def _expert_mm(h, w, kcfg=None):
+    """Per-expert product h (E,C,D) — or (C,D), the same tokens for every
+    expert — × w (E,F,D) → (E,C,F).  A quantized stack goes through
+    ``ttq_matmul`` with its expert axis (one batched ``ttq_gemm`` launch on
+    the kernel path); a full-precision one is a bf16 batched product."""
+    from repro_torch.core.ttq import QuantizedTensor, ttq_matmul
+    if isinstance(w, QuantizedTensor):
+        return ttq_matmul(h, w, kcfg=kcfg).to(h.dtype)
+    return torch.matmul(h, w.to(h.dtype).transpose(-1, -2))
+
+
+def _expert_glu(w, h, act, stats=None, prefix: str = "", wts=None,
+                kcfg=None):
+    """The experts' GLU over the tokens h (C,D), shared by every expert.
+    The stats taps ``experts.wg`` (E,D) and ``experts.wd`` (E,F) weight
+    each token by ``wts`` (E,C), its routing mass, so tokens an expert
+    does not take leave its diagonal alone."""
+    g = _expert_mm(h, w["wg"], kcfg)
+    u = _expert_mm(h, w["wu"], kcfg)
+    a = ACT[act](g.float()).to(h.dtype) * u
+    if stats is not None:
+        hf, af = h.float(), a.float()
+        wt = (torch.ones(a.shape[:2], dtype=torch.float32, device=h.device)
+              if wts is None else wts)
+        sg = wt @ (hf * hf)
+        sd = torch.einsum("ec,ecf->ef", wt, af * af)
+        for k, v in (("experts.wg", sg), ("experts.wd", sd)):
+            stats[prefix + k] = stats[prefix + k] + v \
+                if prefix + k in stats else v
+    return _expert_mm(a, w["wd"], kcfg)
+
+
+def moe_apply_dense(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None):
+    """Exact MoE, x (B,S,D): every expert computes every token and the
+    gates (a (T, E) scatter of the top-k weights) combine them.  The
+    tokens reach the experts as one (T, D) operand, never an (E, T, D)
+    copy; top-k and the scatter stay on the device, so a decode block is
+    one graph replay.  The shared expert is added by the caller."""
+    e = cfg.moe
+    B, S, D = x.shape
+    x2 = x.reshape(-1, D)
+    top_p, top_i = _router(cfg, p, x2, stats, prefix)
+    gate = torch.zeros((x2.shape[0], e.n_experts), dtype=torch.float32,
+                       device=x.device).scatter_add_(1, top_i, top_p)
+    y_all = _expert_glu(p["experts"], x2, cfg.act, stats, prefix,
+                        wts=gate.T, kcfg=kcfg)
+    y = torch.einsum("etd,te->td", y_all.float(), gate).to(x.dtype)
+    return y.reshape(B, S, D)

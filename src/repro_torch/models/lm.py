@@ -17,10 +17,12 @@
                                                 carry)
 
 ``batch`` is a dict {'tokens': (B,S) int}.  Decode updates ``state`` in
-place (the KV caches, and a hybrid stack's recurrent h and conv history);
-a paged state's ``block_table`` addresses its pools.  The stack is a list
-of runs of units (``models/stack.py``): one run of ``attn`` layers for
-the dense and vlm families, runs of (rec, rec, lattn) for the hybrid.
+place (the KV caches, MLA's latent and rope-key caches, and a hybrid
+stack's recurrent h and conv history); a paged state's ``block_table``
+addresses its pools.  The stack is a list of runs of units
+(``models/stack.py``): one run of ``attn`` layers for the dense, vlm and
+llama4-style MoE families, of ``mla`` layers for deepseek's, runs of (rec,
+rec, lattn) for the hybrid.
 """
 from __future__ import annotations
 

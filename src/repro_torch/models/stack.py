@@ -1,6 +1,8 @@
-"""Layer stack — runs of units of layer kinds: ``attn`` (dense and vlm
-decoders), and the hybrid family's ``rec`` (RG-LRU) and ``lattn`` (local
-attention over a window).
+"""Layer stack — runs of units of layer kinds: ``attn`` (dense, vlm and
+llama4-style MoE decoders), ``mla`` (DeepSeek's latent attention), and the
+hybrid family's ``rec`` (RG-LRU) and ``lattn`` (local attention over a
+window).  The MLP of a layer is a GLU, a plain MLP or, in the MoE family,
+the experts plus a shared expert (:func:`mlp_kind`).
 
 A stack is a list of runs; a run repeats a unit (a tuple of kinds) n
 times.  Parameters keep the reference's stacked layout:
@@ -34,10 +36,11 @@ def mixer_kinds(cfg: ModelConfig) -> set:
 
 
 def stack_spec(cfg: ModelConfig):
-    """[(unit_kinds, n_repeat)]: one run of plain attention layers, or for
-    the hybrid family its pattern repeated (``attn`` → ``lattn``) and a
-    run of the pattern's head for the layers left over (recurrentgemma-9b:
-    12 × (rec, rec, lattn) and 1 × (rec, rec))."""
+    """[(unit_kinds, n_repeat)]: one run of plain attention (or, with an
+    MLA config, ``mla``) layers, or for the hybrid family its pattern
+    repeated (``attn`` → ``lattn``) and a run of the pattern's head for the
+    layers left over (recurrentgemma-9b: 12 × (rec, rec, lattn) and 1 ×
+    (rec, rec))."""
     if cfg.family == "hybrid":
         pat = tuple("lattn" if k == "attn" else k for k in cfg.hybrid.pattern)
         n_full, rem = divmod(cfg.n_layers, len(pat))
@@ -45,12 +48,17 @@ def stack_spec(cfg: ModelConfig):
         if rem:
             runs.append((pat[:rem], 1))
         return runs
-    if cfg.family not in ("dense", "vlm") or cfg.mla is not None \
-            or cfg.moe is not None:
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} (MoE/MLA/SSM/enc-dec layers) is ported "
-            f"in a later slice")
-    return [(("attn",), cfg.n_layers)]
+            f"family {cfg.family!r} (SSM/enc-dec layers) is ported in a "
+            f"later slice")
+    return [(("mla" if cfg.mla is not None else "attn",), cfg.n_layers)]
+
+
+def mlp_kind(cfg: ModelConfig, kind: str) -> str:
+    """A layer's MLP: ``moe`` in the MoE family, else the config's
+    ``glu`` or ``plain``."""
+    return "moe" if cfg.moe is not None else cfg.mlp
 
 
 def layer_slice(tree, i):
@@ -64,17 +72,21 @@ def layer_slice(tree, i):
 
 def init_layer(gen, cfg: ModelConfig, kind: str, n: int, device):
     """``n`` stacked layers of ``kind``."""
-    if kind not in ("attn", "lattn", "rec"):
+    mix = {"attn": L.init_attn, "lattn": L.init_attn, "rec": L.init_rec,
+           "mla": L.init_mla}.get(kind)
+    if mix is None:
         raise NotImplementedError(f"layer kind {kind!r}: later slice")
-    if cfg.mlp not in ("glu", "plain"):
-        raise NotImplementedError(f"mlp {cfg.mlp!r}: later slice")
+    mk = mlp_kind(cfg, kind)
+    if mk not in ("glu", "plain", "moe"):
+        raise NotImplementedError(f"mlp {mk!r}: later slice")
     D, F = cfg.d_model, cfg.d_ff
     nk = "rms" if cfg.norm == "rms" else "layer"
-    mix = L.init_rec if kind == "rec" else L.init_attn
     p = {"ln1": init_norm(D, nk, n, device),
          "mix": mix(gen, cfg, n, device),
          "ln2": init_norm(D, nk, n, device)}
-    if cfg.mlp == "glu":
+    if mk == "moe":
+        p["mlp"] = L.init_moe(gen, cfg, n, device)
+    elif mk == "glu":
         p["mlp"] = {"wg": L.init_linear(gen, n, F, D, device),
                     "wu": L.init_linear(gen, n, F, D, device),
                     "wd": L.init_linear(gen, n, D, F, device)}
@@ -93,14 +105,17 @@ def layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 kvcfg=None, num_blocks: int = 0, device="cuda"):
     """One layer's decode state: an ``attn`` cache of max_len rows, an
     ``lattn`` one of min(max_len, window) rows (the rolling window), the
-    ``rec`` block's h and conv history.  A paged cache holds plain
-    attention layers only (windowed and recurrent states stay dense)."""
+    ``rec`` block's h and conv history, the ``mla`` latent and rope-key
+    caches.  A paged cache holds plain attention layers only (windowed,
+    latent and recurrent states stay dense)."""
     if kvcfg is not None and kvcfg.paged and kind != "attn":
         raise ValueError(f"paged KV cache supports plain attention layers "
                          f"only, got {kind!r} (windowed/latent/recurrent "
                          f"states stay dense)")
     if kind == "rec":
         return L.rec_init_state(cfg, batch, device)
+    if kind == "mla":
+        return L.mla_init_state(cfg, batch, max_len, device)
     if kind == "lattn":
         max_len = min(max_len, cfg.hybrid.window)
     elif kind != "attn":
@@ -125,8 +140,15 @@ def init_stack_state(cfg: ModelConfig, spec, batch: int, max_len: int,
 
 def _mlp_apply(cfg, p, x, stats, prefix, kcfg=None):
     h = norm(x, p["ln2"])
-    mlp = glu_mlp if cfg.mlp == "glu" else plain_mlp
-    return x + mlp(h, p["mlp"], stats, prefix + "mlp", cfg.act, kcfg)
+    if cfg.moe is None:
+        mlp = glu_mlp if cfg.mlp == "glu" else plain_mlp
+        return x + mlp(h, p["mlp"], stats, prefix + "mlp", cfg.act, kcfg)
+    pp = prefix + "mlp."
+    y = L.moe_apply_dense(cfg, p["mlp"], h, stats, pp, kcfg=kcfg)
+    if cfg.moe.n_shared:
+        y = y + glu_mlp(h, p["mlp"]["shared"], stats, pp + "shared",
+                        cfg.act, kcfg)
+    return x + y
 
 
 def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
@@ -150,6 +172,17 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
         else:
             y = L.rec_apply(cfg, p["mix"], h, stats, prefix + "mix.",
                             kcfg=kcfg)
+        return _mlp_apply(cfg, p, x + y, stats, prefix, kcfg), st
+    if kind == "mla":
+        if want_state:
+            y, cache = L.mla_apply(cfg, p["mix"], h, stats, prefix + "mix.",
+                                   pos0=pos0, return_cache=True, kcfg=kcfg)
+            st = L.mla_init_state(cfg, x.shape[0], max_len, x.device)
+            for k, c in cache.items():
+                st[k][:, :c.shape[1]] = c.to(st[k].dtype)
+        else:
+            y = L.mla_apply(cfg, p["mix"], h, stats, prefix + "mix.",
+                            pos0=pos0, kcfg=kcfg)
         return _mlp_apply(cfg, p, x + y, stats, prefix, kcfg), st
     window = cfg.hybrid.window if kind == "lattn" else 0
     if want_state:
@@ -180,6 +213,8 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
     h = norm(x, p["ln1"])
     if kind == "rec":
         y, st = L.rec_decode(cfg, p["mix"], h, state, kcfg=kcfg)
+    elif kind == "mla":
+        y, st = L.mla_decode(cfg, p["mix"], h, state, pos, kcfg=kcfg)
     elif kind == "lattn":
         y, st = L.attn_decode_rolling(cfg, p["mix"], h, state, pos,
                                       cfg.hybrid.window, kvcfg=kvcfg,

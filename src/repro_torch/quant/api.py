@@ -14,8 +14,14 @@ joins projections that share a tapped input), and quantize.
   ``concatenate(... .astype(float32))`` would need 16.9 GB for gemma-7b's
   wg/wu family alone.  A member with low-rank factors quantizes the f32
   residual W − B·A instead, formed a chunk of layers at a time
-  (``RESIDUAL_BYTES``), one launch per chunk.  ``drift``/``gate`` are the
-  reference's delta gate: ``run(only=)`` requantizes the drifted families.
+  (``RESIDUAL_BYTES``), one launch per chunk.  A MoE expert stack (n, E,
+  d′, d) is one member of n·E rows: D per expert row, one launch.  A
+  member whose policy has ``rank > 0`` but no factors in the low-rank tree
+  (the reference's ``lowrank_tree`` gives a 4-D expert stack none) is a
+  family of its own, keyed ``("eager", path)``, quantized per weight with
+  an inline SVD, as the reference's eager fallback (``api.py:285-292``
+  there).  ``drift``/``gate`` are the reference's delta gate: ``run(only=)``
+  requantizes the drifted families.
 * :func:`lowrank_tree` — the data-free SVD factors, computed once per model.
 """
 from __future__ import annotations
@@ -89,12 +95,27 @@ def _map_paths(fn, tree, path=()):
     return fn(_path_str(path), tree)
 
 
+def _stat_key_in(run: dict, rel: tuple) -> Optional[str]:
+    """The key of ``rel``'s statistics in one run's stats dict, or None:
+    the aliased path, else an expert weight's ``experts.wg`` (wg, wu) or
+    ``experts.wd`` (the reference's ``_lookup_stats``)."""
+    key = _stats_key(rel)
+    if key in run:
+        return key
+    if rel[-1] in ("wg", "wu", "wd") and "experts" in rel:
+        key = ".".join([*rel[:-1], "wg" if rel[-1] in ("wg", "wu") else "wd"])
+        if key in run:
+            return key
+    return None
+
+
 def _stat_for(stats, parts):
     """The stats leaf (lead..., d) for a parameter path, or None."""
     if parts[0] != "stack" or not stats or "stack" not in stats:
         return None
     run = stats["stack"][int(parts[1])]
-    return run.get(_stats_key(tuple(parts[2:])))
+    key = _stat_key_in(run, tuple(parts[2:]))
+    return None if key is None else run[key]
 
 
 def _eligible(base: QuantPolicy, ps: str, leaf) -> Optional[QuantPolicy]:
@@ -207,7 +228,8 @@ class FusedRequantPlan:
     """Whole-model requantization grouped by weight family; built once per
     (params structure, stats structure, policy).  A weight whose policy has
     ``rank > 0`` takes its factors from ``lowrank_tree`` (the same tree is
-    passed to :meth:`run`); the plan never runs an SVD."""
+    passed to :meth:`run`); one that has none there is an eager family
+    ``("eager", path)`` that runs the SVD inline at every requant."""
 
     def __init__(self, params, stats, policy: QuantPolicy, *,
                  acfg: Optional[AWQConfig] = None, lowrank_tree=None):
@@ -224,21 +246,22 @@ class FusedRequantPlan:
             if eff.quantizer.requires_stats:
                 if _stat_for(stats, parts) is None:
                     continue
-                stat_key = (int(parts[1]), _stats_key(tuple(parts[2:])))
+                stat_key = (int(parts[1]), _stat_key_in(
+                    stats["stack"][int(parts[1])], tuple(parts[2:])))
             elif parts[0] != "stack" or leaf.dim() < 3:
                 continue
             dp, d = leaf.shape[-2:]
             has_ba = (lowrank_tree is not None
                       and _tree_get(lowrank_tree, path) is not None)
+            member = _Member(path=tuple(path), path_str=ps,
+                             lead=tuple(leaf.shape[:-2]), dp=dp, d=d,
+                             eff=eff, stat_key=stat_key)
             if not has_ba and _factored(eff, leaf):
-                raise ValueError(
-                    f"{ps}: rank {eff.rank} needs its factors; pass "
-                    f"lowrank_tree=lowrank_tree(params, policy)")
+                self.families[("eager", ps)] = [member]
+                continue
             key = (dp, d, _row_qcfg(eff), eff.acfg, eff.method, eff.packed,
                    has_ba, eff.rank)
-            self.families.setdefault(key, []).append(_Member(
-                path=tuple(path), path_str=ps, lead=tuple(leaf.shape[:-2]),
-                dp=dp, d=d, eff=eff, stat_key=stat_key))
+            self.families.setdefault(key, []).append(member)
 
     @property
     def n_layers(self) -> int:
@@ -316,6 +339,27 @@ class FusedRequantPlan:
             A=factors["A"], bits=qcfg.bits, group_size=qcfg.group_size,
             out_features=dp, in_features=d)
 
+    def _run_eager(self, m: _Member, W, stat, count, into=None):
+        """An eager member: each (d′, d) weight of the stack quantized by
+        its quantizer with factors from an inline SVD (the reference's
+        per-leaf fallback).  ``into``: its fields a requant writes are
+        overwritten in place; its B and A, the SVD of the same weights,
+        stay as they are."""
+        eff = m.eff
+        Ws = W.reshape(-1, m.dp, m.d)
+        Ss = (torch.zeros((Ws.shape[0], m.d), dtype=torch.float32,
+                          device=W.device)
+              if stat is None else stat.reshape(-1, m.d))
+        qt = _stack_qts([eff.quantizer.quantize_weight(
+            Ws[i], Ss[i], count, eff, eff.acfg, *svd_factors(Ws[i], eff.rank))
+            for i in range(Ws.shape[0])], m.lead)
+        if into is None:
+            return qt
+        for f in ("wint", "packed", "scale", "zero", "dinv"):
+            if getattr(into, f) is not None:
+                getattr(into, f).copy_(getattr(qt, f))
+        return into
+
     def _stat(self, stats, m: _Member):
         return None if m.stat_key is None else \
             stats["stack"][m.stat_key[0]][m.stat_key[1]]
@@ -332,6 +376,12 @@ class FusedRequantPlan:
         results = {}
         for key, members in self.families.items():
             if only is not None and key not in only:
+                continue
+            if key[0] == "eager":
+                m = members[0]
+                results[m.path_str] = self._run_eager(
+                    m, _tree_get(params, m.path), self._stat(stats, m), count,
+                    None if into is None else _tree_get(into, m.path))
                 continue
             has_ba = key[6]
             for m in members:

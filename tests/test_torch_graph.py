@@ -32,7 +32,7 @@ from repro_torch.kernels.ttq_quantize import _outputs
 from repro_torch.kernels.ttq_quantize import ttq_quantize as quantize_kernel
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MLACfg, ModelConfig, MoECfg
 from repro_torch.quant import FusedRequantPlan, QuantizedModel
 from repro_torch.serving import EngineConfig, TTQEngine
 from repro_torch.serving.blocks import SINK
@@ -951,3 +951,44 @@ def test_server_captures_and_replays_on_its_worker(gpu_params, cuda):
     assert threads == {worker} and worker != threading.get_ident()
     assert eng.compiled_programs > 0
     eng.allocator.assert_quiescent()
+
+
+# the MoE family on the card: experts at widths the kernels take (llama4's
+# kind: GQA attention, top-1 of 4 and a shared expert; deepseek's: MLA with
+# a 128-wide latent, top-2 of 4 and two shared experts)
+MOE_GPU = {
+    "moe": ModelConfig(name="graph-moe", family="moe", n_layers=2,
+                       d_model=256, n_heads=4, n_kv_heads=2, d_ff=256,
+                       vocab=512, moe=MoECfg(n_experts=4, top_k=1,
+                                             d_ff_expert=256, n_shared=1)),
+    "mla": ModelConfig(name="graph-mla", family="moe", n_layers=2,
+                       d_model=256, n_heads=4, n_kv_heads=4, d_ff=256,
+                       vocab=512,
+                       mla=MLACfg(kv_lora_rank=128, qk_nope_dim=32,
+                                  qk_rope_dim=32, v_head_dim=32),
+                       moe=MoECfg(n_experts=4, top_k=2, d_ff_expert=256,
+                                  n_shared=2)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(MOE_GPU))
+def test_moe_graph_tokens_equal_eager(cuda, name):
+    """A MoE (and an MLA) engine's decode blocks are graph replays, each
+    bit for bit the eager ``decode_many`` on clones of its state; the
+    expert weights go through the batched ``ttq_gemm`` (3 launches per
+    layer and step), the routing and its scatter stay on the device."""
+    cfg = MOE_GPU[name]
+    params = tlm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    eng = _engine(cfg, params, _policy(), cuda, max_slots=3)
+    rids = [eng.submit(p, max_new=12)
+            for p in _prompts(9, 5, cfg.vocab, 5, 30)]
+    kbuild.reset_launches()
+    with _shadowed(eng) as seen:
+        out = eng.run_all()
+    assert all(len(out[i]) == 12 and not out[i].unfinished for i in rids)
+    assert seen["blocks"] >= 4 and len(eng.runner._graphs) == 1
+    assert kbuild.LAUNCHES["ttq_gemm_experts"] > 0
+    assert kbuild.LAUNCHES["ttq_gemm_experts"] % (3 * cfg.n_layers) == 0
+    assert kbuild.LAUNCHES["ttq_gemm"] > 0

@@ -17,7 +17,8 @@ from repro_torch.kernels.ttq_attn import (MIN_ROWS, SPLITS, _launch,
                                           attn_splits, head_tile,
                                           ttq_decode_attention,
                                           ttq_paged_decode_attention)
-from repro_torch.kernels.ttq_gemm import gemm_splits
+from repro_torch.kernels.ttq_gemm import (fast_shape, gemm_splits,
+                                          ttq_gemm_experts)
 from repro_torch.kernels.ttq_quantize import (
     BLOCKS_PER_SM as QUANT_BLOCKS_PER_SM, MIN_ROWS as QUANT_MIN_ROWS, VECS,
     WARPS, quant_blocks, strip_count)
@@ -220,6 +221,48 @@ def test_gemm_plain_matches_jax(jx, T, d, dp, bits, g):
     # f32 accumulation in another order: the JAX kernel test's tolerance
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=2e-5,
                                atol=2e-4)
+
+
+# group sizes the reference's Pallas kernels take that are not a power of
+# two, or below one code word, or at a d that is not whole uint4 words of
+# codes (ROADMAP C2): (d, g, bits) with g and 32/bits dividing d <= 256, or
+# g dividing 256 where 256 divides d
+C2_CASES = [(d, g, bits) for d, g in ((96, 24), (192, 48), (200, 40),
+                                      (256, 4), (512, 2))
+            for bits in (2, 4, 8) if d % (32 // bits) == 0]
+
+
+@pytest.mark.parametrize("d,g,bits", C2_CASES)
+def test_other_group_sizes_plain_match_jax(jx, d, g, bits):
+    """The plain quantize and GEMM at C2's (d, g, bits) against the JAX
+    kernels (interpret mode), which take them: codes ±1 at ties, S and Z to
+    rtol 1e-5, the GEMM to the f32 tolerance above; and the card's tile
+    choice: none of these is the fast tile but (256, 4) and (512, 2) at
+    bits 8 (g >= 32/bits, a power of two)."""
+    T, dp = 3, 40
+    W, D, x = _data(5, T, d, dp)
+    jnp = jx["jnp"]
+    pk_j, S_j, Z_j = jx["ops"].ttq_quantize(jnp.asarray(W), jnp.asarray(D),
+                                            bits=bits, group_size=g)
+    pk_t, S_t, Z_t = tops.ttq_quantize(torch.from_numpy(W),
+                                       torch.from_numpy(D), bits=bits,
+                                       group_size=g)
+    _codes_close(jx["unpack"](pk_j, d, bits), t_unpack(pk_t, d, bits))
+    np.testing.assert_allclose(S_t.numpy(), np.asarray(S_j), rtol=1e-5)
+    np.testing.assert_allclose(Z_t.numpy(), np.asarray(Z_j), rtol=1e-5,
+                               atol=1e-6)
+    y_j = jx["ops"].ttq_gemm(jnp.asarray(x), pk_j, S_j, Z_j,
+                             dinv=jnp.asarray(1.0 / D), bits=bits,
+                             group_size=g)
+    y_t = tops.ttq_gemm(torch.from_numpy(x), torch.from_numpy(np.array(pk_j)),
+                        torch.from_numpy(np.array(S_j)),
+                        torch.from_numpy(np.array(Z_j)),
+                        torch.from_numpy(1.0 / D), bits=bits, group_size=g)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=2e-5,
+                               atol=2e-4)
+    assert fast_shape(d, g, bits) == (bits == 8 and g >= 4 and d % 16 == 0
+                                      and not g & (g - 1))
+    assert gemm_splits(dp, d, T, bits, g, 132) == 1
 
 
 # gemma-7b's decode GEMMs at int4 g32, T = 4, and the split each gets on
@@ -850,3 +893,120 @@ def test_attention_unsupported_split_refused(cuda, splits):
         _launch(q, *gathered, None, pos, splits, group_size=16)
     with pytest.raises(RuntimeError, match="CUDA error 1 "):
         _launch(q, *pool, bt, pos, splits, group_size=16)
+
+
+# ------------------------------------------- expert-batched GEMM on a card
+
+def _experts_case(dev, E, T, dp, d, bits, g, shared, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    W = torch.randn((E, dp, d), generator=gen, device=dev)
+    D = torch.exp(0.3 * torch.randn((E, d), generator=gen, device=dev))
+    x = torch.randn((T, d) if shared else (E, T, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pk, S, Z = tref.ttq_quantize_ref(W, D, bits=bits, group_size=g)
+    return x, pk, S, Z, 1.0 / D
+
+
+def _launch_2d(x2, pk, S, Z, dinv, bits, g, split):
+    """One 2-D ``ttq_gemm_launch`` at a given split (the wrapper would pick
+    its own)."""
+    T, d = x2.shape
+    dp = pk.shape[0]
+    y = torch.empty((T, dp), dtype=x2.dtype, device=x2.device)
+    err = kbuild.lib().ttq_gemm_launch(
+        x2.data_ptr(), int(x2.dtype == torch.bfloat16), pk.data_ptr(),
+        S.data_ptr(), Z.data_ptr(), dinv.data_ptr(), y.data_ptr(), T, dp, d,
+        bits, g, split, torch.cuda.current_stream(x2.device).cuda_stream)
+    assert err == 0
+    return y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False], ids=["shared-x", "per-x"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("T", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("E", [1, 4, 16, 64])
+def test_gemm_experts_is_e_launches(cuda, E, T, bits, shared):
+    """One batched launch over E experts (x shared by every expert, or one
+    per expert) is bit for bit E 2-D launches at the split the batched one
+    takes, within the GEMM's tolerance of the plain version, and counts one
+    launch.  d' = 96 (three row tiles) and d = 2048 make the split vary
+    with E and T (4 at E = 1, T <= 8 on 132 SMs; 1 at E = 64)."""
+    dp, d, g = 96, 2048, 32
+    x, pk, S, Z, dinv = _experts_case(cuda, E, T, dp, d, bits, g, shared)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split = gemm_splits(dp, d, T, bits, g, n_sm, E)
+    before = kbuild.LAUNCHES["ttq_gemm_experts"]
+    y = ttq_gemm_experts(x, pk, S, Z, dinv, bits=bits, group_size=g)
+    assert kbuild.LAUNCHES["ttq_gemm_experts"] == before + 1
+    assert y.shape == (E, T, dp) and y.dtype == torch.bfloat16
+    for e in range(E):
+        x2 = x if shared else x[e]
+        assert torch.equal(y[e], _launch_2d(x2, pk[e], S[e], Z[e], dinv[e],
+                                            bits, g, split)), e
+    y_r = tref.ttq_gemm_experts_ref(x, pk, S, Z, bits=bits, group_size=g,
+                                    dinv=dinv).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_r.float(),
+                               **_gemm_tol(d, torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1408, 2048, 64), (2048, 1408, 64),
+                                   (8192, 5120, 16)],
+                         ids=["deepseek-wg", "deepseek-wd", "llama4-wg"])
+def test_gemm_experts_at_the_configs_shapes(cuda, shape):
+    """The expert shapes of both configs at T = 4 (deepseek's wd at d =
+    1408, which the reference's Pallas tile does not take), f32 x: within
+    the f32 tolerance of the plain version, split 1."""
+    dp, d, E = shape
+    x, pk, S, Z, dinv = _experts_case(cuda, E, 4, dp, d, 4, 32, True)
+    x = x.float()
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert gemm_splits(dp, d, 4, 4, 32, n_sm, E) == 1
+    y = ttq_gemm_experts(x, pk, S, Z, dinv, bits=4, group_size=32)
+    y_r = tref.ttq_gemm_experts_ref(x, pk, S, Z, bits=4, group_size=32,
+                                    dinv=dinv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_r, **_gemm_tol(d, torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,g,bits", C2_CASES)
+def test_quantize_kernel_other_group_sizes(cuda, d, g, bits, dtype):
+    """C2: the quantize kernel at the reference's other group sizes (the
+    generic walk, or the fast one where g allows): packed, S and Z bit for
+    bit the plain version's, on a (2, 37, d) stack."""
+    gen = torch.Generator(device=cuda).manual_seed(d + g + bits)
+    W = torch.randn((2, 37, d), generator=gen, device=cuda).to(dtype)
+    D = torch.exp(0.3 * torch.randn((2, d), generator=gen, device=cuda))
+    kbuild.reset_launches()
+    out = tops.ttq_quantize(W, D, bits=bits, group_size=g)
+    assert kbuild.LAUNCHES["ttq_quantize"] == 1
+    ref = tref.ttq_quantize_ref(W, D, bits=bits, group_size=g)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert _bitwise(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 5, 16])
+@pytest.mark.parametrize("d,g,bits", C2_CASES)
+def test_gemm_kernel_other_group_sizes(cuda, d, g, bits, T):
+    """C2: the GEMM at the reference's other group sizes (the generic tile,
+    split 1), 2-D and batched over 3 experts, within the GEMM's bf16
+    tolerance of the plain version."""
+    dp = 72
+    x, pk, S, Z, dinv = _gemm_case(cuda, dp, d, bits, g, T, torch.bfloat16)
+    y = tops.ttq_gemm(x, pk, S, Z, dinv, bits=bits, group_size=g)
+    y_r = tref.ttq_gemm_ref(x, pk, S, Z, bits=bits, group_size=g,
+                            dinv=dinv).to(torch.bfloat16)
+    xe, pke, Se, Ze, dve = _experts_case(cuda, 3, T, dp, d, bits, g, False)
+    ye = ttq_gemm_experts(xe, pke, Se, Ze, dve, bits=bits, group_size=g)
+    ye_r = tref.ttq_gemm_experts_ref(xe, pke, Se, Ze, bits=bits, group_size=g,
+                                     dinv=dve).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    tol = _gemm_tol(d, torch.bfloat16)
+    torch.testing.assert_close(y.float(), y_r.float(), **tol)
+    torch.testing.assert_close(ye.float(), ye_r.float(), **tol)

@@ -186,11 +186,24 @@ def test_fused_plan_with_factors_matches_jax(ref, use_kernel):
 
 
 def test_plan_refuses_a_rank_without_factors(ref):
-    """The plan never runs an SVD: a rank > 0 weight without factors is
-    refused, and ``lowrank_tree`` is None where no path has rank > 0."""
+    """A rank > 0 weight without factors is no longer refused: as in the
+    reference's plan (its eager fallback), each becomes an eager family of
+    its own that runs the SVD inline, the members the JAX plan's ``eager``
+    list; with the factors there is none.  ``lowrank_tree`` is None where
+    no path has rank > 0."""
+    from repro.core import ttq_policy as j_policy
+    from repro.quant.api import FusedRequantPlan as JPlan
     pol = t_policy(bits=4, group_size=32, rank=8)
-    with pytest.raises(ValueError, match="lowrank_tree"):
-        FusedRequantPlan(ref["tparams"], ref["tstats"], pol)
+    plan = FusedRequantPlan(ref["tparams"], ref["tstats"], pol)
+    eager = sorted(k[1] for k in plan.families if k[0] == "eager")
+    jplan = JPlan(ref["params"], ref["stats"], j_policy(bits=4, group_size=32,
+                                                        rank=8))
+    assert eager == sorted(m.path_str for m in jplan.eager)
+    assert len(eager) == 7 and len(plan.families) == 7
+    with_factors = FusedRequantPlan(ref["tparams"], ref["tstats"], pol,
+                                    lowrank_tree=tapi.lowrank_tree(
+                                        ref["tparams"], pol))
+    assert not any(k[0] == "eager" for k in with_factors.families)
     assert tapi.lowrank_tree(ref["tparams"], t_policy(rank=0)) is None
     lt = tapi.lowrank_tree(ref["tparams"], pol)
     wg = lt["stack"][0]["u0"]["mlp"]["wg"]
