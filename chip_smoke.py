@@ -118,6 +118,21 @@
    = 5) at full width and ``fit_depth`` layers, dense then paged (paged
    tokens equal to dense).  [2] also times ``ttq_gemm_experts`` at both
    configs' expert shapes.
+3j. The SSM and encoder-decoder families, [3]'s policy with the default
+   guards through [3g]'s ``family_engine``, dense slab only (neither
+   family admits the pool): (a) mamba2-1.3b (Mamba2's chunked SSD, no
+   attention) at full width and all 48 layers: every kernel of its path
+   launched (``ttq_gemm``, ``ttq_quantize``), graph blocks and prefill
+   replays bit for bit eager (one prefill graph per distinct prompt
+   length), compiled programs flat over a warm rerun, a one-layer witness,
+   then one prompt of SSM_LONG tokens across two SSD chunks, and the
+   three refusals (paged pool, speculation, chunked prefill); (b)
+   whisper-medium (24 encoder and 24 decoder layers, cross-attention,
+   learned positions) at full width, 8 requests each with its own frames
+   from the seed: the same checks with ``ttq_decode_attention`` on the
+   self-attention cache, then one prompt admitted twice with different
+   frames, the second a replay of the first's prefill graph bit for bit
+   the eager prefill on its own frames, and the three refusals.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -222,6 +237,10 @@ EXPERT_SHAPES = {
     "llama4-scout": (("wg/wu", 16, 8192, 5120, 2),
                      ("wd", 16, 5120, 8192, 1))}
 MOE_3I = ("deepseek_v2_lite_16b", "llama4_scout_17b_a16e")
+# phase 3j: the last two families at full width and depth, and a prompt
+# that crosses two of mamba2-1.3b's SSD chunks of 256
+FAMILIES_3J = ("mamba2_1p3b", "whisper_medium")
+SSM_LONG = 600
 
 
 class CheckFailed(RuntimeError):
@@ -3034,14 +3053,36 @@ def init_family(torch, dev, arch, depth=None):
     return cfg, params
 
 
+def attends(cfg) -> bool:
+    """Whether ``cfg``'s decoder stack reads a KV cache through the decode
+    attention kernels (MLA reads its latent cache through plain
+    attention; an SSM stack has no attention)."""
+    from repro_torch.models.stack import stack_spec
+    return cfg.mla is None and any(k in ("attn", "lattn", "xdec")
+                                   for ks, _ in stack_spec(cfg) for k in ks)
+
+
+def with_frames(eng, prompts, frames):
+    """Make every ``eng.submit`` of one of ``prompts`` carry its frames
+    (the encoder-decoder family's input), so the shared phases' traffic
+    needs no change; ``frames`` None leaves ``eng`` as it is."""
+    if frames is None:
+        return eng
+    table = {tuple(p): f for p, f in zip(prompts, frames)}
+    real = eng.submit
+    eng.submit = lambda p, **kw: real(p, frames=table[tuple(p)], **kw)
+    return eng
+
+
 def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
-                  phase="[3g]"):
+                  phase="[3g]", frames=None):
     """[3]'s policy (int4 g32 packed, rank 0, int8 KV) under the default
     guards on the dense slab or the paged pool (block 16): the cold run
     (every kernel of the path launched, no other: an MLA stack reads its
-    latent cache through plain attention, a MoE stack's experts run the
-    batched GEMM 3 times per layer and decode step; paged tokens equal
-    ``dense``'s),
+    latent cache through plain attention, an SSM stack attends nowhere, a
+    MoE stack's experts run the batched GEMM 3 times per layer and decode
+    step; paged tokens equal ``dense``'s; ``frames``, one per prompt, go
+    with each request of an encoder-decoder family),
     greedy tokens printed, the graph readings of [3] (a warm run, every
     graph block and prefill replay bit for bit eager on a copy), two synced
     gated requants, peak memory, and (dense) a one-layer depth witness on
@@ -3051,6 +3092,7 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
     torch.cuda.reset_peak_memory_stats()
     kw = dict(kv_paged=True, kv_block_size=BLOCK) if paged else {}
     _, _, eng = build_engine(torch, dev, cfg, params, guards=True, **kw)
+    with_frames(eng, prompts, frames)
     build.reset_launches()
     with counted_steps(eng) as steps:
         outs, wall = serve(torch, eng, prompts)
@@ -3058,7 +3100,7 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
     n_tok = sum(len(o) for o in outs)
     check_outputs(cfg, outs, what)
     want = {"ttq_quantize", "ttq_gemm"}
-    if cfg.mla is None:
+    if attends(cfg):
         want.add("ttq_paged_decode_attention" if paged
                  else "ttq_decode_attention")
     if cfg.moe is not None:
@@ -3144,7 +3186,7 @@ def unit_witness(torch, cfg, eng, what) -> dict:
 
 # ------------------------------------------------------------- phase 3i
 
-def refusals(torch, dev, cfg, params) -> list:
+def refusals(torch, dev, cfg, params, phase="[3i]") -> list:
     """The reference's ValueErrors of a family without plain attention:
     the paged pool, speculation and chunked prefill."""
     out = []
@@ -3154,11 +3196,11 @@ def refusals(torch, dev, cfg, params) -> list:
         try:
             build_engine(torch, dev, cfg, params, guards=True, **kw)
         except ValueError as e:
-            check(match in str(e), f"[3i] {cfg.name} {kw}: {e}")
+            check(match in str(e), f"{phase} {cfg.name} {kw}: {e}")
             out.append(f"{next(iter(kw))}: {e}")
             continue
-        check(False, f"[3i] {cfg.name}: {kw} did not raise")
-    print(f"  [3i] {cfg.name} refuses: " + "; ".join(out))
+        check(False, f"{phase} {cfg.name}: {kw} did not raise")
+    print(f"  {phase} {cfg.name} refuses: " + "; ".join(out))
     return out
 
 
@@ -3318,31 +3360,33 @@ def long_attention(torch, dev) -> dict:
     return out
 
 
-def hybrid_long(torch, dev, cfg, params) -> dict:
-    """[3h] (a), past the window: one prompt of HYBRID_LONG tokens plus
-    MAX_NEW through [3]'s policy under the default guards (one slot): the
-    prefill stores the rolling layout and decode wraps the 2,048-row slab.
-    The cold run (every kernel of the dense path launched), a rerun (the
-    spare tree's decode graph), a timed warm run (no new graph), the
-    shadowed run of :func:`graph_vs_eager` (every
-    block and the prefill replay bit for bit eager), and the one-unit
-    witness on the admitted prompt, whose first decode step reads the
-    wrapped window."""
+def long_prompt(torch, dev, cfg, params, length, phase) -> dict:
+    """One prompt of ``length`` tokens plus MAX_NEW through [3]'s policy
+    under the default guards (one slot, exact-length prefill): [3h] (a)'s
+    past recurrentgemma-9b's window (the prefill stores the rolling layout
+    and decode wraps the 2,048-row slab), [3j] (a)'s across two of
+    mamba2-1.3b's SSD chunks (the scan's chunk recurrence, and the dt = 0
+    padding to a whole chunk).  The cold run (every kernel of the path
+    launched), a rerun (the spare tree's decode graph), a timed warm run
+    (no new graph), the shadowed run of :func:`graph_vs_eager` (every block
+    and the prefill replay bit for bit eager), and the one-unit witness on
+    the admitted prompt, whose first decode step reads the state the long
+    prefill left."""
     from repro_torch.kernels import build
-    what = f"[3h] {cfg.name} {HYBRID_LONG}-token prompt"
+    what = f"{phase} {cfg.name} {length}-token prompt"
     prompt = np.random.default_rng(SEED + 3).integers(
-        0, cfg.vocab, size=HYBRID_LONG).tolist()
+        0, cfg.vocab, size=length).tolist()
     torch.cuda.reset_peak_memory_stats()
     _, _, eng = build_engine(torch, dev, cfg, params, guards=True,
-                             max_slots=1, max_len=HYBRID_LONG + 2 * MAX_NEW)
+                             max_slots=1, max_len=length + 2 * MAX_NEW)
     build.reset_launches()
     outs, wall = serve(torch, eng, [prompt])
     launches = dict(build.LAUNCHES)
     check_outputs(cfg, outs, what)
-    check(all(launches[k] > 0 for k in ("ttq_quantize", "ttq_gemm",
-                                        "ttq_decode_attention"))
-          and launches["ttq_paged_decode_attention"] == 0,
-          f"{what}: launches {launches}")
+    want = {"ttq_quantize", "ttq_gemm"} | (
+        {"ttq_decode_attention"} if attends(cfg) else set())
+    check(all((launches[k] > 0) == (k in want) for k in launches),
+          f"{what}: launches {launches}, want {sorted(want)}")
     cold = eng.compiled_programs
     # one admission per run, one requant each: the cold run decodes on one
     # tree of the guards' swap, the first rerun on the other (its graph)
@@ -3386,7 +3430,7 @@ def hybrid_long(torch, dev, cfg, params) -> dict:
 def hybrid_and_vlm(torch, dev) -> dict:
     """Phase 3h: (c) long prefill attention; (a) recurrentgemma-9b at full
     width and depth, [3g]'s engine readings on the dense slab plus
-    :func:`hybrid_long`; (b) chameleon-34b at :func:`fit_depth` layers,
+    :func:`long_prompt`; (b) chameleon-34b at :func:`fit_depth` layers,
     dense then paged.  Returns the readings, each part's seconds and the
     kernels' launches over (a) and (b)'s engines."""
     from repro_torch.configs import get
@@ -3409,7 +3453,7 @@ def hybrid_and_vlm(torch, dev) -> dict:
           f"for {len(lens)} distinct prompt lengths (exact-length prefill); "
           f"stack {stack_spec(cfg)}")
     free(torch)
-    long = hybrid_long(torch, dev, cfg, params)
+    long = long_prompt(torch, dev, cfg, params, HYBRID_LONG, "[3h]")
     del params
     free(torch)
     out["a"] = dict(layers=cfg.n_layers, dense=dense, long=long,
@@ -3436,6 +3480,121 @@ def hybrid_and_vlm(torch, dev) -> dict:
     print(f"  [3h] seconds per part: "
           + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items())
           + f"; chameleon-34b at {depth} of 48 layers; launches {launches}")
+    return out
+
+
+# ------------------------------------------------------------- phase 3j
+
+def frames_replay(torch, dev, cfg, params) -> dict:
+    """[3j] (b)'s frames check: one prompt admitted twice at one prefill
+    key (one slot) with frames drawn apart from the seed.  The second
+    admission replays the graph the first captured, and must give the
+    eager prefill's results on its own frames bit for bit (first token,
+    statistics, every state leaf: the self cache, the cross k/v and
+    ``enc_out``), with an ``enc_out`` unlike the first's."""
+    r_frames = np.random.default_rng(SEED + 6).standard_normal(
+        (2, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
+    _, _, eng = build_engine(torch, dev, cfg, params, guards=True,
+                             max_slots=1)
+    r = eng.runner
+    prompt = make_prompts(cfg.vocab)[0]
+    outs, enc = [], []
+    real_admit = r.admit_group
+    seen = {}
+
+    def admit(p, group):
+        snap, n = clone_tree(torch, r.state), len(r._prefills)
+        first, fin, stats = real_admit(p, group)
+        if len(r._prefills) == n:
+            inp = {k: torch.from_numpy(v).to(dev)
+                   for k, v in r._prefill_inputs(group).items()}
+            want, want_stats = r._prefill(p, snap, inp, 0, None)
+            seen["same"] = (np.array_equal(first, want.cpu().numpy()),
+                            tree_equal(torch, stats, want_stats),
+                            tree_equal(torch, r.state, snap))
+        return first, fin, stats
+    r.admit_group = admit
+    try:
+        for f in r_frames:
+            rid = eng.submit(prompt, max_new=MAX_NEW, frames=f)
+            outs.append(list(eng.run_all()[rid]))
+            enc.append(r.state["enc_out"][0].clone())
+    finally:
+        del r.admit_group
+    check(len(r._prefills) == 1 and "same" in seen,
+          f"[3j] {cfg.name}: the second admission did not replay the "
+          f"prefill graph ({len(r._prefills)} prefill graphs)")
+    check(all(seen["same"]), f"[3j] {cfg.name}: the replay on new frames "
+          f"(first token, statistics, state) equal to the eager prefill on "
+          f"them: {seen['same']}")
+    check(not torch.equal(enc[0], enc[1]), f"[3j] {cfg.name}: enc_out did "
+          f"not change with the frames")
+    res = dict(replay_equal_eager=True, tokens_differ=outs[0] != outs[1],
+               leading_equal=leading_equal(outs[0], outs[1]))
+    print(f"  [3j] {cfg.name}: one prompt admitted twice with different "
+          f"frames: the second admission replayed the first's prefill "
+          f"graph, bit for bit the eager prefill on its own frames (first "
+          f"token, statistics, self cache, cross k/v, enc_out); greedy "
+          f"tokens {'differ' if res['tokens_differ'] else 'equal'} "
+          f"({res['leading_equal']} leading tokens equal)")
+    return res
+
+
+def ssm_and_encdec(torch, dev) -> dict:
+    """Phase 3j: (a) mamba2-1.3b at full width and all 48 layers, dense
+    slab (its SSD state admits no pool), through :func:`family_engine`
+    (one prefill graph per distinct prompt length), then one prompt of
+    SSM_LONG tokens across two SSD chunks (:func:`long_prompt`) and the
+    three refusals; (b) whisper-medium at full width and 24 + 24 layers,
+    dense slab, 8 requests with their own frames from the seed, then
+    :func:`frames_replay` and the three refusals.  Returns the readings,
+    each part's seconds and the kernels' launches over the engines."""
+    from repro_torch.models.stack import stack_spec
+    out, secs, launches = {}, {}, {}
+    t = time.perf_counter()
+    cfg, params = init_family(torch, dev, FAMILIES_3J[0])
+    prompts = make_prompts(cfg.vocab)
+    dense = family_engine(torch, dev, cfg, params, prompts, False,
+                          phase="[3j]")
+    lens = {len(p) for p in prompts}
+    check(dense["prefill_graphs"] == len(lens), f"[3j] {cfg.name}: "
+          f"{dense['prefill_graphs']} prefill graphs for {len(lens)} "
+          f"distinct prompt lengths")
+    print(f"  [3j] {cfg.name}: {dense['prefill_graphs']} prefill captures "
+          f"for {len(lens)} distinct prompt lengths (exact-length prefill); "
+          f"stack {stack_spec(cfg)}")
+    free(torch)
+    long = long_prompt(torch, dev, cfg, params, SSM_LONG, "[3j]")
+    free(torch)
+    dense["refusals"] = refusals(torch, dev, cfg, params, "[3j]")
+    del params
+    free(torch)
+    out["a"] = dict(layers=cfg.n_layers, dense=dense, long=long)
+    secs["a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    cfg, params = init_family(torch, dev, FAMILIES_3J[1])
+    prompts = make_prompts(cfg.vocab)
+    frames = np.random.default_rng(SEED + 5).standard_normal(
+        (len(prompts), cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
+    dense_w = family_engine(torch, dev, cfg, params, prompts, False,
+                            phase="[3j]", frames=frames)
+    free(torch)
+    dense_w["frames"] = frames_replay(torch, dev, cfg, params)
+    free(torch)
+    dense_w["refusals"] = refusals(torch, dev, cfg, params, "[3j]")
+    del params
+    free(torch)
+    out["b"] = dict(layers=cfg.n_layers,
+                    encoder_layers=cfg.encdec.n_enc_layers, dense=dense_w)
+    secs["b"] = time.perf_counter() - t
+    for r in (dense, long, dense_w):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"], out["seconds"] = launches, secs
+    print(f"  [3j] seconds per part: "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items())
+          + f"; launches {launches}")
     return out
 
 
@@ -3598,13 +3757,23 @@ def main(argv=None) -> int:
           f"dense slab and paged pool; [3]'s policy, default guards")
     moe = moe_family(torch, dev)
     print("    moe: " + json.dumps(moe, default=str))
+    free(torch)
+
+    print(f"[3j] the SSM and encoder-decoder families: (a) mamba2-1.3b "
+          f"full width and depth, dense slab, then a {SSM_LONG}-token prompt "
+          f"across two SSD chunks; (b) whisper-medium full width, 24 + 24 "
+          f"layers, dense slab, requests with frames from the seed, then one "
+          f"prompt on two frames through one prefill graph; [3]'s policy, "
+          f"default guards")
+    ssm = ssm_and_encdec(torch, dev)
+    print("    ssm and encdec: " + json.dumps(ssm, default=str))
 
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "
           "[3b]), the speculative path's ([3e]), the robustness and "
           "streaming path's ([3f] (a)-(g)) and the families' ([3g], "
-          "[3h], [3i]), counted per replay; ttq_gemm_experts per decode "
-          "step at deepseek-v2-lite's 27 layers")
+          "[3h], [3i], [3j]), counted per replay; ttq_gemm_experts per "
+          "decode step at deepseek-v2-lite's 27 layers")
     kernels = []
     spec_cases = ("a", "b", "b paged", "c")
     for name, (src, replaces, m) in rows.items():
@@ -3615,20 +3784,23 @@ def main(argv=None) -> int:
         fam_n = fam["launches"][name]
         hyb_n = hyb["launches"][name]
         moe_n = moe["launches"][name]
+        ssm_n = ssm["launches"][name]
         if name != "ttq_gemm_experts":
             check(fam_n > 0, f"{name} never launched in [3g]")
             check(hyb_n > 0, f"{name} never launched in [3h]")
         check(moe_n > 0, f"{name} never launched in [3i]")
+        if name in ("ttq_gemm", "ttq_quantize", "ttq_decode_attention"):
+            check(ssm_n > 0, f"{name} never launched in [3j]")
         print(f"  {name} launches: main path {main_n}, speculative path "
               f"{spec_n} ([3e] cold runs "
               + ", ".join(f"({k}) {spec[k]['launches'][name]}"
                           for k in spec_cases) + f"), robustness and "
               f"streaming path {rob_n}, families {fam_n} ([3g]), "
-              f"{hyb_n} ([3h]) and {moe_n} ([3i])")
+              f"{hyb_n} ([3h]), {moe_n} ([3i]) and {ssm_n} ([3j])")
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
                             launches=main_n + spec_n + rob_n + fam_n + hyb_n
-                            + moe_n, **m))
+                            + moe_n + ssm_n, **m))
     for cfg_name, t in experts_by_cfg.items():
         print(f"  ttq_gemm_experts per decode step at {cfg_name} "
               f"({moe_depths[cfg_name]} layers): {t['ms']:.3f} ms, bound "

@@ -20,8 +20,9 @@ the reference launcher's (``repro.launch.serve``):
   (:func:`~repro_torch.serving.faults.demo_injector`), ``--no-guards``;
 * streaming: ``--prefill-chunk``, ``--prefill-budget``, ``--max-queue``.
 
-``--arch`` takes the ported configs (``configs.ARCH_IDS``); ``--mesh N > 1``
-(tensor-parallel serving) is refused.
+``--arch`` takes the ten configs (``configs.ARCH_IDS``); an
+encoder-decoder arch's requests carry frames drawn from the same seed.
+``--mesh N > 1`` (tensor-parallel serving) is refused.
 """
 from __future__ import annotations
 
@@ -221,7 +222,11 @@ def main(argv=None):
     for _ in range(args.requests):
         plen = int(rng.integers(4, min(24, args.max_len // 2)))
         prompt = [int(t) for t in rng.integers(1, cfg.vocab, size=plen)]
-        eng.submit(prompt, max_new=args.max_new)
+        kw = {}
+        if cfg.family == "encdec":          # the stub front end's frames
+            kw["frames"] = np.asarray(rng.standard_normal(
+                (cfg.encdec.n_frames, cfg.d_model)), np.float32)
+        eng.submit(prompt, max_new=args.max_new, **kw)
     outs = eng.run_all()
     if dev.type == "cuda":
         torch.cuda.synchronize()

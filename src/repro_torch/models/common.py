@@ -128,6 +128,17 @@ def seq_update_batched(cache: torch.Tensor, new: torch.Tensor,
     return cache.scatter_(1, idx, new.to(cache.dtype))
 
 
+def sinusoidal_pos(n: int, d: int, device="cpu") -> torch.Tensor:
+    """(n, d) bf16 sinusoidal positions, [sin | cos] of pos · 10000^(-2i/d):
+    the encoder's positions over the stub front end's frames."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    inv = 1.0 / (10000.0 ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=device) / d))
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(
+        torch.bfloat16)
+
+
 def _attn_mask(qi, ki, causal: bool, window: int):
     """(S, Sk) bool: key ki visible to query qi (causal: ki ≤ qi; a window
     W > 0: qi − ki < W)."""

@@ -1,6 +1,7 @@
-"""Mixer layers — attention (the ``attn`` and windowed ``lattn`` kinds),
-DeepSeek's latent attention (``mla``) and the RG-LRU recurrent block
-(``rec``): init, sequence mode, decode; and the MoE MLP.
+"""Mixer layers — attention (the ``attn`` and windowed ``lattn`` kinds, the
+encoder's and the cross-attention of ``enc``/``xdec``), DeepSeek's latent
+attention (``mla``), the RG-LRU recurrent block (``rec``) and Mamba2's SSD
+(``ssd``): init, sequence mode, decode; and the MoE MLP.
 
   init_attn(gen, cfg, n, device)             → stacked param dict (n layers)
   attn_apply(cfg, p, x, stats, prefix, ...)  → prefill output [, (k, v)]
@@ -11,6 +12,8 @@ DeepSeek's latent attention (``mla``) and the RG-LRU recurrent block
   build_kv_compact                           → prefill rows for the pool
   init_rec / rec_apply / rec_decode / rec_init_state
                                              → the RG-LRU block
+  init_ssd / ssd_apply / ssd_decode / ssd_init_state
+                                             → Mamba2's SSD block
   init_mla / mla_apply / mla_decode / mla_init_state
                                              → latent attention (MLA)
   init_moe / moe_apply_dense                 → the MoE MLP (every expert
@@ -63,14 +66,17 @@ def init_attn(gen, cfg: ModelConfig, n: int, device):
     return p
 
 
-def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None):
-    """q, k, v (B, heads, S, hd); qk-norm (RMSNorm per head, before RoPE)
-    here, so prefill, decode, verify and chunked prefill all take it."""
+def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None, xkv=None):
+    """q, k, v (B, heads, S, hd): q from x, k and v from ``xkv`` (the
+    encoder output of cross-attention; default x).  qk-norm (RMSNorm per
+    head, before RoPE) here, so prefill, decode, verify and chunked prefill
+    all take it."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xkv = x if xkv is None else xkv
     q = linear(x, p["wq"], stats, prefix + "wq", kcfg).reshape(B, -1, H, hd)
-    k = linear(x, p["wk"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
-    v = linear(x, p["wv"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
+    k = linear(xkv, p["wk"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
+    v = linear(xkv, p["wv"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["qnorm"]["gamma"])
         k = rmsnorm(k, p["knorm"]["gamma"])
@@ -79,10 +85,14 @@ def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None):
 
 def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
                causal: bool = True, window: int = 0, pos0: int = 0,
-               return_kv: bool = False, kv_prefix=None, kvcfg=None,
-               kcfg=None):
+               x_cross=None, return_kv: bool = False, kv_prefix=None,
+               kvcfg=None, kcfg=None):
     """Sequence-mode attention, x (B,S,D) at absolute positions pos0.. ;
     a ``window`` W > 0 is local attention over the last W positions.
+    RoPE only where the config's positions are ``rope``.  ``x_cross``
+    (B,F,D): cross-attention over it, non-causal, without RoPE or KV
+    quantization (``return_kv`` gives its k/v, the decode's bf16 cross
+    cache).
     With a quantized ``kvcfg`` the attention reads the quantize→dequantize
     of k/v: exactly the values the cache will hold and every later decode
     step will read (so a re-prefill after preemption resumes on the same
@@ -90,15 +100,15 @@ def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
     (post-RoPE, e.g. a shared prompt prefix gathered from the paged pool)
     in front of this call's keys; the queries then start at ``pos0 == P``.
     ``return_kv`` returns only this call's k/v."""
-    q, k, v = _qkv(cfg, p, x, stats, prefix, kcfg)
+    q, k, v = _qkv(cfg, p, x, stats, prefix, kcfg, xkv=x_cross)
     S = x.shape[1]
-    if cfg.pos != "rope":
-        raise NotImplementedError("non-RoPE families come in a later slice")
-    pos = torch.arange(S, device=x.device) + pos0
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    cross = x_cross is not None
+    if cfg.pos == "rope" and not cross:
+        pos = torch.arange(S, device=x.device) + pos0
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     kf, vf = k, v
-    if kvcfg is not None and kvcfg.quantized:
+    if kvcfg is not None and kvcfg.quantized and not cross:
         kf, vf = (dequantize_kv(*quantize_kv(t, bits=kvcfg.bits,
                                              group_size=kvcfg.group_size),
                                 torch.float32, bits=kvcfg.bits,
@@ -109,7 +119,7 @@ def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
         kf = torch.cat([pk.to(kf.dtype), kf], dim=2)
         vf = torch.cat([pv.to(vf.dtype), vf], dim=2)
         q_off = pk.shape[2]
-    o = attention(q, kf, vf, causal=causal, window=window,
+    o = attention(q, kf, vf, causal=causal and not cross, window=window,
                   soft_cap=cfg.attn_soft_cap, q_offset=q_off)
     y = linear(o.transpose(1, 2).reshape(x.shape[0], S, -1), p["wo"], stats,
                prefix + "wo", kcfg)
@@ -302,14 +312,27 @@ def _kv_attention(q, state, cur, kvcfg, *, soft_cap: float = 0.0):
 
 
 def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
-                kcfg=None, block_table=None, rows=None):
+                kcfg=None, block_table=None, rows=None, cross_kv=None):
     """x (B,1,D); state bf16 {'k','v'} or quantized caches (``kvcfg``
     selects), updated in place; pos (B,) int32 per-slot positions.
     ``block_table`` (B, nblk) addresses the paged pool layout, and
-    ``rows`` (:func:`paged_rows`) are the pool rows this token writes."""
+    ``rows`` (:func:`paged_rows`) are the pool rows this token writes.
+    ``cross_kv`` (k, v), each (B,Hkv,F,hd) bf16: cross-attention, one query
+    over all F encoder rows through plain :func:`attention` (the reference
+    reads them outside any kernel); ``state`` is returned untouched."""
+    if cross_kv is not None:
+        B, (k, v) = x.shape[0], cross_kv
+        q = linear(x, p["wq"], kcfg=kcfg).reshape(B, 1, cfg.n_heads, cfg.hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["qnorm"]["gamma"])
+        o = attention(q.transpose(1, 2), k, v, causal=False,
+                      soft_cap=cfg.attn_soft_cap)
+        y = linear(o.transpose(1, 2).reshape(B, 1, -1), p["wo"], kcfg=kcfg)
+        return y, state
     q, k, v = _qkv(cfg, p, x, None, "", kcfg)
-    q = rope_decode(q, pos, cfg.rope_theta)
-    k = rope_decode(k, pos, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = rope_decode(q, pos, cfg.rope_theta)
+        k = rope_decode(k, pos, cfg.rope_theta)
     if kvcfg is not None and kvcfg.paged:
         st = _kv_append_paged(state, k, v, rows, kvcfg)
         o = _kv_attention_paged(q, st, block_table, pos, kvcfg,
@@ -335,8 +358,9 @@ def attn_decode_rolling(cfg: ModelConfig, p, x, state, pos, window: int, *,
     softmax needs no order), so the slab itself is the window and no
     window mask enters the dense attention kernel."""
     q, k, v = _qkv(cfg, p, x, None, "", kcfg)
-    q = rope_decode(q, pos, cfg.rope_theta)
-    k = rope_decode(k, pos, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = rope_decode(q, pos, cfg.rope_theta)
+        k = rope_decode(k, pos, cfg.rope_theta)
     wpos = torch.remainder(pos, window)
     cur = torch.clamp(pos, max=window - 1)
     if kvcfg is not None and kvcfg.quantized:
@@ -363,8 +387,9 @@ def attn_verify(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None, kcfg=None,
     Returns (y (B,S,D), state)."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, None, "", kcfg)
-    q = rope_window(q, pos, cfg.rope_theta)
-    k = rope_window(k, pos, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = rope_window(q, pos, cfg.rope_theta)
+        k = rope_window(k, pos, cfg.rope_theta)
     cap = cfg.attn_soft_cap
     if kvcfg is not None and kvcfg.paged:
         st = _kv_append_paged(state, k, v, rows, kvcfg)
@@ -466,7 +491,9 @@ def _linear_scan(a, b):
     """h_t = a_t·h_{t-1} + b_t from h_{-1} = 0 along dim 1, f32: a doubling
     (Hillis–Steele) scan of ⌈log₂ S⌉ elementwise steps, the port of the
     reference's ``associative_scan`` with its combine (a, b)∘(a', b') =
-    (a'·a, a'·b + b'), so a prefill graph stays small at long S."""
+    (a'·a, a'·b + b'), so a prefill graph stays small at long S.  ``a``
+    broadcasts against ``b`` (the SSD's per-head chunk decays over its
+    (P, N) chunk states)."""
     S, d = a.shape[1], 1
     while d < S:
         a_hi, b_hi = a[:, d:], b[:, d:]
@@ -516,6 +543,189 @@ def rec_decode(cfg: ModelConfig, p, x, state, *, kcfg=None):
     state["h"].copy_(h)
     state["conv"].copy_(conv_state)
     return y, state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality, chunked)
+# ---------------------------------------------------------------------------
+
+def init_ssd(gen, cfg: ModelConfig, n: int, device):
+    """``n`` stacked SSD blocks with the projections split: ``w_z``,
+    ``w_x`` (di, D), ``w_B``, ``w_C`` (G·N, D), ``w_dt`` (nh, D) and
+    ``w_out`` (D, di); the depthwise causal convs ``conv_x`` (W, di),
+    ``conv_B`` and ``conv_C`` (W, G·N) in bf16; f32 ``A_log`` = log U(1, 16),
+    ``Dskip`` ones and ``dt_bias`` = softplus⁻¹ U(1e-3, 0.1), each (nh,);
+    the gated RMSNorm ``norm`` (di,)."""
+    s, D = cfg.ssm, cfg.d_model
+    di = s.expand * D
+    nh, gn = di // s.head_dim, s.n_groups * s.d_state
+
+    def conv(width):
+        return (torch.randn((n, s.conv_width, width), generator=gen,
+                            device=device) * 0.1).to(DTYPE)
+
+    def uniform(lo, hi):
+        return torch.rand((n, nh), generator=gen, device=device) \
+            * (hi - lo) + lo
+    return {"w_z": init_linear(gen, n, di, D, device),
+            "w_x": init_linear(gen, n, di, D, device),
+            "w_B": init_linear(gen, n, gn, D, device),
+            "w_C": init_linear(gen, n, gn, D, device),
+            "w_dt": init_linear(gen, n, nh, D, device),
+            "conv_x": conv(di), "conv_B": conv(gn), "conv_C": conv(gn),
+            "A_log": torch.log(uniform(1.0, 16.0)),
+            "Dskip": torch.ones((n, nh), dtype=torch.float32, device=device),
+            "dt_bias": torch.log(torch.expm1(uniform(1e-3, 0.1))),
+            "norm": init_norm(di, "rms", n, device),
+            "w_out": init_linear(gen, n, D, di, device)}
+
+
+def _ssd_split(p, x, stats, prefix: str, kcfg=None):
+    """The five input projections z, x, B, C, dt of x (B,S,D); statistics
+    are tapped once, on ``w_x`` (the other four share its input and its
+    statistics, ``quant/api.py:STAT_ALIAS``)."""
+    z = linear(x, p["w_z"], None, kcfg=kcfg)
+    xr = linear(x, p["w_x"], stats, prefix + "w_x", kcfg)
+    Br = linear(x, p["w_B"], None, kcfg=kcfg)
+    Cr = linear(x, p["w_C"], None, kcfg=kcfg)
+    dt = linear(x, p["w_dt"], None, kcfg=kcfg)
+    return z, xr, Br, Cr, dt
+
+
+def _segsum(a):
+    """a (..., Q) log decays → (..., Q, Q): entry (i, j) the sum of
+    a[j+1..i] for i ≥ j, −inf above the diagonal."""
+    Q = a.shape[-1]
+    c = torch.cumsum(a, dim=-1)
+    diff = c[..., :, None] - c[..., None, :]
+    ii = torch.arange(Q, device=a.device)
+    return torch.where(ii[:, None] >= ii[None, :], diff,
+                       torch.full_like(diff, float("-inf")))
+
+
+def ssd_scan(xh, dt, A, Bm, Cm, chunk: int, h0=None):
+    """Chunked SSD (Mamba2's algorithm 1) in f32.  xh (B,S,H,P), dt
+    (B,S,H), A (H,), Bm/Cm (B,S,G,N), S a multiple of min(chunk, S); h0
+    (B,H,P,N) the state carried in, or None (zeros) → y (B,S,H,P), the last
+    state (B,H,P,N).  Within a chunk the quadratic (attention-like) form;
+    across chunks the recurrence over chunk states, the reference's
+    ``associative_scan`` with its combine as a doubling scan
+    (:func:`_linear_scan`), so a prefill graph has no loop that depends on
+    data."""
+    Bsz, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    nc, rep = S // Q, H // G
+    xc = (xh.float() * dt[..., None]).reshape(Bsz, nc, Q, H, P)
+    lc = (-A[None, None] * dt).reshape(Bsz, nc, Q, H)      # log decays
+    Bc = Bm.float().reshape(Bsz, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    Cc = Cm.float().reshape(Bsz, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(lc, dim=2)                           # (B,nc,Q,H)
+    L = torch.exp(_segsum(lc.transpose(2, 3)))              # (B,nc,H,Q,Q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", scores * L, xc)
+    decay_states = torch.exp(cum[:, :, -1:, :] - cum)       # (B,nc,Q,H)
+    states = torch.einsum("bcqhn,bcqhp->bchpn", Bc * decay_states[..., None],
+                          xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])               # (B,nc,H)
+    if h0 is not None:
+        states = torch.cat([states[:, :1] + chunk_decay[:, :1, :, None, None]
+                            * h0[:, None], states[:, 1:]], dim=1)
+    run = _linear_scan(chunk_decay[..., None, None], states)
+    h_last = run[:, -1]                                     # (B,H,P,N)
+    first = torch.zeros_like(run[:, :1]) if h0 is None else h0[:, None]
+    prev = torch.cat([first, run[:, :-1]], dim=1)
+    y_off = torch.einsum("bcqhn,bchpn->bcqhp", Cc * torch.exp(cum)[..., None],
+                         prev)
+    return (y_diag + y_off).reshape(Bsz, S, H, P), h_last
+
+
+def _ssd_gate(p, y, z, x_dtype):
+    """The gated RMSNorm and its input: rmsnorm(y) · silu(z)."""
+    return rmsnorm(y.to(x_dtype), p["norm"]["gamma"]) \
+        * ACT["silu"](z.float()).to(x_dtype)
+
+
+def ssd_apply(cfg: ModelConfig, p, x, stats, prefix: str, *, state=None,
+              return_state: bool = False, kcfg=None):
+    """Sequence-mode SSD block, x (B,S,D) → y (B,S,D) [, state]: the five
+    projections, the three causal convs (over ``state``'s conv histories,
+    zeros without one), SiLU, :func:`ssd_scan` from ``state['h']`` (zeros
+    without one), the D skip, the gated norm and ``w_out``.  A length past
+    one chunk that is no multiple of it is padded with dt = 0 steps (decay
+    1, contribution 0: the state passes through them).  ``return_state``
+    adds {'h' (B,nh,P,N) f32, 'conv_x', 'conv_B', 'conv_C' (B,W-1,·)}."""
+    s = cfg.ssm
+    B, Sq = x.shape[:2]
+    nh = s.expand * cfg.d_model // s.head_dim
+    z, xr, Br, Cr, dt = _ssd_split(p, x, stats, prefix, kcfg)
+    st = state or {}
+    xc, cs_x = _causal_conv(xr, p["conv_x"], st.get("conv_x"))
+    Bc, cs_B = _causal_conv(Br, p["conv_B"], st.get("conv_B"))
+    Cc, cs_C = _causal_conv(Cr, p["conv_C"], st.get("conv_C"))
+    silu = ACT["silu"]
+    xi = silu(xc.float()).reshape(B, Sq, nh, s.head_dim)
+    Bm = silu(Bc.float()).reshape(B, Sq, s.n_groups, s.d_state)
+    Cm = silu(Cc.float()).reshape(B, Sq, s.n_groups, s.d_state)
+    dtv = torch.nn.functional.softplus(dt.float() + p["dt_bias"].float())
+    A = torch.exp(p["A_log"].float())
+    padn = (-Sq) % min(s.chunk, max(Sq, 1))
+    pad = lambda t: torch.nn.functional.pad(  # noqa: E731
+        t, (0, 0) * (t.dim() - 2) + (0, padn))
+    y, h_last = ssd_scan(pad(xi), pad(dtv), A, pad(Bm), pad(Cm), s.chunk,
+                         st.get("h"))
+    y = y[:, :Sq] + p["Dskip"].float()[None, None, :, None] * xi
+    y = _ssd_gate(p, y.reshape(B, Sq, -1), z, x.dtype)
+    out = linear(y, p["w_out"], stats, prefix + "w_out", kcfg)
+    if return_state:
+        return out, {"h": h_last, "conv_x": cs_x, "conv_B": cs_B,
+                     "conv_C": cs_C}
+    return out
+
+
+def ssd_init_state(cfg: ModelConfig, batch: int, device="cuda"):
+    """One SSD layer's decode state: 'h' (B,nh,P,N) f32 and the conv
+    histories 'conv_x' (B,W-1,di), 'conv_B', 'conv_C' (B,W-1,G·N) bf16."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    nh, gn, w = di // s.head_dim, s.n_groups * s.d_state, s.conv_width - 1
+    z = lambda *shape, dt=DTYPE: torch.zeros(  # noqa: E731
+        (batch, *shape), dtype=dt, device=device)
+    return {"h": z(nh, s.head_dim, s.d_state, dt=torch.float32),
+            "conv_x": z(w, di), "conv_B": z(w, gn), "conv_C": z(w, gn)}
+
+
+def ssd_decode(cfg: ModelConfig, p, x, state, *, kcfg=None):
+    """One token x (B,1,D) through the block: h ← e^{−A·dt}·h + dt·B⊗x,
+    y = C·h + D·x.  The new h and the three conv histories are copied
+    into ``state``'s tensors in place, as :func:`rec_decode` does (a
+    decode graph reads the state at fixed addresses)."""
+    s = cfg.ssm
+    B = x.shape[0]
+    nh = s.expand * cfg.d_model // s.head_dim
+    z, xr, Br, Cr, dt = _ssd_split(p, x, None, "", kcfg)
+    xc, cs_x = _causal_conv(xr, p["conv_x"], state["conv_x"])
+    Bc, cs_B = _causal_conv(Br, p["conv_B"], state["conv_B"])
+    Cc, cs_C = _causal_conv(Cr, p["conv_C"], state["conv_C"])
+    silu, rep = ACT["silu"], nh // s.n_groups
+    xi = silu(xc.float())[:, 0].reshape(B, nh, s.head_dim)
+    Bm = silu(Bc.float())[:, 0].reshape(B, s.n_groups, s.d_state) \
+        .repeat_interleave(rep, dim=1)                      # (B,H,N)
+    Cm = silu(Cc.float())[:, 0].reshape(B, s.n_groups, s.d_state) \
+        .repeat_interleave(rep, dim=1)
+    dtv = torch.nn.functional.softplus(dt.float()[:, 0]
+                                       + p["dt_bias"].float())   # (B,H)
+    decay = torch.exp(-torch.exp(p["A_log"].float()) * dtv)
+    h = state["h"] * decay[..., None, None] \
+        + torch.einsum("bh,bhp,bhn->bhpn", dtv, xi, Bm)
+    y = torch.einsum("bhpn,bhn->bhp", h, Cm) \
+        + p["Dskip"].float()[None, :, None] * xi
+    y = _ssd_gate(p, y.reshape(B, 1, -1), z, x.dtype)
+    out = linear(y, p["w_out"], kcfg=kcfg)
+    for k, v in (("h", h), ("conv_x", cs_x), ("conv_B", cs_B),
+                 ("conv_C", cs_C)):
+        state[k].copy_(v)
+    return out, state
 
 
 # ---------------------------------------------------------------------------

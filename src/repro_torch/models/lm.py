@@ -16,13 +16,18 @@
                    detect_faults=False)      → ((tokens, valid[, fault]),
                                                 carry)
 
-``batch`` is a dict {'tokens': (B,S) int}.  Decode updates ``state`` in
-place (the KV caches, MLA's latent and rope-key caches, and a hybrid
-stack's recurrent h and conv history); a paged state's ``block_table``
-addresses its pools.  The stack is a list of runs of units
-(``models/stack.py``): one run of ``attn`` layers for the dense, vlm and
-llama4-style MoE families, of ``mla`` layers for deepseek's, runs of (rec,
-rec, lattn) for the hybrid.
+``batch`` is a dict {'tokens': (B,S) int} and, for the encoder-decoder
+family, 'frames' (B, n_frames, d_model): the stub front end's frame
+embeddings, which the encoder stack reads.  Decode updates ``state`` in
+place (the KV caches, MLA's latent and rope-key caches, and the recurrent
+h and conv histories of a hybrid or SSM stack); a paged state's
+``block_table`` addresses its pools.  The stack is a list of runs of
+units (``models/stack.py``): one run of ``attn`` layers for the dense, vlm
+and llama4-style MoE families, of ``mla`` layers for deepseek's, of
+``ssd`` layers for mamba2's, of ``xdec`` layers (beside an ``enc_stack``
+of ``enc`` layers) for whisper's, runs of (rec, rec, lattn) for the
+hybrid.  A config with learned positions adds ``pos_embed`` (max_seq, D)
+at each token's position.
 """
 from __future__ import annotations
 
@@ -31,31 +36,61 @@ import torch
 from repro_torch._device import resolve_device
 
 from . import stack as S
-from .common import init_norm, linear, norm, sample_logits
+from .common import init_norm, linear, norm, sample_logits, sinusoidal_pos
 from .config import ModelConfig
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device="cuda") -> dict:
-    """Seeded random init at the config's shapes (bf16 weights, f32 norms).
-    Runs on the card unless ``device="cpu"``."""
+    """Seeded random init at the config's shapes (bf16 weights, f32 norms):
+    the reference's tree, with ``pos_embed`` (max_seq, D) ~ N(0, 0.02²)
+    for learned positions and the encoder's ``enc_stack`` and ``enc_norm``
+    for the encoder-decoder family.  Runs on the card unless
+    ``device="cpu"``."""
     dev = resolve_device(device)
-    S.stack_spec(cfg)                       # rejects families not ported
-    if not cfg.tie_embeddings or cfg.pos != "rope":
-        raise NotImplementedError("untied heads / learned positions: later slice")
+    if not cfg.tie_embeddings:
+        raise NotImplementedError("an untied vocab head: no config has one")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     D = cfg.d_model
-    embed = torch.empty((cfg.vocab, D), dtype=torch.bfloat16, device=dev)
-    rows = max(1, (1 << 26) // D)           # draw ≤ 256 MB of f32 at a time
-    for r0 in range(0, cfg.vocab, rows):
-        n = min(rows, cfg.vocab - r0)
-        embed[r0:r0 + n] = (torch.randn((n, D), generator=generator,
-                                        device=dev) * D ** -0.5).to(embed.dtype)
-    return {"embed": embed,
-            "stack": S.init_stack(generator, cfg, S.stack_spec(cfg), dev),
-            "final_norm": init_norm(D, "rms" if cfg.norm == "rms" else "layer",
-                                    device=dev)}
+    nk = "rms" if cfg.norm == "rms" else "layer"
+
+    def table(n, sd):
+        t = torch.empty((n, D), dtype=torch.bfloat16, device=dev)
+        rows = max(1, (1 << 26) // D)       # draw ≤ 256 MB of f32 at a time
+        for r0 in range(0, n, rows):
+            k = min(rows, n - r0)
+            t[r0:r0 + k] = (torch.randn((k, D), generator=generator,
+                                        device=dev) * sd).to(t.dtype)
+        return t
+    p = {"embed": table(cfg.vocab, D ** -0.5),
+         "stack": S.init_stack(generator, cfg, S.stack_spec(cfg), dev),
+         "final_norm": init_norm(D, nk, device=dev)}
+    if cfg.pos == "learned":
+        p["pos_embed"] = table(cfg.max_seq, 0.02)
+    if cfg.family == "encdec":
+        p["enc_stack"] = S.init_stack(generator, cfg, S.enc_spec(cfg), dev)
+        p["enc_norm"] = init_norm(D, nk, device=dev)
+    return p
+
+
+def _embed(cfg, params, tokens, pos0: int = 0):
+    """Token embeddings (B,S,D), plus learned positions pos0.. ."""
+    x = params["embed"][tokens.long()]
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][pos0:pos0 + tokens.shape[1]][None]
+    return x
+
+
+def _encode(cfg, params, frames, stats_on=False):
+    """The encoder: frames (B,F,D) in bf16 plus sinusoidal positions
+    through ``enc_stack`` and ``enc_norm`` → (enc_out (B,F,D), its
+    per-run statistics or None)."""
+    x = frames.to(torch.bfloat16) + sinusoidal_pos(
+        frames.shape[1], cfg.d_model, frames.device)[None]
+    x, stats, _ = S.apply_stack_seq(cfg, params["enc_stack"], S.enc_spec(cfg),
+                                    x, stats_on=stats_on)
+    return norm(x, params["enc_norm"]), stats
 
 
 def _head(cfg, params, x, kcfg=None):
@@ -66,16 +101,23 @@ def forward(cfg: ModelConfig, params, batch, *, collect_stats=False,
             want_state=False, max_len=0, kcfg=None):
     """Full-sequence forward: logits (B, S, V) f32 for every position.
     Returns (logits, stats, states): stats {'stack': [per-run dict of (L, d)
-    Σx² leaves]} keyed by parameter path when ``collect_stats``, else None;
-    states the per-run decode states when ``want_state`` (a ``max_len``
-    slab), else empty."""
-    x = params["embed"][batch["tokens"].long()]
+    Σx² leaves]} (and 'enc_stack', the encoder's) keyed by parameter path
+    when ``collect_stats``, else None; states the per-run decode states
+    when ``want_state`` (a ``max_len`` slab), else empty."""
+    stats, enc_out = {}, None
+    if cfg.family == "encdec":
+        enc_out, enc_stats = _encode(cfg, params, batch["frames"],
+                                     collect_stats)
+        if collect_stats:
+            stats["enc_stack"] = enc_stats
+    x = _embed(cfg, params, batch["tokens"])
     x, run_stats, states = S.apply_stack_seq(
         cfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
-        want_state=want_state, max_len=max_len, kcfg=kcfg)
+        want_state=want_state, max_len=max_len, kcfg=kcfg, enc_out=enc_out)
+    stats["stack"] = run_stats
     x = norm(x, params["final_norm"])
     logits = _head(cfg, params, x, kcfg)
-    return logits, ({"stack": run_stats} if collect_stats else None), states
+    return logits, (stats if collect_stats else None), states
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
@@ -85,7 +127,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
     ``num_blocks`` blocks and the state carries ``block_table`` (B,
     max_len/block_size) int32, each row a slot's logical → physical block
     map; 0 is the sink block for unallocated entries and done-lane
-    writes."""
+    writes.  The encoder-decoder family's state also holds ``enc_out``
+    (B, n_frames, D) bf16."""
     dev = resolve_device(device)
     paged = kvcfg is not None and kvcfg.paged
     if paged:
@@ -101,6 +144,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
         st["block_table"] = torch.zeros(
             (batch, max_len // kvcfg.block_size), dtype=torch.int32,
             device=dev)
+    if cfg.family == "encdec":
+        st["enc_out"] = torch.zeros((batch, cfg.encdec.n_frames, cfg.d_model),
+                                    dtype=torch.bfloat16, device=dev)
     return st
 
 
@@ -116,19 +162,29 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, *,
     cached prefix k/v (per run, (k, v) with a leading layer dim, post-RoPE)
     at offset ``pos0``.  A paged state holds this call's rows only, at the
     storage dtype; ``compact_state`` gives a dense cache that layout too
-    (chunked prefill: the runner writes the rows)."""
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
+    (chunked prefill: the runner writes the rows).  The encoder-decoder
+    family first encodes ``batch['frames']``: its state adds ``enc_out``
+    and each ``xdec`` layer's cross k/v, its stats ``enc_stack``."""
+    stats, enc_out = {}, None
+    if cfg.family == "encdec":
+        enc_out, enc_stats = _encode(cfg, params, batch["frames"],
+                                     collect_stats)
+        if collect_stats:
+            stats["enc_stack"] = enc_stats
+    x = _embed(cfg, params, batch["tokens"], pos0)
     x, run_stats, states = S.apply_stack_seq(
         cfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
         want_state=True, max_len=max_len, kvcfg=kvcfg, pos0=pos0,
-        prefix_kv=prefix_kv, compact_state=compact_state)
+        prefix_kv=prefix_kv, compact_state=compact_state, enc_out=enc_out)
+    stats["stack"] = run_stats
     x = norm(x, params["final_norm"])
     logits = _head(cfg, params, x if full_logits else x[:, -1:])
     if not full_logits:
         logits = logits[:, 0]
-    stats = {"stack": run_stats} if collect_stats else None
-    return logits, {"stack": states}, stats
+    state = {"stack": states}
+    if enc_out is not None:
+        state["enc_out"] = enc_out
+    return logits, state, (stats if collect_stats else None)
 
 
 def decode_step(cfg: ModelConfig, params, state, token, pos, *, kvcfg=None,
@@ -137,6 +193,8 @@ def decode_step(cfg: ModelConfig, params, state, token, pos, *, kvcfg=None,
     f32, state).  The state's caches are written in place."""
     pos = pos.to(torch.int32).expand(token.shape[0])
     x = params["embed"][token.long()]
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][pos.long()][:, None]
     x, _ = S.apply_stack_decode(cfg, params["stack"], S.stack_spec(cfg),
                                 state["stack"], x, pos, kvcfg=kvcfg,
                                 kcfg=kcfg,
@@ -204,6 +262,9 @@ def verify_window(cfg: ModelConfig, params, state, tokens, pos, *, kvcfg=None,
     are written in place."""
     pos = pos.to(torch.int32).expand(tokens.shape[0])
     x = params["embed"][tokens.long()]
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][pos.long()[:, None] + torch.arange(
+            tokens.shape[1], device=pos.device)]
     x, _ = S.apply_stack_verify(cfg, params["stack"], S.stack_spec(cfg),
                                 state["stack"], x, pos, kvcfg=kvcfg,
                                 kcfg=kcfg,

@@ -1,8 +1,11 @@
 """Layer stack — runs of units of layer kinds: ``attn`` (dense, vlm and
-llama4-style MoE decoders), ``mla`` (DeepSeek's latent attention), and the
+llama4-style MoE decoders), ``mla`` (DeepSeek's latent attention), the
 hybrid family's ``rec`` (RG-LRU) and ``lattn`` (local attention over a
-window).  The MLP of a layer is a GLU, a plain MLP or, in the MoE family,
-the experts plus a shared expert (:func:`mlp_kind`).
+window), Mamba2's ``ssd``, and the encoder-decoder's ``enc`` (non-causal
+self-attention; the encoder stack, :func:`enc_spec`) and ``xdec``
+(self-attention, then cross-attention over the encoder output).  The MLP
+of a layer is a GLU, a plain MLP, in the MoE family the experts plus a
+shared expert, or none in an ``ssd`` layer (:func:`mlp_kind`).
 
 A stack is a list of runs; a run repeats a unit (a tuple of kinds) n
 times.  Parameters keep the reference's stacked layout:
@@ -24,9 +27,9 @@ from .config import ModelConfig
 
 
 def mixer_kinds(cfg: ModelConfig) -> set:
-    """The reference's layer kinds of a family (``stack_spec`` there),
-    ported or not: what self-speculative decoding checks before refusing a
-    family without plain attention."""
+    """The mixer kinds of a family's decoder stack: what self-speculative
+    decoding and chunked prefill check before refusing a family without
+    plain attention."""
     if cfg.family == "hybrid":
         return {"lattn" if k == "attn" else k for k in cfg.hybrid.pattern}
     kind = {"ssm": "ssd", "encdec": "xdec"}.get(cfg.family)
@@ -36,11 +39,11 @@ def mixer_kinds(cfg: ModelConfig) -> set:
 
 
 def stack_spec(cfg: ModelConfig):
-    """[(unit_kinds, n_repeat)]: one run of plain attention (or, with an
-    MLA config, ``mla``) layers, or for the hybrid family its pattern
-    repeated (``attn`` → ``lattn``) and a run of the pattern's head for the
-    layers left over (recurrentgemma-9b: 12 × (rec, rec, lattn) and 1 ×
-    (rec, rec))."""
+    """[(unit_kinds, n_repeat)] of the decoder stack: one run of layers of
+    the family's kind (``ssd``, ``xdec``, ``mla`` with an MLA config, else
+    ``attn``), or for the hybrid family its pattern repeated (``attn`` →
+    ``lattn``) and a run of the pattern's head for the layers left over
+    (recurrentgemma-9b: 12 × (rec, rec, lattn) and 1 × (rec, rec))."""
     if cfg.family == "hybrid":
         pat = tuple("lattn" if k == "attn" else k for k in cfg.hybrid.pattern)
         n_full, rem = divmod(cfg.n_layers, len(pat))
@@ -48,17 +51,23 @@ def stack_spec(cfg: ModelConfig):
         if rem:
             runs.append((pat[:rem], 1))
         return runs
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} (SSM/enc-dec layers) is ported in a "
-            f"later slice")
-    return [(("mla" if cfg.mla is not None else "attn",), cfg.n_layers)]
+    return [(tuple(mixer_kinds(cfg)), cfg.n_layers)]
+
+
+def enc_spec(cfg: ModelConfig):
+    """The encoder stack of the encoder-decoder family: one run of
+    ``enc`` layers."""
+    return [(("enc",), cfg.encdec.n_enc_layers)]
 
 
 def mlp_kind(cfg: ModelConfig, kind: str) -> str:
-    """A layer's MLP: ``moe`` in the MoE family, else the config's
-    ``glu`` or ``plain``."""
-    return "moe" if cfg.moe is not None else cfg.mlp
+    """A layer's MLP: none in an ``ssd`` layer, ``moe`` in the MoE family
+    (but for an encoder layer), else the config's ``glu`` or ``plain``."""
+    if kind == "ssd":
+        return "none"
+    if cfg.moe is not None and kind != "enc":
+        return "moe"
+    return cfg.mlp
 
 
 def layer_slice(tree, i):
@@ -71,19 +80,25 @@ def layer_slice(tree, i):
 
 
 def init_layer(gen, cfg: ModelConfig, kind: str, n: int, device):
-    """``n`` stacked layers of ``kind``."""
-    mix = {"attn": L.init_attn, "lattn": L.init_attn, "rec": L.init_rec,
-           "mla": L.init_mla}.get(kind)
+    """``n`` stacked layers of ``kind``: ``ln1`` and the mixer ``mix``; an
+    ``xdec`` layer's ``lnx`` and cross-attention ``xattn``; ``ln2`` and
+    the ``mlp`` where the layer has one."""
+    mix = {"attn": L.init_attn, "lattn": L.init_attn, "enc": L.init_attn,
+           "xdec": L.init_attn, "rec": L.init_rec, "mla": L.init_mla,
+           "ssd": L.init_ssd}.get(kind)
     if mix is None:
-        raise NotImplementedError(f"layer kind {kind!r}: later slice")
-    mk = mlp_kind(cfg, kind)
-    if mk not in ("glu", "plain", "moe"):
-        raise NotImplementedError(f"mlp {mk!r}: later slice")
+        raise ValueError(kind)
     D, F = cfg.d_model, cfg.d_ff
     nk = "rms" if cfg.norm == "rms" else "layer"
     p = {"ln1": init_norm(D, nk, n, device),
-         "mix": mix(gen, cfg, n, device),
-         "ln2": init_norm(D, nk, n, device)}
+         "mix": mix(gen, cfg, n, device)}
+    if kind == "xdec":
+        p["lnx"] = init_norm(D, nk, n, device)
+        p["xattn"] = L.init_attn(gen, cfg, n, device)
+    mk = mlp_kind(cfg, kind)
+    if mk == "none":
+        return p
+    p["ln2"] = init_norm(D, nk, n, device)
     if mk == "moe":
         p["mlp"] = L.init_moe(gen, cfg, n, device)
     elif mk == "glu":
@@ -105,22 +120,32 @@ def layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 kvcfg=None, num_blocks: int = 0, device="cuda"):
     """One layer's decode state: an ``attn`` cache of max_len rows, an
     ``lattn`` one of min(max_len, window) rows (the rolling window), the
-    ``rec`` block's h and conv history, the ``mla`` latent and rope-key
-    caches.  A paged cache holds plain attention layers only (windowed,
-    latent and recurrent states stay dense)."""
+    ``rec`` block's h and conv history, the ``ssd`` block's h and conv
+    histories, the ``mla`` latent and rope-key caches, an ``xdec`` layer's
+    self-attention cache and its bf16 cross k/v ``xk``/``xv`` (B, Hkv,
+    n_frames, hd), computed once from the encoder at prefill.  A paged
+    cache holds plain attention layers only (windowed, latent, recurrent
+    and cross states stay dense)."""
     if kvcfg is not None and kvcfg.paged and kind != "attn":
         raise ValueError(f"paged KV cache supports plain attention layers "
                          f"only, got {kind!r} (windowed/latent/recurrent "
                          f"states stay dense)")
     if kind == "rec":
         return L.rec_init_state(cfg, batch, device)
+    if kind == "ssd":
+        return L.ssd_init_state(cfg, batch, device)
     if kind == "mla":
         return L.mla_init_state(cfg, batch, max_len, device)
     if kind == "lattn":
         max_len = min(max_len, cfg.hybrid.window)
-    elif kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r}: later slice")
-    return L.attn_init_state(cfg, batch, max_len, kvcfg, device, num_blocks)
+    elif kind not in ("attn", "xdec"):
+        raise ValueError(kind)
+    st = L.attn_init_state(cfg, batch, max_len, kvcfg, device, num_blocks)
+    if kind == "xdec":
+        shape = (batch, cfg.n_kv_heads, cfg.encdec.n_frames, cfg.hd)
+        st["xk"] = torch.zeros(shape, dtype=L.DTYPE, device=device)
+        st["xv"] = torch.zeros(shape, dtype=L.DTYPE, device=device)
+    return st
 
 
 def init_stack_state(cfg: ModelConfig, spec, batch: int, max_len: int,
@@ -138,10 +163,13 @@ def init_stack_state(cfg: ModelConfig, spec, batch: int, max_len: int,
     return out
 
 
-def _mlp_apply(cfg, p, x, stats, prefix, kcfg=None):
+def _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg=None):
+    mk = mlp_kind(cfg, kind)
+    if mk == "none":
+        return x
     h = norm(x, p["ln2"])
-    if cfg.moe is None:
-        mlp = glu_mlp if cfg.mlp == "glu" else plain_mlp
+    if mk != "moe":
+        mlp = glu_mlp if mk == "glu" else plain_mlp
         return x + mlp(h, p["mlp"], stats, prefix + "mlp", cfg.act, kcfg)
     pp = prefix + "mlp."
     y = L.moe_apply_dense(cfg, p["mlp"], h, stats, pp, kcfg=kcfg)
@@ -154,7 +182,7 @@ def _mlp_apply(cfg, p, x, stats, prefix, kcfg=None):
 def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
                     want_state: bool = False, max_len: int = 0, kvcfg=None,
                     kcfg=None, pos0: int = 0, kv_prefix=None,
-                    compact_state: bool = False):
+                    compact_state: bool = False, enc_out=None):
     """Prefill through one layer.  Returns (x, state|None).  ``kv_prefix``
     (k, v) is cached context in front of this call's tokens, which start at
     ``pos0``.  A paged cache (or ``compact_state``) returns this call's
@@ -162,17 +190,22 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
     writes them into the pool or the slab.  An ``lattn`` layer attends
     over its window and keeps the last min(max_len, window) rows, rolled
     so that position p lies in row p % window once the prompt fills the
-    window; a ``rec`` layer returns its recurrent state."""
+    window; a ``rec`` or ``ssd`` layer returns its recurrent state; an
+    ``enc`` layer attends without a causal mask; an ``xdec`` layer then
+    attends over ``enc_out`` (B,F,D) and keeps its cross k/v."""
     h = norm(x, p["ln1"])
     st = None
-    if kind == "rec":
+    if kind in ("rec", "ssd"):
+        apply = L.rec_apply if kind == "rec" else L.ssd_apply
         if want_state:
-            y, st = L.rec_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                                return_state=True, kcfg=kcfg)
+            y, st = apply(cfg, p["mix"], h, stats, prefix + "mix.",
+                          return_state=True, kcfg=kcfg)
         else:
-            y = L.rec_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                            kcfg=kcfg)
-        return _mlp_apply(cfg, p, x + y, stats, prefix, kcfg), st
+            y = apply(cfg, p["mix"], h, stats, prefix + "mix.", kcfg=kcfg)
+        return _mlp_apply(cfg, kind, p, x + y, stats, prefix, kcfg), st
+    if kind == "xdec":
+        return _xdec_seq(cfg, p, x, h, stats, prefix, want_state, max_len,
+                         pos0, enc_out, kvcfg, kcfg)
     if kind == "mla":
         if want_state:
             y, cache = L.mla_apply(cfg, p["mix"], h, stats, prefix + "mix.",
@@ -183,12 +216,14 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
         else:
             y = L.mla_apply(cfg, p["mix"], h, stats, prefix + "mix.",
                             pos0=pos0, kcfg=kcfg)
-        return _mlp_apply(cfg, p, x + y, stats, prefix, kcfg), st
+        return _mlp_apply(cfg, kind, p, x + y, stats, prefix, kcfg), st
     window = cfg.hybrid.window if kind == "lattn" else 0
+    causal = kind != "enc"
     if want_state:
         y, (k, v) = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                                 window=window, pos0=pos0, return_kv=True,
-                                 kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg)
+                                 causal=causal, window=window, pos0=pos0,
+                                 return_kv=True, kv_prefix=kv_prefix,
+                                 kvcfg=kvcfg, kcfg=kcfg)
         if compact_state or (kvcfg is not None and kvcfg.paged):
             st = L.build_kv_compact(k, v, kvcfg)
         else:
@@ -201,10 +236,39 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
             st = L.build_kv_state(cfg, x.shape[0], ml, k, v, kvcfg)
     else:
         y = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                         window=window, pos0=pos0, kv_prefix=kv_prefix,
-                         kvcfg=kvcfg, kcfg=kcfg)
+                         causal=causal, window=window, pos0=pos0,
+                         kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg)
     x = x + y
-    return _mlp_apply(cfg, p, x, stats, prefix, kcfg), st
+    return _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg), st
+
+
+def _xdec_seq(cfg, p, x, h, stats, prefix, want_state, max_len, pos0,
+              enc_out, kvcfg, kcfg):
+    """An ``xdec`` layer in sequence mode (``h`` = ln1(x)): causal
+    self-attention (its cache a max_len slab), then cross-attention over
+    ``enc_out`` from ``lnx``, then the MLP.  With ``want_state`` the state
+    adds the cross k/v in bf16 (the reference's: computed once, never
+    quantized)."""
+    st = None
+    if want_state:
+        y, (k, v) = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
+                                 pos0=pos0, return_kv=True, kvcfg=kvcfg,
+                                 kcfg=kcfg)
+        st = L.build_kv_state(cfg, x.shape[0], max_len, k, v, kvcfg)
+    else:
+        y = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.", pos0=pos0,
+                         kcfg=kcfg)
+    x = x + y
+    hx = norm(x, p["lnx"])
+    if want_state:
+        yx, (xk, xv) = L.attn_apply(cfg, p["xattn"], hx, stats,
+                                    prefix + "xattn.", x_cross=enc_out,
+                                    return_kv=True, kcfg=kcfg)
+        st["xk"], st["xv"] = xk.to(L.DTYPE), xv.to(L.DTYPE)
+    else:
+        yx = L.attn_apply(cfg, p["xattn"], hx, stats, prefix + "xattn.",
+                          x_cross=enc_out, kcfg=kcfg)
+    return _mlp_apply(cfg, "xdec", p, x + yx, stats, prefix, kcfg), st
 
 
 def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
@@ -213,6 +277,16 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
     h = norm(x, p["ln1"])
     if kind == "rec":
         y, st = L.rec_decode(cfg, p["mix"], h, state, kcfg=kcfg)
+    elif kind == "ssd":
+        y, st = L.ssd_decode(cfg, p["mix"], h, state, kcfg=kcfg)
+    elif kind == "xdec":
+        self_kv = {k: v for k, v in state.items() if k not in ("xk", "xv")}
+        y, _ = L.attn_decode(cfg, p["mix"], h, self_kv, pos, kvcfg=kvcfg,
+                             kcfg=kcfg)
+        x = x + y
+        y, st = L.attn_decode(cfg, p["xattn"], norm(x, p["lnx"]), state,
+                              pos, cross_kv=(state["xk"], state["xv"]),
+                              kcfg=kcfg)
     elif kind == "mla":
         y, st = L.mla_decode(cfg, p["mix"], h, state, pos, kcfg=kcfg)
     elif kind == "lattn":
@@ -223,7 +297,7 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
         y, st = L.attn_decode(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
                               kcfg=kcfg, block_table=block_table, rows=rows)
     x = x + y
-    return _mlp_apply(cfg, p, x, None, "", kcfg), st
+    return _mlp_apply(cfg, kind, p, x, None, "", kcfg), st
 
 
 def apply_layer_verify(cfg: ModelConfig, kind: str, p, x, state, pos, *,
@@ -239,17 +313,18 @@ def apply_layer_verify(cfg: ModelConfig, kind: str, p, x, state, pos, *,
     y, st = L.attn_verify(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
                           kcfg=kcfg, block_table=block_table, rows=rows)
     x = x + y
-    return _mlp_apply(cfg, p, x, None, "", kcfg), st
+    return _mlp_apply(cfg, kind, p, x, None, "", kcfg), st
 
 
 def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
                     want_state=False, max_len=0, kvcfg=None, kcfg=None,
                     pos0: int = 0, prefix_kv=None,
-                    compact_state: bool = False):
+                    compact_state: bool = False, enc_out=None):
     """Prefill over all runs.  Returns (x, stats_list, state_list) with
     stats and states stacked over each run's layers.  ``prefix_kv`` (tail
     prefill over a cached prefix of ``pos0`` tokens): per run, (k, v) with
-    a leading layer dim; layer i attends to (k[i], v[i])."""
+    a leading layer dim; layer i attends to (k[i], v[i]).  ``enc_out``:
+    the encoder output every ``xdec`` layer attends over."""
     all_stats, all_states = [], []
     for ri, ((kinds, n), rp) in enumerate(zip(spec, run_params)):
         pk = None if prefix_kv is None else prefix_kv[ri]
@@ -264,7 +339,8 @@ def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
                                         f"u{j}.", want_state=want_state,
                                         max_len=max_len, kvcfg=kvcfg,
                                         kcfg=kcfg, pos0=pos0, kv_prefix=kvp,
-                                        compact_state=compact_state)
+                                        compact_state=compact_state,
+                                        enc_out=enc_out)
                 if st is not None:
                     states[f"u{j}"] = st
             per_layer_stats.append(stats)

@@ -42,7 +42,12 @@ from repro_torch.core.ttq import QuantizedTensor
 # wg stack alone is 8.5 GB in f32.
 RESIDUAL_BYTES = 4 << 30
 
-# projections sharing their input with a tapped sibling (one tap per input)
+# the stacked subtrees whose weights are joined to statistics by path
+STACKS = ("stack", "enc_stack")
+
+# projections sharing their input with a tapped sibling (one tap per input);
+# the cross-attention's wk/wv take wq's statistics although their input is
+# the encoder output (the reference's join, kept as it is)
 STAT_ALIAS = {"wk": "wq", "wv": "wq", "wkv_a": "wq", "wu": "wg",
               "w_in": "w_branch", "w_z": "w_x", "w_B": "w_x", "w_C": "w_x",
               "w_dt": "w_x"}
@@ -111,9 +116,9 @@ def _stat_key_in(run: dict, rel: tuple) -> Optional[str]:
 
 def _stat_for(stats, parts):
     """The stats leaf (lead..., d) for a parameter path, or None."""
-    if parts[0] != "stack" or not stats or "stack" not in stats:
+    if parts[0] not in STACKS or not stats or parts[0] not in stats:
         return None
-    run = stats["stack"][int(parts[1])]
+    run = stats[parts[0]][int(parts[1])]
     key = _stat_key_in(run, tuple(parts[2:]))
     return None if key is None else run[key]
 
@@ -182,7 +187,7 @@ def quantize_params(params, stats, policy: QuantPolicy, *, count=1.0,
         if qz.requires_stats and stat is None:
             continue
         if stat is None:
-            if (leaf.dim() < 3) if path[0] == "stack" else leaf.dim() != 2:
+            if (leaf.dim() < 3) if path[0] in STACKS else leaf.dim() != 2:
                 continue        # a stacked (L, d) vector is no weight
             stat = torch.zeros(leaf.shape[:-2] + leaf.shape[-1:],
                                dtype=torch.float32, device=leaf.device)
@@ -222,6 +227,7 @@ class _Member:
     d: int
     eff: QuantPolicy
     stat_key: Optional[tuple]      # (run index, stats key) or None → zeros
+    stat_tree: str = "stack"       # the stats subtree: "stack", "enc_stack"
 
 
 class FusedRequantPlan:
@@ -247,15 +253,15 @@ class FusedRequantPlan:
                 if _stat_for(stats, parts) is None:
                     continue
                 stat_key = (int(parts[1]), _stat_key_in(
-                    stats["stack"][int(parts[1])], tuple(parts[2:])))
-            elif parts[0] != "stack" or leaf.dim() < 3:
+                    stats[parts[0]][int(parts[1])], tuple(parts[2:])))
+            elif parts[0] not in STACKS or leaf.dim() < 3:
                 continue
             dp, d = leaf.shape[-2:]
             has_ba = (lowrank_tree is not None
                       and _tree_get(lowrank_tree, path) is not None)
             member = _Member(path=tuple(path), path_str=ps,
                              lead=tuple(leaf.shape[:-2]), dp=dp, d=d,
-                             eff=eff, stat_key=stat_key)
+                             eff=eff, stat_key=stat_key, stat_tree=parts[0])
             if not has_ba and _factored(eff, leaf):
                 self.families[("eager", ps)] = [member]
                 continue
@@ -362,7 +368,7 @@ class FusedRequantPlan:
 
     def _stat(self, stats, m: _Member):
         return None if m.stat_key is None else \
-            stats["stack"][m.stat_key[0]][m.stat_key[1]]
+            stats[m.stat_tree][m.stat_key[0]][m.stat_key[1]]
 
     def run(self, params, stats, count, lowrank_tree=None, *, only=None,
             into=None):

@@ -42,10 +42,12 @@ import dataclasses
 import time
 from typing import Dict, Optional
 
+import numpy as np
+
 from repro_torch._device import resolve_device
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.stack import mixer_kinds, stack_spec
+from repro_torch.models.stack import mixer_kinds
 from repro_torch.quant import CalibrationSession, QuantizedModel
 from repro_torch.quant.guards import GuardConfig
 from repro_torch.quant.model import _AUTO
@@ -123,7 +125,6 @@ class TTQEngine:
                 f"prefill_chunk needs a plain-attention family, got "
                 f"{sorted(mixer_kinds(cfg))} (chunked ingestion gathers and "
                 f"extends one per-layer k/v context per chunk)")
-        stack_spec(cfg)                       # rejects families not ported
         self.device = resolve_device(device)
         if ecfg.decode_chunk <= 0:
             ecfg = dataclasses.replace(
@@ -362,15 +363,31 @@ class TTQEngine:
 
     # --------------------------------------------------------------- serving
 
-    def submit(self, prompt, max_new: int = 16, deadline_s=None,
-               priority: int = 0) -> int:
+    def submit(self, prompt, max_new: int = 16, frames=None,
+               deadline_s=None, priority: int = 0) -> int:
         """Queue a request; refuses prompts the engine cannot admit, and
-        raises ``QueueFull`` at ``max_queue``.  ``deadline_s`` (seconds from
-        now, 0 none; default ``EngineConfig.deadline_s``) fails the request
-        with ``error == "deadline"`` once it is past, queued or running;
-        ``priority`` (lower = more urgent) orders admission, preemption and
-        chunked ingestion."""
-        return self.scheduler.submit(prompt, max_new, deadline_s=deadline_s,
+        raises ``QueueFull`` at ``max_queue``.  ``frames`` (n_frames,
+        d_model), or (1, n_frames, d_model): the encoder-decoder family's
+        input, which its encoder reads at admission (required there, refused
+        elsewhere).  ``deadline_s`` (seconds from now, 0 none; default
+        ``EngineConfig.deadline_s``) fails the request with ``error ==
+        "deadline"`` once it is past, queued or running; ``priority`` (lower
+        = more urgent) orders admission, preemption and chunked
+        ingestion."""
+        if (frames is None) != (self.cfg.family != "encdec"):
+            raise ValueError(
+                f"frames go with the encoder-decoder family only, and it "
+                f"needs them (family {self.cfg.family!r}, frames "
+                f"{'missing' if frames is None else 'given'})")
+        if frames is not None:
+            want = (self.cfg.encdec.n_frames, self.cfg.d_model)
+            frames = np.asarray(frames, np.float32)
+            if frames.shape not in (want, (1, *want)):
+                raise ValueError(f"frames of shape {frames.shape}, want "
+                                 f"{want}")
+            frames = frames.reshape(want)
+        return self.scheduler.submit(prompt, max_new, frames=frames,
+                                     deadline_s=deadline_s,
                                      now=self._clock(), priority=priority)
 
     def set_stream_callbacks(self, on_token=None, on_finish=None):

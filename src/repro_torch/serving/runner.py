@@ -33,8 +33,9 @@ decode state, ``cur_tok``/``pos``/``done``/``remaining`` (written in
 place; the block ends by copying its carry into them), the parameter tree
 (a requant lands in place, ``quant/api.py:FusedRequantPlan.run``) and a
 prefill graph's input buffers (tokens, last-row index, slots, the paged
-block rows and prefix table), which each admission writes in place.  A
-tree at new storage has a new layout and gets its own graph, so a replay
+block rows and prefix table, an encoder-decoder group's frames), which
+each admission writes in place.  A tree at new storage has a new layout
+and gets its own graph, so a replay
 never reads a stale tree.  The prefill graphs share one memory pool: they
 replay one at a time, and each replay's outputs (first tokens, stats) are
 consumed before the next.  On the CPU both run eagerly, the plain
@@ -60,7 +61,9 @@ layout), in the prefill graphs' memory pool.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import time
 
 import numpy as np
@@ -78,11 +81,14 @@ from .blocks import SINK
 
 def _write_slots(batched, src, idx: torch.Tensor):
     """Write the rows of a batch-``n`` prefill state into slots ``idx`` of
-    the batched decode state, in place (stack leaves are (L, B, ...))."""
+    the batched decode state, in place (stack leaves are (L, B, ...), the
+    encoder output ``enc_out`` (B, ...))."""
     for run_b, run_s in zip(batched["stack"], src["stack"]):
         for u in run_b:
             for k, leaf in run_b[u].items():
                 leaf[:, idx] = run_s[u][k].to(leaf.dtype)
+    if "enc_out" in src:
+        batched["enc_out"][idx] = src["enc_out"].to(batched["enc_out"].dtype)
 
 
 def _write_paged(pools, compact, phys: torch.Tensor, block_size: int):
@@ -186,6 +192,24 @@ def _layout(tree):
     return tree
 
 
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cycle collector off for the block.  A graph capture runs
+    under it: the collector may otherwise free cyclic garbage in the middle
+    of the capture, such as an engine no longer referenced whose runner
+    holds captured graphs, and freeing a graph calls CUDA, which a
+    capturing stream forbids ("operation not permitted when stream is
+    capturing"), invalidating the capture.  The garbage is collected after
+    the capture instead."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 @dataclasses.dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
@@ -247,10 +271,11 @@ class DeviceRunner:
     def _prefill_inputs(self, group) -> dict:
         """A group's prefill inputs as host arrays: tokens (n, bucket) — the
         prompts past ``prefix_len``, right-padded — the last real row of
-        each, the slots; paged, each written logical block's physical block
-        (pad blocks past the prompt, and logical blocks a request does not
-        own, go to the sink), the slots' block-table rows and, after a
-        prefix hit, the prefix's blocks."""
+        each, the slots; the encoder-decoder family's frames (n, n_frames,
+        D) f32, each request's own; paged, each written logical block's
+        physical block (pad blocks past the prompt, and logical blocks a
+        request does not own, go to the sink), the slots' block-table rows
+        and, after a prefix hit, the prefix's blocks."""
         reqs, pfx = group.requests, group.prefix_len
         toks = np.zeros((len(reqs), group.bucket), np.int32)
         for i, r in enumerate(reqs):
@@ -259,6 +284,8 @@ class DeviceRunner:
         plens = np.asarray([len(r.prompt) for r in reqs], np.int64)
         inp = dict(tokens=toks, last=plens - pfx - 1,
                    slots=np.asarray(group.slots, np.int64))
+        if self.cfg.family == "encdec":
+            inp["frames"] = np.stack([r.frames for r in reqs])
         if self.paged:
             bs = self.kvcfg.block_size
             nbw, pb0 = -(-group.bucket // bs), pfx // bs
@@ -280,17 +307,19 @@ class DeviceRunner:
     def _prefill(self, params, state, inp: dict, pfx: int, generator):
         """An admission group's device work, the body of a prefill graph:
         the stack with the stats tap on (a paged tail over the prefix
-        gathered from the pool), each row's last-position logits, the cache
-        writes into ``state`` (the slots' slab rows, or the pool blocks and
-        block-table rows) and the first tokens.  ``inp``: the tensors of
-        :meth:`_prefill_inputs`.  Returns (first tokens (n,) int32,
-        stats)."""
+        gathered from the pool; the encoder over the frames first), each
+        row's last-position logits, the cache writes into ``state`` (the
+        slots' slab rows, with the cross k/v and ``enc_out``, or the pool
+        blocks and block-table rows) and the first tokens.  ``inp``: the
+        tensors of :meth:`_prefill_inputs`.  Returns (first tokens (n,)
+        int32, stats)."""
         prefix_kv = None
         if pfx:
             prefix_kv = _gather_prefix(state["stack"], inp["ptab"],
                                        self.kvcfg)
+        batch = {k: inp[k] for k in ("tokens", "frames") if k in inp}
         logits, sstate, stats = lm.prefill(
-            self.cfg, params, {"tokens": inp["tokens"]}, self.ecfg.max_len,
+            self.cfg, params, batch, self.ecfg.max_len,
             collect_stats=True, full_logits=True, kvcfg=self.kvcfg,
             prefix_kv=prefix_kv, pos0=pfx)
         n = inp["tokens"].shape[0]
@@ -311,7 +340,9 @@ class DeviceRunner:
         group prefills only the prompt tails past its ``prefix_len``, over
         the prefix gathered from the pool, and scatters the tails' rows into
         each slot's blocks.  On a CUDA device that work is one replay of the
-        group shape's prefill graph (captured at its first admission).
+        group shape's prefill graph (captured at its first admission); an
+        encoder-decoder group's frames are staged into the graph's input
+        buffer, so a replay encodes the admitted requests' own frames.
 
         Returns (first tokens (n,), finished (n,)) as host arrays — one sync
         for the group — and the group's statistics (a graph's outputs: the
@@ -527,7 +558,8 @@ class DeviceRunner:
         """Run ``fn`` once eagerly on the side stream (the warm-up: cuBLAS
         handles and workspaces, the kernel library and the split rules'
         caches are set up outside the capture), then capture its work as a
-        graph without running it, stored in ``graphs[key]``.  Returns the
+        graph without running it, stored in ``graphs[key]``, with the cycle
+        collector paused (:func:`_collector_paused`).  Returns the
         warm run's result and the seconds both took."""
         t0 = time.perf_counter()
         if self._stream is None:
@@ -541,7 +573,8 @@ class DeviceRunner:
         if self.generator is not None and self.ecfg.temperature > 0:
             graph.register_generator_state(self.generator)
         before = dict(build.LAUNCHES)
-        with torch.cuda.graph(graph, pool=pool, stream=self._stream):
+        with _collector_paused(), torch.cuda.graph(graph, pool=pool,
+                                                   stream=self._stream):
             out = fn()
         launches = {k: build.LAUNCHES[k] - n for k, n in before.items()}
         build.LAUNCHES.update(before)   # captured, not launched

@@ -31,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 from collections import deque
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from .blocks import BlockAllocator
 
@@ -75,6 +75,7 @@ class Request:
     priority: int = 0               # class: lower = more urgent
     prefilled: int = 0              # chunked prefill: rows resident
     tok_times: list = dataclasses.field(default_factory=list)  # emit times
+    frames: Any = None              # encoder-decoder: (n_frames, D) f32
 
     def __post_init__(self):
         if not self.orig_len:
@@ -173,7 +174,7 @@ class Scheduler:
             return self.ecfg.max_len
         return min(max(self.ecfg.prompt_buckets), self.ecfg.max_len)
 
-    def submit(self, prompt, max_new: int = 16,
+    def submit(self, prompt, max_new: int = 16, frames=None,
                deadline_s: Optional[float] = None, now: float = 0.0,
                priority: int = 0) -> int:
         prompt = list(prompt)
@@ -203,7 +204,8 @@ class Scheduler:
         rid = next(self._rid)
         dl = float(self.ecfg.deadline_s if deadline_s is None else deadline_s)
         self.queue.append(Request(rid, prompt, max_new, deadline_s=dl,
-                                  submit_t=float(now), priority=int(priority)))
+                                  submit_t=float(now), priority=int(priority),
+                                  frames=frames))
         return rid
 
     # ------------------------------------------------------------- streaming

@@ -108,15 +108,17 @@ class TTQServer:
     # -------------------------------------------------------------- serving
 
     async def generate(self, prompt, max_new: int = 16, priority: int = 0,
-                       deadline_s=None):
+                       deadline_s=None, frames=None):
         """Tokens as the engine emits them.  Awaits at the concurrency bound
         before submitting; abandoning the generator cancels the request.
         Raises :class:`RequestFailed` when the request lands with an error;
-        a cancellation just ends the stream."""
+        a cancellation just ends the stream.  ``frames``: an
+        encoder-decoder request's input (``TTQEngine.submit``)."""
         rid, done = None, False
         await self._acquire()
         try:
-            rid, q = await self._open(prompt, max_new, priority, deadline_s)
+            rid, q = await self._open(prompt, max_new, priority, deadline_s,
+                                      frames)
             while True:
                 ev = await q.get()
                 if isinstance(ev, GenResult):
@@ -129,13 +131,14 @@ class TTQServer:
             self._close(rid, done)
 
     async def complete(self, prompt, max_new: int = 16, priority: int = 0,
-                       deadline_s=None) -> GenResult:
+                       deadline_s=None, frames=None) -> GenResult:
         """A whole generation's :class:`GenResult` (an error is returned in
         ``.error``, not raised)."""
         rid, done = None, False
         await self._acquire()
         try:
-            rid, q = await self._open(prompt, max_new, priority, deadline_s)
+            rid, q = await self._open(prompt, max_new, priority, deadline_s,
+                                      frames)
             while True:
                 ev = await q.get()
                 if isinstance(ev, GenResult):
@@ -149,13 +152,14 @@ class TTQServer:
             raise RuntimeError("server not started")
         await self._sem.acquire()
 
-    async def _open(self, prompt, max_new, priority, deadline_s):
+    async def _open(self, prompt, max_new, priority, deadline_s, frames):
         """Hand the submit to the worker; await the rid."""
         fut = self._loop.create_future()
         q: asyncio.Queue = asyncio.Queue()
-        self._cmds.put(("submit", list(prompt),
-                        dict(max_new=max_new, priority=priority,
-                             deadline_s=deadline_s), fut, q))
+        kw = dict(max_new=max_new, priority=priority, deadline_s=deadline_s)
+        if frames is not None:
+            kw["frames"] = frames
+        self._cmds.put(("submit", list(prompt), kw, fut, q))
         self._wake.set()
         return await fut, q
 

@@ -20,6 +20,8 @@ each prefill replay's first tokens, statistics and written cache rows to
 the eager prefill's; the double buffer's two trees are held apart.
 Inputs come from numpy or torch generators with a seed."""
 import contextlib
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -36,7 +38,7 @@ from repro_torch.models.config import MLACfg, ModelConfig, MoECfg
 from repro_torch.quant import FusedRequantPlan, QuantizedModel
 from repro_torch.serving import EngineConfig, TTQEngine
 from repro_torch.serving.blocks import SINK
-from repro_torch.serving.runner import _layout
+from repro_torch.serving.runner import _collector_paused, _layout
 
 CPU_CFG = ModelConfig(name="graph-t", family="dense", n_layers=2, d_model=64,
                       n_heads=4, n_kv_heads=2, d_ff=96, vocab=128)
@@ -907,6 +909,79 @@ def test_chunk_replay_equals_eager(gpu_params, cuda, paged):
             assert eng.prefill_chunks > 4 and seen["replayed"] > 0
             assert len(eng.runner._chunks) >= 3
     assert outs[0] == outs[1]
+
+
+def test_collector_paused_restores_its_state():
+    """The capture window's pause of the cycle collector leaves it as it
+    found it, on an exception too."""
+    was = gc.isenabled()
+    try:
+        gc.enable()
+        with pytest.raises(KeyError):
+            with _collector_paused():
+                assert not gc.isenabled()
+                raise KeyError
+        assert gc.isenabled()
+        gc.disable()
+        with _collector_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
+@pytest.mark.gpu
+def test_capture_survives_collecting_an_earlier_graph(gpu_params, cuda):
+    """Graphs of an earlier engine that become cyclic garbage while a
+    runner captures (an engine dropped by an earlier test holds such
+    graphs): freeing a graph calls CUDA, which the capturing stream
+    forbids, so the cycle collector must not run inside the capture
+    window.  Here an engine serves two requests (its decode and prefill
+    graphs captured and replayed), its graphs become garbage in a cycle
+    inside a later capture, and allocations that stay alive make the
+    collector run there at once (a threshold of 1).  The capture must
+    succeed, its replay compute what the eager call does, and the graphs
+    be freed after the capture, not inside it."""
+    old = _engine(GPU_CFG, gpu_params, _policy(), cuda)
+    for p in _prompts(35, 2, GPU_CFG.vocab, 5, 20):
+        old.submit(p, max_new=9)
+    old.run_all()
+    gs = [*old.runner._graphs.values(), *old.runner._prefills.values()]
+    freed = []
+    for g in gs:
+        weakref.finalize(g.graph, lambda: freed.append(
+            torch.cuda.is_current_stream_capturing()))
+    held = [gs]
+    del gs, g
+    old.runner._graphs.clear()
+    old.runner._prefills.clear()
+    x = torch.arange(8, dtype=torch.float32, device=cuda)
+    r = _engine(GPU_CFG, gpu_params, _policy(), cuda).runner
+
+    def body():
+        if torch.cuda.is_current_stream_capturing() and held:
+            box = [held.pop()]
+            box.append(box)             # the graphs' last reference, a cycle
+            del box
+            junk = [[] for _ in range(4096)]    # kept alive: the collector
+            del junk                            # runs on their count
+        return x + 1
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        graphs = {}
+        warm, _ = r._capture(body, graphs, "key")
+    finally:
+        gc.set_threshold(*threshold)
+    assert not held and gc.isenabled()
+    gc.collect()
+    assert len(freed) >= 2 and not any(freed)
+    x.add_(1)
+    out = r._replay(graphs["key"])
+    torch.cuda.synchronize()
+    assert torch.equal(warm, torch.arange(1, 9, dtype=torch.float32,
+                                          device=cuda))
+    assert torch.equal(out, x + 1)
 
 
 @pytest.mark.gpu
