@@ -133,6 +133,20 @@
    self-attention cache, then one prompt admitted twice with different
    frames, the second a replay of the first's prefill graph bit for bit
    the eager prefill on its own frames, and the three refusals.
+3k. Training, which launches none of the kernels (its products are plain
+   ``x @ wᵀ`` on bf16 weights): (a) gemma-7b at full width on the depth
+   ``train_fit_depth`` gives (9 of 28 layers on an 80 GB card), batch 8 ×
+   512 from ``token_stream`` in 2 microbatches, f32 masters, bf16 compute,
+   AdamW, remat: one cold step and WARM_3K warm ones (every loss finite,
+   the last below the first), ms per step, tokens/s, the model-FLOPs share
+   of the dense bf16 peak and peak memory; then on RESTORE_DEPTH_3K layers
+   a step after a save and restore through ``CheckpointManager`` equal to
+   the live step (bit for bit, or within 2·lr); ``python -m
+   repro_torch.launch.train --smoke --steps 3`` in process; (b) the
+   reference example's 100m preset for STEPS_3K_B steps (fewer past
+   TRAIN_BUDGET_3K_B seconds), then its held-out perplexity report: fp,
+   and RTN / AWQ calibrated on domain 1 / TTQ (rank 16, zero calibration)
+   at 4 and 3 bits, g32 (readings only).
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -241,6 +255,22 @@ MOE_3I = ("deepseek_v2_lite_16b", "llama4_scout_17b_a16e")
 # that crosses two of mamba2-1.3b's SSD chunks of 256
 FAMILIES_3J = ("mamba2_1p3b", "whisper_medium")
 SSM_LONG = 600
+# phase 3k: training.  (a) gemma-7b at full width, batch 8 × seq 512 in
+# two microbatches, at the depth TRAIN_BYTES_PER_PARAM leaves room for:
+# f32 master, m and v (12 B), the bf16 compute copy and its gradient (4 B)
+# and the f32 accumulated gradient (4 B) per parameter, beside the head's
+# f32 logits of one microbatch and their exp, gradient and a spare
+# (4 × 4 B per logit) and FIT_RESERVE_GB.  The save/restore check runs on
+# RESTORE_DEPTH_3K layers: the whole opt state goes through np.savez.
+# (b) the reference's 100m preset (examples/train_ttq_lm.py:24-29).
+TRAIN_BYTES_PER_PARAM = 20
+BATCH_3K, SEQ_3K, MB_3K, WARM_3K = 8, 512, 2, 10
+RESTORE_DEPTH_3K = 1
+PRESET_100M = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
+                   d_ff=2304, vocab=32768, seq=1024, batch=32)
+STEPS_3K_B = 300
+TRAIN_BUDGET_3K_B = 120.0      # seconds of (b)'s training before it stops
+DENSE_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 peak
 
 
 class CheckFailed(RuntimeError):
@@ -3598,6 +3628,277 @@ def ssm_and_encdec(torch, dev) -> dict:
     return out
 
 
+def train_fit_depth(torch, cfg, tokens_per_mb: int) -> int:
+    """The most layers of ``cfg`` the card trains at TRAIN_BYTES_PER_PARAM
+    per parameter, after the tied embedding's share, the head's f32 logits
+    of one microbatch (4 × 4 B per logit) and FIT_RESERVE_GB."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    room = (total - cfg.vocab * cfg.d_model * TRAIN_BYTES_PER_PARAM
+            - 16 * tokens_per_mb * cfg.vocab - FIT_RESERVE_GB * 1e9)
+    per_layer = layer_params(cfg, "attn")[0] * TRAIN_BYTES_PER_PARAM
+    return int(room // per_layer)
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step (PaLM's count): 6 per parameter
+    per token over the layers' linears and the tied head (V·D), plus
+    12·L·H·hd·S per token for attention (no causal halving); remat's
+    recomputation is not counted."""
+    lin = cfg.n_layers * layer_params(cfg, "attn")[0] + cfg.vocab * cfg.d_model
+    return tokens * (6 * lin + 12 * cfg.n_layers * cfg.n_heads * cfg.hd * seq)
+
+
+def state_digest(torch, opt_state) -> list:
+    """Host copies of the masters, to compare two runs of one step."""
+    from repro_torch._tree import tree_leaves
+    return [t.detach().cpu() for t in tree_leaves(opt_state["master"])]
+
+
+def restored_step(torch, dev, cfg, tc, dc) -> dict:
+    """Train 2 steps, save the opt state through ``CheckpointManager``, run
+    step 3 (live); restore the checkpoint into the trainer and run step 3
+    again on the same batch.  Its loss and masters must equal the live
+    ones: bit for bit when the card repeats its arithmetic, else within
+    2·lr (one AdamW step moves a master by at most ~lr)."""
+    import shutil
+    import tempfile
+    from repro_torch.data import token_stream
+    from repro_torch.training import Trainer
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        tc = dataclasses.replace(tc, checkpoint_every=2, checkpoint_dir=tmp)
+        tr = Trainer(cfg, tc, token_stream(dc, 0, device=dev), device=dev)
+        t0 = time.perf_counter()
+        tr.run(2)
+        save_s = time.perf_counter() - t0 - sum(m["time_s"]
+                                                for m in tr.metrics_log)
+        live = tr.run(1)[-1]
+        live_m = state_digest(torch, tr.opt_state)
+        check(tr.ckpt.latest_step() == 2, "[3k] no checkpoint at step 2")
+        t0 = time.perf_counter()
+        tr.data = token_stream(dc, 0, start_step=2, device=dev)
+        check(tr.restore_if_available() and tr.step == 2,
+              "[3k] the restore did not find step 2")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        again = tr.run(1)[-1]
+        again_m = state_digest(torch, tr.opt_state)
+        bitwise = again["loss"] == live["loss"] and all(
+            torch.equal(a, b) for a, b in zip(live_m, again_m))
+        diff = max(float((a - b).abs().max()) for a, b in zip(live_m, again_m))
+        nbytes_ = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(tmp) for f in fs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(abs(again["loss"] - live["loss"]) <= 1e-5 * abs(live["loss"])
+          and diff <= 2 * live["lr"],
+          f"[3k] the restored step differs from the live one: loss "
+          f"{again['loss']} vs {live['loss']}, max |master diff| {diff}")
+    out = dict(layers=cfg.n_layers, loss_live=live["loss"],
+               loss_restored=again["loss"], max_master_diff=diff,
+               bitwise=bitwise, checkpoint_gb=nbytes_ / 1e9,
+               save_s=save_s, restore_s=restore_s)
+    print(f"  [3k] (a) save/restore at {cfg.n_layers} layer(s): "
+          f"{nbytes_ / 1e9:.2f} GB on disk, saved in {save_s:.1f} s, restored "
+          f"in {restore_s:.1f} s; step 3 loss live {live['loss']!r} restored "
+          f"{again['loss']!r}, max |master diff| {diff:.3g}, bit for bit "
+          f"{bitwise}")
+    return out
+
+
+def train_gemma(torch, dev) -> dict:
+    """Phase 3k (a): gemma-7b at full width trained with the reference's
+    defaults (f32 masters, bf16 compute, AdamW, remat, 2 microbatches) at
+    ``train_fit_depth`` layers on batches from ``token_stream`` (domain
+    0): one cold step, then WARM_3K warm ones; then the save/restore check
+    on RESTORE_DEPTH_3K layers and the train CLI for 3 steps."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, token_stream
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import TrainConfig, Trainer
+    full = get("gemma_7b")
+    tokens = BATCH_3K * SEQ_3K
+    depth = min(full.n_layers, train_fit_depth(torch, full, tokens // MB_3K))
+    cfg = dataclasses.replace(full, n_layers=depth)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=SEQ_3K, batch=BATCH_3K,
+                    seed=SEED)
+    tc = TrainConfig(n_microbatches=MB_3K, remat=True, warmup=2,
+                     total_steps=100)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, token_stream(dc, 0, device=dev), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(tr.opt_state["master"]))
+    print(f"  [3k] (a) {cfg.name} full width, {depth} of {full.n_layers} "
+          f"layers (train_fit_depth at {TRAIN_BYTES_PER_PARAM} B per "
+          f"parameter); {n_params / 1e9:.3f} B parameters; init {init_s:.1f} s"
+          f", {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    log = tr.run(1 + WARM_3K)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in log]
+    check(all(np.isfinite(losses)), f"[3k] (a) a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"[3k] (a) the loss did not fall: {losses}")
+    warm = [m["time_s"] * 1e3 for m in log[1:]]
+    ms = statistics.median(warm)
+    flops = train_flops(cfg, tokens, SEQ_3K)
+    out = dict(layers=depth, params=n_params, cold_ms=log[0]["time_s"] * 1e3,
+               ms=ms, ms_min=min(warm), ms_max=max(warm),
+               tokens_per_s=tokens / ms * 1e3, flops=flops,
+               mfu=flops / (ms / 1e3) / DENSE_BF16_FLOP_PER_S, peak_gb=peak,
+               losses=losses)
+    print(f"  [3k] (a) cold step {out['cold_ms']:.1f} ms; warm ms per step "
+          f"{ms:.2f} (min {min(warm):.2f}, max {max(warm):.2f}, "
+          f"{WARM_3K} steps); {out['tokens_per_s']:.0f} tokens/s; model "
+          f"FLOPs {flops:.4g} per step (train_flops) = "
+          f"{out['mfu'] * 100:.1f}% of the dense bf16 peak; peak "
+          f"{peak:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    del tr
+    free(torch)
+    out["restore"] = restored_step(
+        torch, dev, dataclasses.replace(full, n_layers=RESTORE_DEPTH_3K), tc,
+        dc)
+    free(torch)
+    t0 = time.perf_counter()
+    cli = train_cli.main(["--arch", "gemma_7b", "--smoke", "--steps", "3"])
+    cli_losses = [m["loss"] for m in cli.metrics_log]
+    check(cli.step == 3 and all(np.isfinite(cli_losses))
+          and cli.device.type == "cuda",
+          f"[3k] the train CLI: step {cli.step}, losses {cli_losses}")
+    out["cli"] = dict(steps=cli.step, losses=cli_losses,
+                      seconds=time.perf_counter() - t0)
+    print(f"  [3k] (a) python -m repro_torch.launch.train --arch gemma_7b "
+          f"--smoke --steps 3 on the card: losses {cli_losses}")
+    del cli
+    free(torch)
+    return out
+
+
+def held_out(dc, domain: int, n: int, batch: int, seed0: int, dev) -> list:
+    """The reference example's held-out batches (benchmarks/common.py:
+    eval_batches): n batches of domain ``domain`` at steps seed0 + 131·i +
+    domain of the stream's seeding, far past the steps trained on."""
+    from repro_torch.data.pipeline import (batch_generator, make_domain,
+                                           sample_batch)
+    spec = make_domain(dc, domain)
+    return [{"tokens": sample_batch(
+        spec, batch_generator(dc.seed, seed0 + 131 * i + domain, domain),
+        batch, dc.seq_len).to(dev)} for i in range(n)]
+
+
+def perplexity(torch, cfg, params_of, batches) -> float:
+    """exp of the mean next-token NLL over ``batches``; ``params_of(b)``
+    gives the parameters that score batch b."""
+    from repro_torch.models import lm
+    tot, cnt = 0.0, 0.0
+    with torch.no_grad():
+        for b in batches:
+            loss, aux = lm.loss_fn(cfg, params_of(b), b)
+            tot += float(loss) * float(aux["tokens"])
+            cnt += float(aux["tokens"])
+    return float(np.exp(tot / cnt))
+
+
+def calib_stats(torch, cfg, params, batches):
+    from repro_torch.models import lm
+    from repro_torch.quant import CalibrationSession
+    sess = CalibrationSession()
+    with torch.no_grad():
+        for b in batches:
+            _, _, st = lm.prefill(cfg, params, b,
+                                  max_len=b["tokens"].shape[1],
+                                  collect_stats=True)
+            sess.update(st, tokens=float(b["tokens"].numel()))
+    return sess
+
+
+def train_100m(torch, dev) -> dict:
+    """Phase 3k (b): the reference example's 100m preset trained on domain
+    0 for STEPS_3K_B steps (fewer past TRAIN_BUDGET_3K_B seconds), then its
+    report (examples/train_ttq_lm.py:59-73) with the port's own
+    ``CalibrationSession``, ``QuantizedModel``, ``ttq_policy`` and
+    ``loss_fn``: held-out perplexity on domain 0 in full precision, and at
+    4 and 3 bits g32 for RTN, AWQ calibrated on domain 1 and TTQ (rank 16,
+    zero calibration, requantized per batch).  Readings only."""
+    from repro_torch.core import ttq_policy
+    from repro_torch.data import DataConfig, token_stream
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.quant import QuantizedModel
+    from repro_torch.training import TrainConfig, Trainer
+    p = PRESET_100M
+    cfg = ModelConfig(name="ttq-lm-100m", family="dense",
+                      n_layers=p["n_layers"], d_model=p["d_model"],
+                      n_heads=p["n_heads"], n_kv_heads=p["n_kv_heads"],
+                      d_ff=p["d_ff"], vocab=p["vocab"])
+    dc = DataConfig(vocab=p["vocab"], seq_len=p["seq"], batch=p["batch"],
+                    seed=11)
+    tc = TrainConfig(n_microbatches=2, remat=True, total_steps=STEPS_3K_B,
+                     warmup=max(10, STEPS_3K_B // 10))
+    tr = Trainer(cfg, tc, token_stream(dc, 0, device=dev), device=dev)
+    t0 = time.perf_counter()
+    while tr.step < STEPS_3K_B and time.perf_counter() - t0 < TRAIN_BUDGET_3K_B:
+        tr.run(min(10, STEPS_3K_B - tr.step))
+    train_s = time.perf_counter() - t0
+    log = tr.metrics_log
+    losses = [m["loss"] for m in log]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[3k] (b) the loss did not fall or is not finite: "
+          f"{losses[0]} -> {losses[-1]}")
+    warm = sorted(m["time_s"] for m in log[1:])
+    print(f"  [3k] (b) {cfg.name}: {cfg.param_count() / 1e6:.1f}M parameters, "
+          f"{tr.step} of {STEPS_3K_B} steps in {train_s:.1f} s (median "
+          f"{warm[len(warm) // 2] * 1e3:.1f} ms per step); loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}")
+    params = tr.params
+    del tr
+    free(torch)
+    ev = held_out(dc, 0, 2, 4, 9000, dev)
+    cal = held_out(dc, 1, 2, 4, 321, dev)
+    table = {"fp": perplexity(torch, cfg, lambda b: params, ev)}
+    print(f"  [3k] (b) held-out ppl fp: {table['fp']:.2f}")
+    calib = calib_stats(torch, cfg, params, cal)
+    for bits in (4, 3):
+        row = {}
+        for method in ("rtn", "awq"):
+            pol = ttq_policy(bits=bits, group_size=32, rank=0,
+                             packed=False).with_(method=method)
+            qm = QuantizedModel(params, pol, session=calib.snapshot()
+                                if method == "awq" else None)
+            qp = qm.requantize()
+            row[method] = perplexity(torch, cfg, lambda b: qp, ev)
+        qm = QuantizedModel(params, ttq_policy(bits=bits, group_size=32,
+                                               rank=16, packed=False))
+
+        def per_batch(b):           # TTQ: requantized from b's own stats
+            qm.session = calib_stats(torch, cfg, params, [b])
+            return qm.requantize()
+        row["ttq"] = perplexity(torch, cfg, per_batch, ev)
+        table[f"{bits}-bit"] = row
+        print(f"  [3k] (b) {bits}-bit g=32  RTN {row['rtn']:.2f} | AWQ "
+              f"(shifted calib) {row['awq']:.2f} | TTQ (r=16, zero calib) "
+              f"{row['ttq']:.2f}")
+    return dict(steps=len(log), train_s=train_s, loss_first=losses[0],
+                loss_last=losses[-1], ppl=table)
+
+
+def training(torch, dev) -> dict:
+    """Phase 3k: (a) then (b); prints each part's seconds.  The training
+    path launches none of the CUDA kernels (its products are plain
+    ``x @ wᵀ`` on bf16 weights, as the reference's outside Pallas)."""
+    out, secs = {}, {}
+    for part, fn in (("a", train_gemma), ("b", train_100m)):
+        t = time.perf_counter()
+        out[part] = fn(torch, dev)
+        secs[part] = time.perf_counter() - t
+        free(torch)
+    out["seconds"] = secs
+    print("  [3k] seconds per part: "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
@@ -3767,6 +4068,16 @@ def main(argv=None) -> int:
           f"default guards")
     ssm = ssm_and_encdec(torch, dev)
     print("    ssm and encdec: " + json.dumps(ssm, default=str))
+    free(torch)
+
+    print(f"[3k] training: (a) gemma-7b full width at the depth the card "
+          f"trains, batch {BATCH_3K} x {SEQ_3K} in {MB_3K} microbatches, "
+          f"f32 masters, bf16 compute, AdamW, remat; a save/restore step on "
+          f"{RESTORE_DEPTH_3K} layer(s); the train CLI; (b) the reference's "
+          f"100m preset, {STEPS_3K_B} steps (at most {TRAIN_BUDGET_3K_B:.0f} "
+          f"s), then its RTN / AWQ / TTQ perplexity report")
+    trn = training(torch, dev)
+    print("    training: " + json.dumps(trn, default=str))
 
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "

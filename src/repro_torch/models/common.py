@@ -170,7 +170,7 @@ def full_attention(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.einsum("bhgsd,bhkd->bhgsk", qg.float(), k.float())
     if soft_cap > 0:
         s = soft_cap * torch.tanh(s / soft_cap)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgsk,bhkd->bhgsd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, H, S, -1).to(q.dtype)

@@ -2,6 +2,7 @@
 
     init_params(cfg, generator, device)            → params tree
     forward(cfg, params, batch, collect_stats=)    → (logits, stats, states)
+    loss_fn(cfg, params, batch, remat=)            → (loss, aux)
     init_decode_state(cfg, batch, max_len, kvcfg, num_blocks=)
                                                    → decode state
     prefill(cfg, params, batch, max_len, ...)      → (logits, state, stats)
@@ -98,12 +99,13 @@ def _head(cfg, params, x, kcfg=None):
 
 
 def forward(cfg: ModelConfig, params, batch, *, collect_stats=False,
-            want_state=False, max_len=0, kcfg=None):
+            want_state=False, max_len=0, remat=False, kcfg=None):
     """Full-sequence forward: logits (B, S, V) f32 for every position.
     Returns (logits, stats, states): stats {'stack': [per-run dict of (L, d)
     Σx² leaves]} (and 'enc_stack', the encoder's) keyed by parameter path
     when ``collect_stats``, else None; states the per-run decode states
-    when ``want_state`` (a ``max_len`` slab), else empty."""
+    when ``want_state`` (a ``max_len`` slab), else empty.  ``remat``
+    checkpoints each decoder layer's mixer and MLP (training)."""
     stats, enc_out = {}, None
     if cfg.family == "encdec":
         enc_out, enc_stats = _encode(cfg, params, batch["frames"],
@@ -113,11 +115,34 @@ def forward(cfg: ModelConfig, params, batch, *, collect_stats=False,
     x = _embed(cfg, params, batch["tokens"])
     x, run_stats, states = S.apply_stack_seq(
         cfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
-        want_state=want_state, max_len=max_len, kcfg=kcfg, enc_out=enc_out)
+        want_state=want_state, max_len=max_len, kcfg=kcfg, enc_out=enc_out,
+        remat=remat)
     stats["stack"] = run_stats
     x = norm(x, params["final_norm"])
     logits = _head(cfg, params, x, kcfg)
     return logits, (stats if collect_stats else None), states
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, remat=False):
+    """Next-token cross-entropy over :func:`forward`'s f32 logits, through
+    a logsumexp and a gather.  ``batch['mask']`` (optional, f32, (B,S) or
+    (B,S-1)) weights each target.  Returns (loss, {'loss', 'tokens'}),
+    'tokens' the mask's sum (at least 1)."""
+    logits, _, _ = forward(cfg, params, batch, remat=remat)
+    targets = batch["tokens"][:, 1:].long()
+    lg = logits[:, :-1]
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    elif mask.shape[1] == batch["tokens"].shape[1]:
+        mask = mask[:, 1:]
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    return loss, {"loss": loss, "tokens": denom}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,

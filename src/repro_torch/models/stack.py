@@ -18,6 +18,7 @@ the same path keys (``u0.mix.wq``); decode states are (n, B, ...).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.ttq import QuantizedTensor, qt_index
 
@@ -77,6 +78,20 @@ def layer_slice(tree, i):
     if isinstance(tree, QuantizedTensor):
         return qt_index(tree, i)
     return tree[i]
+
+
+def layer_slices(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree at once (views, no copies):
+    ``unbind`` on tensors, so that a backward pass stacks the layers'
+    gradients in one copy (indexing layer by layer, as
+    :func:`layer_slice`, gives each layer's gradient the whole stack's
+    shape, summed n times)."""
+    if isinstance(tree, dict):
+        parts = {k: layer_slices(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, QuantizedTensor):
+        return [qt_index(tree, i) for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def init_layer(gen, cfg: ModelConfig, kind: str, n: int, device):
@@ -182,8 +197,39 @@ def _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg=None):
 def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
                     want_state: bool = False, max_len: int = 0, kvcfg=None,
                     kcfg=None, pos0: int = 0, kv_prefix=None,
-                    compact_state: bool = False, enc_out=None):
-    """Prefill through one layer.  Returns (x, state|None).  ``kv_prefix``
+                    compact_state: bool = False, enc_out=None,
+                    remat: bool = False):
+    """Prefill (or a training forward) through one layer.  Returns (x,
+    state|None).  ``remat`` runs the mixer and the MLP each under
+    ``torch.utils.checkpoint``: backward recomputes their insides, and what
+    is kept per layer is the two halves' outputs, two (B,S,D) tensors as
+    the reference keeps ``mix_out`` and ``mlp_out``; it takes neither
+    stats nor a state."""
+    if remat:
+        if want_state or stats is not None:
+            raise ValueError("remat is for training: no stats, no state")
+        ckpt = torch.utils.checkpoint.checkpoint
+        x = ckpt(lambda x: _mix_seq(cfg, kind, p, x, None, prefix, pos0=pos0,
+                                    kv_prefix=kv_prefix, kcfg=kcfg,
+                                    enc_out=enc_out)[0],
+                 x, use_reentrant=False)
+        if mlp_kind(cfg, kind) == "none":
+            return x, None
+        return ckpt(lambda x: _mlp_apply(cfg, kind, p, x, None, prefix, kcfg),
+                    x, use_reentrant=False), None
+    x, st = _mix_seq(cfg, kind, p, x, stats, prefix, want_state=want_state,
+                     max_len=max_len, kvcfg=kvcfg, kcfg=kcfg, pos0=pos0,
+                     kv_prefix=kv_prefix, compact_state=compact_state,
+                     enc_out=enc_out)
+    return _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg), st
+
+
+def _mix_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
+             want_state: bool = False, max_len: int = 0, kvcfg=None,
+             kcfg=None, pos0: int = 0, kv_prefix=None,
+             compact_state: bool = False, enc_out=None):
+    """The mixer half of :func:`apply_layer_seq`: x plus the mixer's output
+    (for ``xdec`` plus the cross-attention's too), and the state.  ``kv_prefix``
     (k, v) is cached context in front of this call's tokens, which start at
     ``pos0``.  A paged cache (or ``compact_state``) returns this call's
     k/v rows at the storage dtype instead of a max_len slab; the runner
@@ -202,7 +248,7 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
                           return_state=True, kcfg=kcfg)
         else:
             y = apply(cfg, p["mix"], h, stats, prefix + "mix.", kcfg=kcfg)
-        return _mlp_apply(cfg, kind, p, x + y, stats, prefix, kcfg), st
+        return x + y, st
     if kind == "xdec":
         return _xdec_seq(cfg, p, x, h, stats, prefix, want_state, max_len,
                          pos0, enc_out, kvcfg, kcfg)
@@ -216,7 +262,7 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
         else:
             y = L.mla_apply(cfg, p["mix"], h, stats, prefix + "mix.",
                             pos0=pos0, kcfg=kcfg)
-        return _mlp_apply(cfg, kind, p, x + y, stats, prefix, kcfg), st
+        return x + y, st
     window = cfg.hybrid.window if kind == "lattn" else 0
     causal = kind != "enc"
     if want_state:
@@ -238,15 +284,14 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
         y = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
                          causal=causal, window=window, pos0=pos0,
                          kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg)
-    x = x + y
-    return _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg), st
+    return x + y, st
 
 
 def _xdec_seq(cfg, p, x, h, stats, prefix, want_state, max_len, pos0,
               enc_out, kvcfg, kcfg):
-    """An ``xdec`` layer in sequence mode (``h`` = ln1(x)): causal
+    """An ``xdec`` layer's mixers in sequence mode (``h`` = ln1(x)): causal
     self-attention (its cache a max_len slab), then cross-attention over
-    ``enc_out`` from ``lnx``, then the MLP.  With ``want_state`` the state
+    ``enc_out`` from ``lnx``; the caller adds the MLP.  With ``want_state`` the state
     adds the cross k/v in bf16 (the reference's: computed once, never
     quantized)."""
     st = None
@@ -268,7 +313,7 @@ def _xdec_seq(cfg, p, x, h, stats, prefix, want_state, max_len, pos0,
     else:
         yx = L.attn_apply(cfg, p["xattn"], hx, stats, prefix + "xattn.",
                           x_cross=enc_out, kcfg=kcfg)
-    return _mlp_apply(cfg, "xdec", p, x + yx, stats, prefix, kcfg), st
+    return x + yx, st
 
 
 def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
@@ -319,9 +364,11 @@ def apply_layer_verify(cfg: ModelConfig, kind: str, p, x, state, pos, *,
 def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
                     want_state=False, max_len=0, kvcfg=None, kcfg=None,
                     pos0: int = 0, prefix_kv=None,
-                    compact_state: bool = False, enc_out=None):
-    """Prefill over all runs.  Returns (x, stats_list, state_list) with
-    stats and states stacked over each run's layers.  ``prefix_kv`` (tail
+                    compact_state: bool = False, enc_out=None,
+                    remat: bool = False):
+    """Prefill (or a training forward) over all runs.  Returns (x,
+    stats_list, state_list) with stats and states stacked over each run's
+    layers.  ``remat``: every layer as in :func:`apply_layer_seq`.  ``prefix_kv`` (tail
     prefill over a cached prefix of ``pos0`` tokens): per run, (k, v) with
     a leading layer dim; layer i attends to (k[i], v[i]).  ``enc_out``:
     the encoder output every ``xdec`` layer attends over."""
@@ -329,8 +376,9 @@ def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
     for ri, ((kinds, n), rp) in enumerate(zip(spec, run_params)):
         pk = None if prefix_kv is None else prefix_kv[ri]
         per_layer_stats, per_layer_states = [], []
+        layers = layer_slices(rp, n)
         for i in range(n):
-            up = layer_slice(rp, i)
+            up = layers[i]
             kvp = None if pk is None else (pk[0][i], pk[1][i])
             stats = {} if stats_on else None
             states = {}
@@ -340,7 +388,7 @@ def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
                                         max_len=max_len, kvcfg=kvcfg,
                                         kcfg=kcfg, pos0=pos0, kv_prefix=kvp,
                                         compact_state=compact_state,
-                                        enc_out=enc_out)
+                                        enc_out=enc_out, remat=remat)
                 if st is not None:
                     states[f"u{j}"] = st
             per_layer_stats.append(stats)

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch._tree import tree_leaves_with_path as _walk
 from repro_torch.core.awq import AWQConfig
 from repro_torch.core.lowrank import residual, svd_factors
 from repro_torch.core.policy import QuantPolicy
@@ -61,18 +62,6 @@ def _stats_key(rel_path: tuple) -> str:
     """('u0','mix','wk') → 'u0.mix.wq' (alias on the leaf name)."""
     *head, leaf = rel_path
     return ".".join([*head, STAT_ALIAS.get(leaf, leaf)])
-
-
-def _walk(tree, path=()):
-    """Yield (path, leaf) for the tensor leaves of a nested dict/list tree."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _walk(v, path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _walk(v, path + (i,))
-    else:
-        yield path, tree
 
 
 def _replace(tree, results: Dict[str, object], path=()):

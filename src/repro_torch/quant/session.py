@@ -25,16 +25,9 @@ import dataclasses
 from collections import deque
 from typing import Any, Optional, Tuple
 
+from repro_torch._tree import tree_map as _tree_map
+
 from .guards import GuardConfig, stats_summary, token_count_ok
-
-
-def _tree_map(fn, *trees):
-    a = trees[0]
-    if isinstance(a, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in a}
-    if isinstance(a, (list, tuple)):
-        return type(a)(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
 
 
 def _tree_add(a: Any, b: Any) -> Any:

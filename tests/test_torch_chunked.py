@@ -30,6 +30,7 @@ from repro_torch.serving import QueueFull, Request, Scheduler
 from repro_torch.serving import TTQEngine as TEngine
 
 from test_torch_robustness import NEAR_TIE, hold
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LONG = [((7 * i + 3) % 126) + 1 for i in range(40)]     # > chunk: chunked
 SHORT = [((11 * i + 5) % 126) + 1 for i in range(8)]    # <= chunk: a group

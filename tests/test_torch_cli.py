@@ -13,6 +13,7 @@ import sys
 import pytest
 
 from repro_torch.launch import serve
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BASE = ["--arch", "gemma_7b", "--smoke"]
 ARGVS = {

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.core import awq as t_awq
 from repro_torch.core import kvquant as t_kv
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the module: the package exports the function ``qdq`` under that name, as
 # the reference's does

@@ -23,6 +23,7 @@ from repro_torch.models import lm as tlm
 from repro_torch.models.config import ModelConfig as TCfg
 from repro_torch.serving import EngineConfig as TEngineConfig
 from repro_torch.serving import TTQEngine as TEngine
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PROMPTS = [[5, 9, 17, 3], [8, 8, 1], [100, 50, 25, 12]]
 MAX_NEW, MAX_LEN, BUCKET = 5, 48, 16

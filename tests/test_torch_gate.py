@@ -24,6 +24,7 @@ from repro_torch.models.config import ModelConfig as TCfg
 from repro_torch.quant import FusedRequantPlan, QuantizedModel
 from repro_torch.serving import EngineConfig as TEngineConfig
 from repro_torch.serving import TTQEngine as TEngine
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIELDS = ("wint", "packed", "scale", "zero", "dinv")
 

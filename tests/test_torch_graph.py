@@ -39,6 +39,7 @@ from repro_torch.quant import FusedRequantPlan, QuantizedModel
 from repro_torch.serving import EngineConfig, TTQEngine
 from repro_torch.serving.blocks import SINK
 from repro_torch.serving.runner import _collector_paused, _layout
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU_CFG = ModelConfig(name="graph-t", family="dense", n_layers=2, d_model=64,
                       n_heads=4, n_kv_heads=2, d_ff=96, vocab=128)

@@ -46,6 +46,7 @@ from repro_torch.models.config import ModelConfig as TCfg
 from repro_torch.quant import FusedRequantPlan, quantize_params
 from repro_torch.serving import EngineConfig as TECfg
 from repro_torch.serving import TTQEngine as TEngine
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REL_L2 = 3e-2
 ATOL = 0.12

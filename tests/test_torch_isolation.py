@@ -6,6 +6,7 @@ import pathlib
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -58,6 +59,12 @@ def test_entry_points_refuse_missing_card(no_card):
         TTQEngine(cfg, params, ttq_policy(rank=0), EngineConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         lm.init_decode_state(cfg, 2, 16)
+    from repro_torch.data import DataConfig, token_stream
+    from repro_torch.training import TrainConfig, Trainer
+    with pytest.raises(RuntimeError, match="cuda"):
+        next(token_stream(DataConfig(), 0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg, TrainConfig(), iter(()))
 
 
 def test_kernel_wrappers_never_compute_off_card(no_card):

@@ -22,6 +22,7 @@ from repro_torch.kernels.ttq_gemm import (fast_shape, gemm_splits,
 from repro_torch.kernels.ttq_quantize import (
     BLOCKS_PER_SM as QUANT_BLOCKS_PER_SM, MIN_ROWS as QUANT_MIN_ROWS, VECS,
     WARPS, quant_blocks, strip_count)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the SWEEP of tests/test_kernels.py: (T, d, dp, bits, g)
 SWEEP = [

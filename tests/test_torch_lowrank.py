@@ -25,6 +25,7 @@ from repro_torch.quant import (FusedRequantPlan, QuantizedModel,
 from repro_torch.quant import api as tapi
 from repro_torch.serving import EngineConfig as TEngineConfig
 from repro_torch.serving import TTQEngine as TEngine
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

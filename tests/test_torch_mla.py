@@ -42,6 +42,7 @@ from repro_torch.serving import TTQEngine as TEngine
 from test_torch_moe import (ATOL, MAX_LEN, MAX_NEW, PROMPTS, REL_L2,
                             _bridge, _leaves, _rel_l2, _routed_forward,
                             _tokens, engines_agree)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "deepseek_v2_lite_16b"
 

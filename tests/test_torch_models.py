@@ -18,6 +18,7 @@ from repro_torch.core import KernelConfig
 from repro_torch.core import KVCacheConfig as TKV
 from repro_torch.models import lm as tlm
 from repro_torch.models.config import ModelConfig as TCfg
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REL_L2 = 3e-2
 

@@ -22,6 +22,7 @@ two packages' quantized trees resolve differently (``_routing_near_tie``):
 top-k is discontinuous, and a flipped choice moves a token's MLP output
 by a whole expert's share."""
 import dataclasses
+import hashlib
 import types
 
 import numpy as np
@@ -47,6 +48,7 @@ from repro_torch.quant import FusedRequantPlan, lowrank_tree, quantize_params
 from repro_torch.quant.api import _stat_for
 from repro_torch.serving import EngineConfig as TECfg
 from repro_torch.serving import TTQEngine as TEngine
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REL_L2 = 3e-2
 ATOL = 0.12
@@ -500,7 +502,24 @@ def test_quantize_params_rank8_experts(top2):
 
 # ------------------------------------------------------------------- engine
 
+def _tree_digest(jx, tree) -> str:
+    return hashlib.sha1(b"".join(np.asarray(x).tobytes()
+                                 for x in jx.jax.tree.leaves(tree))).hexdigest()
+
+
 def _jax_logits_at(jx, m, jeng, prompt, out, t, kv):
+    """The JAX engine's teacher-forced logits of step t (op by op).  A
+    replay is kept per model for the module: the engine cases of one model
+    quantize the same tree and meet the same first disagreements."""
+    key = (tuple(prompt), tuple(out[:t]), repr(kv),
+           _tree_digest(jx, jeng.qparams))
+    memo = vars(m).setdefault("replays", {})
+    if key not in memo:
+        memo[key] = _jax_replay(jx, m, jeng, prompt, out, t, kv)
+    return memo[key]
+
+
+def _jax_replay(jx, m, jeng, prompt, out, t, kv):
     seq = jx.jnp.asarray([list(prompt)], jx.jnp.int32)
     lg, state, _ = jx.lm.prefill(m.jcfg, m.jp, {"tokens": seq},
                                  max_len=MAX_LEN, kvcfg=kv)

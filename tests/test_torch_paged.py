@@ -34,6 +34,7 @@ from repro_torch.models.config import ModelConfig as TCfg
 from repro_torch.serving import EngineConfig as TECfg
 from repro_torch.serving import TTQEngine as TEngine
 from repro_torch.serving.blocks import SINK, BlockAllocator, chain_hashes
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = TCfg(name="paged-t", family="dense", n_layers=3, d_model=64, n_heads=4,
            n_kv_heads=2, d_ff=96, vocab=128)

@@ -9,6 +9,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.core import KernelConfig, QuantizedTensor, unpack_bits
 from repro_torch.core import ttq_policy as t_policy
 from repro_torch.quant import FusedRequantPlan, QuantizedModel, quantize_params
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

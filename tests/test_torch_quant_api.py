@@ -19,6 +19,7 @@ from repro_torch.models import lm
 from repro_torch.quant import (CalibrationSession, QuantizedModel, Quantizer,
                                get_quantizer, quantize_params,
                                registered_methods)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,7 @@ from repro_torch.serving import FaultInjector as TInjector
 from repro_torch.serving import TTQEngine as TEngine
 from repro_torch.serving import VirtualClock as TClock
 from repro_torch.serving.faults import demo_injector as t_demo
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PROMPTS = [[5, 9, 17, 3], [8, 8, 1], [100, 50, 25, 12], [7, 7, 7, 2]]
 NEAR_TIE = 0.05

@@ -19,6 +19,7 @@ from repro_torch.models.config import ModelConfig as TCfg
 from repro_torch.serving import EngineConfig, TTQEngine, TTQServer
 
 from test_torch_robustness import hold
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PROMPTS = [[((7 * i + s) % 126) + 1 for i in range(n)]
            for s, n in ((3, 8), (5, 40), (1, 12))]

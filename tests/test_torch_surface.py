@@ -10,6 +10,7 @@ import repro_torch.core as tcore
 import repro_torch.serving as tserving
 from repro_torch.core import AWQConfig as TAWQ
 from repro_torch.core import QuantConfig as TQC
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")
