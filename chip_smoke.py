@@ -147,6 +147,26 @@
    TRAIN_BUDGET_3K_B seconds), then its held-out perplexity report: fp,
    and RTN / AWQ calibrated on domain 1 / TTQ (rank 16, zero calibration)
    at 4 and 3 bits, g32 (readings only).
+3l. Tensor-parallel serving (``pctx``) of [3]'s policy and eight requests
+   at full width and depth, on one tree requantized from fixed statistics
+   (those of a [3]-cadence run): (a) world 1 over NCCL with CUDA graphs
+   (``make_mesh(1, 1)``): tokens, every graph block's outputs and the tree
+   bit for bit the ``pctx=None`` engine's; collectives per decode step
+   (captured in the decode graph), ms per decode step against
+   ``pctx=None`` (warm runs in turns), capture seconds.  (b) With nothing
+   of the earlier phases on the card, world TP_WORLD_3L as processes
+   sharing the card over gloo (eager blocks, collectives staged through
+   pinned host buffers): each first holds the ``*_tp`` wrappers at
+   gemma-7b's shard shapes (``ttq_gemm_tp`` row and col, both decode
+   attentions on its heads) against the plain version at [2]'s
+   tolerances, then builds the whole tree from the seed and keeps its
+   slice; both ranks' tokens equal, and equal to (a)'s or a near-tie (the
+   first disagreement's two logits closer than the teacher-forced world-1
+   and world-2 logits there differ); those teacher-forced logits within
+   TP_DELTA_3L of each other at every position; each rank's codes, S, Z
+   and D⁻¹ of every layer of every weight bit for bit its slice of (a)'s;
+   ms per decode step and launches per step over the counted steps, peak
+   GB per rank.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the last line is printed.
@@ -160,8 +180,10 @@ import json
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -264,12 +286,25 @@ SSM_LONG = 600
 # RESTORE_DEPTH_3K layers: the whole opt state goes through np.savez.
 # (b) the reference's 100m preset (examples/train_ttq_lm.py:24-29).
 TRAIN_BYTES_PER_PARAM = 20
+# phase 3l: tensor-parallel serving of [3]'s traffic on a requant tree from
+# fixed statistics; (b) at world 2, two processes sharing the card over gloo
+TP_WORLD_3L = 2
+TP_TIMEOUT_3L = 600            # seconds for (b)'s ranks to finish
+TP_TURNS_3L = 3                # warm runs per engine in turns, (a)
+# (b): the largest |world-1 - world-2| logit over every teacher-forced
+# position of every request.  Readings on an H100 (PERF.md): 0.09-0.11 at
+# each request's first disagreement, 0.117 over all 256 positions (bf16
+# roundings of the column sums moved through 28 random layers); a dropped
+# collective or a wrong shard product moves the logits by their own size
+# (units).  The bound is 3x the largest reading.
+TP_DELTA_3L = 0.35
 BATCH_3K, SEQ_3K, MB_3K, WARM_3K = 8, 512, 2, 10
 RESTORE_DEPTH_3K = 1
 PRESET_100M = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
                    d_ff=2304, vocab=32768, seq=1024, batch=32)
 STEPS_3K_B = 300
-TRAIN_BUDGET_3K_B = 120.0      # seconds of (b)'s training before it stops
+TRAIN_BUDGET_3K_B = 60.0       # seconds of (b)'s training before it stops
+                               # (cut from 120 to leave the script time for [3l])
 DENSE_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 peak
 
 
@@ -3012,6 +3047,441 @@ def robustness(torch, dev, cfg, params, prompts) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 3l
+
+def tp_engine(torch, dev, cfg, params, pctx):
+    """[3]'s engine (int4 g32 packed, rank 0, int8 KV, 4 slots x 256,
+    graphs where the backend allows) under ``pctx``, with a cadence that
+    never requantizes: :func:`fixed_stats_tree` gives it its one tree."""
+    return build_engine(torch, dev, cfg, params, recalibrate_every=NEVER,
+                        engine_kw=dict(pctx=pctx))[2]
+
+
+def fixed_stats_tree(eng, stats, count):
+    """Fold ``stats`` (the rank's slice under tensor parallelism) into the
+    session and requantize once: the tree every block then reads."""
+    eng.qmodel.calibrate(stats, tokens=count)
+    eng._requantize()
+
+
+def record_blocks(eng) -> list:
+    """Every decode block's host outputs (tokens, valid, done, fault), in
+    order, from now on."""
+    blocks, inner = [], eng.runner.decode_block
+
+    def rec(*a, **kw):
+        out = inner(*a, **kw)
+        blocks.append(tuple(None if x is None else x.copy() for x in out))
+        return out
+    eng.runner.decode_block = rec
+    return blocks
+
+
+def teacher_logits(torch, cfg, params, tree, kvcfg, kcfg, prompts, tokens,
+                   pctx=None) -> np.ndarray:
+    """(R, T, V) f32 on the host: the logits behind each request's tokens,
+    teacher-forced on ``tokens`` — the prompts' batched full-precision
+    prefill (each prompt's last row), then T - 1 decode steps on ``tree``
+    with per-slot positions (under ``pctx`` on every rank: SPMD)."""
+    from repro_torch.models import lm
+    dev = tree["embed"].device
+    R, T = len(prompts), len(tokens[0])
+    toks = torch.zeros((R, max(len(p) for p in prompts)), dtype=torch.long,
+                       device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    plen = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    lg, st, _ = lm.prefill(cfg, params, {"tokens": toks}, 256,
+                           collect_stats=False, full_logits=True,
+                           kvcfg=kvcfg, pctx=pctx)
+    out = np.empty((R, T, cfg.vocab), np.float32)
+    out[:, 0] = lg[torch.arange(R, device=dev), plen.long() - 1].cpu()
+    del lg
+    for t in range(1, T):
+        tok = torch.tensor([[tk[t - 1]] for tk in tokens], dtype=torch.int32,
+                           device=dev)
+        L, st = lm.decode_step(cfg, tree, st, tok, plen + t - 1, kvcfg=kvcfg,
+                               kcfg=kcfg, pctx=pctx)
+        out[:, t] = L.cpu()
+    return out
+
+
+def tree_hashes(torch, tree, world=1, pctx=None) -> dict:
+    """sha256 of every layer of every requantized field (codes, S, Z, D⁻¹)
+    of every weight; with ``pctx`` (a layout bound for ``world`` ranks), of
+    each rank's slice: {(rank, path, field, layer): digest}."""
+    import hashlib
+    from repro_torch.core.ttq import QuantizedTensor
+    from repro_torch.parallel.rules import split_of
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        elif isinstance(t, QuantizedTensor):
+            ps = ".".join(map(str, path))
+            sp = split_of(ps, pctx) if pctx is not None else None
+            for f in ("packed", "scale", "zero", "dinv"):
+                x = getattr(t, f)
+                for layer in range(x.shape[0]):
+                    for r in range(world):
+                        y = x[layer]
+                        dim = {"row": -2, "col": -1}.get(sp)
+                        if dim is not None and not (f == "dinv"
+                                                    and sp == "row"):
+                            k = y.shape[dim] // world
+                            y = y.narrow(dim, r * k, k)
+                        out[(r, ps, f, layer)] = hashlib.sha256(
+                            y.contiguous().cpu().numpy().tobytes()).hexdigest()
+    walk(tree, ())
+    return out
+
+
+def tp_kernel_checks(torch, dev, pctx) -> dict:
+    """The ``*_tp`` wrappers at gemma-7b's shard shapes on this rank, held
+    to the plain version on the same inputs at [2]'s tolerances (bf16 x:
+    rtol 2^-7, atol 2e-4·sqrt(d/256); bf16 q: rtol 2^-7, atol 1e-5).
+    ``ttq_gemm_tp`` row (the rank's rows of wq/wk/wv and wg/wu) against
+    ``ttq_gemm_ref`` on that shard; col (wo, wd: the rank's input slice,
+    then the all-reduce) against ``ttq_gemm_ref`` on the whole weight; both
+    decode-attention wrappers on the rank's heads against ``kv_attn_ref``
+    on every head, the paged one bit for bit the dense one.  Every rank
+    draws the same whole inputs from one seed.  Returns {call: max
+    |difference|}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import (kv_decode_attention_tp,
+                                         kv_paged_decode_attention_tp,
+                                         ttq_gemm_tp)
+    n, r = pctx.world, pctx.rank
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    role = {"wq/wk/wv": "row", "wo": "col", "wg/wu": "row", "wd": "col"}
+    out = {}
+    for name, (dp, d, _) in GEMM_SHAPES.items():
+        W = torch.randn((dp, d), generator=gen, device=dev) * d ** -0.5
+        D = torch.exp(0.3 * torch.randn((d,), generator=gen, device=dev))
+        dinv = 1.0 / D
+        xb = torch.randn((4, d), generator=gen, device=dev).to(torch.bfloat16)
+        pk, S, Z = ref.ttq_quantize_ref(W, D, bits=4, group_size=32)
+        del W, D
+        if role[name] == "row":
+            k = dp // n
+            sl = [t[r * k:(r + 1) * k] for t in (pk, S, Z)]
+            y = ttq_gemm_tp(xb, *sl, dinv, bits=4, group_size=32, pctx=pctx,
+                            tp="row")
+            y_r = ref.ttq_gemm_ref(xb, *sl, bits=4, group_size=32, dinv=dinv)
+            shape = (k, d)
+        else:
+            k = d // n
+            cols = slice(r * k, (r + 1) * k)
+            sl = (pk[:, r * k // 8:(r + 1) * k // 8],
+                  S[:, r * k // 32:(r + 1) * k // 32],
+                  Z[:, r * k // 32:(r + 1) * k // 32])
+            y = ttq_gemm_tp(xb[:, cols], *(t.contiguous() for t in sl),
+                            dinv[cols], bits=4, group_size=32, pctx=pctx,
+                            tp="col")
+            y_r = ref.ttq_gemm_ref(xb, pk, S, Z, bits=4, group_size=32,
+                                   dinv=dinv)
+            shape = (dp, k)
+        torch.testing.assert_close(y.float(), y_r, rtol=2 ** -7,
+                                   atol=2e-4 * (d / 256) ** 0.5)
+        out[f"ttq_gemm_tp {role[name]} {name} {shape}"] = float(
+            (y.float() - y_r).abs().max())
+        del pk, S, Z, y, y_r
+    h = 16 // n                          # gemma-7b: 16 KV heads of 256, G 1
+    heads = slice(r * h, (r + 1) * h)
+    for bits, q, dense, pool, bt, pos in attn_case(
+            torch, dev, SEED + 6, 256 // BLOCK, [0, 37, 128, 200]):
+        qb = q.to(torch.bfloat16)
+        o_r = ref.kv_attn_ref(qb, *dense, pos, bits=bits)[:, heads]
+        o = kv_decode_attention_tp(
+            qb[:, heads].contiguous(),
+            *(t[:, heads].contiguous() for t in dense), pos, pctx=pctx,
+            bits=bits)
+        o_p = kv_paged_decode_attention_tp(
+            qb[:, heads].contiguous(),
+            *(t[:, heads].contiguous() for t in pool), bt, pos, pctx=pctx,
+            bits=bits)
+        torch.testing.assert_close(o.float(), o_r.float(), rtol=2 ** -7,
+                                   atol=1e-5)
+        check(torch.equal(o_p, o), f"kv_paged_decode_attention_tp int{bits} "
+              f"on {h} heads is not bit for bit the dense wrapper's")
+        out[f"kv_decode_attention_tp int{bits} {h} heads"] = float(
+            (o.float() - o_r.float()).abs().max())
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(payload) -> dict:
+    """One rank of [3l] (b), in its own process: full-width gemma-7b from
+    the seed (the whole tree, then the rank's slice: the engine keeps only
+    that), the tree from the fixed statistics' slice, [3]'s traffic, a
+    warm rerun, and the teacher-forced logits behind (a)'s tokens, each
+    position's held to (a)'s (``payload["L1"]``, a .npy file); before all
+    that, the ``*_tp`` wrappers at the shard shapes (:func:`tp_kernel_checks`,
+    not counted)."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_ctx, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.rules import shard_stats
+    dev = torch.device(payload["device"])
+    if dev.type == "cuda":
+        build.lib()
+    pctx = make_ctx(make_mesh(1, payload["world"], device=dev.type))
+    cfg = payload["cfg"]
+    kernel_err = tp_kernel_checks(torch, dev, pctx)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    eng = tp_engine(torch, dev, cfg, params, pctx)
+    del params                          # the engine holds the rank's slice
+    free(torch)
+    stats = bridge.params_from_jax(payload["stats"], device=dev)
+    build.reset_launches()
+    fixed_stats_tree(eng, shard_stats(stats, eng.pctx), payload["count"])
+    del stats
+    quant_launches = build.LAUNCHES["ttq_quantize"]
+    hashes = tree_hashes(torch, eng.decode_params)
+    prompts = payload["prompts"]
+    build.reset_launches()
+    c0, s0 = dict(comm.COUNTS), dict(comm.STAGED_S)
+    blocks = record_blocks(eng)
+    # one timed run: eager blocks have nothing to capture, so no rerun
+    warm = warm_phases(torch, eng, prompts, N_REQUESTS * MAX_NEW,
+                       quiet=True)
+    tokens = [list(v) for _, v in sorted(eng.scheduler.results().items())]
+    steps = sum(b[0].shape[1] for b in blocks)   # the steps the run took
+    launches = {k: v / steps for k, v in build.LAUNCHES.items()
+                if k != "ttq_quantize"}
+    coll = {k: (comm.COUNTS[k] - c0[k]) for k in c0}
+    staged = {k: comm.STAGED_S[k] - s0[k] for k in s0}
+    L2 = teacher_logits(torch, cfg, eng.params, eng.decode_params, eng.kvcfg,
+                        eng.kncfg, prompts, payload["tokens"], eng.pctx)
+    L1 = np.load(payload["L1"], mmap_mode="r")
+    delta = np.stack([np.abs(L1[i] - L2[i]).max(axis=-1)
+                      for i in range(len(L2))])
+    return dict(tokens=tokens, delta=delta, hashes=hashes,
+                kernel_err=kernel_err, wall_s=warm["warm_wall_s"],
+                phase_s=warm["warm_phase_s"], staged_s=staged, steps=steps,
+                quant_launches=quant_launches,
+                decode_ms_per_step=warm["warm_phase_s"]["decode"] * 1e3
+                / steps,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches_per_step=launches, collectives=coll,
+                graph_mode=eng.runner.graph_mode, rank=eng.pctx.rank,
+                backend=eng.pctx.mesh.backend)
+
+
+RANK_FN = tp_rank
+
+
+def tensor_parallel(torch, dev, cfg, params, prompts) -> dict:
+    """[3l]: (a) world 1 over NCCL with CUDA graphs against ``pctx=None``;
+    then, with every tensor of this process freed, (b) world 2 as two
+    processes on the one card over gloo."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_ctx, make_mesh
+    from repro_torch.parallel import ParallelCtx, comm
+    from repro_torch.parallel.ctx import Mesh
+    from repro_torch.parallel.rules import bind, col_align
+    t_all = time.perf_counter()
+    res = {"a": {}, "b": {}}
+    # the fixed statistics: [3]'s traffic through a default-cadence engine
+    eng0 = build_engine(torch, dev, cfg, params)[2]
+    serve(torch, eng0, prompts)
+    stats, count = eng0.qmodel.session.as_calib()
+    stats = clone_tree(torch, stats)
+    policy = eng0.policy
+    del eng0
+    free(torch)
+
+    mesh = make_mesh(1, 1, device=dev.type)
+    print(f"  (a) make_mesh(1, 1): backend {mesh.backend} on {mesh.device}")
+    check(mesh.backend == "nccl", f"(a) chose {mesh.backend}, not nccl")
+    runs = {}
+    for name, pctx in (("none", None), ("world 1", make_ctx(mesh))):
+        eng = tp_engine(torch, dev, cfg, params, pctx)
+        build.reset_launches()
+        fixed_stats_tree(eng, stats, count)
+        blocks = record_blocks(eng)
+        c0 = dict(comm.COUNTS)
+        outs, wall = serve(torch, eng, prompts)
+        del eng.runner.decode_block
+        check_outputs(cfg, outs, f"[3l] (a) {name}")
+        runs[name] = dict(eng=eng, tokens=[list(o) for o in outs],
+                          blocks=blocks, launches=dict(build.LAUNCHES),
+                          coll={k: comm.COUNTS[k] - c0[k] for k in c0},
+                          wall=wall)
+    a, b = runs["none"], runs["world 1"]
+    same_blocks = len(a["blocks"]) == len(b["blocks"]) and all(
+        all((x is None and y is None) or np.array_equal(x, y)
+            for x, y in zip(ba, bb))
+        for ba, bb in zip(a["blocks"], b["blocks"]))
+    same_tree = qt_tree_equal(torch, a["eng"].decode_params,
+                              b["eng"].decode_params)
+    check(b["tokens"] == a["tokens"], "[3l] (a) world-1 tokens differ from "
+          "pctx=None's")
+    check(same_blocks, "[3l] (a) a world-1 block's outputs differ from "
+          "pctx=None's")
+    check(same_tree, "[3l] (a) the world-1 tree differs from pctx=None's")
+    e1 = b["eng"]
+    check(e1.runner.graphs and e1.compiled_programs > 0,
+          "[3l] (a) world 1 over NCCL ran no CUDA graphs")
+    check(all(b["launches"][k] > 0 for k in
+              ("ttq_quantize", "ttq_gemm", "ttq_decode_attention")),
+          f"[3l] (a) a kernel of the path never launched: {b['launches']}")
+    g = next(iter(e1.runner._graphs.values()), None)
+    K = e1.ecfg.decode_chunk
+    per_step = {} if g is None else {k[1]: n / K for k, n in
+                                     g.launches.items()
+                                     if isinstance(k, tuple)}
+    check(per_step.get("all_reduce", 0) > 0, "[3l] (a) the decode graph "
+          "captured no all-reduce")
+    ms = {"none": [], "world 1": []}
+    n_tok = N_REQUESTS * MAX_NEW
+    for _ in range(TP_TURNS_3L):
+        for name in ms:
+            ms[name].append(warm_phases(torch, runs[name]["eng"], prompts,
+                                        n_tok, quiet=True)
+                            ["decode_ms_per_step"])
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    res["a"] = dict(tokens_equal=True, blocks=len(b["blocks"]),
+                    blocks_equal=same_blocks, tree_equal=same_tree,
+                    collectives_per_step=per_step,
+                    collectives_cold_run=b["coll"],
+                    decode_ms_per_step=med, turns=ms,
+                    capture_s=e1.runner.capture_s,
+                    prefill_capture_s=sum(e1.runner.prefill_capture_s
+                                          .values()),
+                    compiled_programs=e1.compiled_programs,
+                    launches=b["launches"])
+    print(f"  (a) world 1 over NCCL: tokens, {len(b['blocks'])} graph "
+          f"blocks and the tree bit for bit pctx=None's; collectives per "
+          f"decode step {per_step} (captured in the decode graph); ms per "
+          f"decode step world 1 {med['world 1']:.3f} vs pctx=None "
+          f"{med['none']:.3f} (median of {TP_TURNS_3L} warm runs in turns: "
+          f"{ms}); capture s: decode {e1.runner.capture_s:.2f}, prefill "
+          f"{res['a']['prefill_capture_s']:.2f}")
+    # what (b) is held to: (a)'s tokens, the logits behind them, and the
+    # world-2 slices of (a)'s tree
+    tokens = a["tokens"]
+    L1 = teacher_logits(torch, cfg, params, e1.decode_params, e1.kvcfg,
+                        e1.kncfg, prompts, tokens)
+    shape_ctx = bind(ParallelCtx(mesh=Mesh(shape={"data": 1,
+                                                  "model": TP_WORLD_3L})),
+                     cfg, col_align(policy))
+    want = tree_hashes(torch, e1.decode_params, TP_WORLD_3L, shape_ctx)
+    tmp = tempfile.mkdtemp(prefix="ttq_3l_")
+    np.save(os.path.join(tmp, "L1.npy"), L1)     # read by each rank
+    payload = dict(world=TP_WORLD_3L, count=count, prompts=prompts,
+                   device=dev.type, cfg=cfg, L1=os.path.join(tmp, "L1.npy"),
+                   tokens=tokens,
+                   stats=[{k: v.cpu().numpy() for k, v in run.items()}
+                          for run in stats["stack"]])
+    payload["stats"] = {"stack": payload["stats"]}
+    del runs, a, b, e1, g, stats, params
+    res["a"]["seconds"] = time.perf_counter() - t_all
+    return res, dict(payload=payload, L1=L1, want=want, tmp=tmp)
+
+
+def tensor_parallel_b(torch, res, held) -> dict:
+    """[3l] (b), with nothing of the earlier phases left on the card."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    free(torch)
+    print(f"  (b) world {TP_WORLD_3L}: {TP_WORLD_3L} processes on the one "
+          f"card; card memory held here before the spawn "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    try:
+        ranks = spawn(RANK_FN, TP_WORLD_3L, held["payload"],
+                      device=held["payload"]["device"], timeout=TP_TIMEOUT_3L)
+    finally:
+        shutil.rmtree(held["tmp"], ignore_errors=True)
+    r0 = ranks[0]
+    check(all(r["tokens"] == r0["tokens"] for r in ranks),
+          "[3l] (b) the ranks emitted different tokens")
+    check(r0["backend"] == "gloo", f"(b) chose {r0['backend']}, not gloo")
+    check(all(r["quant_launches"] > 0 and r["launches_per_step"]["ttq_gemm"]
+              > 0 and r["launches_per_step"]["ttq_decode_attention"] > 0
+              for r in ranks), "[3l] (b) a kernel of the path never "
+          "launched on a rank")
+    for r in ranks:
+        for (rank, ps, f, layer), h in held["want"].items():
+            if rank == r["rank"]:
+                check(r["hashes"].get((0, ps, f, layer)) == h,
+                      f"[3l] (b) rank {rank}: {ps}.{f} layer {layer} is not "
+                      f"the slice of (a)'s")
+    for r in ranks:
+        print(f"  (b) rank {r['rank']}: the *_tp wrappers at shard shapes "
+              f"against the plain version, max |difference|: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in r["kernel_err"].items()))
+    # (a)'s teacher-forced logits against world 2's at every position
+    L1, ties = held["L1"], []
+    for r in ranks:
+        worst = float(r["delta"].max())
+        check(worst <= TP_DELTA_3L, f"[3l] (b) rank {r['rank']}: world 1 and "
+              f"world {TP_WORLD_3L} teacher-forced logits {worst} apart (bound "
+              f"{TP_DELTA_3L})")
+    delta = r0["delta"]
+    print(f"  (b) teacher-forced logits, world 1 against world {TP_WORLD_3L}, "
+          f"at all {delta.size} positions: max |difference| per request "
+          f"{[round(float(x), 4) for x in delta.max(axis=1)]} (bound "
+          f"{TP_DELTA_3L}), median {float(np.median(delta)):.4g}")
+    for i, (a_t, b_t) in enumerate(zip(held["payload"]["tokens"],
+                                       r0["tokens"])):
+        t = leading_equal(a_t, b_t)
+        if t == len(a_t):
+            continue
+        a, b = a_t[t], b_t[t]
+        margin = float(abs(L1[i, t, a] - L1[i, t, b]))
+        ties.append(dict(request=i, t=t, margin=margin,
+                         delta=float(delta[i, t])))
+        print(f"  (b) request {i}: first disagreement with (a) at token {t} "
+              f"({a} vs {b}): logits {margin:.4g} apart, world 1 and world "
+              f"{TP_WORLD_3L} logits up to {delta[i, t]:.4g} apart")
+        check(margin <= delta[i, t], f"[3l] (b) request {i}: the "
+              f"disagreement at token {t} is no near-tie ({margin} > "
+              f"{delta[i, t]})")
+    res["b"] = dict(
+        tokens_equal_a=sum(r0["tokens"][i] == held["payload"]["tokens"][i]
+                           for i in range(N_REQUESTS)),
+        near_ties=ties, codes_bit_equal=True,
+        logits_max_diff=float(max(r["delta"].max() for r in ranks)),
+        logits_median_diff=float(np.median(delta)),
+        tp_kernel_err=[r["kernel_err"] for r in ranks],
+        decode_steps=[r["steps"] for r in ranks],
+        decode_ms_per_step=[r["decode_ms_per_step"] for r in ranks],
+        peak_gb=[r["peak_gb"] for r in ranks],
+        launches_per_step=r0["launches_per_step"],
+        quantize_launches_per_requant=[r["quant_launches"] for r in ranks],
+        collectives=r0["collectives"], graph_mode=r0["graph_mode"],
+        phase_s=[r["phase_s"] for r in ranks],
+        staged_ms_per_step=[{k: v * 1e3 / r["steps"] for k, v in
+                             r["staged_s"].items()} for r in ranks],
+        wall_s=[r["wall_s"] for r in ranks],
+        seconds=time.perf_counter() - t0)
+    print(f"  (b) world {TP_WORLD_3L} over gloo, {r0['graph_mode']}: both "
+          f"ranks' tokens equal, {res['b']['tokens_equal_a']} of "
+          f"{N_REQUESTS} requests equal to (a) (the rest near-ties); every "
+          f"rank's codes, S, Z and D⁻¹ (every layer of every weight) bit "
+          f"for bit its slice of (a)'s; ms per decode step "
+          f"{res['b']['decode_ms_per_step']} (one timed run of "
+          f"{r0['steps']} counted steps, of it in the "
+          f"staged collectives {res['b']['staged_ms_per_step']}); peak GB "
+          f"per rank "
+          f"{res['b']['peak_gb']}; launches per decode step at shard shapes "
+          f"{r0['launches_per_step']}; collectives over the cold run "
+          f"{r0['collectives']}; {res['b']['seconds']:.1f} s")
+    return res
+
+
 # ------------------------------------------------------------- phase 3g
 
 def layer_params(cfg, kind) -> tuple:
@@ -4033,7 +4503,18 @@ def main(argv=None) -> int:
           f"TTQServer and the CLI; gemma-7b full width, [3]'s policy")
     rob = robustness(torch, dev, cfg, params, prompts)
     print("    robustness: " + json.dumps(rob, default=str))
-    del params
+    free(torch)
+
+    print(f"[3l] tensor-parallel serving: gemma-7b full width and depth, "
+          f"[3]'s policy and traffic on a tree from fixed statistics; (a) "
+          f"world 1 over NCCL with CUDA graphs against pctx=None; (b) world "
+          f"{TP_WORLD_3L}: {TP_WORLD_3L} processes sharing the card over "
+          f"gloo, eager blocks")
+    tp, held = tensor_parallel(torch, dev, cfg, params, prompts)
+    del params                          # nothing of [3]-[3l] (a) is left
+    tp = tensor_parallel_b(torch, tp, held)
+    del held
+    print("    tensor parallel: " + json.dumps(tp, default=str))
     free(torch)
 
     print(f"[3g] the other dense families at full width: "
@@ -4082,9 +4563,10 @@ def main(argv=None) -> int:
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "
           "[3b]), the speculative path's ([3e]), the robustness and "
-          "streaming path's ([3f] (a)-(g)) and the families' ([3g], "
-          "[3h], [3i], [3j]), counted per replay; ttq_gemm_experts per "
-          "decode step at deepseek-v2-lite's 27 layers")
+          "streaming path's ([3f] (a)-(g)), the families' ([3g], "
+          "[3h], [3i], [3j]) and the tensor-parallel path's ([3l] (a)), "
+          "counted per replay; ttq_gemm_experts per decode step at "
+          "deepseek-v2-lite's 27 layers")
     kernels = []
     spec_cases = ("a", "b", "b paged", "c")
     for name, (src, replaces, m) in rows.items():
@@ -4096,6 +4578,7 @@ def main(argv=None) -> int:
         hyb_n = hyb["launches"][name]
         moe_n = moe["launches"][name]
         ssm_n = ssm["launches"][name]
+        tp_n = tp["a"]["launches"].get(name, 0)
         if name != "ttq_gemm_experts":
             check(fam_n > 0, f"{name} never launched in [3g]")
             check(hyb_n > 0, f"{name} never launched in [3h]")
@@ -4107,11 +4590,12 @@ def main(argv=None) -> int:
               + ", ".join(f"({k}) {spec[k]['launches'][name]}"
                           for k in spec_cases) + f"), robustness and "
               f"streaming path {rob_n}, families {fam_n} ([3g]), "
-              f"{hyb_n} ([3h]), {moe_n} ([3i]) and {ssm_n} ([3j])")
+              f"{hyb_n} ([3h]), {moe_n} ([3i]), {ssm_n} ([3j]) and "
+              f"tensor-parallel {tp_n} ([3l] (a), world 1)")
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
                             launches=main_n + spec_n + rob_n + fam_n + hyb_n
-                            + moe_n + ssm_n, **m))
+                            + moe_n + ssm_n + tp_n, **m))
     for cfg_name, t in experts_by_cfg.items():
         print(f"  ttq_gemm_experts per decode step at {cfg_name} "
               f"({moe_depths[cfg_name]} layers): {t['ms']:.3f} ms, bound "

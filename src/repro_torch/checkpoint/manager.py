@@ -9,7 +9,7 @@ Layout (the reference's, so each package reads the other's checkpoints):
 bf16 leaves are widened to f32 on disk (exact); restore casts each leaf to
 the dtype and device of the ``like`` tree.  Restoring onto another layout
 of devices (the reference's ``reshard_restore``) waits for tensor
-parallelism (ROADMAP A10).
+parallelism (ROADMAP A10 (d)).
 """
 from __future__ import annotations
 

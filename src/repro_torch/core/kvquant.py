@@ -63,6 +63,13 @@ class KVCacheConfig:
         return {"bf16": torch.bfloat16, "int8": torch.int8,
                 "int4": torch.int32}[self.dtype]
 
+    def bytes_per_token_head(self, head_dim: int) -> float:
+        """Cache bytes per (head, token) row — the decode-traffic unit."""
+        if not self.quantized:
+            return 2.0 * head_dim
+        code = head_dim if self.dtype == "int8" else head_dim / 2
+        return code + 4.0 * self.groups(head_dim)
+
 
 BF16_KV = KVCacheConfig()
 
@@ -93,3 +100,29 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16, *,
     g = group_size or Dh
     grouped = codes.reshape(*codes.shape[:-1], Dh // g, g)
     return (grouped * s[..., None]).reshape(codes.shape).to(dtype)
+
+
+def decode_attention_q8(q, kq, ks, vq, vs, cur_pos, *, scale=None,
+                        soft_cap: float = 0.0):
+    """Single-token attention over an int8-quantized cache with per-token
+    scales, the seed's read (the reference's ``decode_attention_q8``):
+    q (B,H,1,Dh); kq/vq (B,Hkv,S,Dh) int8; ks/vs (B,Hkv,S,1) f32.  The
+    k-dot contracts the int8 codes and folds the scale into the score; the
+    v-scale folds into the probabilities.  The serving path's read is
+    ``kernels.ops.kv_decode_attention``, which also takes int4 and grouped
+    scales."""
+    B, H, _, Dh = q.shape
+    Hkv, S = kq.shape[1], kq.shape[2]
+    G = H // Hkv
+    sc = scale if scale is not None else Dh ** -0.5
+    qg = (q[:, :, 0].float() * sc).reshape(B, Hkv, G, Dh)
+    s_ = torch.einsum("bhgd,bhkd->bhgk", qg, kq.float()) \
+        * ks[:, :, None, :, 0]
+    if soft_cap > 0:
+        s_ = soft_cap * torch.tanh(s_ / soft_cap)
+    mask = torch.arange(S, device=q.device)[None, :] <= cur_pos[:, None]
+    s_ = torch.where(mask[:, None, None, :], s_,
+                     torch.full_like(s_, -1e30))
+    p = torch.softmax(s_, dim=-1) * vs[:, :, None, :, 0]
+    o = torch.einsum("bhgk,bhkd->bhgd", p, vq.float())
+    return o.reshape(B, H, 1, Dh).to(q.dtype)

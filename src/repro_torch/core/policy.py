@@ -35,7 +35,8 @@ FUSED_KERNELS = KernelConfig(use_pallas=True)
 
 
 def override(pattern: str, **delta) -> tuple:
-    known = _QCFG_FIELDS | _ACFG_FIELDS | {"method", "rank", "packed"}
+    known = _QCFG_FIELDS | _ACFG_FIELDS | {"method", "rank", "packed",
+                                           "per_expert_stats"}
     unknown = set(delta) - known
     if unknown:
         raise ValueError(f"unknown override field(s) {sorted(unknown)}; "
@@ -52,6 +53,8 @@ class QuantPolicy:
     skip: tuple = ("embed*", "lm_head", "*norm*", "router*",
                    "w_gate*", "conv*", "pos_embed", "gamma", "beta")
     packed: bool = False           # real int path (kernel) vs fake-quant
+    per_expert_stats: bool = True  # the reference's field; read nowhere
+                                   # there, so it selects no code path
     overrides: tuple = ()
     kvcache: KVCacheConfig = KVCacheConfig()
     kernel: KernelConfig = KernelConfig()

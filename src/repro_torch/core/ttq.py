@@ -105,19 +105,29 @@ def dequant(qt: QuantizedTensor) -> torch.Tensor:
 
 
 def ttq_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
-               kcfg=None) -> torch.Tensor:
+               kcfg=None, pctx=None, tp=None) -> torch.Tensor:
     """y = x @ Ŵᵀ for x (..., d).  With ``kcfg.use_pallas`` a packed weight
     goes through the ``ttq_gemm`` kernel, the D⁻¹ prescale fused into its
     prologue; otherwise the plain path prescales x∘D⁻¹ in f32 and multiplies
     the dequantized f32 weight.  The low-rank branch runs on the unscaled x
     either way.  A weight with a leading expert axis (scale (E, d', d/g))
-    is :func:`ttq_matmul_experts`."""
+    is :func:`ttq_matmul_experts`.
+
+    ``pctx``/``tp`` ('row'|'col'): the rank's slice under tensor
+    parallelism (``kernels/ops.py:ttq_gemm_tp``).  A column slice's
+    products are partial sums, all-reduced over the model axis: the GEMM's
+    after it, the low-rank branch's rank-r product x·Aᵀ before it meets the
+    replicated B."""
     if qt.scale.dim() == 3:
         return ttq_matmul_experts(x, qt, kcfg=kcfg)
+    col = tp == "col" and pctx is not None and pctx.mesh is not None
+    if col:
+        from repro_torch.parallel import comm
     if kcfg is not None and kcfg.use_pallas and qt.packed is not None:
         from repro_torch.kernels import ops as kops
-        y = kops.ttq_gemm(x, qt.packed, qt.scale, qt.zero, qt.dinv,
-                          bits=qt.bits, group_size=qt.group_size)
+        y = kops.ttq_gemm_tp(x, qt.packed, qt.scale, qt.zero, qt.dinv,
+                             bits=qt.bits, group_size=qt.group_size,
+                             pctx=pctx, tp=tp)
     else:
         lead = x.shape[:-1]
         xs = x.reshape(-1, x.shape[-1]).float() * qt.dinv
@@ -126,9 +136,18 @@ def ttq_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
             wint = unpack_bits(qt.packed, qt.in_features, qt.bits)
         Wd = dequantize(wint, qt.scale, qt.zero, qt.qcfg)
         from repro_torch.kernels.ref import row_matmul
-        y = row_matmul(xs, Wd.T).reshape(*lead, -1).to(x.dtype)
+        y = row_matmul(xs, Wd.T).reshape(*lead, -1)
+        if col:                 # f32 partial sums, rounded once after
+            y = comm.all_reduce(y, pctx)
+        y = y.to(x.dtype)
     if qt.B is not None:
-        y = y + (x @ qt.A.to(x.dtype).T) @ qt.B.to(x.dtype).T
+        if col and pctx.world > 1:
+            xa = comm.all_reduce(x.float() @ qt.A.float().T, pctx).to(x.dtype)
+        else:
+            xa = x @ qt.A.to(x.dtype).T
+            if col:
+                xa = comm.all_reduce(xa, pctx)
+        y = y + xa @ qt.B.to(x.dtype).T
     return y
 
 
@@ -156,6 +175,36 @@ def ttq_matmul_experts(x: torch.Tensor, qt: QuantizedTensor, *,
         y = y + torch.bmm(torch.bmm(xe, qt.A.to(x.dtype).transpose(1, 2)),
                           qt.B.to(x.dtype).transpose(1, 2))
     return y
+
+
+def init_lowrank_tree(params: Any, policy: QuantPolicy, is_weight) -> Any:
+    """Offline, data-free: top-r SVD factors per quantizable 2-D weight
+    (the reference's ``core/ttq.py:init_lowrank_tree``).  ``is_weight(path,
+    leaf) → bool`` decides eligibility, ``path`` a tuple of keys.  Returns
+    the params' nesting with a {'B', 'A'} dict at each eligible 2-D weight
+    and None elsewhere.  (The serving path's stacked factors come from
+    ``quant/api.py:lowrank_tree``.)"""
+    from .lowrank import svd_factors
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, path + (i,)) for i, v in enumerate(tree))
+        if (policy.rank > 0 and isinstance(tree, torch.Tensor)
+                and tree.dim() == 2 and is_weight(path, tree)):
+            B, A = svd_factors(tree, policy.rank)
+            return {"B": B, "A": A}
+        return None
+    return walk(params, ())
+
+
+def quantize_params(params, stats, policy: QuantPolicy, **kw):
+    """Whole-model eager quantization, kept here under the reference's
+    historical import (``repro.core.quantize_params``); it lives in
+    :func:`repro_torch.quant.api.quantize_params`."""
+    from repro_torch.quant.api import quantize_params as _qp
+    return _qp(params, stats, policy, **kw)
 
 
 def ttq_linear(x: torch.Tensor, w, **kw) -> torch.Tensor:

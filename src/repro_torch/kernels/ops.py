@@ -6,6 +6,16 @@ version; otherwise the kernel wrapper runs, which launches the CUDA kernel
 for CUDA tensors and uses the plain version for CPU tensors.  The
 speculative verify reads (``kv_suffix_attention``,
 ``kv_paged_suffix_attention``) have no kernel and are plain everywhere.
+
+The ``*_tp`` wrappers are the reference's tensor-parallel entries
+(``repro/kernels/ops.py:147-262``).  Each rank holds its slice of the
+weights and caches (``parallel/rules.py:shard_params``), so a wrapper runs
+the same kernel on the rank's shard and runs the collective itself:
+``ttq_gemm_tp(tp="row")`` multiplies the (d'/n, d) shard with no
+collective, ``tp="col"`` the (d', d/n) slice of its input slice and then
+all-reduces; the attention wrappers read the rank's q and KV heads.
+Without a context (or for a block the layout replicates, which the model
+code runs with ``pctx=None``) they are the unwrapped calls.
 """
 from __future__ import annotations
 
@@ -103,3 +113,95 @@ def ttq_quantize(W, D, *, bits=4, group_size=32, use_pallas=True, out=None):
     for o, r in zip(out, res):
         o.copy_(r)
     return tuple(out)
+
+
+# ---------------------------------------------------------------- TP wrappers
+
+def _tp_gemm_ok(pctx, tp, x, packed, scale, bits, group_size):
+    """Whether the call takes the tensor-parallel path: a context with a
+    mesh and a role.  A column slice must keep whole groups and code words
+    (the placement's ``align``): a misaligned one means the placement and
+    the weights disagree, and raises."""
+    if tp not in ("row", "col") or pctx is None or pctx.mesh is None:
+        return False
+    if tp == "col":
+        d = x.shape[-1]
+        per = 32 // bits
+        g = group_size or d
+        if d % g or d % per or packed.shape[-1] * per != d \
+                or scale.shape[-1] * g != d:
+            raise ValueError(
+                f"ttq_gemm_tp(tp='col'): input slice of {d} features does "
+                f"not match its weight slice (packed {tuple(packed.shape)}, "
+                f"scale {tuple(scale.shape)}, g={g}, bits={bits})")
+    return True
+
+
+def ttq_gemm_tp(x, packed, scale, zero, dinv=None, *, bits=4, group_size=32,
+                pctx=None, tp=None):
+    """``ttq_gemm`` under Megatron-style tensor parallelism.  ``tp='row'``:
+    the rank's (d'/n, d) shard, output features sharded, no collective.
+    ``tp='col'``: the rank's input slice x (…, d/n) against its (d', d/n)
+    slice, then an all-reduce over the model axis rebuilds the full
+    output.  The split rules (``kernels/ttq_gemm.py:gemm_splits``) see the
+    shard's shape."""
+    col = _tp_gemm_ok(pctx, tp, x, packed, scale, bits, group_size) \
+        and tp == "col"
+    if col and pctx.world > 1:
+        # partial sums in f32, summed, then rounded once, as world 1
+        # rounds its f32 accumulator once
+        from repro_torch.parallel import comm
+        y = ttq_gemm(x.float(), packed, scale, zero, dinv, bits=bits,
+                     group_size=group_size)
+        return comm.all_reduce(y, pctx).to(x.dtype)
+    y = ttq_gemm(x, packed, scale, zero, dinv, bits=bits,
+                 group_size=group_size)
+    if col:                               # one rank: the identity
+        from repro_torch.parallel import comm
+        y = comm.all_reduce(y, pctx)
+    return y
+
+
+def _tp_attn_ok(pctx, q, kq, batched_cache):
+    """Whether the read runs on a rank's heads: a context with a mesh,
+    and q heads a whole GQA multiple of the rank's KV heads (q and KV
+    heads shard the model axis together; the q→kv map is
+    block-contiguous)."""
+    if pctx is None or pctx.mesh is None:
+        return False
+    if q.shape[1] % kq.shape[1]:
+        raise ValueError(f"rank's q heads {q.shape[1]} not a multiple of "
+                         f"its KV heads {kq.shape[1]}")
+    return True
+
+
+def kv_decode_attention_tp(q, kq, ks, vq, vs, cur_pos, *, pctx=None, **kw):
+    """Head-parallel :func:`kv_decode_attention`: the rank's q heads over
+    its KV heads; no collective (``wo`` reduces after it)."""
+    _tp_attn_ok(pctx, q, kq, True)
+    return kv_decode_attention(q, kq, ks, vq, vs, cur_pos, **kw)
+
+
+def kv_suffix_attention_tp(q, kq, ks, vq, vs, pos, *, pctx=None, **kw):
+    """Head-parallel :func:`kv_suffix_attention` (the verify read)."""
+    _tp_attn_ok(pctx, q, kq, True)
+    return kv_suffix_attention(q, kq, ks, vq, vs, pos, **kw)
+
+
+def kv_paged_decode_attention_tp(q, kq, ks, vq, vs, block_table, cur_pos, *,
+                                 pctx=None, **kw):
+    """Head-parallel paged decode read: the pools are sharded over KV heads
+    (never over the physical blocks, whose ids are global); the block table
+    and positions are replicated."""
+    _tp_attn_ok(pctx, q, kq, False)
+    return kv_paged_decode_attention(q, kq, ks, vq, vs, block_table, cur_pos,
+                                     **kw)
+
+
+def kv_paged_suffix_attention_tp(q, kq, ks, vq, vs, block_table, pos, *,
+                                 pctx=None, **kw):
+    """Head-parallel paged verify read (as
+    :func:`kv_paged_decode_attention_tp`)."""
+    _tp_attn_ok(pctx, q, kq, False)
+    return kv_paged_suffix_attention(q, kq, ks, vq, vs, block_table, pos,
+                                     **kw)

@@ -22,7 +22,14 @@ the reference launcher's (``repro.launch.serve``):
 
 ``--arch`` takes the ten configs (``configs.ARCH_IDS``); an
 encoder-decoder arch's requests carry frames drawn from the same seed.
-``--mesh N > 1`` (tensor-parallel serving) is refused.
+
+``--mesh N > 1`` serves tensor-parallel over N ranks, the reference's
+(1, N) mesh: N processes (``launch/mesh.py:spawn``), each building the
+whole seeded parameters, keeping its slice and serving the same requests;
+rank 0 prints the summary and the mesh line, with the backend
+``make_mesh`` chose (gloo on the CPU; NCCL with a card per rank, else
+gloo sharing the card).  Families without plain attention refuse a mesh
+above 1, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -96,7 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="draft-tree bits (rank 0, g32); 0 = the policy's "
                          "int4 draft variant")
     ap.add_argument("--mesh", type=int, default=1,
-                    help="model-parallel mesh size; only 1 is ported")
+                    help="model-parallel mesh size: N ranks, one process "
+                         "each (plain-attention families)")
     ap.add_argument("--deadline-s", type=float, default=0.0,
                     help="per-request deadline in seconds; an expired "
                          "request fails with error='deadline' (0 = none)")
@@ -163,12 +171,28 @@ def engine_config(args):
 
 
 def main(argv=None):
+    """Serve the flags' workload; returns (engine, results) with --mesh 1,
+    (None, rank 0's results) with --mesh N > 1."""
     args = build_parser().parse_args(argv)
-    if args.mesh > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: tensor-parallel serving (ROADMAP A10) is "
-            f"not ported yet; run with --mesh 1")
+    if args.mesh <= 1:
+        return _serve(args)
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel.rules import check_family
+    check_family(get(args.arch, smoke=args.smoke), args.mesh)
+    outs = spawn(_serve_rank, args.mesh, argv, device=args.device)
+    if any(o != outs[0] for o in outs[1:]):
+        raise RuntimeError("the ranks emitted different tokens")
+    return None, outs[0]
 
+
+def _serve_rank(argv):
+    """One rank of ``--mesh N``: its results as {rid: tokens}."""
+    _, outs = _serve(build_parser().parse_args(argv), mesh=True)
+    return {rid: list(v) for rid, v in outs.items()}
+
+
+def _serve(args, mesh=False):
     import numpy as np
     import torch
 
@@ -177,7 +201,12 @@ def main(argv=None):
     from repro_torch.models import lm
     from repro_torch.serving import TTQEngine, demo_injector
 
-    dev = resolve_device(args.device)
+    pctx = None
+    if mesh:
+        from repro_torch.launch.mesh import make_ctx, make_mesh
+        pctx = make_ctx(make_mesh(1, args.mesh, device=args.device))
+    say = print if pctx is None or pctx.rank == 0 else (lambda *a, **k: None)
+    dev = resolve_device(pctx.mesh.device if pctx else args.device)
     cfg = get(args.arch, smoke=args.smoke)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
@@ -191,31 +220,36 @@ def main(argv=None):
                                   kernel=policy.kernel,
                                   packed=args.use_kernels or args.packed)
     eng = TTQEngine(cfg, params, policy, engine_config(args), device=dev,
-                    draft_policy=draft_policy, faults=faults)
+                    draft_policy=draft_policy, faults=faults, pctx=pctx)
+    del params                          # the engine keeps its slice
     layout = (f"paged block={eng.kvcfg.block_size} "
               f"pool={eng.num_blocks} blocks/layer "
               f"prefix_cache={not args.no_prefix_cache}"
               if eng.kvcfg.paged else "dense slab")
-    print(f"kv-cache: dtype={eng.kvcfg.dtype} "
+    say(f"kv-cache: dtype={eng.kvcfg.dtype} "
           f"group_size={eng.kvcfg.group_size or 'per-head-token'} "
           f"pallas={eng.kvcfg.use_pallas} layout={layout}")
     gate = (f"delta-gate >= {args.requant_threshold}"
             if args.requant_threshold >= 0 else "always-full")
-    print(f"weight kernels: pallas={eng.kncfg.use_pallas} "
+    say(f"weight kernels: pallas={eng.kncfg.use_pallas} "
           f"packed={policy.packed}, requant: {gate}")
     cadence = (f"every {args.recal_tokens} tokens" if args.recal_tokens
                else f"every {args.recal_every} admissions")
     unit = "windows" if eng.ecfg.speculate_k > 0 else "tokens"
-    print(f"decode-chunk: {eng.ecfg.decode_chunk} {unit}/dispatch, "
+    say(f"decode-chunk: {eng.ecfg.decode_chunk} {unit}/dispatch, "
           f"requant cadence: {cadence}")
     if eng.ecfg.speculate_k > 0:
         dp = eng.draft_policy
         dd = (f"int{dp.qcfg.bits} g{dp.qcfg.group_size}"
               if dp is not None and dp.any_enabled else "fp (no-quant)")
-        print(f"speculate: W={eng.ecfg.speculate_k} drafted tokens/window, "
+        say(f"speculate: W={eng.ecfg.speculate_k} drafted tokens/window, "
               f"draft tree {dd}")
+    if pctx is not None:
+        say(f"mesh: (1, {args.mesh}) data×model over {pctx.world} "
+              f"rank(s), backend {pctx.mesh.backend} on {pctx.mesh.device}; "
+              f"blocks: {eng.runner.graph_mode}")
     dl = f"{args.deadline_s:.1f}s" if args.deadline_s > 0 else "none"
-    print(f"guards: {'off' if args.no_guards else 'on'} deadline={dl} "
+    say(f"guards: {'off' if args.no_guards else 'on'} deadline={dl} "
           f"inject={args.inject or 'none'}")
     rng = np.random.default_rng(0)
     t0 = time.time()
@@ -234,31 +268,31 @@ def main(argv=None):
     toks = sum(len(v) for v in outs.values())
     skipped = eng.layers_skipped
     total_layers = eng.layers_skipped + eng.layers_requantized
-    print(f"arch={cfg.name} requests={len(outs)} tokens={toks} "
+    say(f"arch={cfg.name} requests={len(outs)} tokens={toks} "
           f"wall={dt:.1f}s requants={eng.n_requants} "
           f"host_syncs/token={eng.host_syncs / max(toks, 1):.2f} "
           f"requant_wall={eng.requant_wall_s:.2f}s "
           f"gate_skipped_layers={skipped}/{total_layers}")
     lat = eng.latency_percentiles()
-    print(f"latency: ttft p50/p99 {lat['ttft_p50'] * 1e3:.1f}/"
+    say(f"latency: ttft p50/p99 {lat['ttft_p50'] * 1e3:.1f}/"
           f"{lat['ttft_p99'] * 1e3:.1f} ms, itl p50/p99 "
           f"{lat['itl_p50'] * 1e3:.1f}/{lat['itl_p99'] * 1e3:.1f} ms "
           f"({lat['n_streams']} streams)")
     if eng.ecfg.prefill_chunk > 0 or eng.ecfg.max_queue > 0:
-        print(f"slo: prefill_chunks={eng.prefill_chunks} "
+        say(f"slo: prefill_chunks={eng.prefill_chunks} "
               f"queue_rejections={eng.queue_rejections} "
               f"queue_depth={eng.queue_depth}")
     if eng.ecfg.speculate_k > 0:
-        print(f"speculate: windows={eng.spec_windows} "
+        say(f"speculate: windows={eng.spec_windows} "
               f"acceptance={eng.spec_acceptance_rate:.2f} "
               f"(accepted drafts / drafted tokens)")
     if eng.kvcfg.paged:
-        print(f"kv-pool: util_peak={eng.kv_pool_utilization:.2f} "
+        say(f"kv-pool: util_peak={eng.kv_pool_utilization:.2f} "
               f"prefix_hit_rate={eng.prefix_hit_rate:.2f} "
               f"preemptions={eng.preemptions} "
               f"prefill_tokens={eng.prefill_tokens:.0f}")
     if not args.no_guards:
-        print(f"guards: calib_rejections={eng.calib_rejections} "
+        say(f"guards: calib_rejections={eng.calib_rejections} "
               f"requant_rejections={eng.requant_rejections} "
               f"lane_faults={eng.lane_faults} "
               f"deadline_expirations={eng.deadline_expirations} "
@@ -266,12 +300,12 @@ def main(argv=None):
               f"degrade_events={eng.degrade_events}")
     if faults is not None:
         fired = ", ".join(f"{s}@{n}" for s, n, _ in faults.fired) or "none"
-        print(f"faults fired: {fired}")
+        say(f"faults fired: {fired}")
         failed = [r for r, v in sorted(outs.items()) if v.error]
         if failed:
-            print(f"  failed rids: {failed}")
+            say(f"  failed rids: {failed}")
     for rid, v in sorted(outs.items())[:4]:
-        print(f"  rid={rid}: {v[:10]}{'…' if len(v) > 10 else ''}")
+        say(f"  rid={rid}: {v[:10]}{'…' if len(v) > 10 else ''}")
     return eng, outs
 
 

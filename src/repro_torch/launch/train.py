@@ -6,8 +6,9 @@
 Runs on the card unless ``--device cpu``.  The flags and the printed
 metric lines (the first three and the last three steps) are the reference
 launcher's (``repro.launch.train``).  ``--data-parallel`` or
-``--model-parallel`` above 1 (a mesh) is refused: tensor and data
-parallelism are not ported yet (ROADMAP A10).
+``--model-parallel`` above 1 (a mesh) is refused: data- and
+tensor-parallel training wait for ROADMAP A10 (d) (tensor-parallel
+serving is ported: ``launch/serve.py --mesh N``).
 """
 from __future__ import annotations
 
@@ -40,8 +41,8 @@ def main(argv=None):
     if args.data_parallel * args.model_parallel > 1:
         raise NotImplementedError(
             f"--data-parallel {args.data_parallel} --model-parallel "
-            f"{args.model_parallel}: data and tensor parallelism (ROADMAP "
-            f"A10) are not ported yet; run with both at 1")
+            f"{args.model_parallel}: data- and tensor-parallel training "
+            f"(ROADMAP A10 (d)) is not ported yet; run with both at 1")
 
     from repro_torch._device import resolve_device
     from repro_torch.configs import get

@@ -1,4 +1,6 @@
 """Models: config, shared blocks, attention layer, layer stack, LM entry points."""
-from .config import ModelConfig
+from . import lm
+from .config import EncDecCfg, HybridCfg, MLACfg, ModelConfig, MoECfg, SSMCfg
 
-__all__ = ["ModelConfig"]
+__all__ = ["lm", "ModelConfig", "MoECfg", "MLACfg", "HybridCfg", "SSMCfg",
+           "EncDecCfg"]

@@ -25,17 +25,49 @@ ACT = {"silu": F.silu,
 
 
 def linear(x: torch.Tensor, w, stats: Optional[dict] = None, name: str = "",
-           kcfg=None) -> torch.Tensor:
+           kcfg=None, pctx=None, tp=None) -> torch.Tensor:
     """y = x @ wᵀ (w: (out,in) tensor or QuantizedTensor); taps Σx² into
     ``stats[name]`` when a stats dict is given.  ``kcfg`` selects the
-    ``ttq_gemm`` kernel for packed QuantizedTensors."""
+    ``ttq_gemm`` kernel for packed QuantizedTensors.  ``pctx``/``tp``
+    ('row'|'col'): w is the rank's slice under tensor parallelism; a
+    'col' slice reads the rank's slice of the input (so the Σx² tap sees
+    the features its weight slice needs) and its partial sums are
+    all-reduced over the model axis."""
     if stats is not None:
         xf = x.float()
         s = (xf * xf).sum(dim=tuple(range(x.dim() - 1)))
         stats[name] = stats[name] + s if name in stats else s
     if isinstance(w, QuantizedTensor):
-        return ttq_matmul(x, w, kcfg=kcfg).to(x.dtype)
-    return x @ w.to(x.dtype).T
+        return ttq_matmul(x, w, kcfg=kcfg, pctx=pctx, tp=tp).to(x.dtype)
+    if tp != "col" or pctx is None or pctx.mesh is None:
+        return x @ w.to(x.dtype).T
+    from repro_torch.parallel import comm
+    if pctx.world == 1:                 # the identity, on the same bits
+        return comm.all_reduce(x @ w.to(x.dtype).T, pctx)
+    # f32 partial sums, summed, then rounded once, as world 1 rounds once
+    return comm.all_reduce(x.float() @ w.float().T, pctx).to(x.dtype)
+
+
+def init_linear(gen, d_out: int, d_in: int, dtype=torch.bfloat16,
+                scale: float | None = None, device="cpu") -> torch.Tensor:
+    """One (d_out, d_in) weight ~ N(0, scale²), scale 1/√d_in by default
+    (the stacked init of a layer stack is ``layers.init_linear``)."""
+    scale = scale if scale is not None else d_in ** -0.5
+    return (torch.randn((d_out, d_in), generator=gen, device=device)
+            * scale).to(dtype)
+
+
+def init_glu_mlp(gen, d: int, d_ff: int, dtype=torch.bfloat16,
+                 device="cpu") -> dict:
+    return {"wg": init_linear(gen, d_ff, d, dtype, device=device),
+            "wu": init_linear(gen, d_ff, d, dtype, device=device),
+            "wd": init_linear(gen, d, d_ff, dtype, device=device)}
+
+
+def init_plain_mlp(gen, d: int, d_ff: int, dtype=torch.bfloat16,
+                   device="cpu") -> dict:
+    return {"w1": init_linear(gen, d_ff, d, dtype, device=device),
+            "w2": init_linear(gen, d, d_ff, dtype, device=device)}
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
@@ -116,6 +148,15 @@ def cache_update_batched(cache: torch.Tensor, new: torch.Tensor,
     B, Hkv, _, Dc = new.shape
     idx = pos.long().view(B, 1, 1, 1).expand(B, Hkv, 1, Dc)
     return cache.scatter_(2, idx, new.to(cache.dtype))
+
+
+def cache_update(cache: torch.Tensor, new: torch.Tensor,
+                 pos: int) -> torch.Tensor:
+    """cache (B, Hkv, Smax, Dh) ← new (B, Hkv, 1, Dh) at one sequence
+    position for every row, in place; returns the cache (the decode path
+    writes per-slot positions, :func:`cache_update_batched`)."""
+    cache[:, :, pos:pos + 1] = new.to(cache.dtype)
+    return cache
 
 
 def seq_update_batched(cache: torch.Tensor, new: torch.Tensor,
@@ -270,19 +311,29 @@ def suffix_attention(q, k_cache, v_cache, pos, *, soft_cap: float = 0.0):
                       for s in range(q.shape[2])], dim=2)
 
 
-def glu_mlp(x, p, stats=None, prefix="mlp", act="silu", kcfg=None):
-    """Gated MLP (SwiGLU/GeGLU): (act(x@Wg) * (x@Wu)) @ Wd."""
-    g = linear(x, p["wg"], stats, f"{prefix}.wg", kcfg)
-    u = linear(x, p["wu"], None, kcfg=kcfg)   # same input as wg — tap once
+def glu_mlp(x, p, stats=None, prefix="mlp", act="silu", kcfg=None,
+            pctx=None):
+    """Gated MLP (SwiGLU/GeGLU): (act(x@Wg) * (x@Wu)) @ Wd; under ``pctx``
+    wg/wu row-split and wd column-split over the hidden width."""
+    g = linear(x, p["wg"], stats, f"{prefix}.wg", kcfg, pctx=pctx, tp="row")
+    u = linear(x, p["wu"], None, kcfg=kcfg, pctx=pctx,
+               tp="row")                      # same input as wg — tap once
     h = ACT[act](g.float()).to(x.dtype) * u
-    return linear(h, p["wd"], stats, f"{prefix}.wd", kcfg)
+    return linear(h, p["wd"], stats, f"{prefix}.wd", kcfg, pctx=pctx, tp="col")
 
 
-def plain_mlp(x, p, stats=None, prefix="mlp", act="gelu", kcfg=None):
-    """Plain MLP: act(x@W1) @ W2."""
-    h = linear(x, p["w1"], stats, f"{prefix}.w1", kcfg)
+def plain_mlp(x, p, stats=None, prefix="mlp", act="gelu", kcfg=None,
+              pctx=None):
+    """Plain MLP: act(x@W1) @ W2; under ``pctx`` w1 row-split, w2
+    column-split."""
+    h = linear(x, p["w1"], stats, f"{prefix}.w1", kcfg, pctx=pctx, tp="row")
     h = ACT[act](h.float()).to(x.dtype)
-    return linear(h, p["w2"], stats, f"{prefix}.w2", kcfg)
+    return linear(h, p["w2"], stats, f"{prefix}.w2", kcfg, pctx=pctx, tp="col")
+
+
+def vocab_logits(x: torch.Tensor, w_head, stats=None) -> torch.Tensor:
+    """LM head, f32 logits (w: (V, D)); taps ``stats['lm_head']``."""
+    return linear(x, w_head, stats, "lm_head").float()
 
 
 def sample_logits(logits: torch.Tensor, generator=None,

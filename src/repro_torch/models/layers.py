@@ -66,17 +66,22 @@ def init_attn(gen, cfg: ModelConfig, n: int, device):
     return p
 
 
-def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None, xkv=None):
+def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None, xkv=None,
+         pctx=None):
     """q, k, v (B, heads, S, hd): q from x, k and v from ``xkv`` (the
     encoder output of cross-attention; default x).  qk-norm (RMSNorm per
     head, before RoPE) here, so prefill, decode, verify and chunked prefill
-    all take it."""
+    all take it.  Under ``pctx`` wq/wk/wv are the rank's row slices and
+    ``cfg`` counts its heads (``parallel/rules.py:local_cfg``)."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xkv = x if xkv is None else xkv
-    q = linear(x, p["wq"], stats, prefix + "wq", kcfg).reshape(B, -1, H, hd)
-    k = linear(xkv, p["wk"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
-    v = linear(xkv, p["wv"], None, kcfg=kcfg).reshape(B, -1, Hkv, hd)
+    q = linear(x, p["wq"], stats, prefix + "wq", kcfg, pctx=pctx,
+               tp="row").reshape(B, -1, H, hd)
+    k = linear(xkv, p["wk"], None, kcfg=kcfg, pctx=pctx,
+               tp="row").reshape(B, -1, Hkv, hd)
+    v = linear(xkv, p["wv"], None, kcfg=kcfg, pctx=pctx,
+               tp="row").reshape(B, -1, Hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["qnorm"]["gamma"])
         k = rmsnorm(k, p["knorm"]["gamma"])
@@ -86,7 +91,7 @@ def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None, xkv=None):
 def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
                causal: bool = True, window: int = 0, pos0: int = 0,
                x_cross=None, return_kv: bool = False, kv_prefix=None,
-               kvcfg=None, kcfg=None):
+               kvcfg=None, kcfg=None, pctx=None):
     """Sequence-mode attention, x (B,S,D) at absolute positions pos0.. ;
     a ``window`` W > 0 is local attention over the last W positions.
     RoPE only where the config's positions are ``rope``.  ``x_cross``
@@ -99,8 +104,9 @@ def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
     numbers).  ``kv_prefix`` = (k, v) each (B, Hkv, P, Dh): cached context
     (post-RoPE, e.g. a shared prompt prefix gathered from the paged pool)
     in front of this call's keys; the queries then start at ``pos0 == P``.
-    ``return_kv`` returns only this call's k/v."""
-    q, k, v = _qkv(cfg, p, x, stats, prefix, kcfg, xkv=x_cross)
+    ``return_kv`` returns only this call's k/v.  ``pctx``: head-parallel
+    (the rank's heads; wo column-split and all-reduced)."""
+    q, k, v = _qkv(cfg, p, x, stats, prefix, kcfg, xkv=x_cross, pctx=pctx)
     S = x.shape[1]
     cross = x_cross is not None
     if cfg.pos == "rope" and not cross:
@@ -122,7 +128,7 @@ def attn_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
     o = attention(q, kf, vf, causal=causal and not cross, window=window,
                   soft_cap=cfg.attn_soft_cap, q_offset=q_off)
     y = linear(o.transpose(1, 2).reshape(x.shape[0], S, -1), p["wo"], stats,
-               prefix + "wo", kcfg)
+               prefix + "wo", kcfg, pctx=pctx, tp="col")
     if return_kv:
         return y, (k, v)
     return y
@@ -286,40 +292,45 @@ def _kv_append_rows(state, k, v, pos, kvcfg):
 
 
 def _kv_attention_paged(q, state, block_table, cur, kvcfg, *,
-                        soft_cap: float = 0.0):
+                        soft_cap: float = 0.0, pctx=None):
     """The read over the paged pool: quantized pools go through the
-    ``ttq_paged_decode_attention`` kernel; the bf16 pool gathers its
-    block-table view and reuses the dense ``decode_attention``."""
+    ``ttq_paged_decode_attention`` kernel (on the rank's heads under
+    ``pctx``); the bf16 pool gathers its block-table view and reuses the
+    dense ``decode_attention``."""
     if kvcfg.quantized:
         from repro_torch.kernels import ops as kops
-        return kops.kv_paged_decode_attention(
+        return kops.kv_paged_decode_attention_tp(
             q, state["k_q"], state["k_s"], state["v_q"], state["v_s"],
             block_table, cur, bits=kvcfg.bits, group_size=kvcfg.group_size,
-            soft_cap=soft_cap, use_pallas=kvcfg.use_pallas)
+            soft_cap=soft_cap, use_pallas=kvcfg.use_pallas, pctx=pctx)
     from repro_torch.kernels.ref import gather_paged_kv
     return decode_attention(q, gather_paged_kv(state["k"], block_table),
                             gather_paged_kv(state["v"], block_table), cur,
                             soft_cap=soft_cap)
 
 
-def _kv_attention(q, state, cur, kvcfg, *, soft_cap: float = 0.0):
-    """The quantized-cache read: the ``ttq_decode_attention`` kernel."""
+def _kv_attention(q, state, cur, kvcfg, *, soft_cap: float = 0.0,
+                  pctx=None):
+    """The quantized-cache read: the ``ttq_decode_attention`` kernel (on the
+    rank's heads under ``pctx``)."""
     from repro_torch.kernels import ops as kops
-    return kops.kv_decode_attention(
+    return kops.kv_decode_attention_tp(
         q, state["k_q"], state["k_s"], state["v_q"], state["v_s"], cur,
         bits=kvcfg.bits, group_size=kvcfg.group_size, soft_cap=soft_cap,
-        use_pallas=kvcfg.use_pallas)
+        use_pallas=kvcfg.use_pallas, pctx=pctx)
 
 
 def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
-                kcfg=None, block_table=None, rows=None, cross_kv=None):
+                kcfg=None, block_table=None, rows=None, cross_kv=None,
+                pctx=None):
     """x (B,1,D); state bf16 {'k','v'} or quantized caches (``kvcfg``
     selects), updated in place; pos (B,) int32 per-slot positions.
     ``block_table`` (B, nblk) addresses the paged pool layout, and
     ``rows`` (:func:`paged_rows`) are the pool rows this token writes.
     ``cross_kv`` (k, v), each (B,Hkv,F,hd) bf16: cross-attention, one query
     over all F encoder rows through plain :func:`attention` (the reference
-    reads them outside any kernel); ``state`` is returned untouched."""
+    reads them outside any kernel); ``state`` is returned untouched.
+    ``pctx``: head-parallel, as :func:`attn_apply`."""
     if cross_kv is not None:
         B, (k, v) = x.shape[0], cross_kv
         q = linear(x, p["wq"], kcfg=kcfg).reshape(B, 1, cfg.n_heads, cfg.hd)
@@ -329,24 +340,26 @@ def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
                       soft_cap=cfg.attn_soft_cap)
         y = linear(o.transpose(1, 2).reshape(B, 1, -1), p["wo"], kcfg=kcfg)
         return y, state
-    q, k, v = _qkv(cfg, p, x, None, "", kcfg)
+    q, k, v = _qkv(cfg, p, x, None, "", kcfg, pctx=pctx)
     if cfg.pos == "rope":
         q = rope_decode(q, pos, cfg.rope_theta)
         k = rope_decode(k, pos, cfg.rope_theta)
     if kvcfg is not None and kvcfg.paged:
         st = _kv_append_paged(state, k, v, rows, kvcfg)
         o = _kv_attention_paged(q, st, block_table, pos, kvcfg,
-                                soft_cap=cfg.attn_soft_cap)
+                                soft_cap=cfg.attn_soft_cap, pctx=pctx)
     elif kvcfg is not None and kvcfg.quantized:
         st = _kv_append(state, k, v, pos, kvcfg)
-        o = _kv_attention(q, st, pos, kvcfg, soft_cap=cfg.attn_soft_cap)
+        o = _kv_attention(q, st, pos, kvcfg, soft_cap=cfg.attn_soft_cap,
+                          pctx=pctx)
     else:
         cache_update_batched(state["k"], k, pos)
         cache_update_batched(state["v"], v, pos)
         st = state
         o = decode_attention(q, st["k"], st["v"], pos,
                              soft_cap=cfg.attn_soft_cap)
-    y = linear(o.reshape(x.shape[0], 1, -1), p["wo"], kcfg=kcfg)
+    y = linear(o.reshape(x.shape[0], 1, -1), p["wo"], kcfg=kcfg, pctx=pctx,
+               tp="col")
     return y, st
 
 
@@ -376,7 +389,7 @@ def attn_decode_rolling(cfg: ModelConfig, p, x, state, pos, window: int, *,
 
 
 def attn_verify(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None, kcfg=None,
-                block_table=None, rows=None):
+                block_table=None, rows=None, pctx=None):
     """Score a drafted window at once: x (B,S,D) are the window's tokens at
     positions pos[b]..pos[b]+S-1 (pos (B,)).  The window's k/v rows are
     written first, at the cache's storage dtype, over whatever the draft
@@ -384,9 +397,10 @@ def attn_verify(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None, kcfg=None,
     Write then read keeps the key axis of sequential decode, so rejected
     drafts roll back by rewinding positions.  ``rows``
     (:func:`paged_window_rows`) are the pool rows of a paged cache.
-    Returns (y (B,S,D), state)."""
+    Returns (y (B,S,D), state).  ``pctx``: head-parallel, as
+    :func:`attn_apply`."""
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, None, "", kcfg)
+    q, k, v = _qkv(cfg, p, x, None, "", kcfg, pctx=pctx)
     if cfg.pos == "rope":
         q = rope_window(q, pos, cfg.rope_theta)
         k = rope_window(k, pos, cfg.rope_theta)
@@ -395,10 +409,10 @@ def attn_verify(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None, kcfg=None,
         st = _kv_append_paged(state, k, v, rows, kvcfg)
         if kvcfg.quantized:
             from repro_torch.kernels import ops as kops
-            o = kops.kv_paged_suffix_attention(
+            o = kops.kv_paged_suffix_attention_tp(
                 q, st["k_q"], st["k_s"], st["v_q"], st["v_s"], block_table,
                 pos, bits=kvcfg.bits, group_size=kvcfg.group_size,
-                soft_cap=cap, use_pallas=kvcfg.use_pallas)
+                soft_cap=cap, use_pallas=kvcfg.use_pallas, pctx=pctx)
         else:
             from repro_torch.kernels.ref import gather_paged_kv
             o = suffix_attention(q, gather_paged_kv(st["k"], block_table),
@@ -407,16 +421,17 @@ def attn_verify(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None, kcfg=None,
     elif kvcfg is not None and kvcfg.quantized:
         from repro_torch.kernels import ops as kops
         st = _kv_append_rows(state, k, v, pos, kvcfg)
-        o = kops.kv_suffix_attention(
+        o = kops.kv_suffix_attention_tp(
             q, st["k_q"], st["k_s"], st["v_q"], st["v_s"], pos,
             bits=kvcfg.bits, group_size=kvcfg.group_size, soft_cap=cap,
-            use_pallas=kvcfg.use_pallas)
+            use_pallas=kvcfg.use_pallas, pctx=pctx)
     else:
         _kv_write_rows(state["k"], k, pos)
         _kv_write_rows(state["v"], v, pos)
         st = state
         o = suffix_attention(q, st["k"], st["v"], pos, soft_cap=cap)
-    y = linear(o.transpose(1, 2).reshape(B, S, -1), p["wo"], kcfg=kcfg)
+    y = linear(o.transpose(1, 2).reshape(B, S, -1), p["wo"], kcfg=kcfg,
+               pctx=pctx, tp="col")
     return y, st
 
 

@@ -17,6 +17,15 @@
                    detect_faults=False)      → ((tokens, valid[, fault]),
                                                 carry)
 
+``pctx`` (a :class:`~repro_torch.parallel.ParallelCtx`) runs every entry
+point on this rank's slice of the parameters and state
+(``parallel/rules.py:shard_params``): attention and MLP blocks under
+Megatron-style tensor parallelism where the layout splits them, the
+embedding and the tied head vocab-parallel (a masked lookup then an
+all-reduce; the rank's logits then an all-gather before any argmax).
+Each entry point binds the layout (``rules.bind``) and runs the stack on
+the rank's config (``rules.local_cfg``).
+
 ``batch`` is a dict {'tokens': (B,S) int} and, for the encoder-decoder
 family, 'frames' (B, n_frames, d_model): the stub front end's frame
 embeddings, which the encoder stack reads.  Decode updates ``state`` in
@@ -35,6 +44,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import resolve_device
+
+from repro_torch.parallel import comm
+from repro_torch.parallel.rules import bind, block_ctx, local_cfg
 
 from . import stack as S
 from .common import init_norm, linear, norm, sample_logits, sinusoidal_pos
@@ -75,9 +87,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return p
 
 
-def _embed(cfg, params, tokens, pos0: int = 0):
+def _lookup(params, tokens, pctx=None):
+    """Token embeddings.  Vocab-parallel under ``pctx``: the rank holds
+    rows [r·V/n, (r+1)·V/n); a token outside them looks up zeros, and the
+    all-reduce over the model axis puts every row in place (a sum of one
+    row and zeros: exact)."""
+    E = params["embed"]
+    vctx = block_ctx(pctx, "vocab")
+    if vctx is None:
+        return E[tokens.long()]
+    t = tokens.long() - vctx.rank * E.shape[0]
+    inside = (t >= 0) & (t < E.shape[0])
+    x = E[torch.clamp(t, 0, E.shape[0] - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return comm.all_reduce(x, vctx)
+
+
+def _embed(cfg, params, tokens, pos0: int = 0, pctx=None):
     """Token embeddings (B,S,D), plus learned positions pos0.. ."""
-    x = params["embed"][tokens.long()]
+    x = _lookup(params, tokens, pctx)
     if cfg.pos == "learned":
         x = x + params["pos_embed"][pos0:pos0 + tokens.shape[1]][None]
     return x
@@ -94,32 +122,41 @@ def _encode(cfg, params, frames, stats_on=False):
     return norm(x, params["enc_norm"]), stats
 
 
-def _head(cfg, params, x, kcfg=None):
-    return linear(x, params["embed"], kcfg=kcfg).float()
+def _head(cfg, params, x, kcfg=None, pctx=None):
+    """f32 logits over the whole vocab; vocab-parallel under ``pctx`` (the
+    rank's rows of the tied head, then an all-gather of the logits)."""
+    vctx = block_ctx(pctx, "vocab")
+    logits = linear(x, params["embed"], kcfg=kcfg, pctx=vctx,
+                    tp="row").float()
+    if vctx is not None:
+        logits = comm.all_gather(logits, vctx, dim=-1)
+    return logits
 
 
 def forward(cfg: ModelConfig, params, batch, *, collect_stats=False,
-            want_state=False, max_len=0, remat=False, kcfg=None):
+            want_state=False, max_len=0, remat=False, kcfg=None, pctx=None):
     """Full-sequence forward: logits (B, S, V) f32 for every position.
     Returns (logits, stats, states): stats {'stack': [per-run dict of (L, d)
     Σx² leaves]} (and 'enc_stack', the encoder's) keyed by parameter path
     when ``collect_stats``, else None; states the per-run decode states
     when ``want_state`` (a ``max_len`` slab), else empty.  ``remat``
     checkpoints each decoder layer's mixer and MLP (training)."""
+    pctx = bind(pctx, cfg)
+    lcfg = local_cfg(cfg, pctx)
     stats, enc_out = {}, None
     if cfg.family == "encdec":
         enc_out, enc_stats = _encode(cfg, params, batch["frames"],
                                      collect_stats)
         if collect_stats:
             stats["enc_stack"] = enc_stats
-    x = _embed(cfg, params, batch["tokens"])
+    x = _embed(cfg, params, batch["tokens"], pctx=pctx)
     x, run_stats, states = S.apply_stack_seq(
-        cfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
+        lcfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
         want_state=want_state, max_len=max_len, kcfg=kcfg, enc_out=enc_out,
-        remat=remat)
+        remat=remat, pctx=pctx)
     stats["stack"] = run_stats
     x = norm(x, params["final_norm"])
-    logits = _head(cfg, params, x, kcfg)
+    logits = _head(cfg, params, x, kcfg, pctx)
     return logits, (stats if collect_stats else None), states
 
 
@@ -146,15 +183,17 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat=False):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
-                      device="cuda", num_blocks: int = 0):
+                      device="cuda", num_blocks: int = 0, pctx=None):
     """``kvcfg`` selects the cache layout: bf16 slabs, or int8/int4 codes +
     f32 scales.  With ``kvcfg.paged`` the caches are shared pools of
     ``num_blocks`` blocks and the state carries ``block_table`` (B,
     max_len/block_size) int32, each row a slot's logical → physical block
     map; 0 is the sink block for unallocated entries and done-lane
     writes.  The encoder-decoder family's state also holds ``enc_out``
-    (B, n_frames, D) bf16."""
+    (B, n_frames, D) bf16.  Under ``pctx`` the caches hold the rank's KV
+    heads (``parallel/rules.py:state_sharding``)."""
     dev = resolve_device(device)
+    cfg = local_cfg(cfg, bind(pctx, cfg))
     paged = kvcfg is not None and kvcfg.paged
     if paged:
         if max_len % kvcfg.block_size:
@@ -177,7 +216,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int, *,
             collect_stats=True, full_logits=False, kvcfg=None,
-            prefix_kv=None, pos0: int = 0, compact_state: bool = False):
+            prefix_kv=None, pos0: int = 0, compact_state: bool = False,
+            pctx=None):
     """Run the prompt in full precision: decode state + TTQ statistics.
 
     Returns (logits, state, stats): logits (B, V) for the last position, or
@@ -190,20 +230,23 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, *,
     (chunked prefill: the runner writes the rows).  The encoder-decoder
     family first encodes ``batch['frames']``: its state adds ``enc_out``
     and each ``xdec`` layer's cross k/v, its stats ``enc_stack``."""
+    pctx = bind(pctx, cfg)
+    lcfg = local_cfg(cfg, pctx)
     stats, enc_out = {}, None
     if cfg.family == "encdec":
         enc_out, enc_stats = _encode(cfg, params, batch["frames"],
                                      collect_stats)
         if collect_stats:
             stats["enc_stack"] = enc_stats
-    x = _embed(cfg, params, batch["tokens"], pos0)
+    x = _embed(cfg, params, batch["tokens"], pos0, pctx)
     x, run_stats, states = S.apply_stack_seq(
-        cfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
+        lcfg, params["stack"], S.stack_spec(cfg), x, stats_on=collect_stats,
         want_state=True, max_len=max_len, kvcfg=kvcfg, pos0=pos0,
-        prefix_kv=prefix_kv, compact_state=compact_state, enc_out=enc_out)
+        prefix_kv=prefix_kv, compact_state=compact_state, enc_out=enc_out,
+        pctx=pctx)
     stats["stack"] = run_stats
     x = norm(x, params["final_norm"])
-    logits = _head(cfg, params, x if full_logits else x[:, -1:])
+    logits = _head(cfg, params, x if full_logits else x[:, -1:], pctx=pctx)
     if not full_logits:
         logits = logits[:, 0]
     state = {"stack": states}
@@ -213,25 +256,28 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, *,
 
 
 def decode_step(cfg: ModelConfig, params, state, token, pos, *, kvcfg=None,
-                kcfg=None):
+                kcfg=None, pctx=None):
     """token (B,1) int; pos (B,) int32 per-slot positions → (logits (B,V)
     f32, state).  The state's caches are written in place."""
+    pctx = bind(pctx, cfg)
     pos = pos.to(torch.int32).expand(token.shape[0])
-    x = params["embed"][token.long()]
+    x = _lookup(params, token, pctx)
     if cfg.pos == "learned":
         x = x + params["pos_embed"][pos.long()][:, None]
-    x, _ = S.apply_stack_decode(cfg, params["stack"], S.stack_spec(cfg),
-                                state["stack"], x, pos, kvcfg=kvcfg,
-                                kcfg=kcfg,
-                                block_table=state.get("block_table"))
+    x, _ = S.apply_stack_decode(local_cfg(cfg, pctx), params["stack"],
+                                S.stack_spec(cfg), state["stack"], x, pos,
+                                kvcfg=kvcfg, kcfg=kcfg,
+                                block_table=state.get("block_table"),
+                                pctx=pctx)
     x = norm(x, params["final_norm"])
-    return _head(cfg, params, x, kcfg)[:, 0], state
+    return _head(cfg, params, x, kcfg, pctx)[:, 0], state
 
 
 def decode_many(cfg: ModelConfig, params, state, token, pos, done, remaining,
                 generator=None, poison=None, *, K: int, max_len: int,
                 temperature: float = 0.0, eos_token: int = -1,
-                detect_faults: bool = False, kvcfg=None, kcfg=None):
+                detect_faults: bool = False, kvcfg=None, kcfg=None,
+                pctx=None):
     """K fused decode steps with sampling, EOS, per-slot done masking, budget
     accounting and position advance on the device: nothing inside reads a
     value back to the host, so a K-token block costs one host transfer.
@@ -247,13 +293,15 @@ def decode_many(cfg: ModelConfig, params, state, token, pos, done, remaining,
     nothing from that step on (its done flag trips, token and position
     hold), and the outputs gain ``fault`` (B,) bool.  ``poison`` ((B,) bool
     or None), the injection site, forces the flagged lanes' logits to NaN.
-    With both off the steps are exactly the unguarded ones."""
+    With both off the steps are exactly the unguarded ones.  Every rank
+    of ``pctx`` samples the same tokens from the gathered logits."""
+    pctx = bind(pctx, cfg)
     toks, valids, flts = [], [], []
     tok, p, dn, rem = token, pos, done, remaining
     for _ in range(K):
         p_in = torch.clamp(p, max=max_len - 1)   # done lanes: in-bounds writes
         logits, state = decode_step(cfg, params, state, tok, p_in,
-                                    kvcfg=kvcfg, kcfg=kcfg)
+                                    kvcfg=kvcfg, kcfg=kcfg, pctx=pctx)
         if poison is not None:
             logits = torch.where(poison[:, None], float("nan"), logits)
         live = ~dn
@@ -278,30 +326,33 @@ def decode_many(cfg: ModelConfig, params, state, token, pos, done, remaining,
 
 
 def verify_window(cfg: ModelConfig, params, state, tokens, pos, *, kvcfg=None,
-                  kcfg=None):
+                  kcfg=None, pctx=None):
     """Score a drafted window in one pass: tokens (B,S) int — per slot the
     current token and S-1 drafts — at positions pos[b]..pos[b]+S-1.  The
     window's KV rows are written with this tree's k/v (over the draft
     pass's), then read, so the logits (B,S,V) f32 are those of S sequential
     :func:`decode_step` calls (bit for bit on the CPU).  The state's caches
     are written in place."""
+    pctx = bind(pctx, cfg)
     pos = pos.to(torch.int32).expand(tokens.shape[0])
-    x = params["embed"][tokens.long()]
+    x = _lookup(params, tokens, pctx)
     if cfg.pos == "learned":
         x = x + params["pos_embed"][pos.long()[:, None] + torch.arange(
             tokens.shape[1], device=pos.device)]
-    x, _ = S.apply_stack_verify(cfg, params["stack"], S.stack_spec(cfg),
-                                state["stack"], x, pos, kvcfg=kvcfg,
-                                kcfg=kcfg,
-                                block_table=state.get("block_table"))
+    x, _ = S.apply_stack_verify(local_cfg(cfg, pctx), params["stack"],
+                                S.stack_spec(cfg), state["stack"], x, pos,
+                                kvcfg=kvcfg, kcfg=kcfg,
+                                block_table=state.get("block_table"),
+                                pctx=pctx)
     x = norm(x, params["final_norm"])
-    return _head(cfg, params, x, kcfg), state
+    return _head(cfg, params, x, kcfg, pctx), state
 
 
 def speculate_many(cfg: ModelConfig, draft_params, params, state, token, pos,
                    done, remaining, generator=None, poison=None, *, K: int,
                    W: int, max_len: int, eos_token: int = -1,
-                   detect_faults: bool = False, kvcfg=None, kcfg=None):
+                   detect_faults: bool = False, kvcfg=None, kcfg=None,
+                   pctx=None):
     """Self-speculative fused decode: K draft/verify windows, greedy only.
 
     Each window drafts W tokens with ``draft_params`` (W :func:`decode_step`
@@ -321,6 +372,7 @@ def speculate_many(cfg: ModelConfig, draft_params, params, state, token, pos,
     logits (the verify tree decides every emitted token): a lane whose
     verify window is not finite emits nothing from that window on, and the
     outputs gain ``fault`` (B,) bool."""
+    pctx = bind(pctx, cfg)
     toks, valids, flts = [], [], []
     tok, p, dn, rem = token, pos, done, remaining
     for _ in range(K):
@@ -328,14 +380,14 @@ def speculate_many(cfg: ModelConfig, draft_params, params, state, token, pos,
         for _ in range(W):
             logits, state = decode_step(cfg, draft_params, state, tk,
                                         torch.clamp(pp, max=max_len - 1),
-                                        kvcfg=kvcfg, kcfg=kcfg)
+                                        kvcfg=kvcfg, kcfg=kcfg, pctx=pctx)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             drafts.append(nxt)
             tk, pp = nxt[:, None], pp + 1
         drafts = torch.stack(drafts, dim=1)                      # (B, W)
         logits, state = verify_window(cfg, params, state,
                                       torch.cat([tok, drafts], dim=1), p,
-                                      kvcfg=kvcfg, kcfg=kcfg)
+                                      kvcfg=kvcfg, kcfg=kcfg, pctx=pctx)
         if poison is not None:
             logits = torch.where(poison[:, None, None], float("nan"), logits)
         if detect_faults:

@@ -21,6 +21,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.ttq import QuantizedTensor, qt_index
+from repro_torch.parallel.rules import block_ctx
 
 from . import layers as L
 from .common import glu_mlp, init_norm, norm, plain_mlp
@@ -178,14 +179,15 @@ def init_stack_state(cfg: ModelConfig, spec, batch: int, max_len: int,
     return out
 
 
-def _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg=None):
+def _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg=None, pctx=None):
     mk = mlp_kind(cfg, kind)
     if mk == "none":
         return x
     h = norm(x, p["ln2"])
     if mk != "moe":
         mlp = glu_mlp if mk == "glu" else plain_mlp
-        return x + mlp(h, p["mlp"], stats, prefix + "mlp", cfg.act, kcfg)
+        return x + mlp(h, p["mlp"], stats, prefix + "mlp", cfg.act, kcfg,
+                       pctx=block_ctx(pctx, "mlp"))
     pp = prefix + "mlp."
     y = L.moe_apply_dense(cfg, p["mlp"], h, stats, pp, kcfg=kcfg)
     if cfg.moe.n_shared:
@@ -198,13 +200,15 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
                     want_state: bool = False, max_len: int = 0, kvcfg=None,
                     kcfg=None, pos0: int = 0, kv_prefix=None,
                     compact_state: bool = False, enc_out=None,
-                    remat: bool = False):
+                    remat: bool = False, pctx=None):
     """Prefill (or a training forward) through one layer.  Returns (x,
     state|None).  ``remat`` runs the mixer and the MLP each under
     ``torch.utils.checkpoint``: backward recomputes their insides, and what
     is kept per layer is the two halves' outputs, two (B,S,D) tensors as
     the reference keeps ``mix_out`` and ``mlp_out``; it takes neither
-    stats nor a state."""
+    stats nor a state.  ``pctx``: tensor parallelism (each block under
+    its layout's context, :func:`~repro_torch.parallel.rules.block_ctx`);
+    ``cfg`` is then the rank's (``rules.local_cfg``)."""
     if remat:
         if want_state or stats is not None:
             raise ValueError("remat is for training: no stats, no state")
@@ -220,14 +224,14 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
     x, st = _mix_seq(cfg, kind, p, x, stats, prefix, want_state=want_state,
                      max_len=max_len, kvcfg=kvcfg, kcfg=kcfg, pos0=pos0,
                      kv_prefix=kv_prefix, compact_state=compact_state,
-                     enc_out=enc_out)
-    return _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg), st
+                     enc_out=enc_out, pctx=pctx)
+    return _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg, pctx), st
 
 
 def _mix_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
              want_state: bool = False, max_len: int = 0, kvcfg=None,
              kcfg=None, pos0: int = 0, kv_prefix=None,
-             compact_state: bool = False, enc_out=None):
+             compact_state: bool = False, enc_out=None, pctx=None):
     """The mixer half of :func:`apply_layer_seq`: x plus the mixer's output
     (for ``xdec`` plus the cross-attention's too), and the state.  ``kv_prefix``
     (k, v) is cached context in front of this call's tokens, which start at
@@ -265,11 +269,12 @@ def _mix_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
         return x + y, st
     window = cfg.hybrid.window if kind == "lattn" else 0
     causal = kind != "enc"
+    actx = block_ctx(pctx, "attn")
     if want_state:
         y, (k, v) = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
                                  causal=causal, window=window, pos0=pos0,
                                  return_kv=True, kv_prefix=kv_prefix,
-                                 kvcfg=kvcfg, kcfg=kcfg)
+                                 kvcfg=kvcfg, kcfg=kcfg, pctx=actx)
         if compact_state or (kvcfg is not None and kvcfg.paged):
             st = L.build_kv_compact(k, v, kvcfg)
         else:
@@ -283,7 +288,8 @@ def _mix_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
     else:
         y = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
                          causal=causal, window=window, pos0=pos0,
-                         kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg)
+                         kv_prefix=kv_prefix, kvcfg=kvcfg, kcfg=kcfg,
+                         pctx=actx)
     return x + y, st
 
 
@@ -317,7 +323,8 @@ def _xdec_seq(cfg, p, x, h, stats, prefix, want_state, max_len, pos0,
 
 
 def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
-                       kvcfg=None, kcfg=None, block_table=None, rows=None):
+                       kvcfg=None, kcfg=None, block_table=None, rows=None,
+                       pctx=None):
     """One token through one layer; ``state`` is updated in place."""
     h = norm(x, p["ln1"])
     if kind == "rec":
@@ -340,13 +347,15 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
                                       kcfg=kcfg)
     else:
         y, st = L.attn_decode(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
-                              kcfg=kcfg, block_table=block_table, rows=rows)
+                              kcfg=kcfg, block_table=block_table, rows=rows,
+                              pctx=block_ctx(pctx, "attn"))
     x = x + y
-    return _mlp_apply(cfg, kind, p, x, None, "", kcfg), st
+    return _mlp_apply(cfg, kind, p, x, None, "", kcfg, pctx), st
 
 
 def apply_layer_verify(cfg: ModelConfig, kind: str, p, x, state, pos, *,
-                       kvcfg=None, kcfg=None, block_table=None, rows=None):
+                       kvcfg=None, kcfg=None, block_table=None, rows=None,
+                       pctx=None):
     """A drafted window x (B,S,D) at per-slot positions pos..pos+S-1
     through one layer; ``state`` is written in place.  Returns (x, state)."""
     if kind != "attn":
@@ -356,16 +365,17 @@ def apply_layer_verify(cfg: ModelConfig, kind: str, p, x, state, pos, *,
             f"mutate destructively and cannot roll back rejected drafts)")
     h = norm(x, p["ln1"])
     y, st = L.attn_verify(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
-                          kcfg=kcfg, block_table=block_table, rows=rows)
+                          kcfg=kcfg, block_table=block_table, rows=rows,
+                          pctx=block_ctx(pctx, "attn"))
     x = x + y
-    return _mlp_apply(cfg, kind, p, x, None, "", kcfg), st
+    return _mlp_apply(cfg, kind, p, x, None, "", kcfg, pctx), st
 
 
 def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
                     want_state=False, max_len=0, kvcfg=None, kcfg=None,
                     pos0: int = 0, prefix_kv=None,
                     compact_state: bool = False, enc_out=None,
-                    remat: bool = False):
+                    remat: bool = False, pctx=None):
     """Prefill (or a training forward) over all runs.  Returns (x,
     stats_list, state_list) with stats and states stacked over each run's
     layers.  ``remat``: every layer as in :func:`apply_layer_seq`.  ``prefix_kv`` (tail
@@ -388,7 +398,8 @@ def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
                                         max_len=max_len, kvcfg=kvcfg,
                                         kcfg=kcfg, pos0=pos0, kv_prefix=kvp,
                                         compact_state=compact_state,
-                                        enc_out=enc_out, remat=remat)
+                                        enc_out=enc_out, remat=remat,
+                                        pctx=pctx)
                 if st is not None:
                     states[f"u{j}"] = st
             per_layer_stats.append(stats)
@@ -404,7 +415,8 @@ def apply_stack_seq(cfg: ModelConfig, run_params, spec, x, *, stats_on=False,
 
 
 def apply_stack_decode(cfg: ModelConfig, run_params, spec, run_states, x, pos,
-                       *, kvcfg=None, kcfg=None, block_table=None):
+                       *, kvcfg=None, kcfg=None, block_table=None,
+                       pctx=None):
     """One decode token over all runs; the stacked caches are updated in
     place (each layer's slice is a view of its run's stack).
     ``block_table`` (B, nblk) addresses a paged cache in every layer; the
@@ -420,12 +432,13 @@ def apply_stack_decode(cfg: ModelConfig, run_params, spec, run_states, x, pos,
                 x, _ = apply_layer_decode(cfg, kind, up[f"u{j}"], x,
                                           st[f"u{j}"], pos, kvcfg=kvcfg,
                                           kcfg=kcfg, block_table=block_table,
-                                          rows=rows)
+                                          rows=rows, pctx=pctx)
     return x, run_states
 
 
 def apply_stack_verify(cfg: ModelConfig, run_params, spec, run_states, x, pos,
-                       *, kvcfg=None, kcfg=None, block_table=None):
+                       *, kvcfg=None, kcfg=None, block_table=None,
+                       pctx=None):
     """:func:`apply_stack_decode` with a window of S tokens per slot: one
     pass scores every drafted position.  A paged cache's window rows are
     computed once, here, for every layer."""
@@ -440,5 +453,5 @@ def apply_stack_verify(cfg: ModelConfig, run_params, spec, run_states, x, pos,
                 x, _ = apply_layer_verify(cfg, kind, up[f"u{j}"], x,
                                           st[f"u{j}"], pos, kvcfg=kvcfg,
                                           kcfg=kcfg, block_table=block_table,
-                                          rows=rows)
+                                          rows=rows, pctx=pctx)
     return x, run_states

@@ -21,7 +21,14 @@ joins projections that share a tapped input), and quantize.
   family of its own, keyed ``("eager", path)``, quantized per weight with
   an inline SVD, as the reference's eager fallback (``api.py:285-292``
   there).  ``drift``/``gate`` are the reference's delta gate: ``run(only=)``
-  requantizes the drifted families.
+  requantizes the drifted families.  ``pctx``: each rank quantizes its own
+  slice of every weight in place (the reference's shard-local plan,
+  ``api.py:227-235,393-395`` there).  The codes, S and Z are per output row
+  and per group, so a row slice needs nothing from the other ranks; D is
+  per input column but its blend form reads the mean over all columns, so
+  a column-split weight's statistics (and, for the gate's drift, its last
+  D) are gathered whole, D is computed as world 1 computes it, and the
+  rank keeps its slice: every child is bit for bit the slice of world 1's.
 * :func:`lowrank_tree` — the data-free SVD factors, computed once per model.
 """
 from __future__ import annotations
@@ -37,6 +44,8 @@ from repro_torch.core.lowrank import residual, svd_factors
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qdq import pack_bits, quantize
 from repro_torch.core.ttq import QuantizedTensor
+from repro_torch.parallel import comm
+from repro_torch.parallel.rules import constrain_qt, split_of
 
 # R = W − B·A is formed in f32 at most this many bytes at a time (a chunk of
 # one stack's layers) before the kernel quantizes it: gemma-7b's 28-layer
@@ -217,6 +226,7 @@ class _Member:
     eff: QuantPolicy
     stat_key: Optional[tuple]      # (run index, stats key) or None → zeros
     stat_tree: str = "stack"       # the stats subtree: "stack", "enc_stack"
+    split: Optional[str] = None    # 'row' | 'col' under tensor parallelism
 
 
 class FusedRequantPlan:
@@ -224,12 +234,17 @@ class FusedRequantPlan:
     (params structure, stats structure, policy).  A weight whose policy has
     ``rank > 0`` takes its factors from ``lowrank_tree`` (the same tree is
     passed to :meth:`run`); one that has none there is an eager family
-    ``("eager", path)`` that runs the SVD inline at every requant."""
+    ``("eager", path)`` that runs the SVD inline at every requant.
+    ``pctx``: ``params``, ``stats`` and the factors are the rank's slices
+    (see the module docstring)."""
 
     def __init__(self, params, stats, policy: QuantPolicy, *,
-                 acfg: Optional[AWQConfig] = None, lowrank_tree=None):
+                 acfg: Optional[AWQConfig] = None, lowrank_tree=None,
+                 pctx=None):
         base = policy if acfg is None else policy.with_(acfg=acfg)
         self.policy = policy
+        self.pctx = pctx
+        self._tp = pctx is not None and pctx.world > 1
         self.families: Dict[tuple, List[_Member]] = {}
         for path, leaf in _walk(params):
             ps = _path_str(path)
@@ -250,8 +265,14 @@ class FusedRequantPlan:
                       and _tree_get(lowrank_tree, path) is not None)
             member = _Member(path=tuple(path), path_str=ps,
                              lead=tuple(leaf.shape[:-2]), dp=dp, d=d,
-                             eff=eff, stat_key=stat_key, stat_tree=parts[0])
+                             eff=eff, stat_key=stat_key, stat_tree=parts[0],
+                             split=split_of(ps, pctx))
             if not has_ba and _factored(eff, leaf):
+                if self._tp and member.split is not None:
+                    raise NotImplementedError(
+                        f"{ps}: an inline SVD of a weight slice is not the "
+                        f"slice of the weight's SVD; pass factors computed "
+                        f"on the whole weight (lowrank_tree)")
                 self.families[("eager", ps)] = [member]
                 continue
             key = (dp, d, _row_qcfg(eff), eff.acfg, eff.method, eff.packed,
@@ -269,6 +290,18 @@ class FusedRequantPlan:
                 and self.policy.kernel.use_pallas and qcfg.bits in (2, 4, 8)
                 and not qcfg.symmetric and qcfg.nu == 1.0)
 
+    def _diag(self, m: _Member, stat, count, n: int):
+        """D (n, d) of a member's layers: for a column-split weight under
+        tensor parallelism from the gathered whole statistics, sliced to the
+        rank's columns."""
+        qz, d = m.eff.quantizer, m.d
+        if not (self._tp and m.split == "col"):
+            return qz.diag(stat.reshape(-1, d), count, m.eff.acfg, d)
+        full = comm.all_gather(stat.reshape(-1, d), self.pctx, dim=-1)
+        D = qz.diag(full, count, m.eff.acfg, full.shape[-1])
+        r = self.pctx.rank
+        return D[:, r * d:(r + 1) * d].contiguous()
+
     def _run_member(self, key, m: _Member, W, stat, count, ba=None,
                     into=None):
         """One member's layer stack: D, then quantize the stack — one
@@ -284,7 +317,7 @@ class FusedRequantPlan:
         n = W.shape[0]
         if stat is None:
             stat = torch.zeros((n, d), dtype=torch.float32, device=W.device)
-        D = qz.diag(stat.reshape(-1, d), count, acfg, d)          # (n, d)
+        D = self._diag(m, stat, count, n)                          # (n, d)
         B = A = None
         if ba is not None:
             B, A = (ba[k].reshape(n, *ba[k].shape[-2:]) for k in ("B", "A"))
@@ -329,10 +362,13 @@ class FusedRequantPlan:
                     getattr(into, f).copy_(shaped(x))
             return into
         factors = dict(B=None, A=None) if ba is None else ba
-        return QuantizedTensor(
+        qt = QuantizedTensor(
             **{f: shaped(x) for f, x in fields.items()}, B=factors["B"],
             A=factors["A"], bits=qcfg.bits, group_size=qcfg.group_size,
             out_features=dp, in_features=d)
+        if self.pctx is not None:
+            constrain_qt(m.path_str, qt, self.pctx, (dp, d))
+        return qt
 
     def _run_eager(self, m: _Member, W, stat, count, into=None):
         """An eager member: each (d′, d) weight of the stack quantized by
@@ -404,7 +440,12 @@ class FusedRequantPlan:
             Dp = last_D[m.path_str].reshape(-1, m.d)
             s = self._stat(stats, m)
             s = torch.zeros_like(Dp) if s is None else s.reshape(-1, m.d)
-            Dn = m.eff.quantizer.diag(s, count, m.eff.acfg, m.d)
+            d = m.d
+            if self._tp and m.split == "col":   # the whole D, as world 1
+                Dp, s = (comm.all_gather(t, self.pctx, dim=-1)
+                         for t in (Dp, s))
+                d = Dp.shape[-1]
+            Dn = m.eff.quantizer.diag(s, count, m.eff.acfg, d)
             num = torch.linalg.vector_norm(Dn - Dp, dim=-1)
             den = torch.linalg.vector_norm(Dp, dim=-1) + 1e-12
             vals.append((num / den).max())

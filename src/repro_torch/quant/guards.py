@@ -18,7 +18,12 @@ isolation machinery:
   degradation ladder) and the quantized model.
 
 Each validator is a plain PyTorch reduction followed by one host read of
-its two scalars, as the reference's jitted reductions are.  They run per
+its flag and per-leaf sums, as the reference's jitted reductions are.
+Under tensor parallelism (``pctx``) a leaf split over the model axis holds
+a part of the whole: its partial sums are summed over the ranks and the
+finiteness flags min-reduced before any comparison, so every rank takes
+the same decision (GSPMD gives the reference these global reductions for
+free).  Without ``pctx`` the agreement is the identity.  They run per
 admission and per requant, never inside a decode block.  The reference
 counts its two jitted programs in ``compiled_programs``; here they run
 eagerly and hold no graph, so they count none.
@@ -56,54 +61,74 @@ class GuardConfig:
     recover_pressure: float = 0.5         # pressure that steps back down
 
 
-def stats_summary(tree: Any) -> Tuple[bool, float]:
+def stats_summary(tree: Any, pctx=None) -> Tuple[bool, float]:
     """``(all_finite, mean |leaf|)`` of a statistics tree, on the host.
-    One host read of two scalars."""
-    from .api import _walk
-    leaves = [t for _, t in _walk(tree)]
-    if not leaves:
+    One host read of the flag and each leaf's Σ|x|; under ``pctx`` the
+    sums of the column-split leaves are summed over the ranks and the
+    flag min-reduced (without ``pctx`` both agreements are the identity)."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.rules import split_of
+
+    from .api import _path_str, _walk
+    pairs = [(_path_str(p), t) for p, t in _walk(tree)]
+    if not pairs:
         return True, 0.0
+    leaves = [t for _, t in pairs]
+    split = [split_of(ps, pctx) == "col" for ps, _ in pairs]
     finite = torch.stack([torch.isfinite(x).all() for x in leaves]).all()
-    total = torch.stack([x.abs().float().sum() for x in leaves]).sum()
-    n = sum(x.numel() for x in leaves)
-    out = torch.stack([finite.float(), total / max(n, 1)]).cpu()
-    return bool(out[0] > 0), float(out[1])
+    host = torch.stack([finite.float()]
+                       + [x.abs().float().sum() for x in leaves]).cpu().tolist()
+    fin = comm.agree(host[:1], pctx, "min")[0]
+    tot, n = comm.agree(
+        [sum(v for v, s in zip(host[1:], split) if s),
+         sum(x.numel() for x, s in zip(leaves, split) if s)], pctx)
+    tot += sum(v for v, s in zip(host[1:], split) if not s)
+    n += sum(x.numel() for x, s in zip(leaves, split) if not s)
+    return fin > 0, tot / max(n, 1)
 
 
 def qt_health(tree: Any, prev_dinv: Dict[str, torch.Tensor],
-              max_drift: float) -> Tuple[bool, float]:
+              max_drift: float, pctx=None) -> Tuple[bool, float]:
     """Validate a candidate quantized tree before it can be swapped in:
     every ``QuantizedTensor`` scale / zero / D⁻¹ finite and, when
     ``max_drift >= 0``, the relative L2 drift of each D⁻¹ against the
     last-good tree's (``prev_dinv``: path → previous dinv) bounded.
-    Returns ``(healthy, max drift observed)``; one host read."""
+    Returns ``(healthy, max drift observed)``.  One host read of the flag
+    and each D⁻¹'s two squared norms; under ``pctx`` the norms of a
+    column-split D⁻¹ are summed over the ranks and the flag min-reduced
+    (without ``pctx`` both agreements are the identity)."""
     from repro_torch.core.ttq import QuantizedTensor
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.rules import split_of
 
     from .api import _path_str, _walk
 
-    arrs, pairs = [], []
+    arrs, sq, split = [], [], []
     for path, leaf in _walk(tree):
         if not isinstance(leaf, QuantizedTensor):
             continue
         arrs += [a for a in (leaf.scale, leaf.zero, leaf.dinv)
                  if a is not None]
-        prev = prev_dinv.get(_path_str(path))
+        ps = _path_str(path)
+        prev = prev_dinv.get(ps)
         if prev is not None and leaf.dinv is not None \
                 and prev.shape == leaf.dinv.shape:
-            pairs.append((leaf.dinv, prev))
+            new, old = leaf.dinv.float().ravel(), prev.float().ravel()
+            sq += [((new - old) ** 2).sum(), (old ** 2).sum()]
+            split.append(split_of(ps, pctx) == "col")
     if not arrs:
         return True, 0.0
     finite = torch.stack([torch.isfinite(a).all() for a in arrs]).all()
-    drift = torch.zeros((), dtype=torch.float32, device=arrs[0].device)
-    for new, prev in pairs:
-        num = torch.linalg.vector_norm((new - prev).float().ravel())
-        den = torch.clamp(torch.linalg.vector_norm(prev.float().ravel()),
-                          min=1e-12)
-        drift = torch.maximum(drift, num / den)
-    out = torch.stack([finite.float(), drift]).cpu()
-    d = float(out[1])
-    ok = bool(out[0] > 0) and (max_drift < 0 or d <= float(max_drift))
-    return ok, d
+    host = torch.stack([finite.float(), *sq]).cpu().tolist()
+    fin = comm.agree(host[:1], pctx, "min")[0]
+    sums = comm.agree([v if split[i // 2] else 0.0
+                       for i, v in enumerate(host[1:])], pctx)
+    drift = 0.0
+    for i, is_split in enumerate(split):
+        num2, den2 = (sums if is_split else host[1:])[2 * i:2 * i + 2]
+        drift = max(drift, math.sqrt(num2) / max(math.sqrt(den2), 1e-12))
+    ok = fin > 0 and (max_drift < 0 or drift <= float(max_drift))
+    return ok, drift
 
 
 def token_count_ok(tokens: float) -> bool:

@@ -49,6 +49,12 @@ the quantized tree(s).
   codes.  ``_fault_hook`` (the fault injector's ``requant.tree`` site)
   sees each candidate before the gate and returns a tree built of new
   tensors.
+* **Tensor parallelism** (``pctx``): ``params`` and the factors are the
+  rank's slices; every plan (the live tree, the spare of the double
+  buffer, the draft tree) quantizes them in place, and every decision that
+  reads the trees or the device's progress (the gate's drift, the health
+  gate, the double buffer's swap) is agreed over the ranks, so the ranks'
+  trees never differ in layout.
 """
 from __future__ import annotations
 
@@ -130,8 +136,9 @@ class QuantizedModel:
                  lowrank: Any = _AUTO, fused: bool = True,
                  double_buffer: bool = False,
                  draft_policy: Optional[QuantPolicy] = None,
-                 health_gate: Optional[GuardConfig] = None):
+                 health_gate: Optional[GuardConfig] = None, pctx=None):
         self.params = params
+        self.pctx = pctx
         self.policy = policy
         self.acfg = acfg
         self.fused = fused
@@ -163,6 +170,8 @@ class QuantizedModel:
         self.health_gate = health_gate
         self.requant_rejections = 0      # candidates the gate refused
         self.last_health_drift = 0.0
+        self.requant_paths: list = []    # per requant, the verify tree's
+                                         # weights it wrote (the gate's)
         self._fault_hook = None          # called with each candidate tree
 
     # the verify tree's state, under the names the single-tree model had
@@ -245,7 +254,8 @@ class QuantizedModel:
             for t in self._trees():
                 t.plan = FusedRequantPlan(
                     self.params, stats, t.policy, acfg=self.acfg,
-                    lowrank_tree=t.lowrank) if t.policy.any_enabled else None
+                    lowrank_tree=t.lowrank, pctx=self.pctx) \
+                    if t.policy.any_enabled else None
                 t.reset()
             self._plan_key = key
         gated = self.health_gate is not None
@@ -332,7 +342,7 @@ class QuantizedModel:
             prev = {p: qt.dinv for p, qt in t.qt_by_path.items()
                     if qt.dinv is not None}
             ok, self.last_health_drift = qt_health(
-                tree, prev, self.health_gate.requant_max_drift)
+                tree, prev, self.health_gate.requant_max_drift, self.pctx)
             if not ok:
                 self.requant_rejections += 1
                 if buffered:
@@ -345,6 +355,9 @@ class QuantizedModel:
                     t.last_D[m.path_str] = 1.0 / qt.dinv
                 t.qt_by_path[m.path_str] = qt
         if t is self._v:
+            self.requant_paths.append(tuple(sorted(
+                m.path_str for key, members in plan.families.items()
+                if only is None or key in only for m in members)))
             self.last_requant_layers, self.last_skipped_layers = \
                 n_requant, n_skip
             self.total_requant_layers += n_requant
@@ -361,8 +374,13 @@ class QuantizedModel:
         the pair one requant wrote and a double-buffered engine alternates
         between two pairs (two speculative graphs, not up to four)."""
         pending = [t for t in self._trees() if t.pending is not None]
-        if pending and self._ready() and (self._d is None
-                                          or self._d.ready()):
+        if not pending:
+            return
+        ready = self._ready() and (self._d is None or self._d.ready())
+        if self.pctx is not None and self.pctx.world > 1:
+            from repro_torch.parallel import comm
+            ready = comm.agree([ready], self.pctx, "min")[0] > 0
+        if ready:
             for t in pending:
                 t.swap()
 
@@ -395,7 +413,7 @@ class QuantizedModel:
                               lowrank=self.lowrank_tree, fused=self.fused,
                               double_buffer=self.double_buffer,
                               draft_policy=self.draft_policy,
-                              health_gate=self.health_gate)
+                              health_gate=self.health_gate, pctx=self.pctx)
 
     def adopt(self, session: CalibrationSession) -> "QuantizedModel":
         """Join a forked stream's statistics into this model's session."""

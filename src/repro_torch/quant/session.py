@@ -18,6 +18,10 @@ accepted fold pushes the state before it onto a bounded last-good ring, so
 ``rollback(n)`` restores the state before the last n accepted updates.
 The ring may hold references: a fold builds new tensors and never writes
 the old ones.  Without a guard the session folds everything, as before.
+Under tensor parallelism (``pctx``) the session holds the rank's slice of
+the statistics, and the validation reads the agreed whole
+(:func:`~repro_torch.quant.guards.stats_summary`), so every rank folds or
+quarantines the same update.
 """
 from __future__ import annotations
 
@@ -56,8 +60,9 @@ class QuarantineRecord:
 class CalibrationSession:
     def __init__(self, halflife: float = 0.0, stats: Any = None,
                  count: float = 0.0, n_updates: int = 0,
-                 guard: Optional[GuardConfig] = None):
+                 guard: Optional[GuardConfig] = None, pctx=None):
         self.halflife = float(halflife)
+        self.pctx = pctx
         self.stats = stats
         self.count = float(count)
         self.n_updates = int(n_updates)
@@ -75,13 +80,13 @@ class CalibrationSession:
         statistics."""
         if not token_count_ok(tokens):
             return "bad-token-count", 0.0
-        fin, mean = stats_summary(stats)
+        fin, mean = stats_summary(stats, self.pctx)
         if not fin:
             return "non-finite-stats", mean
         g = self.guard
         if (self.stats is not None and self.n_updates >= g.calib_warmup_updates
                 and g.calib_outlier_factor > 0):
-            _, run_mean = stats_summary(self.stats)
+            _, run_mean = stats_summary(self.stats, self.pctx)
             run_rate = run_mean / max(self.count, 1.0)
             rate = mean / float(tokens)
             if run_rate > 0 and rate > g.calib_outlier_factor * run_rate:
@@ -134,7 +139,8 @@ class CalibrationSession:
         """A copy sharing the current statistics tree (with its own, empty,
         quarantine and ring)."""
         return CalibrationSession(self.halflife, self.stats, self.count,
-                                  self.n_updates, guard=self.guard)
+                                  self.n_updates, guard=self.guard,
+                                  pctx=self.pctx)
 
     fork = snapshot
 
@@ -149,7 +155,7 @@ class CalibrationSession:
         return CalibrationSession(
             self.halflife, _tree_add(self.stats, other.stats),
             self.count + other.count, self.n_updates + other.n_updates,
-            guard=self.guard)
+            guard=self.guard, pctx=self.pctx)
 
     @property
     def calibrated(self) -> bool:

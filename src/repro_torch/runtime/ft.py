@@ -3,7 +3,7 @@ per-step deadline monitor and deterministic failure injection.  Process
 local; the Trainer's state machine is monitor → detect (deadline /
 injected fault) → recover (restart from checkpoint | log and go on).
 Elastic re-meshing (``ElasticController``) waits for tensor parallelism
-(ROADMAP A10)."""
+(ROADMAP A10 (d))."""
 from __future__ import annotations
 
 import time

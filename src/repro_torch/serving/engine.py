@@ -35,6 +35,15 @@ sites and may bring a virtual clock.  Streaming and SLOs: ``submit(
 deadline_s=, priority=)``, ``prefill_chunk``/``prefill_budget`` (long
 prompts ingested in chunks between decode blocks), ``max_queue``
 (``QueueFull``), ``set_stream_callbacks`` and ``latency_percentiles``.
+
+Tensor parallelism: ``pctx=`` (``launch/mesh.py:make_ctx``) serves on one
+rank of a model axis.  Every rank constructs the engine with the whole
+parameters (the same seed everywhere) and runs the same requests; the
+engine binds the layout (``parallel/rules.py:bind``, with the policies'
+column alignment), computes the low-rank factors on the whole weights,
+keeps the rank's slices (``DeviceRunner.place_params``) and from then on
+holds only those.  Families without plain attention raise
+``NotImplementedError`` at a world above 1, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,7 +57,9 @@ from repro_torch._device import resolve_device
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.stack import mixer_kinds
+from repro_torch.parallel.rules import bind, col_align
 from repro_torch.quant import CalibrationSession, QuantizedModel
+from repro_torch.quant.api import lowrank_tree
 from repro_torch.quant.guards import GuardConfig
 from repro_torch.quant.model import _AUTO
 
@@ -111,7 +122,7 @@ class TTQEngine:
     def __init__(self, cfg: ModelConfig, params, policy: QuantPolicy,
                  ecfg: EngineConfig = EngineConfig(), *, device="cuda",
                  generator=None, draft_policy: Optional[QuantPolicy] = None,
-                 lowrank=_AUTO, faults=None):
+                 lowrank=_AUTO, faults=None, pctx=None):
         if ecfg.speculate_k > 0 and ecfg.temperature > 0.0:
             # greedy acceptance would bias sampled streams
             ecfg = dataclasses.replace(ecfg, speculate_k=0)
@@ -167,18 +178,31 @@ class TTQEngine:
         if ecfg.use_kernels is not None:
             self.kncfg = dataclasses.replace(self.kncfg,
                                              use_pallas=ecfg.use_kernels)
+        self.pctx = bind(pctx, cfg, col_align(policy, self.draft_policy)) \
+            if pctx is not None else None
         self.runner = DeviceRunner(cfg, ecfg, self.kvcfg, kncfg=self.kncfg,
                                    device=self.device, generator=generator,
-                                   num_blocks=self.num_blocks)
+                                   num_blocks=self.num_blocks, pctx=self.pctx)
+        if self.pctx is not None:
+            if (self.pctx.world > 1 and self.draft_policy is not None
+                    and self.draft_policy.rank > 0):
+                raise NotImplementedError(
+                    "a rank > 0 draft tree under tensor parallelism (its "
+                    "factors would be computed on weight slices)")
+            if lowrank is _AUTO:         # factors of the whole weights
+                lowrank = lowrank_tree(params, policy) \
+                    if policy.any_enabled else None
+            params, lowrank = self.runner.place_params(params, lowrank)
+            self.params = params
         # one GuardConfig drives the session's validation, the model's
         # health gate, the scheduler's retries and the degradation ladder
         guard = ecfg.guard_cfg if ecfg.guards else None
         self.qmodel = QuantizedModel(
             params, policy,
             session=CalibrationSession(halflife=ecfg.stats_halflife,
-                                       guard=guard),
+                                       guard=guard, pctx=self.pctx),
             double_buffer=ecfg.double_buffer, draft_policy=self.draft_policy,
-            lowrank=lowrank, health_gate=guard)
+            lowrank=lowrank, health_gate=guard, pctx=self.pctx)
         self.scheduler = Scheduler(
             ecfg, self.kvcfg, self.num_blocks,
             exact_buckets=cfg.family in ("hybrid", "ssm"))
@@ -247,6 +271,41 @@ class TTQEngine:
     @property
     def host_syncs(self) -> int:
         return self.runner.host_syncs
+
+    # the reference's facade over the session, scheduler and runner
+    # (``repro/serving/engine.py:309-343``)
+
+    @property
+    def agg_stats(self):
+        return self.qmodel.session.stats
+
+    @property
+    def stat_count(self):
+        return self.qmodel.session.count
+
+    @property
+    def admits_since_cal(self):
+        return self.scheduler.admits_since_cal
+
+    @property
+    def queue(self):
+        return self.scheduler.queue
+
+    @property
+    def slot_req(self):
+        return self.scheduler.slot_req
+
+    @property
+    def finished(self):
+        return self.scheduler.finished
+
+    @property
+    def pos(self):
+        return self.runner.pos
+
+    @property
+    def cur_tok(self):
+        return self.runner.cur_tok
 
     @property
     def compiled_programs(self) -> int:

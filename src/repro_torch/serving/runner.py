@@ -58,6 +58,16 @@ replay of a graph keyed by (C, rows already resident, parameter-tree
 layout), in the prefill graphs' memory pool.
 
 ``host_syncs`` counts blocking device→host transfers.
+
+Tensor parallelism (``pctx``): every rank runs a runner on its slice of
+the parameters (:meth:`place_params`, the reference's ``runner.py:191-200``)
+and of the decode state (the rank's KV heads, ``runner.py:138-143`` there),
+on the same requests, so the host's decisions agree and every rank emits
+the same tokens.  Under NCCL the decode, prefill, speculative and chunk
+graphs capture the collectives (one eager collective creates the
+communicator before the first capture).  gloo collectives cannot be
+captured: over gloo the runner runs every block eagerly, says so in
+``graph_mode`` and prints it once.
 """
 from __future__ import annotations
 
@@ -75,6 +85,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import gather_paged_kv
 from repro_torch.models import lm
 from repro_torch.models.common import sample_logits
+from repro_torch.parallel import comm
+from repro_torch.parallel.rules import shard_lowrank, shard_params
 
 from .blocks import SINK
 
@@ -220,9 +232,22 @@ class _Graph:
 
 class DeviceRunner:
     def __init__(self, cfg, ecfg, kvcfg, *, kncfg=None, device="cuda",
-                 generator=None, num_blocks: int = 0):
+                 generator=None, num_blocks: int = 0, pctx=None):
         self.cfg, self.ecfg, self.kvcfg, self.kncfg = cfg, ecfg, kvcfg, kncfg
+        self.pctx = pctx
         self.device = torch.device(device)
+        # graphs on the card, unless a gloo group's collectives run in the
+        # blocks (they cannot be captured)
+        self.graphs = self.device.type == "cuda" and (
+            pctx is None or pctx.mesh is None or pctx.mesh.backend == "nccl")
+        self.graph_mode = ("graphs" if self.graphs else "eager (gloo "
+                           "collectives cannot be captured)"
+                           if self.device.type == "cuda" else "eager (cpu)")
+        if self.device.type == "cuda" and not self.graphs \
+                and pctx.rank == 0:
+            print(f"runner: {pctx.mesh.backend} over {pctx.world} ranks on "
+                  f"{self.device}: blocks run eagerly, no CUDA graphs")
+        self._warm_comm = pctx is not None and self.graphs
         self.generator = generator
         self.paged = kvcfg is not None and kvcfg.paged
         B, ML = ecfg.max_slots, ecfg.max_len
@@ -230,7 +255,7 @@ class DeviceRunner:
         self.W = ecfg.speculate_k
         self.state = lm.init_decode_state(cfg, B, ML, kvcfg=kvcfg,
                                           device=self.device,
-                                          num_blocks=num_blocks)
+                                          num_blocks=num_blocks, pctx=pctx)
         dev = self.device
         self.pos = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.cur_tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
@@ -256,6 +281,15 @@ class DeviceRunner:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def place_params(self, params, lowrank=None):
+        """This rank's slice of ``params`` (and of the low-rank factors of
+        the whole weights, ``rules.shard_lowrank``) under the runner's
+        ``pctx``; both unchanged without one."""
+        if self.pctx is None:
+            return params, lowrank
+        return (shard_params(params, self.pctx),
+                shard_lowrank(lowrank, self.pctx))
 
     def set_poison(self, slots):
         """Arm the ``decode.logits`` injection site: the lanes ``slots`` get
@@ -321,7 +355,7 @@ class DeviceRunner:
         logits, sstate, stats = lm.prefill(
             self.cfg, params, batch, self.ecfg.max_len,
             collect_stats=True, full_logits=True, kvcfg=self.kvcfg,
-            prefix_kv=prefix_kv, pos0=pfx)
+            prefix_kv=prefix_kv, pos0=pfx, pctx=self.pctx)
         n = inp["tokens"].shape[0]
         last = logits[torch.arange(n, device=logits.device), inp["last"]]
         if self.paged:
@@ -349,7 +383,7 @@ class DeviceRunner:
         next admission overwrites them)."""
         reqs, pfx = group.requests, group.prefix_len
         host = self._prefill_inputs(group)
-        if self.device.type == "cuda":
+        if self.graphs:
             first, stats = self._prefill_graph(params, host, group)
         else:
             inp = {k: self._tensor(v) for k, v in host.items()}
@@ -437,7 +471,8 @@ class DeviceRunner:
         logits, sstate, stats = lm.prefill(
             self.cfg, params, {"tokens": inp["tokens"]}, self.ecfg.max_len,
             collect_stats=True, full_logits=True, kvcfg=self.kvcfg,
-            prefix_kv=prefix_kv, pos0=start, compact_state=True)
+            prefix_kv=prefix_kv, pos0=start, compact_state=True,
+            pctx=self.pctx)
         if self.paged:
             _write_paged(state["stack"], sstate["stack"], inp["phys"],
                          self.kvcfg.block_size)
@@ -460,7 +495,7 @@ class DeviceRunner:
         lane and returns (first (1,), finished (1,)) host arrays, one sync,
         and the stats (a graph's outputs: the next replay overwrites them)."""
         host = self._chunk_inputs(plan)
-        if self.device.type == "cuda":
+        if self.graphs:
             last, stats = self._chunk_graph(params, host, plan.start)
         else:
             inp = {k: self._tensor(v) for k, v in host.items()}
@@ -534,7 +569,7 @@ class DeviceRunner:
         ecfg = self.ecfg
         kw = dict(K=K or self.K, max_len=ecfg.max_len,
                   eos_token=ecfg.eos_token, kvcfg=self.kvcfg, kcfg=self.kncfg,
-                  detect_faults=self.detect_faults)
+                  detect_faults=self.detect_faults, pctx=self.pctx)
         if draft is None:
             ys, (_, tok, pos, done, rem, _) = lm.decode_many(
                 self.cfg, params, self.state, self.cur_tok, self.pos,
@@ -562,6 +597,9 @@ class DeviceRunner:
         collector paused (:func:`_collector_paused`).  Returns the
         warm run's result and the seconds both took."""
         t0 = time.perf_counter()
+        if self._warm_comm:             # NCCL's communicator, before any
+            comm.warm(self.pctx)        # capture
+            self._warm_comm = False
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         cur = torch.cuda.current_stream(self.device)
@@ -573,11 +611,15 @@ class DeviceRunner:
         if self.generator is not None and self.ecfg.temperature > 0:
             graph.register_generator_state(self.generator)
         before = dict(build.LAUNCHES)
+        before_c = dict(comm.COUNTS)
         with _collector_paused(), torch.cuda.graph(graph, pool=pool,
                                                    stream=self._stream):
             out = fn()
         launches = {k: build.LAUNCHES[k] - n for k, n in before.items()}
+        launches.update({("comm", k): comm.COUNTS[k] - n
+                         for k, n in before_c.items()})
         build.LAUNCHES.update(before)   # captured, not launched
+        comm.COUNTS.update(before_c)
         graphs[key] = _Graph(graph, out, launches, inputs or {})
         return warm, time.perf_counter() - t0
 
@@ -585,7 +627,10 @@ class DeviceRunner:
     def _replay(g: _Graph):
         g.graph.replay()
         for k, n in g.launches.items():
-            build.LAUNCHES[k] += n
+            if isinstance(k, tuple):        # a captured collective
+                comm.COUNTS[k[1]] += n
+            else:
+                build.LAUNCHES[k] += n
         return g.out
 
     def _key(self, params, draft=None, K=None):
@@ -598,8 +643,8 @@ class DeviceRunner:
         over every slot (speculative with ``draft``) and return its result
         on the device (see :meth:`_eager_block`); reads nothing back.  CUDA:
         a replay of the graph captured at this K and layout (captured first
-        if there is none); CPU: the eager loop."""
-        if self.device.type != "cuda":
+        if there is none); CPU, or a gloo group: the eager loop."""
+        if not self.graphs:
             return self._eager_block(params, draft, K)
         key = self._key(params, draft, K)
         g = self._graphs.get(key)

@@ -16,7 +16,7 @@ deadline, failure injection for the FT tests.
 
 ZeRO-1 (the reference's ``opt_sharding``), the int8-compressed DP step
 (``make_compressed_dp_step``) and elastic re-meshing need a process group
-and wait for tensor parallelism (ROADMAP A10); without one, ``zero1=True``
+and wait for tensor parallelism (ROADMAP A10 (d)); without one, ``zero1=True``
 does nothing, as in the reference without a mesh, and ``grad_compress`` is
 not read.
 """
@@ -41,7 +41,7 @@ class TrainConfig:
     n_microbatches: int = 1
     remat: bool = True
     zero1: bool = True
-    grad_compress: bool = False      # int8 + error feedback (needs A10)
+    grad_compress: bool = False      # int8 + error feedback (needs A10 (d))
     opt: AdamWConfig = AdamWConfig()
     warmup: int = 100
     total_steps: int = 1000
