@@ -69,7 +69,8 @@
    speculative and not, launches per block, captures, the draft requant's
    ``ttq_quantize`` time and peak memory.  [2] also times ``ttq_gemm`` at
    the verify window's 16 rows.
-3f. Robustness and streaming on [3]'s policy at full width: (a) the
+3f. Robustness and streaming on [3]'s policy at full width and DEPTH_3F
+   layers: (a) the
    default guards against guards=False (tokens and host syncs equal, ms
    per decode step in turns, the gated requant's wall); (b) a
    ``decode.logits`` fault on one lane, dense and paged, retried or failed
@@ -85,8 +86,8 @@
    ``python -m repro_torch.launch.serve`` in a subprocess, its summary
    parsed.  Prints each part's seconds.
 3g. The other dense families at full width through [3]'s policy with the
-   default guards, dense slab then paged pool: minitron-4b and
-   starcoder2-15b at full depth, granite-34b at GRANITE_DEPTH_3G layers.
+   default guards, dense slab then paged pool: minitron-4b,
+   starcoder2-15b and granite-34b at the depths of DEPTHS_3G.
    Per engine: every kernel of its path launched, greedy tokens printed (paged equal to dense), the graph
    readings and shadowed run of [3], two synced gated requants, peak
    memory; dense: a one-layer depth witness.
@@ -95,14 +96,15 @@
    (gemma-7b's 16 heads at Dh 256; recurrentgemma's G = 16 at its window of
    2,048), ``attention``'s own dispatch (the KV-chunked online softmax)
    against ``full_attention`` on the same f32 q/k/v, with both times and
-   peak memories; (a) recurrentgemma-9b at full width and depth through
+   peak memories; (a) recurrentgemma-9b at full width and HYBRID_DEPTH_3H
+   layers through
    [3g]'s ``family_engine`` (dense slab; one prefill graph per distinct
    prompt length), then one prompt of HYBRID_LONG tokens past its window
    (the rolling layout in prefill, decode wrapping the 2,048-row slab):
    every kernel of the path launched, graph blocks and the prefill replay
    bit for bit eager, compiled programs flat over a warm rerun, and a
    one-unit (rec, rec, lattn) witness at the wrapped window; (b)
-   chameleon-34b (qk-norm, G = 8) at ``fit_depth`` layers, dense then
+   chameleon-34b (qk-norm, G = 8) at VLM_DEPTH_3H layers, dense then
    paged, as [3g].
 3i. The MoE family, [3]'s policy with the default guards through [3g]'s
    ``family_engine``: (a) deepseek-v2-lite (MLA, 64 experts top-6, 2
@@ -110,7 +112,7 @@
    of its path launched (``ttq_gemm``, the expert-batched
    ``ttq_gemm_experts`` 3 times per layer and decode step, counted per
    replay, ``ttq_quantize``), graph blocks and prefill replays bit for bit
-   eager, the ms per step of the 27 ``wkv_b`` expansions of the latent
+   eager, the ms per step of the ``wkv_b`` expansions of the latent
    cache, the three refusals (paged pool, speculation, chunked prefill),
    and a one-layer witness whose routing choices are held to the plain
    path's (each first disagreement of a token a near-tie of router
@@ -148,7 +150,8 @@
    and RTN / AWQ calibrated on domain 1 / TTQ (rank 16, zero calibration)
    at 4 and 3 bits, g32 (readings only).
 3l. Tensor-parallel serving (``pctx``) of [3]'s policy and eight requests
-   at full width and depth, on one tree requantized from fixed statistics
+   on gemma-7b at full width and TP_DEPTH_3L layers, on one tree
+   requantized from fixed statistics
    (those of a [3]-cadence run): (a) world 1 over NCCL with CUDA graphs
    (``make_mesh(1, 1)``): tokens, every graph block's outputs and the tree
    bit for bit the ``pctx=None`` engine's; collectives per decode step
@@ -167,7 +170,29 @@
    and D⁻¹ of every layer of every weight bit for bit its slice of (a)'s;
    ms per decode step and launches per step over the counted steps, peak
    GB per rank.
+3m. The same for the five families beyond plain attention
+   (FAMILIES_3M: recurrentgemma-9b, mamba2-1.3b, whisper-medium,
+   deepseek-v2-lite, llama4-scout at full width and a depth holding every
+   layer kind), N_3M requests each, one tree from the fixed statistics of
+   a full-precision prefill: (a) world 1 over NCCL with CUDA graphs
+   against ``pctx=None`` (MoE under ``moe_impl="dense"``): tokens, every
+   block and the tree bit for bit; a MoE engine under ``"a2a"`` with its
+   graph replays bit for bit its own eager run; collectives per decode
+   step by kind; ms per decode step against ``pctx=None``.  (b) World
+   TP_WORLD_3L over gloo on the one card: ``ttq_gemm_tp`` at the RG-LRU,
+   SSD and ``wkv_b`` shard shapes, the decode attentions at
+   whisper-medium's rank heads and ``ttq_gemm_experts`` at E/n experts
+   against their plain versions; per family the ranks' tokens equal (each
+   ``moe_impl``), (a)'s or a near-tie, the teacher-forced logits within
+   TP_DELTA_3M of (a)'s, every layer's codes bit for bit (a)'s slices;
+   for MoE the router probabilities within ROUTE_DELTA_3M of (a)'s up to
+   each request's first routing flip, and under ``"a2a"`` at capacity
+   factor CF_3M (no assignment dropped) the teacher-forced logits within
+   TP_DELTA_3M of (a)'s world-1 ``"a2a"`` ones; deepseek-v2-lite's
+   ``wkv_b`` expansion per layer at world 1 and on one rank; ms per
+   decode step, the staged collectives' ms, peak GB per rank.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
+5. Seconds per phase and for the whole script.
 
 Any failed check exits non-zero before the last line is printed.
 """
@@ -253,10 +278,20 @@ STEAL_3F = 64
 # phase 3g: the other dense families at full width; granite-34b at the
 # depth its weights and two quantized trees leave room for
 FAMILIES_3G = ("minitron_4b", "starcoder2_15b", "granite_34b")
-# granite-34b's depth in [3g]: a reduced-depth witness of its G = 48 at
-# full width (fit_depth, which would give 57 layers on an 80 GB card, is
-# held by chameleon-34b in [3h]), so that the whole script stays near 600 s
-GRANITE_DEPTH_3G = 16
+# [3g]'s depths at full width: granite-34b a reduced-depth witness of its
+# G = 48 (fit_depth, which would give 57 layers on an 80 GB card, is held
+# by chameleon-34b in [3h]); minitron-4b (32 layers) and starcoder2-15b
+# (40) cut to 16 to pay for [3m], so that the whole script stays under
+# 950 s
+DEPTHS_3G = {"minitron_4b": 16, "starcoder2_15b": 16, "granite_34b": 16}
+# the other earlier paths cut to pay for [3m] (full width kept):
+# recurrentgemma-9b in [3h] (a) to 4 units of (rec, rec, lattn) of its 38
+# layers, chameleon-34b in [3h] (b) to 16 of fit_depth's 31, gemma-7b to 14
+# of its 28 layers in [3f] and in [3l]
+HYBRID_DEPTH_3H = 12
+VLM_DEPTH_3H = 16
+DEPTH_3F = 14
+TP_DEPTH_3L = 14
 FIT_RESERVE_GB = 8             # card memory kept from fit_depth's weights
 # phase 3h: a prompt past recurrentgemma-9b's window of 2,048, and the key
 # count of the long prefill attention (over gemma-7b's 8,192 chunk
@@ -298,6 +333,35 @@ TP_TURNS_3L = 3                # warm runs per engine in turns, (a)
 # collective or a wrong shard product moves the logits by their own size
 # (units).  The bound is 3x the largest reading.
 TP_DELTA_3L = 0.35
+# [3m]: the five families beyond plain attention at full width and these
+# depths (every layer kind once: recurrentgemma's (rec, rec, attn),
+# whisper's 2 encoder + 2 decoder layers)
+FAMILIES_3M = (("recurrentgemma_9b", 3), ("mamba2_1p3b", 4),
+               ("whisper_medium", 2), ("deepseek_v2_lite_16b", 2),
+               ("llama4_scout_17b_a16e", 2))
+N_3M = 4                       # requests per family: one round of 4 slots
+TP_TURNS_3M = 2                # warm runs per engine in turns, (a)
+TP_TIMEOUT_3M = 420            # seconds for (b)'s ranks to finish
+# (b): the largest |world-1 - world-2| teacher-forced logit per family,
+# fixed before the first run: 2-4 layers round fewer column sums than
+# [3l]'s 28 (0.117 there), so the readings should stay below it; a
+# dropped collective, a wrong shard or a missing Σy² moves logits by
+# units.  The same bound as TP_DELTA_3L.
+TP_DELTA_3M = 0.35
+# (b), MoE: the largest |world-1 - world-2| router probability of any
+# token at any layer up to each request's first routing flip, and half the
+# largest gap between the swapped experts' world-1 probabilities at that
+# flip.  Readings on an H100 (PERF.md): 0.00135-0.00141 (deepseek-v2-lite,
+# dense and a2a) and 0.00404 (llama4-scout), flip gaps up to 0.00118; a
+# wrong expert slice moves a later layer's probabilities by their own size
+# (1/E to 1).  The bound is 3x the largest reading
+ROUTE_DELTA_3M = 0.0125
+# (b), "a2a": the capacity factor at which world 2's all-to-all teacher
+# forcing is held to world 1's.  The reference test's 8 drops prompt
+# assignments of deepseek-v2-lite's random router at world 1 (5 on an
+# H100, PERF.md); at 32, C = ⌊Tc·k/E·32⌋ ≥ Tc for both configs (E/k ≤
+# 16), the most one expert can be sent, so no world drops any
+CF_3M = 32.0
 BATCH_3K, SEQ_3K, MB_3K, WARM_3K = 8, 512, 2, 10
 RESTORE_DEPTH_3K = 1
 PRESET_100M = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
@@ -2104,15 +2168,18 @@ def first_tree(torch, eng):
 
 
 def near_tie(torch, cfg, fp, tree, kvcfg, kcfg, prompts, i, t, a, b,
-             drafts):
+             drafts, rows=4):
     """At request ``i``'s first disagreement (index ``t`` of its output; the
     runs chose ``a`` and ``b``), recompute its logits eagerly for the agreed
-    prefix ``drafts[:t]`` two ways on ``tree``: one ``decode_step`` after the
-    prefill and the decode of the prefix, and one ``verify_window`` from the
-    same state (the window the agreed token and the next W of ``drafts``).
-    At t = 0, the prompt's prefill alone and in the batch of every prompt.
-    Returns (|logit a − logit b| in the decode logits, the largest |Δlogit|
-    between the two sets)."""
+    prefix ``drafts[:t]`` on ``tree``: one ``decode_step`` after the prefill
+    and the decode of the prefix, and one ``verify_window`` from the same
+    state (the window the agreed token and the next W of ``drafts``), each
+    for one copy of the request and for ``rows`` copies (the engine's
+    slots: a decode step of that many rows and a verify window of ``rows``
+    · (W + 1), as the two runs have).  At t = 0, the prompt's prefill
+    alone and in the batch of every prompt.  Returns (|logit a − logit b|
+    in the one-copy decode logits, the largest |Δlogit| between any two of
+    the sets, and for t > 0 each set's logit a − logit b)."""
     from repro_torch.models import lm
     dev = fp["embed"].device
     P = len(prompts[i])
@@ -2127,24 +2194,32 @@ def near_tie(torch, cfg, fp, tree, kvcfg, kcfg, prompts, i, t, a, b,
                                collect_stats=False, full_logits=True,
                                kvcfg=kvcfg)
         L_d, L_v = lg1[0], lgb[i, P - 1]
-    else:
+        return (float((L_d[a] - L_d[b]).abs()),
+                float((L_d - L_v).abs().max()), {})
+    win = (list(drafts[t - 1:t + SPEC_W]) + [drafts[-1]] * SPEC_W)[
+        :SPEC_W + 1]
+    sets = {}
+    for n in (1, rows):
         _, st, _ = lm.prefill(cfg, fp, {"tokens": torch.tensor(
-            [prompts[i]], device=dev)}, ML, collect_stats=False, kvcfg=kvcfg)
-        tok = lambda x: torch.tensor([[x]], dtype=torch.int32, device=dev)
-        at = lambda p: torch.tensor([p], dtype=torch.int32, device=dev)
+            [prompts[i]] * n, device=dev)}, ML, collect_stats=False,
+            kvcfg=kvcfg)
+        tok = lambda x: torch.full((n, 1), x, dtype=torch.int32, device=dev)
+        at = lambda p: torch.full((n,), p, dtype=torch.int32, device=dev)
         for j in range(t - 1):
             lm.decode_step(cfg, tree, st, tok(drafts[j]), at(P + j),
                            kvcfg=kvcfg, kcfg=kcfg)
         st_v = clone_tree(torch, st)
         L_d, _ = lm.decode_step(cfg, tree, st, tok(drafts[t - 1]),
                                 at(P + t - 1), kvcfg=kvcfg, kcfg=kcfg)
-        win = (list(drafts[t - 1:t + SPEC_W]) + [drafts[-1]] * SPEC_W)[
-            :SPEC_W + 1]
         L_v, _ = lm.verify_window(cfg, tree, st_v, torch.tensor(
-            [win], dtype=torch.int32, device=dev), at(P + t - 1),
+            [win] * n, dtype=torch.int32, device=dev), at(P + t - 1),
             kvcfg=kvcfg, kcfg=kcfg)
-        L_d, L_v = L_d[0], L_v[0, 0]
-    return float((L_d[a] - L_d[b]).abs()), float((L_d - L_v).abs().max())
+        sets[f"decode x{n}"], sets[f"verify x{n}"] = L_d[0], L_v[0, 0]
+    L = list(sets.values())
+    delta = max(float((x - y).abs().max()) for k, x in enumerate(L)
+                for y in L[k + 1:])
+    return (float((L[0][a] - L[0][b]).abs()), delta,
+            {k: float(v[a] - v[b]) for k, v in sets.items()})
 
 
 def spec_readings(torch, eng, label):
@@ -2309,7 +2384,9 @@ def spec_case(torch, dev, cfg, params, policy, label, prompts, *,
 def near_ties(torch, cfg, out, prompts, label, tree_one) -> list:
     """Hold each request's first disagreement between the speculative and
     the non-speculative run to :func:`near_tie`: its two tokens' logits
-    differ by no more than the recomputed decode and verify logits do.
+    differ by no more than twice the largest gap between the recomputed
+    decode and verify logits at one copy and at the engine's slots (the
+    rounding of the shapes the two runs compute at).
     With ``tree_one`` (a quantized verify tree that requants as requests
     arrive) a disagreement is held only where both runs decoded the whole
     prefix on their first tree, which must be bit for bit the same in both;
@@ -2337,15 +2414,21 @@ def near_ties(torch, cfg, out, prompts, label, tree_one) -> list:
                       f"{t}, after the verify tree changed (token {lim}): "
                       f"the schedules read different trees there, not held")
                 continue
-        margin, delta = near_tie(torch, cfg, out["fp"], tree, out["kvcfg"],
-                                 out["kcfg"], prompts, i, t, a[t], b[t], b)
+        margin, delta, sets = near_tie(
+            torch, cfg, out["fp"], tree, out["kvcfg"], out["kcfg"], prompts,
+            i, t, a[t], b[t], b)
         rows.append(dict(request=i, t=t, held=True, margin=margin,
-                         delta=delta))
+                         delta=delta, a_minus_b=sets))
         print(f"  {label} request {i}: first disagreement at token {t} "
               f"({a[t]} vs {b[t]}): their logits differ by {margin:.4g}, the "
-              f"recomputed decode and verify logits by up to {delta:.4g}")
-        check(margin <= delta, f"{label} request {i}: the disagreement at "
-              f"token {t} is no near-tie ({margin} > {delta})")
+              f"recomputed logits by up to {delta:.4g}"
+              + (" (logit a - logit b: " + ", ".join(
+                  f"{k} {v:.4g}" for k, v in sets.items()) + ")"
+                 if sets else ""))
+        # two sets of logits at most δ apart entry by entry can order two
+        # tokens differently only within 2δ of each other
+        check(margin <= 2 * delta, f"{label} request {i}: the disagreement "
+              f"at token {t} is no near-tie ({margin} > 2 x {delta})")
     return rows
 
 
@@ -3049,6 +3132,23 @@ def robustness(torch, dev, cfg, params, prompts) -> dict:
 
 # ------------------------------------------------------------- phase 3l
 
+def blocks_equal(a, b) -> bool:
+    """Two runs' recorded blocks (:func:`record_blocks`) equal, bit for
+    bit."""
+    return len(a) == len(b) and all(
+        all((x is None and y is None) or np.array_equal(x, y)
+            for x, y in zip(ba, bb)) for ba, bb in zip(a, b))
+
+
+def collectives_per_step(eng) -> dict:
+    """Collectives per decode step by kind, from the decode graph's
+    captured counts."""
+    g = next(iter(eng.runner._graphs.values()), None)
+    K = eng.ecfg.decode_chunk
+    return {} if g is None else {k[1]: n / K for k, n in g.launches.items()
+                                 if isinstance(k, tuple)}
+
+
 def tp_engine(torch, dev, cfg, params, pctx):
     """[3]'s engine (int4 g32 packed, rank 0, int8 KV, 4 slots x 256,
     graphs where the backend allows) under ``pctx``, with a cadence that
@@ -3110,7 +3210,8 @@ def teacher_logits(torch, cfg, params, tree, kvcfg, kcfg, prompts, tokens,
 def tree_hashes(torch, tree, world=1, pctx=None) -> dict:
     """sha256 of every layer of every requantized field (codes, S, Z, D⁻¹)
     of every weight; with ``pctx`` (a layout bound for ``world`` ranks), of
-    each rank's slice: {(rank, path, field, layer): digest}."""
+    each rank's slice (its rows, columns or whole experts): {(rank, path,
+    field, layer): digest}."""
     import hashlib
     from repro_torch.core.ttq import QuantizedTensor
     from repro_torch.parallel.rules import split_of
@@ -3131,7 +3232,7 @@ def tree_hashes(torch, tree, world=1, pctx=None) -> dict:
                 for layer in range(x.shape[0]):
                     for r in range(world):
                         y = x[layer]
-                        dim = {"row": -2, "col": -1}.get(sp)
+                        dim = {"row": -2, "col": -1, "expert": 0}.get(sp)
                         if dim is not None and not (f == "dinv"
                                                     and sp == "row"):
                             k = y.shape[dim] // world
@@ -3142,33 +3243,36 @@ def tree_hashes(torch, tree, world=1, pctx=None) -> dict:
     return out
 
 
-def tp_kernel_checks(torch, dev, pctx) -> dict:
-    """The ``*_tp`` wrappers at gemma-7b's shard shapes on this rank, held
-    to the plain version on the same inputs at [2]'s tolerances (bf16 x:
-    rtol 2^-7, atol 2e-4·sqrt(d/256); bf16 q: rtol 2^-7, atol 1e-5).
-    ``ttq_gemm_tp`` row (the rank's rows of wq/wk/wv and wg/wu) against
-    ``ttq_gemm_ref`` on that shard; col (wo, wd: the rank's input slice,
-    then the all-reduce) against ``ttq_gemm_ref`` on the whole weight; both
-    decode-attention wrappers on the rank's heads against ``kv_attn_ref``
-    on every head, the paged one bit for bit the dense one.  Every rank
-    draws the same whole inputs from one seed.  Returns {call: max
-    |difference|}."""
+def tp_kernel_checks(torch, dev, pctx, gemms=None, attn=(16, 256)) -> dict:
+    """The ``*_tp`` wrappers at shard shapes on this rank, held to the plain
+    version on the same inputs at [2]'s tolerances (bf16 x: rtol 2^-7, atol
+    2e-4·sqrt(d/256); bf16 q: rtol 2^-7, atol 1e-5).  ``gemms``: (name, d',
+    d, role) of whole weights, by default gemma-7b's; ``ttq_gemm_tp`` row
+    (the rank's rows) against ``ttq_gemm_ref`` on that shard; col (the
+    rank's input slice, then the all-reduce) against ``ttq_gemm_ref`` on
+    the whole weight.  ``attn`` (Hkv, Dh) at G 1: both decode-attention
+    wrappers on the rank's heads against ``kv_attn_ref`` on every head,
+    the paged one bit for bit the dense one.  Every rank draws the same
+    whole inputs from one seed.  Returns {call: max |difference|}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import (kv_decode_attention_tp,
                                          kv_paged_decode_attention_tp,
                                          ttq_gemm_tp)
     n, r = pctx.world, pctx.rank
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    role = {"wq/wk/wv": "row", "wo": "col", "wg/wu": "row", "wd": "col"}
+    if gemms is None:
+        role = {"wq/wk/wv": "row", "wo": "col", "wg/wu": "row", "wd": "col"}
+        gemms = [(name, dp, d, role[name])
+                 for name, (dp, d, _) in GEMM_SHAPES.items()]
     out = {}
-    for name, (dp, d, _) in GEMM_SHAPES.items():
+    for name, dp, d, role in gemms:
         W = torch.randn((dp, d), generator=gen, device=dev) * d ** -0.5
         D = torch.exp(0.3 * torch.randn((d,), generator=gen, device=dev))
         dinv = 1.0 / D
         xb = torch.randn((4, d), generator=gen, device=dev).to(torch.bfloat16)
         pk, S, Z = ref.ttq_quantize_ref(W, D, bits=4, group_size=32)
         del W, D
-        if role[name] == "row":
+        if role == "row":
             k = dp // n
             sl = [t[r * k:(r + 1) * k] for t in (pk, S, Z)]
             y = ttq_gemm_tp(xb, *sl, dinv, bits=4, group_size=32, pctx=pctx,
@@ -3189,13 +3293,15 @@ def tp_kernel_checks(torch, dev, pctx) -> dict:
             shape = (dp, k)
         torch.testing.assert_close(y.float(), y_r, rtol=2 ** -7,
                                    atol=2e-4 * (d / 256) ** 0.5)
-        out[f"ttq_gemm_tp {role[name]} {name} {shape}"] = float(
+        out[f"ttq_gemm_tp {role} {name} {shape}"] = float(
             (y.float() - y_r).abs().max())
         del pk, S, Z, y, y_r
-    h = 16 // n                          # gemma-7b: 16 KV heads of 256, G 1
+    Hkv, Dh = attn
+    h = Hkv // n
     heads = slice(r * h, (r + 1) * h)
     for bits, q, dense, pool, bt, pos in attn_case(
-            torch, dev, SEED + 6, 256 // BLOCK, [0, 37, 128, 200]):
+            torch, dev, SEED + 6, 256 // BLOCK, [0, 37, 128, 200], Hkv=Hkv,
+            Dh=Dh):
         qb = q.to(torch.bfloat16)
         o_r = ref.kv_attn_ref(qb, *dense, pos, bits=bits)[:, heads]
         o = kv_decode_attention_tp(
@@ -3209,8 +3315,8 @@ def tp_kernel_checks(torch, dev, pctx) -> dict:
         torch.testing.assert_close(o.float(), o_r.float(), rtol=2 ** -7,
                                    atol=1e-5)
         check(torch.equal(o_p, o), f"kv_paged_decode_attention_tp int{bits} "
-              f"on {h} heads is not bit for bit the dense wrapper's")
-        out[f"kv_decode_attention_tp int{bits} {h} heads"] = float(
+              f"on {h} heads of {Dh} is not bit for bit the dense wrapper's")
+        out[f"kv_decode_attention_tp int{bits} {h} heads of {Dh}"] = float(
             (o.float() - o_r.float()).abs().max())
     torch.cuda.empty_cache()
     return out
@@ -3320,10 +3426,7 @@ def tensor_parallel(torch, dev, cfg, params, prompts) -> dict:
                           coll={k: comm.COUNTS[k] - c0[k] for k in c0},
                           wall=wall)
     a, b = runs["none"], runs["world 1"]
-    same_blocks = len(a["blocks"]) == len(b["blocks"]) and all(
-        all((x is None and y is None) or np.array_equal(x, y)
-            for x, y in zip(ba, bb))
-        for ba, bb in zip(a["blocks"], b["blocks"]))
+    same_blocks = blocks_equal(a["blocks"], b["blocks"])
     same_tree = qt_tree_equal(torch, a["eng"].decode_params,
                               b["eng"].decode_params)
     check(b["tokens"] == a["tokens"], "[3l] (a) world-1 tokens differ from "
@@ -3337,11 +3440,7 @@ def tensor_parallel(torch, dev, cfg, params, prompts) -> dict:
     check(all(b["launches"][k] > 0 for k in
               ("ttq_quantize", "ttq_gemm", "ttq_decode_attention")),
           f"[3l] (a) a kernel of the path never launched: {b['launches']}")
-    g = next(iter(e1.runner._graphs.values()), None)
-    K = e1.ecfg.decode_chunk
-    per_step = {} if g is None else {k[1]: n / K for k, n in
-                                     g.launches.items()
-                                     if isinstance(k, tuple)}
+    per_step = collectives_per_step(e1)
     check(per_step.get("all_reduce", 0) > 0, "[3l] (a) the decode graph "
           "captured no all-reduce")
     ms = {"none": [], "world 1": []}
@@ -3386,7 +3485,7 @@ def tensor_parallel(torch, dev, cfg, params, prompts) -> dict:
                    stats=[{k: v.cpu().numpy() for k, v in run.items()}
                           for run in stats["stack"]])
     payload["stats"] = {"stack": payload["stats"]}
-    del runs, a, b, e1, g, stats, params
+    del runs, a, b, e1, stats, params
     res["a"]["seconds"] = time.perf_counter() - t_all
     return res, dict(payload=payload, L1=L1, want=want, tmp=tmp)
 
@@ -3479,6 +3578,613 @@ def tensor_parallel_b(torch, res, held) -> dict:
           f"{res['b']['peak_gb']}; launches per decode step at shard shapes "
           f"{r0['launches_per_step']}; collectives over the cold run "
           f"{r0['collectives']}; {res['b']['seconds']:.1f} s")
+    return res
+
+
+# ------------------------------------------------------------- phase 3m
+
+def init_3m(torch, dev, arch, depth):
+    """Full-width ``arch`` at ``depth`` layers (an encoder-decoder's
+    encoder too), random weights from seed 0."""
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get(arch), n_layers=depth)
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, n_enc_layers=depth))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    return cfg, params
+
+
+def traffic_3m(cfg):
+    """[3m]'s traffic: [3]'s first N_3M prompts (one block of 4 slots) in
+    ``cfg``'s vocabulary, with frames from the seed for an
+    encoder-decoder."""
+    prompts = make_prompts(cfg.vocab)[:N_3M]
+    frames = None
+    if cfg.encdec is not None:
+        frames = np.random.default_rng(SEED + 5).standard_normal(
+            (N_3M, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
+    return prompts, frames
+
+
+def batch_of(torch, dev, prompt, frames, i):
+    b = {"tokens": torch.tensor([prompt], device=dev)}
+    if frames is not None:
+        b["frames"] = torch.from_numpy(frames[i:i + 1]).to(dev)
+    return b
+
+
+def fixed_stats_3m(torch, cfg, params, prompts, frames):
+    """The fixed statistics: a ``pctx=None`` full-precision prefill of the
+    first prompt (MoE statistics gate-weighted), and its token count."""
+    from repro_torch.models import lm
+    dev = params["embed"].device
+    _, _, stats = lm.prefill(cfg, params, batch_of(torch, dev, prompts[0],
+                                                   frames, 0), 256)
+    return stats, float(len(prompts[0]))
+
+
+def engine_3m(torch, dev, cfg, params, pctx, prompts, frames, stats, count):
+    """[3l]'s engine (:func:`tp_engine`) with its one tree from the fixed
+    statistics (the rank's slice under ``pctx``; under ``"a2a"`` without
+    the router's) and the frames."""
+    from repro_torch.parallel.rules import shard_stats
+    eng = tp_engine(torch, dev, cfg, params, pctx)
+    with_frames(eng, prompts, frames)
+    if cfg.moe is not None and pctx is not None and pctx.moe_impl == "a2a":
+        # the all-to-all path taps no router (as the reference's): the
+        # session's tree keeps the keys its own prefills give
+        stats = {k: [{kk: v for kk, v in run.items()
+                      if not kk.endswith("mlp.router")} for run in runs]
+                 for k, runs in stats.items()}
+    fixed_stats_tree(eng, stats if pctx is None or pctx.world == 1
+                     else shard_stats(stats, eng.pctx), count)
+    return eng
+
+
+def steps_3m(eng) -> int:
+    """Decode steps of one round of N_3M ≤ max_slots requests."""
+    K = eng.ecfg.decode_chunk
+    return -(-(MAX_NEW - 1) // K) * K
+
+
+def teacher_3m(torch, cfg, params, tree, kvcfg, kcfg, prompts, frames,
+               tokens, pctx=None) -> tuple:
+    """(R, T, V) f32 on the host: the logits behind each request's tokens,
+    teacher-forced request by request (an exact-length prefill, as the
+    engine's for a recurrent stack), then T - 1 decode steps on ``tree``
+    (under ``pctx`` on every rank); and for a MoE stack the routing behind
+    each position ([request][position] → every layer's (top-k indices,
+    router probabilities) of the tokens that call read), else None."""
+    from repro_torch.models import lm
+    dev = params["embed"].device
+    out = np.empty((len(prompts), len(tokens[0]), cfg.vocab), np.float32)
+    rec, routes = [], [] if cfg.moe is not None else None
+
+    def since(n):
+        return [(a.cpu().numpy(), b.cpu().numpy()) for a, b in rec[n:]]
+    with recorded_routes(torch, rec):
+        for i, p in enumerate(prompts):
+            n = len(rec)
+            lg, st, _ = lm.prefill(cfg, params, batch_of(torch, dev, p,
+                                                         frames, i), 256,
+                                   collect_stats=False, kvcfg=kvcfg,
+                                   pctx=pctx)
+            out[i, 0] = lg[0].cpu()
+            row = [since(n)]
+            for t in range(1, len(tokens[i])):
+                tok = torch.tensor([[tokens[i][t - 1]]], dtype=torch.int32,
+                                   device=dev)
+                pos = torch.tensor([len(p) + t - 1], dtype=torch.int32,
+                                   device=dev)
+                n = len(rec)
+                L, st = lm.decode_step(cfg, tree, st, tok, pos, kvcfg=kvcfg,
+                                       kcfg=kcfg, pctx=pctx)
+                out[i, t] = L[0].cpu()
+                row.append(since(n))
+            if routes is not None:
+                routes.append(row)
+    return out, routes
+
+
+def first_flips(r1, r2, what) -> tuple:
+    """Per request, the first teacher-forced position whose routing (any
+    layer, any token its call read) differs between world 1 (``r1``) and
+    world 2 (``r2``), None where none does.  Every router call up to and
+    including the one that flips is held: each probability within
+    ROUTE_DELTA_3M of world 1's, and each flip a near-tie, world 1's
+    probabilities of the swapped experts within 2 · ROUTE_DELTA_3M.  A
+    flip moves that position's logits by an expert's share, and the later
+    layers and positions of the request read it: they are its
+    consequence, and only the positions before it are held to the logit
+    bound.  Returns (the flips, the largest |Δp| and the largest gap
+    held)."""
+    firsts, dp, gap_max = [], 0.0, 0.0
+    for i, (row1, row2) in enumerate(zip(r1, r2)):
+        first = None
+        for t, (calls1, calls2) in enumerate(zip(row1, row2)):
+            for (i1, p1), (i2, p2) in zip(calls1, calls2):
+                d = float(np.abs(p2 - p1).max())
+                dp = max(dp, d)
+                check(d <= ROUTE_DELTA_3M, f"{what} request {i} position "
+                      f"{t}: router probabilities {d:.3g} from world 1's "
+                      f"(bound {ROUTE_DELTA_3M})")
+                same = (i1[:, :, None] == i2[:, None, :]).any(-1).all(-1)
+                for tok in np.nonzero(~same)[0]:
+                    gone = set(i1[tok].tolist()) - set(i2[tok].tolist())
+                    came = set(i2[tok].tolist()) - set(i1[tok].tolist())
+                    gap = max(abs(float(p1[tok, a] - p1[tok, b]))
+                              for a in gone for b in came)
+                    gap_max = max(gap_max, gap)
+                    check(gap <= 2 * ROUTE_DELTA_3M, f"{what} request {i} "
+                          f"position {t}: routing differs between the worlds "
+                          f"by a probability gap {gap:.3g}, beyond "
+                          f"2 x {ROUTE_DELTA_3M}")
+                if not same.all():
+                    first = t
+                    break
+            if first is not None:
+                break
+        firsts.append(first)
+    return firsts, dp, gap_max
+
+
+def chunk_routes(ranks, r1):
+    """World 2's routing under ``"a2a"`` as world 1's calls read it: each
+    rank routes its chunk of ⌈T/n⌉ tokens, so a call's rows are the ranks'
+    chunks in rank order, cut to world 1's T."""
+    return [[[tuple(np.concatenate([rk[i][t][c][j] for rk in ranks])
+                    [:len(call[0])] for j in range(2))
+              for c, call in enumerate(calls)]
+             for t, calls in enumerate(row)] for i, row in enumerate(r1)]
+
+
+@contextlib.contextmanager
+def dropped(torch, rec):
+    """Append the assignments each all-to-all MoE call drops past its
+    capacity to ``rec`` for the duration of the block (a sync per call)."""
+    from repro_torch.models import layers
+    real = layers.a2a_slots
+
+    def spy(top_i, n_experts, C):
+        slot, valid = real(top_i, n_experts, C)
+        rec.append(int((~valid).sum()))
+        return slot, valid
+    layers.a2a_slots = spy
+    try:
+        yield rec
+    finally:
+        layers.a2a_slots = real
+
+
+def teacher_a2a(torch, cfg, eng, prompts, frames, tokens) -> tuple:
+    """:func:`teacher_3m` on ``eng``'s tree under its ``"a2a"`` context at
+    capacity factor CF_3M, the assignments dropped counted: (logits,
+    routes, drops)."""
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=CF_3M))
+    with dropped(torch, []) as drops:
+        L, routes = teacher_3m(torch, cfg8, eng.params, eng.decode_params,
+                               eng.kvcfg, eng.kncfg, prompts, frames, tokens,
+                               eng.pctx)
+    return L, routes, sum(drops)
+
+
+def tp_family_a(torch, dev, arch, depth, mesh) -> tuple:
+    """[3m] (a) for one family: ``pctx=None`` against a world-1 NCCL
+    context (MoE under ``"dense"``) in CUDA graphs, each on the tree from
+    the fixed statistics: tokens, every block and the tree bit for bit;
+    for MoE, an ``"a2a"`` world-1 engine in graphs against the same engine
+    with every block eager, bit for bit; collectives per decode step by
+    kind; ms per decode step world 1 against ``pctx=None`` (TP_TURNS_3M
+    warm runs each, in turns).  Returns the readings, the launches of the
+    world-1 engines' cold runs and what (b) is held to."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.parallel import ParallelCtx, comm
+    from repro_torch.parallel.ctx import Mesh
+    from repro_torch.parallel.rules import bind, col_align
+    cfg, params = init_3m(torch, dev, arch, depth)
+    prompts, frames = traffic_3m(cfg)
+    stats, count = fixed_stats_3m(torch, cfg, params, prompts, frames)
+    ctxs = [("none", None), ("world 1", make_ctx(mesh, moe_impl="dense"))]
+    if cfg.moe is not None:
+        ctxs += [("a2a", make_ctx(mesh)), ("a2a eager", make_ctx(mesh))]
+    runs, launches = {}, {}
+    for name, pctx in ctxs:
+        build.reset_launches()          # the requant's launches count
+        eng = engine_3m(torch, dev, cfg, params, pctx, prompts, frames,
+                        stats, count)
+        if name == "a2a eager":
+            eng.runner.graphs = False
+        blocks = record_blocks(eng)
+        outs, _ = serve(torch, eng, prompts)
+        del eng.runner.decode_block
+        check_outputs(cfg, outs, f"[3m] (a) {cfg.name} {name}")
+        runs[name] = dict(eng=eng, tokens=[list(o) for o in outs],
+                          blocks=blocks)
+        if name in ("world 1", "a2a"):
+            for k, v in build.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v
+    a, b = runs["none"], runs["world 1"]
+    e1 = b["eng"]
+    res = dict(layers=depth, blocks=len(b["blocks"]),
+               tokens_equal=b["tokens"] == a["tokens"],
+               blocks_equal=blocks_equal(a["blocks"], b["blocks"]),
+               tree_equal=qt_tree_equal(torch, a["eng"].decode_params,
+                                        e1.decode_params),
+               collectives_per_step={"world 1": collectives_per_step(e1)})
+    for key in ("tokens_equal", "blocks_equal", "tree_equal"):
+        check(res[key], f"[3m] (a) {cfg.name}: world 1 {key} is False "
+              f"against pctx=None")
+    check(e1.runner.graphs and e1.compiled_programs > 0,
+          f"[3m] (a) {cfg.name}: world 1 over NCCL ran no CUDA graphs")
+    check(res["collectives_per_step"]["world 1"].get("all_reduce", 0) > 0,
+          f"[3m] (a) {cfg.name}: the decode graph captured no all-reduce")
+    if cfg.moe is not None:
+        g, e = runs["a2a"], runs["a2a eager"]
+        res["a2a"] = dict(replays_equal_eager=g["tokens"] == e["tokens"]
+                          and blocks_equal(g["blocks"], e["blocks"]),
+                          graphs=g["eng"].compiled_programs,
+                          eager_graphs=e["eng"].compiled_programs)
+        res["collectives_per_step"]["a2a"] = collectives_per_step(g["eng"])
+        check(res["a2a"]["replays_equal_eager"], f"[3m] (a) {cfg.name}: "
+              f"the a2a engine's graph replays differ from its eager run")
+        check(res["a2a"]["eager_graphs"] == 0 and res["a2a"]["graphs"] > 0,
+              f"[3m] (a) {cfg.name}: a2a graphs {res['a2a']}")
+        check(res["collectives_per_step"]["a2a"].get("all_to_all", 0) > 0,
+              f"[3m] (a) {cfg.name}: the a2a decode graph captured no "
+              f"all-to-all")
+        L1a, routes_a, drops = teacher_a2a(torch, cfg, g["eng"], prompts,
+                                           frames, a["tokens"])
+        check(drops == 0, f"[3m] (a) {cfg.name}: a2a at capacity factor "
+              f"{CF_3M} dropped {drops} assignments")
+        del runs["a2a"], runs["a2a eager"], g, e
+    ms = {"none": [], "world 1": []}
+    n_tok = N_3M * MAX_NEW
+    for _ in range(TP_TURNS_3M):
+        for name in ms:
+            w = warm_phases(torch, runs[name]["eng"], prompts, n_tok,
+                            quiet=True)
+            ms[name].append(w["warm_phase_s"]["decode"] * 1e3
+                            / steps_3m(runs[name]["eng"]))
+    res["decode_ms_per_step"] = {k: statistics.median(v)
+                                 for k, v in ms.items()}
+    res["turns"] = ms
+    if cfg.mla is not None:
+        res["expansion"] = expansion_ms(torch, cfg, e1)
+    tokens = a["tokens"]
+    L1, routes = teacher_3m(torch, cfg, params, e1.decode_params, e1.kvcfg,
+                            e1.kncfg, prompts, frames, tokens)
+    shape_ctx = bind(ParallelCtx(mesh=Mesh(shape={"data": 1,
+                                                  "model": TP_WORLD_3L})),
+                     cfg, col_align(e1.policy))
+    want = tree_hashes(torch, e1.decode_params, TP_WORLD_3L, shape_ctx)
+    res["layout_world2"] = str(shape_ctx.layout)
+    print(f"  [3m] (a) {cfg.name}, {depth} layers: world 1 over NCCL in "
+          f"graphs bit for bit pctx=None (tokens, {res['blocks']} blocks, "
+          f"the tree); collectives per decode step "
+          f"{res['collectives_per_step']}; ms per decode step world 1 "
+          f"{res['decode_ms_per_step']['world 1']:.3f} vs pctx=None "
+          f"{res['decode_ms_per_step']['none']:.3f} ({ms})"
+          + (f"; a2a graph replays bit for bit its eager run"
+             if cfg.moe is not None else "")
+          + (f"; wkv_b expansion over {res['expansion']['rows']} latent "
+             f"rows {res['expansion']['ms_per_layer']:.4f} ms per layer"
+             if cfg.mla is not None else "")
+          + f"; world-2 layout {shape_ctx.layout}")
+    held = dict(cfg=cfg, stats={k: [{kk: vv.cpu().numpy()
+                                     for kk, vv in run.items()}
+                                    for run in v]
+                                for k, v in stats.items()},
+                count=count, prompts=prompts, frames=frames, tokens=tokens,
+                impls=("dense", "a2a") if cfg.moe is not None
+                else ("dense",))
+    a2a = None if cfg.moe is None else dict(L1=L1a, routes=routes_a)
+    del runs, a, b, e1, params, stats
+    free(torch)
+    return res, launches, held, L1, want, routes, a2a
+
+
+def tp_checks_3m(torch, dev, pctx) -> dict:
+    """[3m] (b)'s kernels at the new shard shapes against their plain
+    versions at [2]'s tolerances: ``ttq_gemm_tp`` at recurrentgemma-9b's
+    RG-LRU (w_in rows, w_out columns), mamba2-1.3b's SSD (w_x rows, w_out
+    columns) and deepseek-v2-lite's ``wkv_b`` rows, the decode-attention
+    wrappers at whisper-medium's rank heads (16 / n of Dh 64), and
+    ``ttq_gemm_experts`` on the rank's E/n experts of deepseek-v2-lite's
+    and llama4-scout's gate projections."""
+    from repro_torch.kernels import ops, ref
+    out = tp_kernel_checks(torch, dev, pctx, gemms=[
+        ("rec w_in", 4096, 4096, "row"), ("rec w_out", 4096, 4096, "col"),
+        ("ssd w_x", 4096, 2048, "row"), ("ssd w_out", 2048, 4096, "col"),
+        ("mla wkv_b", 4096, 512, "row")], attn=(16, 64))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for name, E, dp, d in (("deepseek-v2-lite experts.wg", 64, 1408, 2048),
+                           ("llama4-scout experts.wg", 16, 8192, 5120)):
+        El = E // pctx.world
+        W = torch.randn((El, dp, d), generator=gen, device=dev) * d ** -0.5
+        D = torch.exp(0.3 * torch.randn((El, d), generator=gen, device=dev))
+        parts = [ref.ttq_quantize_ref(W[e], D[e], bits=4, group_size=32)
+                 for e in range(El)]
+        pk, S, Z = (torch.stack([p[i] for p in parts]) for i in range(3))
+        dinv = 1.0 / D
+        del W, D, parts
+        xb = torch.randn((4, d), generator=gen, device=dev).to(torch.bfloat16)
+        y = ops.ttq_gemm_experts(xb, pk, S, Z, dinv, bits=4, group_size=32)
+        y_r = ref.ttq_gemm_experts_ref(xb, pk, S, Z, bits=4, group_size=32,
+                                       dinv=dinv)
+        torch.testing.assert_close(y.float(), y_r.float(), rtol=2 ** -7,
+                                   atol=2e-4 * (d / 256) ** 0.5)
+        out[f"ttq_gemm_experts {name} ({El} of {E})"] = float(
+            (y.float() - y_r.float()).abs().max())
+        del pk, S, Z, y, y_r
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_3m(payload) -> dict:
+    """One rank of [3m] (b), in its own process: the kernels at the new
+    shard shapes (:func:`tp_checks_3m`, not counted), then per family the
+    full-width model at (a)'s depth from the seed, an engine per
+    ``moe_impl`` on the slice of the fixed statistics, (a)'s traffic in
+    one timed eager run and, under ``"dense"``, the tree's hashes and the
+    teacher-forced logits behind (a)'s tokens, each position's held to
+    (a)'s (``L1``, a .npy file per family); under ``"a2a"`` the same at
+    capacity factor CF_3M, held to (a)'s world-1 ``"a2a"`` logits
+    (``L1a``); deepseek-v2-lite's ``wkv_b`` expansion timed on each rank
+    while the other waits."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_ctx, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import comm
+    dev = torch.device(payload["device"])
+    if dev.type == "cuda":
+        build.lib()
+    pctx = make_ctx(make_mesh(1, payload["world"], device=dev.type))
+    out = dict(kernel_err=tp_checks_3m(torch, dev, pctx), rank=pctx.rank,
+               backend=pctx.mesh.backend, families={})
+    for fam in payload["families"]:
+        cfg = fam["cfg"]
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+        stats = bridge.params_from_jax(fam["stats"], device=dev)
+        res = {}
+        for impl in fam["impls"]:
+            ctx = dataclasses.replace(pctx, moe_impl=impl)
+            eng = engine_3m(torch, dev, cfg, params, ctx, fam["prompts"],
+                            fam["frames"], stats, fam["count"])
+            r = dict(graph_mode=eng.runner.graph_mode)
+            if impl == "dense":
+                r["hashes"] = tree_hashes(torch, eng.decode_params)
+            build.reset_launches()
+            c0, s0 = dict(comm.COUNTS), dict(comm.STAGED_S)
+            w = warm_phases(torch, eng, fam["prompts"], N_3M * MAX_NEW,
+                            quiet=True)
+            steps = steps_3m(eng)
+            if impl == "dense" and cfg.mla is not None:
+                # the ranks share the card: each times its slice alone
+                for rank in range(pctx.world):
+                    dist.barrier()
+                    if rank == pctx.rank:
+                        r["expansion"] = expansion_ms(torch, cfg, eng)
+                dist.barrier()
+            r.update(
+                tokens=[list(v) for _, v in
+                        sorted(eng.scheduler.results().items())],
+                decode_ms_per_step=w["warm_phase_s"]["decode"] * 1e3 / steps,
+                wall_s=w["warm_wall_s"], steps=steps,
+                staged_ms_per_step={k: (comm.STAGED_S[k] - s0[k]) * 1e3
+                                    / steps for k in s0},
+                collectives={k: comm.COUNTS[k] - c0[k] for k in c0},
+                launches_per_step={k: v / steps for k, v in
+                                   build.LAUNCHES.items()})
+            if impl == "dense":
+                L2, r["routes"] = teacher_3m(
+                    torch, cfg, eng.params, eng.decode_params, eng.kvcfg,
+                    eng.kncfg, fam["prompts"], fam["frames"], fam["tokens"],
+                    eng.pctx)
+                L1 = np.load(fam["L1"], mmap_mode="r")
+                r["delta"] = np.stack([np.abs(L1[i] - L2[i]).max(axis=-1)
+                                       for i in range(len(L2))])
+            if impl == "a2a":
+                L2, r["routes"], r["drops"] = teacher_a2a(
+                    torch, cfg, eng, fam["prompts"], fam["frames"],
+                    fam["tokens"])
+                L1 = np.load(fam["L1a"], mmap_mode="r")
+                r["delta"] = np.stack([np.abs(L1[i] - L2[i]).max(axis=-1)
+                                       for i in range(len(L2))])
+            res[impl] = r
+            del eng
+            free(torch)
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["families"][cfg.name] = res
+        del params, stats
+        free(torch)
+    return out
+
+
+RANK_FN_3M = tp_rank_3m
+
+
+def tp_families(torch, dev) -> dict:
+    """[3m]: tensor- and expert-parallel serving of the five families
+    beyond plain attention, each at full width and the depth of
+    FAMILIES_3M: (a) world 1 over NCCL with CUDA graphs against
+    ``pctx=None`` (:func:`tp_family_a`), one family on the card at a time;
+    then, with every tensor of this process freed, (b) world 2 as two
+    processes on the one card over gloo (:func:`tp_rank_3m`): the ranks'
+    tokens equal, (a)'s tokens but for near-ties (a first disagreement
+    whose world-1 margin is within twice the two worlds' teacher-forced
+    logit gap there, or that follows a routing near-tie of its request,
+    :func:`first_flips`), the teacher-forced logits within TP_DELTA_3M of
+    (a)'s at every position held, every layer's
+    codes, S, Z and D⁻¹ bit for bit (a)'s slices (dense; an a2a engine's
+    tree comes from the same statistics but is not held)."""
+    from repro_torch.launch.mesh import make_mesh, spawn
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 1, device=dev.type)
+    check(mesh.backend == "nccl", f"[3m] (a) chose {mesh.backend}, not nccl")
+    res = {"a": {}, "b": {}, "launches": {}}
+    tmp = tempfile.mkdtemp(prefix="ttq_3m_")
+    fams, held = [], {}
+    for arch, depth in FAMILIES_3M:
+        r, launches, h, L1, want, routes, a2a = tp_family_a(
+            torch, dev, arch, depth, mesh)
+        res["a"][h["cfg"].name] = r
+        for k, v in launches.items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+        h["L1"] = os.path.join(tmp, f"{arch}.npy")
+        np.save(h["L1"], L1)
+        if a2a is not None:
+            h["L1a"] = os.path.join(tmp, f"{arch}_a2a.npy")
+            np.save(h["L1a"], a2a.pop("L1"))
+        held[h["cfg"].name] = dict(L1=L1, want=want, tokens=h["tokens"],
+                                   routes=routes, a2a=a2a)
+        fams.append(h)
+    res["a_seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    free(torch)
+    try:
+        ranks = spawn(RANK_FN_3M, TP_WORLD_3L,
+                      dict(world=TP_WORLD_3L, device=dev.type,
+                           families=fams),
+                      device=dev.type, timeout=TP_TIMEOUT_3M)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    check(r0["backend"] == "gloo", f"[3m] (b) chose {r0['backend']}, "
+          f"not gloo")
+    for r in ranks:
+        print(f"  [3m] (b) rank {r['rank']}: kernels at the new shard shapes "
+              f"against the plain version, max |difference|: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in r["kernel_err"].items()))
+    for name, want in held.items():
+        fr = [r["families"][name] for r in ranks]
+        out = {}
+        for impl in fr[0]:
+            if impl == "peak_gb":
+                continue
+            check(all(f[impl]["tokens"] == fr[0][impl]["tokens"]
+                      for f in fr), f"[3m] (b) {name} {impl}: the ranks "
+                  f"emitted different tokens")
+            out[impl] = {k: [f[impl][k] for f in fr] for k in (
+                "decode_ms_per_step", "staged_ms_per_step")}
+            out[impl].update(launches_per_step=fr[0][impl]
+                             ["launches_per_step"],
+                             collectives=fr[0][impl]["collectives"],
+                             graph_mode=fr[0][impl]["graph_mode"])
+        for f, r in zip(fr, ranks):
+            for (rank, ps, fld, layer), hsh in want["want"].items():
+                if rank == r["rank"]:
+                    check(f["dense"]["hashes"].get((0, ps, fld, layer))
+                          == hsh, f"[3m] (b) {name} rank {rank}: {ps}.{fld} "
+                          f"layer {layer} is not the slice of (a)'s")
+        flips, route = [None] * N_3M, {}
+        if want["routes"] is not None:
+            flips, route["dp"], route["gap"] = first_flips(
+                want["routes"], fr[0]["dense"]["routes"], f"[3m] (b) {name}")
+        held_pos = [slice(None) if x is None else slice(0, x) for x in flips]
+        check(any(sl.stop != 0 for sl in held_pos), f"[3m] (b) {name}: "
+              f"every request's routing flips in its prompt, no position "
+              f"held")
+        for f, r in zip(fr, ranks):
+            worst = max(float(f["dense"]["delta"][i, sl].max(initial=0.0))
+                        for i, sl in enumerate(held_pos))
+            check(worst <= TP_DELTA_3M, f"[3m] (b) {name} rank {r['rank']}: "
+                  f"teacher-forced logits {worst} from (a)'s (bound "
+                  f"{TP_DELTA_3M})")
+        if want["a2a"] is not None:
+            # under "a2a" each rank routes its own chunk of the tokens
+            drops = [f["a2a"]["drops"] for f in fr]
+            check(drops == [0] * len(fr), f"[3m] (b) {name}: a2a at "
+                  f"capacity factor {CF_3M} dropped {drops} assignments")
+            fa, dpa, gapa = first_flips(
+                want["a2a"]["routes"], chunk_routes(
+                    [f["a2a"]["routes"] for f in fr], want["a2a"]["routes"]),
+                f"[3m] (b) {name} a2a")
+            held_a = [slice(None) if x is None else slice(0, x) for x in fa]
+            check(any(sl.stop != 0 for sl in held_a), f"[3m] (b) {name} "
+                  f"a2a: every request's routing flips in its prompt")
+            worst = max(float(f["a2a"]["delta"][i, sl].max(initial=0.0))
+                        for f in fr for i, sl in enumerate(held_a))
+            check(worst <= TP_DELTA_3M, f"[3m] (b) {name} a2a: teacher-"
+                  f"forced logits {worst} from (a)'s world-1 a2a (bound "
+                  f"{TP_DELTA_3M})")
+            route.update(a2a_flips=fa, a2a_dp=dpa, a2a_gap=gapa,
+                         a2a_logits_max_diff=worst)
+        delta, ties = fr[0]["dense"]["delta"], []
+        for i, (a_t, b_t) in enumerate(zip(want["tokens"],
+                                           fr[0]["dense"]["tokens"])):
+            t = leading_equal(a_t, b_t)
+            if t == len(a_t):
+                continue
+            x, y = a_t[t], b_t[t]
+            margin = float(abs(want["L1"][i, t, x] - want["L1"][i, t, y]))
+            routed = flips[i] is not None and flips[i] <= t
+            ties.append(dict(request=i, t=t, margin=margin,
+                             delta=float(delta[i, t]),
+                             after_routing_tie=routed))
+            # the two worlds' logits at most δ apart entry by entry can
+            # swap two tokens only within 2δ of each other
+            check(routed or margin <= 2 * delta[i, t], f"[3m] (b) {name} "
+                  f"request {i}: the disagreement at token {t} is no "
+                  f"near-tie ({margin} > 2 x {delta[i, t]})")
+        out.update(tokens_equal_a=sum(a == b for a, b in zip(
+            want["tokens"], fr[0]["dense"]["tokens"])), near_ties=ties,
+            codes_bit_equal=True, routing_first_flips=flips,
+            logits_max_diff=max(float(f["dense"]["delta"][i, sl].max(
+                initial=0.0)) for f in fr for i, sl in enumerate(held_pos)),
+            logits_max_diff_all=float(max(f["dense"]["delta"].max()
+                                          for f in fr)),
+            logits_median_diff=float(np.median(delta)),
+            peak_gb=[f["peak_gb"] for f in fr], routing=route)
+        if "expansion" in fr[0]["dense"]:
+            out["expansion"] = [f["dense"]["expansion"] for f in fr]
+        res["b"][name] = out
+        print(f"  [3m] (b) {name}, world {TP_WORLD_3L} over gloo, eager: "
+              f"ranks' tokens equal; {out['tokens_equal_a']} of {N_3M} "
+              f"requests equal to (a) (the rest near-ties: {ties}); "
+              f"teacher-forced logits within {out['logits_max_diff']:.4g} of "
+              f"(a)'s (median {out['logits_median_diff']:.4g}, bound "
+              f"{TP_DELTA_3M}"
+              + (f"; routing's first flip per request {flips}, each a "
+                 f"near-tie, the positions from it on not held: "
+                 f"{out['logits_max_diff_all']:.4g} over all; router "
+                 f"probabilities held within {route['dp']:.3g} of (a)'s, "
+                 f"flip gaps up to {route['gap']:.3g} (bound "
+                 f"{ROUTE_DELTA_3M}, 2 x)"
+                 if want["routes"] is not None else "")
+              + (f"; a2a at capacity factor {CF_3M}, no assignment dropped: "
+                 f"teacher-forced logits within "
+                 f"{route['a2a_logits_max_diff']:.4g} of (a)'s world-1 a2a "
+                 f"(first flips {route['a2a_flips']}, probabilities within "
+                 f"{route['a2a_dp']:.3g}, gaps up to {route['a2a_gap']:.3g})"
+                 if want["a2a"] is not None else "")
+              + ("; wkv_b expansion per layer on each rank "
+                 + ", ".join(f"{x['ms_per_layer']:.4f} ms over {x['rows']} "
+                             f"rows" for x in out["expansion"])
+                 if "expansion" in out else "")
+              + "); codes bit for bit (a)'s slices; "
+              + "; ".join(f"{impl}: ms per decode step "
+                          f"{[round(x, 2) for x in out[impl]['decode_ms_per_step']]}"
+                          f", staged {out[impl]['staged_ms_per_step'][0]}, "
+                          f"collectives {out[impl]['collectives']}, launches "
+                          f"per step {out[impl]['launches_per_step']}"
+                          for impl in fr[0] if impl != "peak_gb")
+              + f"; peak GB per rank {out['peak_gb']}")
+    res["b_seconds"] = time.perf_counter() - t1
+    res["seconds"] = time.perf_counter() - t0
+    res["kernel_err"] = [r["kernel_err"] for r in ranks]
+    print(f"  [3m] seconds: (a) {res['a_seconds']:.1f}, (b) "
+          f"{res['b_seconds']:.1f}; launches of (a)'s world-1 engines "
+          f"{res['launches']}")
     return res
 
 
@@ -3765,19 +4471,17 @@ def moe_family(torch, dev) -> dict:
 
 
 def families(torch, dev) -> dict:
-    """Phase 3g: minitron-4b and starcoder2-15b at full depth, granite-34b
-    at GRANITE_DEPTH_3G layers, each at full width through
+    """Phase 3g: minitron-4b, starcoder2-15b and granite-34b at the depths
+    of DEPTHS_3G, each at full width through
     :func:`family_engine` on the dense slab and then the paged pool (the
     weights of one family on the card at a time).  Returns per family its
     readings and the kernels' launches over all of them."""
     from repro_torch.configs import get
     out, launches = {}, {}
     for arch in FAMILIES_3G:
-        depth = None
-        if arch == "granite_34b":
-            depth = GRANITE_DEPTH_3G
-            print(f"  [3g] granite-34b at {depth} layers (fit_depth: "
-                  f"{fit_depth(torch, get(arch))})")
+        depth = DEPTHS_3G[arch]
+        print(f"  [3g] {arch} at {depth} of {get(arch).n_layers} layers "
+              f"(fit_depth: {fit_depth(torch, get(arch))})")
         cfg, params = init_family(torch, dev, arch, depth)
         prompts = make_prompts(cfg.vocab)
         t0 = time.perf_counter()
@@ -3929,9 +4633,9 @@ def long_prompt(torch, dev, cfg, params, length, phase) -> dict:
 
 def hybrid_and_vlm(torch, dev) -> dict:
     """Phase 3h: (c) long prefill attention; (a) recurrentgemma-9b at full
-    width and depth, [3g]'s engine readings on the dense slab plus
-    :func:`long_prompt`; (b) chameleon-34b at :func:`fit_depth` layers,
-    dense then paged.  Returns the readings, each part's seconds and the
+    width and HYBRID_DEPTH_3H layers, [3g]'s engine readings on the dense
+    slab plus :func:`long_prompt`; (b) chameleon-34b at VLM_DEPTH_3H
+    layers, dense then paged.  Returns the readings, each part's seconds and the
     kernels' launches over (a) and (b)'s engines."""
     from repro_torch.configs import get
     from repro_torch.models.stack import stack_spec
@@ -3941,7 +4645,8 @@ def hybrid_and_vlm(torch, dev) -> dict:
     secs["c"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    cfg, params = init_family(torch, dev, "recurrentgemma_9b")
+    cfg, params = init_family(torch, dev, "recurrentgemma_9b",
+                              HYBRID_DEPTH_3H)
     prompts = make_prompts(cfg.vocab)
     dense = family_engine(torch, dev, cfg, params, prompts, False,
                           phase="[3h]")
@@ -3961,7 +4666,9 @@ def hybrid_and_vlm(torch, dev) -> dict:
     secs["a"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    depth = fit_depth(torch, get("chameleon_34b"))
+    depth = VLM_DEPTH_3H
+    print(f"  [3h] chameleon-34b at {depth} layers (fit_depth: "
+          f"{fit_depth(torch, get('chameleon_34b'))})")
     cfg, params = init_family(torch, dev, "chameleon_34b", depth)
     prompts = make_prompts(cfg.vocab)
     dense_v = family_engine(torch, dev, cfg, params, prompts, False,
@@ -4419,6 +5126,13 @@ def main(argv=None) -> int:
           f"the main path's quantize instantiation {MAIN_PATH_QUANT} is "
           f"missing, or a quantize instantiation spills: {spilled}")
 
+    phase_s, mark = {"[1]": time.perf_counter() - t0}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+
     prompts = make_prompts()
     cur_main = [len(p) + MAX_NEW // 2 for p in prompts[:4]]
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > L2
@@ -4452,12 +5166,14 @@ def main(argv=None) -> int:
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    lap("[2]")
 
     print("[3] main path: TTQEngine, gemma-7b full width, int4 g32 weights, "
           "int8 KV")
     cfg, params = init_gemma(torch, dev)
     res, outs = main_path(torch, dev, prompts, cfg, params)
     print("    main path: " + json.dumps(res))
+    lap("[3]")
     gc.collect()                        # the dense engine goes before 3b's
     torch.cuda.empty_cache()
 
@@ -4466,6 +5182,7 @@ def main(argv=None) -> int:
     paged = paged_path(torch, dev, prompts, cfg, params,
                        dict(outputs=outs, host_syncs=res["host_syncs"]))
     print("    paged main path: " + json.dumps(paged))
+    lap("[3b]")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4473,6 +5190,7 @@ def main(argv=None) -> int:
           f"pool of {POOL_3C} blocks")
     pre = prefix_and_preemption(torch, dev, cfg, params)
     print("    prefix cache and preemption: " + json.dumps(pre))
+    lap("[3c]")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4485,6 +5203,7 @@ def main(argv=None) -> int:
           f"~6 s per layer)")
     dflt, factors = default_policy(torch, dev, cfg, params, res, depth_3d)
     print("    default policy: " + json.dumps(dflt))
+    lap("[3d]")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4495,42 +5214,66 @@ def main(argv=None) -> int:
           f"{cfg.n_layers} layers, dense and paged; (c) (b) on one layer")
     spec = speculation(torch, dev, cfg, params, factors)
     print("    speculation: " + json.dumps(spec))
+    lap("[3e]")
     del factors
     free(torch)
 
     print(f"[3f] robustness and streaming: guards, faults, chunked prefill "
           f"(max_len {MAXLEN_3F}, chunks of {CHUNK_3F}, budget {BUDGET_3F}), "
-          f"TTQServer and the CLI; gemma-7b full width, [3]'s policy")
-    rob = robustness(torch, dev, cfg, params, prompts)
+          f"TTQServer and the CLI; gemma-7b full width, {DEPTH_3F} of "
+          f"{cfg.n_layers} layers, [3]'s policy")
+    rob = robustness(torch, dev, *cut(cfg, params, DEPTH_3F), prompts)
     print("    robustness: " + json.dumps(rob, default=str))
+    lap("[3f]")
     free(torch)
 
-    print(f"[3l] tensor-parallel serving: gemma-7b full width and depth, "
-          f"[3]'s policy and traffic on a tree from fixed statistics; (a) "
-          f"world 1 over NCCL with CUDA graphs against pctx=None; (b) world "
-          f"{TP_WORLD_3L}: {TP_WORLD_3L} processes sharing the card over "
-          f"gloo, eager blocks")
+    print(f"[3l] tensor-parallel serving: gemma-7b full width, "
+          f"{TP_DEPTH_3L} of {cfg.n_layers} layers, [3]'s policy and traffic "
+          f"on a tree from fixed statistics; (a) world 1 over NCCL with CUDA "
+          f"graphs against pctx=None; (b) world {TP_WORLD_3L}: "
+          f"{TP_WORLD_3L} processes sharing the card over gloo, eager "
+          f"blocks")
+    del params                          # (b)'s ranks draw the same seed
+    free(torch)
+    cfg, params = init_family(torch, dev, "gemma_7b", TP_DEPTH_3L)
     tp, held = tensor_parallel(torch, dev, cfg, params, prompts)
     del params                          # nothing of [3]-[3l] (a) is left
     tp = tensor_parallel_b(torch, tp, held)
     del held
     print("    tensor parallel: " + json.dumps(tp, default=str))
+    lap("[3l]")
+    free(torch)
+
+    print(f"[3m] tensor- and expert-parallel serving of the five families "
+          f"beyond plain attention, full width at reduced depth "
+          f"({', '.join(f'{a} {d}' for a, d in FAMILIES_3M)} layers), [3]'s "
+          f"policy on a tree from fixed statistics: (a) world 1 over NCCL "
+          f"with CUDA graphs against pctx=None (MoE under dense; a2a graph "
+          f"replays against its eager run); (b) world {TP_WORLD_3L}: "
+          f"{TP_WORLD_3L} processes sharing the card over gloo, eager")
+    tpf = tp_families(torch, dev)
+    print("    tp families: " + json.dumps(tpf, default=str))
+    lap("[3m]")
     free(torch)
 
     print(f"[3g] the other dense families at full width: "
-          f"{', '.join(FAMILIES_3G)} (granite-34b at reduced depth), [3]'s "
+          f"{', '.join(f'{a} {d}' for a, d in DEPTHS_3G.items())} layers, "
+          f"[3]'s "
           f"policy with the default guards, dense slab and paged pool")
     fam = families(torch, dev)
     print("    families: " + json.dumps(fam, default=str))
+    lap("[3g]")
     free(torch)
 
     print(f"[3h] the vlm and hybrid families: (c) prefill attention over "
           f"{LONG_ATTN_S} keys, chunked against full; (a) recurrentgemma-9b "
-          f"full width and depth, dense slab, then a {HYBRID_LONG}-token "
-          f"prompt past its window; (b) chameleon-34b at the depth the card "
-          f"holds, dense slab and paged pool; [3]'s policy, default guards")
+          f"full width, {HYBRID_DEPTH_3H} layers, dense slab, then a "
+          f"{HYBRID_LONG}-token prompt past its window; (b) chameleon-34b "
+          f"at {VLM_DEPTH_3H} layers, dense slab and paged pool; [3]'s "
+          f"policy, default guards")
     hyb = hybrid_and_vlm(torch, dev)
     print("    hybrid and vlm: " + json.dumps(hyb, default=str))
+    lap("[3h]")
     free(torch)
 
     print(f"[3i] the MoE family: (a) deepseek-v2-lite (MLA, 64 experts "
@@ -4539,6 +5282,7 @@ def main(argv=None) -> int:
           f"dense slab and paged pool; [3]'s policy, default guards")
     moe = moe_family(torch, dev)
     print("    moe: " + json.dumps(moe, default=str))
+    lap("[3i]")
     free(torch)
 
     print(f"[3j] the SSM and encoder-decoder families: (a) mamba2-1.3b "
@@ -4549,6 +5293,7 @@ def main(argv=None) -> int:
           f"default guards")
     ssm = ssm_and_encdec(torch, dev)
     print("    ssm and encdec: " + json.dumps(ssm, default=str))
+    lap("[3j]")
     free(torch)
 
     print(f"[3k] training: (a) gemma-7b full width at the depth the card "
@@ -4559,13 +5304,15 @@ def main(argv=None) -> int:
           f"s), then its RTN / AWQ / TTQ perplexity report")
     trn = training(torch, dev)
     print("    training: " + json.dumps(trn, default=str))
+    lap("[3k]")
 
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "
           "[3b]), the speculative path's ([3e]), the robustness and "
           "streaming path's ([3f] (a)-(g)), the families' ([3g], "
-          "[3h], [3i], [3j]) and the tensor-parallel path's ([3l] (a)), "
-          "counted per replay; ttq_gemm_experts per decode step at "
+          "[3h], [3i], [3j]) and the tensor-parallel paths' ([3l] (a), "
+          "[3m] (a)'s world-1 engines), counted per replay; "
+          "ttq_gemm_experts per decode step at "
           "deepseek-v2-lite's 27 layers")
     kernels = []
     spec_cases = ("a", "b", "b paged", "c")
@@ -4579,6 +5326,9 @@ def main(argv=None) -> int:
         moe_n = moe["launches"][name]
         ssm_n = ssm["launches"][name]
         tp_n = tp["a"]["launches"].get(name, 0)
+        tpf_n = tpf["launches"].get(name, 0)
+        check(tpf_n > 0 or name == "ttq_paged_decode_attention",
+              f"{name} never launched in [3m] (a)")
         if name != "ttq_gemm_experts":
             check(fam_n > 0, f"{name} never launched in [3g]")
             check(hyb_n > 0, f"{name} never launched in [3h]")
@@ -4591,11 +5341,12 @@ def main(argv=None) -> int:
                           for k in spec_cases) + f"), robustness and "
               f"streaming path {rob_n}, families {fam_n} ([3g]), "
               f"{hyb_n} ([3h]), {moe_n} ([3i]), {ssm_n} ([3j]) and "
-              f"tensor-parallel {tp_n} ([3l] (a), world 1)")
+              f"tensor-parallel {tp_n} ([3l] (a), world 1) + {tpf_n} ([3m] "
+              f"(a), world 1)")
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
                             launches=main_n + spec_n + rob_n + fam_n + hyb_n
-                            + moe_n + ssm_n + tp_n, **m))
+                            + moe_n + ssm_n + tp_n + tpf_n, **m))
     for cfg_name, t in experts_by_cfg.items():
         print(f"  ttq_gemm_experts per decode step at {cfg_name} "
               f"({moe_depths[cfg_name]} layers): {t['ms']:.3f} ms, bound "
@@ -4606,6 +5357,10 @@ def main(argv=None) -> int:
               f"{max(b_b, b_o):.4f} ms ({'operations' if b_o > b_b else 'bytes'}"
               f"; bytes {b_b:.4f}, operations {b_o:.4f}), plain {t_p:.4f} ms, "
               f"scaled_dot_product_attention {t_l:.4f} ms")
+    lap("[4]")
+    print(f"[5] seconds per phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; the whole script {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

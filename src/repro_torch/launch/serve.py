@@ -104,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "int4 draft variant")
     ap.add_argument("--mesh", type=int, default=1,
                     help="model-parallel mesh size: N ranks, one process "
-                         "each (plain-attention families)")
+                         "each (tensor and expert parallel, every arch)")
     ap.add_argument("--deadline-s", type=float, default=0.0,
                     help="per-request deadline in seconds; an expired "
                          "request fails with error='deadline' (0 = none)")
@@ -176,10 +176,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.mesh <= 1:
         return _serve(args)
-    from repro_torch.configs import get
     from repro_torch.launch.mesh import spawn
-    from repro_torch.parallel.rules import check_family
-    check_family(get(args.arch, smoke=args.smoke), args.mesh)
     outs = spawn(_serve_rank, args.mesh, argv, device=args.device)
     if any(o != outs[0] for o in outs[1:]):
         raise RuntimeError("the ranks emitted different tokens")

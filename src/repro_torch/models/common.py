@@ -70,10 +70,15 @@ def init_plain_mlp(gen, d: int, d_ff: int, dtype=torch.bfloat16,
             "w2": init_linear(gen, d, d_ff, dtype, device=device)}
 
 
-def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
-    """RMSNorm in the (1 + gamma) form, f32 inside."""
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+            ms: torch.Tensor | None = None):
+    """RMSNorm in the (1 + gamma) form, f32 inside; ``ms``, the f32 mean
+    square over the last axis, where the caller has it (a norm whose
+    width is split over ranks)."""
     xf = x.float()
-    nx = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    if ms is None:
+        ms = (xf * xf).mean(dim=-1, keepdim=True)
+    nx = xf * torch.rsqrt(ms + eps)
     return (nx * (1.0 + gamma.float())).to(x.dtype)
 
 

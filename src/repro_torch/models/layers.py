@@ -18,6 +18,9 @@ attention (``mla``), the RG-LRU recurrent block (``rec``) and Mamba2's SSD
                                              → latent attention (MLA)
   init_moe / moe_apply_dense                 → the MoE MLP (every expert
                                                computes every token)
+  moe_apply_a2a / moe_a2a                    → the expert-parallel MoE MLP
+                                               (tokens dispatched with
+                                               all-to-alls and capacity)
 
 Stats taps use parameter-path names (``prefix + "wq"``) so the quantizer
 joins statistics to weights by path.  Decode writes the new token's k/v
@@ -333,12 +336,14 @@ def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
     ``pctx``: head-parallel, as :func:`attn_apply`."""
     if cross_kv is not None:
         B, (k, v) = x.shape[0], cross_kv
-        q = linear(x, p["wq"], kcfg=kcfg).reshape(B, 1, cfg.n_heads, cfg.hd)
+        q = linear(x, p["wq"], kcfg=kcfg, pctx=pctx, tp="row").reshape(
+            B, 1, cfg.n_heads, cfg.hd)
         if cfg.qk_norm:
             q = rmsnorm(q, p["qnorm"]["gamma"])
         o = attention(q.transpose(1, 2), k, v, causal=False,
                       soft_cap=cfg.attn_soft_cap)
-        y = linear(o.transpose(1, 2).reshape(B, 1, -1), p["wo"], kcfg=kcfg)
+        y = linear(o.transpose(1, 2).reshape(B, 1, -1), p["wo"], kcfg=kcfg,
+                   pctx=pctx, tp="col")
         return y, state
     q, k, v = _qkv(cfg, p, x, None, "", kcfg, pctx=pctx)
     if cfg.pos == "rope":
@@ -364,13 +369,14 @@ def attn_decode(cfg: ModelConfig, p, x, state, pos, *, kvcfg=None,
 
 
 def attn_decode_rolling(cfg: ModelConfig, p, x, state, pos, window: int, *,
-                        kvcfg=None, kcfg=None):
+                        kvcfg=None, kcfg=None, pctx=None):
     """Windowed decode over a rolling (B,Hkv,W,·) cache, O(W) per step:
     position p lives in row p % W, written in place; the read covers rows
     0..min(pos, W-1) (the cache fills left to right before it wraps, and a
     softmax needs no order), so the slab itself is the window and no
-    window mask enters the dense attention kernel."""
-    q, k, v = _qkv(cfg, p, x, None, "", kcfg)
+    window mask enters the dense attention kernel.  ``pctx``:
+    head-parallel, as :func:`attn_apply`."""
+    q, k, v = _qkv(cfg, p, x, None, "", kcfg, pctx=pctx)
     if cfg.pos == "rope":
         q = rope_decode(q, pos, cfg.rope_theta)
         k = rope_decode(k, pos, cfg.rope_theta)
@@ -378,13 +384,15 @@ def attn_decode_rolling(cfg: ModelConfig, p, x, state, pos, window: int, *,
     cur = torch.clamp(pos, max=window - 1)
     if kvcfg is not None and kvcfg.quantized:
         _kv_append(state, k, v, wpos, kvcfg)
-        o = _kv_attention(q, state, cur, kvcfg, soft_cap=cfg.attn_soft_cap)
+        o = _kv_attention(q, state, cur, kvcfg, soft_cap=cfg.attn_soft_cap,
+                          pctx=pctx)
     else:
         cache_update_batched(state["k"], k, wpos)
         cache_update_batched(state["v"], v, wpos)
         o = decode_attention(q, state["k"], state["v"], cur,
                              soft_cap=cfg.attn_soft_cap)
-    y = linear(o.reshape(x.shape[0], 1, -1), p["wo"], kcfg=kcfg)
+    y = linear(o.reshape(x.shape[0], 1, -1), p["wo"], kcfg=kcfg, pctx=pctx,
+               tp="col")
     return y, state
 
 
@@ -519,18 +527,21 @@ def _linear_scan(a, b):
 
 
 def rec_apply(cfg: ModelConfig, p, x, stats, prefix: str, *,
-              return_state: bool = False, kcfg=None):
+              return_state: bool = False, kcfg=None, pctx=None):
     """Sequence-mode RG-LRU block from a zero state, x (B,S,D) → y (B,S,D)
     [, state]: gelu branch × recurrence over the causally convolved
     ``w_in`` branch.  ``return_state`` adds the decode state {'h' (B,dr)
-    f32, 'conv' (B,W-1,dr)}."""
+    f32, 'conv' (B,W-1,dr)}.  ``pctx``: the rank's channels of the width
+    (w_branch/w_in row slices, its gate blocks, conv and decay channels;
+    every step of the recurrence is per channel), ``w_out`` column-split
+    and all-reduced."""
     br = ACT["gelu"](linear(x, p["w_branch"], stats, prefix + "w_branch",
-                            kcfg).float())
-    u = linear(x, p["w_in"], None, kcfg=kcfg)
+                            kcfg, pctx=pctx, tp="row").float())
+    u = linear(x, p["w_in"], None, kcfg=kcfg, pctx=pctx, tp="row")
     u, conv_state = _causal_conv(u, p["conv_w"])
     h = _linear_scan(*_rglru_coeffs(p, u))
     y = linear((br * h).to(x.dtype), p["w_out"], stats, prefix + "w_out",
-               kcfg)
+               kcfg, pctx=pctx, tp="col")
     if return_state:
         return y, {"h": h[:, -1], "conv": conv_state}
     return y
@@ -544,17 +555,20 @@ def rec_init_state(cfg: ModelConfig, batch: int, device="cuda"):
                                 device=device)}
 
 
-def rec_decode(cfg: ModelConfig, p, x, state, *, kcfg=None):
+def rec_decode(cfg: ModelConfig, p, x, state, *, kcfg=None, pctx=None):
     """One token x (B,1,D) through the block.  The new ``h`` and conv
     history are copied into ``state``'s tensors in place (the reference
     returns fresh ones): a decode graph reads the state at fixed addresses,
-    and the stack keeps no returned state."""
-    br = ACT["gelu"](linear(x, p["w_branch"], kcfg=kcfg).float())
-    u = linear(x, p["w_in"], kcfg=kcfg)
+    and the stack keeps no returned state.  ``pctx``: as
+    :func:`rec_apply`, on the rank's channels of the state."""
+    br = ACT["gelu"](linear(x, p["w_branch"], kcfg=kcfg, pctx=pctx,
+                            tp="row").float())
+    u = linear(x, p["w_in"], kcfg=kcfg, pctx=pctx, tp="row")
     u, conv_state = _causal_conv(u, p["conv_w"], state["conv"])
     a, b = _rglru_coeffs(p, u)
     h = a[:, 0] * state["h"] + b[:, 0]
-    y = linear((br[:, 0] * h)[:, None].to(x.dtype), p["w_out"], kcfg=kcfg)
+    y = linear((br[:, 0] * h)[:, None].to(x.dtype), p["w_out"], kcfg=kcfg,
+               pctx=pctx, tp="col")
     state["h"].copy_(h)
     state["conv"].copy_(conv_state)
     return y, state
@@ -595,15 +609,37 @@ def init_ssd(gen, cfg: ModelConfig, n: int, device):
             "w_out": init_linear(gen, n, D, di, device)}
 
 
-def _ssd_split(p, x, stats, prefix: str, kcfg=None):
+def _ssd_heads(cfg: ModelConfig, p, pctx):
+    """(the rank's heads, their groups or None): the local head count is
+    read from the rank's ``A_log`` (no config field holds it,
+    ``parallel/rules.py:local_cfg``); local head j of rank r is global head
+    r·nh/n + j, of group (r·nh/n + j) // (nh/G).  None where the rank holds
+    every head (the scan repeats the G groups itself)."""
+    s = cfg.ssm
+    nh = s.expand * cfg.d_model // s.head_dim
+    nl = p["A_log"].shape[-1]
+    if nl == nh:
+        return nl, None
+    r = pctx.rank
+    heads = torch.arange(r * nl, (r + 1) * nl, device=p["A_log"].device)
+    return nl, heads // (nh // s.n_groups)
+
+
+def _ssd_split(p, x, stats, prefix: str, kcfg=None, pctx=None):
     """The five input projections z, x, B, C, dt of x (B,S,D); statistics
     are tapped once, on ``w_x`` (the other four share its input and its
-    statistics, ``quant/api.py:STAT_ALIAS``)."""
-    z = linear(x, p["w_z"], None, kcfg=kcfg)
-    xr = linear(x, p["w_x"], stats, prefix + "w_x", kcfg)
+    statistics, ``quant/api.py:STAT_ALIAS``).  ``pctx``: z and x are the
+    rank's heads (row slices); B, C and dt are whole on every rank, and dt
+    is cut to the rank's heads."""
+    z = linear(x, p["w_z"], None, kcfg=kcfg, pctx=pctx, tp="row")
+    xr = linear(x, p["w_x"], stats, prefix + "w_x", kcfg, pctx=pctx,
+                tp="row")
     Br = linear(x, p["w_B"], None, kcfg=kcfg)
     Cr = linear(x, p["w_C"], None, kcfg=kcfg)
     dt = linear(x, p["w_dt"], None, kcfg=kcfg)
+    nl = p["A_log"].shape[-1]
+    if dt.shape[-1] != nl:
+        dt = dt[..., pctx.rank * nl:(pctx.rank + 1) * nl]
     return z, xr, Br, Cr, dt
 
 
@@ -655,25 +691,39 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk: int, h0=None):
     return (y_diag + y_off).reshape(Bsz, S, H, P), h_last
 
 
-def _ssd_gate(p, y, z, x_dtype):
-    """The gated RMSNorm and its input: rmsnorm(y) · silu(z)."""
-    return rmsnorm(y.to(x_dtype), p["norm"]["gamma"]) \
-        * ACT["silu"](z.float()).to(x_dtype)
+def _ssd_gate(p, y, z, x_dtype, pctx=None):
+    """The gated RMSNorm and its input: rmsnorm(y) · silu(z).  The norm
+    spans the whole inner width di; under ``pctx`` a rank holds di/n of y,
+    so the mean square of its channels is all-reduced over the model axis
+    and divided by n (one small collective per SSD layer; exact at one
+    rank)."""
+    gate = ACT["silu"](z.float()).to(x_dtype)
+    y = y.to(x_dtype)
+    ms = None
+    if pctx is not None and pctx.mesh is not None:
+        from repro_torch.parallel import comm
+        yf = y.float()
+        ms = comm.all_reduce((yf * yf).mean(dim=-1, keepdim=True),
+                             pctx) / pctx.world
+    return rmsnorm(y, p["norm"]["gamma"], ms=ms) * gate
 
 
 def ssd_apply(cfg: ModelConfig, p, x, stats, prefix: str, *, state=None,
-              return_state: bool = False, kcfg=None):
+              return_state: bool = False, kcfg=None, pctx=None):
     """Sequence-mode SSD block, x (B,S,D) → y (B,S,D) [, state]: the five
     projections, the three causal convs (over ``state``'s conv histories,
     zeros without one), SiLU, :func:`ssd_scan` from ``state['h']`` (zeros
     without one), the D skip, the gated norm and ``w_out``.  A length past
     one chunk that is no multiple of it is padded with dt = 0 steps (decay
     1, contribution 0: the state passes through them).  ``return_state``
-    adds {'h' (B,nh,P,N) f32, 'conv_x', 'conv_B', 'conv_C' (B,W-1,·)}."""
+    adds {'h' (B,nh,P,N) f32, 'conv_x', 'conv_B', 'conv_C' (B,W-1,·)}.
+    ``pctx``: the rank's heads (:func:`_ssd_split`, :func:`_ssd_heads`),
+    the gated norm's Σy² all-reduced (:func:`_ssd_gate`), ``w_out``
+    column-split and all-reduced."""
     s = cfg.ssm
     B, Sq = x.shape[:2]
-    nh = s.expand * cfg.d_model // s.head_dim
-    z, xr, Br, Cr, dt = _ssd_split(p, x, stats, prefix, kcfg)
+    nh, groups = _ssd_heads(cfg, p, pctx)
+    z, xr, Br, Cr, dt = _ssd_split(p, x, stats, prefix, kcfg, pctx)
     st = state or {}
     xc, cs_x = _causal_conv(xr, p["conv_x"], st.get("conv_x"))
     Bc, cs_B = _causal_conv(Br, p["conv_B"], st.get("conv_B"))
@@ -682,6 +732,8 @@ def ssd_apply(cfg: ModelConfig, p, x, stats, prefix: str, *, state=None,
     xi = silu(xc.float()).reshape(B, Sq, nh, s.head_dim)
     Bm = silu(Bc.float()).reshape(B, Sq, s.n_groups, s.d_state)
     Cm = silu(Cc.float()).reshape(B, Sq, s.n_groups, s.d_state)
+    if groups is not None:                  # one group row per local head
+        Bm, Cm = Bm[:, :, groups], Cm[:, :, groups]
     dtv = torch.nn.functional.softplus(dt.float() + p["dt_bias"].float())
     A = torch.exp(p["A_log"].float())
     padn = (-Sq) % min(s.chunk, max(Sq, 1))
@@ -690,8 +742,9 @@ def ssd_apply(cfg: ModelConfig, p, x, stats, prefix: str, *, state=None,
     y, h_last = ssd_scan(pad(xi), pad(dtv), A, pad(Bm), pad(Cm), s.chunk,
                          st.get("h"))
     y = y[:, :Sq] + p["Dskip"].float()[None, None, :, None] * xi
-    y = _ssd_gate(p, y.reshape(B, Sq, -1), z, x.dtype)
-    out = linear(y, p["w_out"], stats, prefix + "w_out", kcfg)
+    y = _ssd_gate(p, y.reshape(B, Sq, -1), z, x.dtype, pctx)
+    out = linear(y, p["w_out"], stats, prefix + "w_out", kcfg, pctx=pctx,
+                 tp="col")
     if return_state:
         return out, {"h": h_last, "conv_x": cs_x, "conv_B": cs_B,
                      "conv_C": cs_C}
@@ -710,24 +763,28 @@ def ssd_init_state(cfg: ModelConfig, batch: int, device="cuda"):
             "conv_x": z(w, di), "conv_B": z(w, gn), "conv_C": z(w, gn)}
 
 
-def ssd_decode(cfg: ModelConfig, p, x, state, *, kcfg=None):
+def ssd_decode(cfg: ModelConfig, p, x, state, *, kcfg=None, pctx=None):
     """One token x (B,1,D) through the block: h ← e^{−A·dt}·h + dt·B⊗x,
     y = C·h + D·x.  The new h and the three conv histories are copied
     into ``state``'s tensors in place, as :func:`rec_decode` does (a
-    decode graph reads the state at fixed addresses)."""
+    decode graph reads the state at fixed addresses).  ``pctx``: as
+    :func:`ssd_apply`, on the rank's heads of ``h`` and ``conv_x``."""
     s = cfg.ssm
     B = x.shape[0]
-    nh = s.expand * cfg.d_model // s.head_dim
-    z, xr, Br, Cr, dt = _ssd_split(p, x, None, "", kcfg)
+    nh, groups = _ssd_heads(cfg, p, pctx)
+    z, xr, Br, Cr, dt = _ssd_split(p, x, None, "", kcfg, pctx)
     xc, cs_x = _causal_conv(xr, p["conv_x"], state["conv_x"])
     Bc, cs_B = _causal_conv(Br, p["conv_B"], state["conv_B"])
     Cc, cs_C = _causal_conv(Cr, p["conv_C"], state["conv_C"])
-    silu, rep = ACT["silu"], nh // s.n_groups
+    silu = ACT["silu"]
     xi = silu(xc.float())[:, 0].reshape(B, nh, s.head_dim)
-    Bm = silu(Bc.float())[:, 0].reshape(B, s.n_groups, s.d_state) \
-        .repeat_interleave(rep, dim=1)                      # (B,H,N)
-    Cm = silu(Cc.float())[:, 0].reshape(B, s.n_groups, s.d_state) \
-        .repeat_interleave(rep, dim=1)
+    Bm = silu(Bc.float())[:, 0].reshape(B, s.n_groups, s.d_state)
+    Cm = silu(Cc.float())[:, 0].reshape(B, s.n_groups, s.d_state)
+    if groups is None:                                      # (B,H,N)
+        rep = nh // s.n_groups
+        Bm, Cm = (t.repeat_interleave(rep, dim=1) for t in (Bm, Cm))
+    else:
+        Bm, Cm = Bm[:, groups], Cm[:, groups]
     dtv = torch.nn.functional.softplus(dt.float()[:, 0]
                                        + p["dt_bias"].float())   # (B,H)
     decay = torch.exp(-torch.exp(p["A_log"].float()) * dtv)
@@ -735,8 +792,8 @@ def ssd_decode(cfg: ModelConfig, p, x, state, *, kcfg=None):
         + torch.einsum("bh,bhp,bhn->bhpn", dtv, xi, Bm)
     y = torch.einsum("bhpn,bhn->bhp", h, Cm) \
         + p["Dskip"].float()[None, :, None] * xi
-    y = _ssd_gate(p, y.reshape(B, 1, -1), z, x.dtype)
-    out = linear(y, p["w_out"], kcfg=kcfg)
+    y = _ssd_gate(p, y.reshape(B, 1, -1), z, x.dtype, pctx)
+    out = linear(y, p["w_out"], kcfg=kcfg, pctx=pctx, tp="col")
     for k, v in (("h", h), ("conv_x", cs_x), ("conv_B", cs_B),
                  ("conv_C", cs_C)):
         state[k].copy_(v)
@@ -763,49 +820,56 @@ def init_mla(gen, cfg: ModelConfig, n: int, device):
 
 
 def _mla_expand(cfg: ModelConfig, p, latent, stats=None, prefix: str = "",
-                kcfg=None):
+                kcfg=None, pctx=None):
     """latent (B,S,r) → k_nope (B,H,S,nope), v (B,H,S,vd) through
-    ``wkv_b``."""
+    ``wkv_b``; under ``pctx`` the rank's H/n heads (its rows of
+    ``wkv_b``), so each rank expands only its heads."""
     m, H = cfg.mla, cfg.n_heads
-    kv = linear(latent, p["wkv_b"], stats, prefix + "wkv_b", kcfg)
+    kv = linear(latent, p["wkv_b"], stats, prefix + "wkv_b", kcfg,
+                pctx=pctx, tp="row")
     B, S = kv.shape[0], kv.shape[1]
     kv = kv.reshape(B, S, H, m.qk_nope_dim + m.v_head_dim).transpose(1, 2)
     return kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
 
 
-def _mla_q(cfg: ModelConfig, p, x, stats, prefix, kcfg):
+def _mla_q(cfg: ModelConfig, p, x, stats, prefix, kcfg, pctx=None):
     """q (B,H,S,nope+rope) split into its nope and rope parts, and
-    ``wkv_a``'s output (B,S,r+rope) (it shares x with ``wq``: one tap)."""
+    ``wkv_a``'s output (B,S,r+rope) (it shares x with ``wq``: one tap).
+    ``pctx``: the rank's q heads; ``wkv_a`` is whole on every rank (the
+    latent and the rope key are shared by every head)."""
     m, H = cfg.mla, cfg.n_heads
     B = x.shape[0]
     qd = m.qk_nope_dim + m.qk_rope_dim
-    q = linear(x, p["wq"], stats, prefix + "wq", kcfg).reshape(
+    q = linear(x, p["wq"], stats, prefix + "wq", kcfg, pctx=pctx,
+               tp="row").reshape(
         B, -1, H, qd).transpose(1, 2)
     a = linear(x, p["wkv_a"], None, kcfg=kcfg)
     return q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:], a
 
 
 def mla_apply(cfg: ModelConfig, p, x, stats, prefix: str, *, pos0: int = 0,
-              return_cache: bool = False, kcfg=None):
+              return_cache: bool = False, kcfg=None, pctx=None):
     """Sequence-mode MLA, x (B,S,D) at positions pos0..: the latent is
     expanded to per-head k_nope and v, the rope key is shared by every
     head, and attention scales by (nope+rope)^-1/2.  ``return_cache`` adds
-    {'latent' (B,S,r), 'k_rope' (B,S,rope)}."""
+    {'latent' (B,S,r), 'k_rope' (B,S,rope)}, whole on every rank.
+    ``pctx``: head-parallel (``cfg`` counts the rank's heads; ``wo``
+    column-split and all-reduced)."""
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = x.shape
-    q_nope, q_rope, a = _mla_q(cfg, p, x, stats, prefix, kcfg)
+    q_nope, q_rope, a = _mla_q(cfg, p, x, stats, prefix, kcfg, pctx)
     latent = rmsnorm(a[..., :m.kv_lora_rank], p["kv_norm"]["gamma"])
     k_rope = a[..., m.kv_lora_rank:][:, None]          # (B,1,S,rope)
     pos = torch.arange(S, device=x.device) + pos0
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
     k_rope = apply_rope(k_rope, pos, cfg.rope_theta)
-    k_nope, v = _mla_expand(cfg, p, latent, stats, prefix, kcfg)
+    k_nope, v = _mla_expand(cfg, p, latent, stats, prefix, kcfg, pctx)
     k = torch.cat([k_nope, k_rope.expand(B, H, S, m.qk_rope_dim)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     o = attention(qf, k, v, causal=True,
                   scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
     y = linear(o.transpose(1, 2).reshape(B, S, -1), p["wo"], stats,
-               prefix + "wo", kcfg)
+               prefix + "wo", kcfg, pctx=pctx, tp="col")
     if return_cache:
         return y, {"latent": latent, "k_rope": k_rope[:, 0]}
     return y
@@ -822,27 +886,29 @@ def mla_init_state(cfg: ModelConfig, batch: int, max_len: int,
                                   dtype=DTYPE, device=device)}
 
 
-def mla_decode(cfg: ModelConfig, p, x, state, pos, *, kcfg=None):
+def mla_decode(cfg: ModelConfig, p, x, state, pos, *, kcfg=None, pctx=None):
     """One token x (B,1,D) at per-slot positions pos (B,): its latent and
     rope key are written into the caches in place, then the whole latent
     cache is expanded through ``wkv_b`` (the reference's math: B·max_len
-    rows every step) and read by plain decode attention."""
+    rows every step) and read by plain decode attention.  ``pctx``: as
+    :func:`mla_apply`; every rank writes the whole caches and expands
+    them to its heads only."""
     m, H = cfg.mla, cfg.n_heads
     B = x.shape[0]
-    q_nope, q_rope, a = _mla_q(cfg, p, x, None, "", kcfg)
+    q_nope, q_rope, a = _mla_q(cfg, p, x, None, "", kcfg, pctx)
     latent_t = rmsnorm(a[..., :m.kv_lora_rank], p["kv_norm"]["gamma"])
     q_rope = rope_decode(q_rope, pos, cfg.rope_theta)
     k_rope_t = rope_decode(a[..., m.kv_lora_rank:][:, None], pos,
                            cfg.rope_theta)[:, 0]
     latent = seq_update_batched(state["latent"], latent_t, pos)
     k_rope = seq_update_batched(state["k_rope"], k_rope_t, pos)
-    k_nope, v = _mla_expand(cfg, p, latent, kcfg=kcfg)
+    k_nope, v = _mla_expand(cfg, p, latent, kcfg=kcfg, pctx=pctx)
     k = torch.cat([k_nope, k_rope[:, None].expand(B, H, k_rope.shape[1],
                                                   m.qk_rope_dim)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     o = decode_attention(qf, k, v, pos,
                          scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
-    y = linear(o.reshape(B, 1, -1), p["wo"], kcfg=kcfg)
+    y = linear(o.reshape(B, 1, -1), p["wo"], kcfg=kcfg, pctx=pctx, tp="col")
     return y, state
 
 
@@ -894,10 +960,12 @@ def _expert_mm(h, w, kcfg=None):
 
 def _expert_glu(w, h, act, stats=None, prefix: str = "", wts=None,
                 kcfg=None):
-    """The experts' GLU over the tokens h (C,D), shared by every expert.
-    The stats taps ``experts.wg`` (E,D) and ``experts.wd`` (E,F) weight
-    each token by ``wts`` (E,C), its routing mass, so tokens an expert
-    does not take leave its diagonal alone."""
+    """The experts' GLU over the tokens h: (C,D) shared by every expert, or
+    (E,C,D), each expert its own.  The stats taps ``experts.wg`` (E,D) and
+    ``experts.wd`` (E,F) weight each token by ``wts`` (E,C), its routing
+    mass, so tokens an expert does not take leave its diagonal alone;
+    without ``wts`` every token counts once (the all-to-all path's
+    count)."""
     g = _expert_mm(h, w["wg"], kcfg)
     u = _expert_mm(h, w["wu"], kcfg)
     a = ACT[act](g.float()).to(h.dtype) * u
@@ -905,7 +973,8 @@ def _expert_glu(w, h, act, stats=None, prefix: str = "", wts=None,
         hf, af = h.float(), a.float()
         wt = (torch.ones(a.shape[:2], dtype=torch.float32, device=h.device)
               if wts is None else wts)
-        sg = wt @ (hf * hf)
+        sg = wt @ (hf * hf) if h.dim() == 2 else \
+            torch.einsum("ec,ecd->ed", wt, hf * hf)
         sd = torch.einsum("ec,ecf->ef", wt, af * af)
         for k, v in (("experts.wg", sg), ("experts.wd", sd)):
             stats[prefix + k] = stats[prefix + k] + v \
@@ -913,19 +982,125 @@ def _expert_glu(w, h, act, stats=None, prefix: str = "", wts=None,
     return _expert_mm(a, w["wd"], kcfg)
 
 
-def moe_apply_dense(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None):
+def _n_experts(w) -> int:
+    """The experts an expert stack holds (the rank's, under expert
+    parallelism: no config field holds it)."""
+    from repro_torch.core.ttq import QuantizedTensor
+    return (w.scale if isinstance(w, QuantizedTensor) else w).shape[0]
+
+
+def moe_apply_dense(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None,
+                    pctx=None):
     """Exact MoE, x (B,S,D): every expert computes every token and the
     gates (a (T, E) scatter of the top-k weights) combine them.  The
     tokens reach the experts as one (T, D) operand, never an (E, T, D)
     copy; top-k and the scatter stay on the device, so a decode block is
-    one graph replay.  The shared expert is added by the caller."""
+    one graph replay.  The shared expert is added by the caller.
+    ``pctx`` (``moe_impl="dense"``): the router is whole on every rank,
+    each rank runs its E/n experts over every token with its experts' gate
+    columns, and the f32 partial sums are all-reduced, then rounded once;
+    the statistics stay gate-weighted, each rank holding its experts'
+    rows."""
     e = cfg.moe
     B, S, D = x.shape
     x2 = x.reshape(-1, D)
     top_p, top_i = _router(cfg, p, x2, stats, prefix)
     gate = torch.zeros((x2.shape[0], e.n_experts), dtype=torch.float32,
                        device=x.device).scatter_add_(1, top_i, top_p)
+    if pctx is not None and pctx.mesh is not None:
+        El = _n_experts(p["experts"]["wg"])
+        gate = gate[:, pctx.rank * El:(pctx.rank + 1) * El]
     y_all = _expert_glu(p["experts"], x2, cfg.act, stats, prefix,
                         wts=gate.T, kcfg=kcfg)
-    y = torch.einsum("etd,te->td", y_all.float(), gate).to(x.dtype)
-    return y.reshape(B, S, D)
+    y = torch.einsum("etd,te->td", y_all.float(), gate)
+    if pctx is not None and pctx.mesh is not None:
+        from repro_torch.parallel import comm
+        y = comm.all_reduce(y, pctx)
+    return y.to(x.dtype).reshape(B, S, D)
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int, world: int) -> tuple:
+    """(Tc, C) of :func:`moe_apply_a2a`: each rank's chunk of the
+    ``tokens`` and the slots per (rank, expert), max(1, ⌊Tc·k/E·cf⌋)
+    (the reference's ``layers.py:925``): static, from the shapes."""
+    e = cfg.moe
+    Tc = -(-tokens // world)
+    return Tc, max(1, int(Tc * e.top_k / e.n_experts * e.capacity_factor))
+
+
+def a2a_slots(top_i, n_experts: int, C: int) -> tuple:
+    """(slot, valid) of each of a chunk's (T·k,) assignments: its place
+    among its expert's assignments in token order (the reference's
+    one-hot cumsum), and whether it fits the expert's C slots."""
+    flat_e = top_i.reshape(-1)
+    onehot = (flat_e[:, None] == torch.arange(
+        n_experts, device=flat_e.device)).long()   # no range check: no sync
+    slot = (torch.cumsum(onehot, dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
+    return slot, slot < C
+
+
+def moe_apply_a2a(cfg: ModelConfig, p, x, stats, prefix: str, *, pctx,
+                  kcfg=None):
+    """Expert-parallel MoE with token dispatch (``moe_impl="a2a"``, the
+    reference's ``moe_apply_a2a``), x (B,S,D) whole on every rank, the
+    rank's E/n experts.  The T tokens (padded to n·Tc) are cut into n
+    chunks of Tc; rank r routes chunk r, writes each assignment into slot
+    ``slot`` of its expert's C slots (the assignment's place among that
+    expert's in the chunk, in order; one past C is dropped and adds
+    nothing), and an all-to-all carries each expert's slots to the rank
+    that owns it.  The rank runs its experts over the (E/n, n·C) slots it
+    received (one ``ttq_gemm_experts`` launch per projection), a second
+    all-to-all returns the results, each assignment's result is weighted
+    by its renormalised gate, and an all-gather of the chunks rebuilds
+    (T, D).  Everything is on the device at shapes fixed by (T, k, E,
+    cf), so a decode block stays one graph replay.  Statistics count each
+    slot once (unweighted, as the reference's); the rank keeps its
+    experts' rows, where the reference all-gathers them to every rank."""
+    e = cfg.moe
+    from repro_torch.parallel import comm
+    n, r = pctx.world, pctx.rank
+    B, S, D = x.shape
+    x2 = x.reshape(-1, D)
+    T = x2.shape[0]
+    Tc, C = moe_capacity(cfg, T, n)
+    if Tc * n != T:
+        x2 = torch.nn.functional.pad(x2, (0, 0, 0, Tc * n - T))
+    xm = x2[r * Tc:(r + 1) * Tc]
+    top_p, top_i = _router(cfg, p, xm, None, prefix)          # (Tc, k)
+    k, E = e.top_k, e.n_experts
+    El = E // n
+    flat_e = top_i.reshape(-1)                                 # (Tc·k,)
+    slot, valid = a2a_slots(top_i, E, C)
+    dump = n * El * C                  # a dropped assignment's row
+    idx = torch.where(valid, flat_e * C + slot, torch.full_like(slot, dump))
+    send = torch.zeros((dump + 1, D), dtype=x2.dtype, device=x.device)
+    send.index_copy_(0, idx, xm.repeat_interleave(k, dim=0))
+    recv = comm.all_to_all(send[:dump].reshape(n, El, C, D), pctx)
+    h = recv.transpose(0, 1).reshape(El, n * C, D)
+    y_exp = _expert_glu(p["experts"], h, cfg.act, stats, prefix, kcfg=kcfg)
+    back = y_exp.reshape(El, n, C, D).transpose(0, 1)
+    y_flat = comm.all_to_all(back, pctx).reshape(dump, D)
+    wt = torch.where(valid, top_p.reshape(-1),
+                     torch.zeros_like(top_p.reshape(-1)))
+    contrib = y_flat[idx.clamp(max=dump - 1)] * wt[:, None].to(x2.dtype)
+    # each token's k results summed in f32 in a fixed order (no atomics:
+    # a replay is bit for bit its eager run), then rounded once
+    y_m = contrib.reshape(Tc, k, D).float().sum(dim=1).to(x2.dtype)
+    y = comm.all_gather(y_m, pctx, dim=0)[:T]
+    return y.reshape(B, S, D).to(x.dtype)
+
+
+def moe_a2a(cfg: ModelConfig, p, x, stats_on: bool, prefix: str, pctx,
+            kcfg=None):
+    """The reference's entry to the all-to-all MoE (its ``shard_map``
+    wrapper): :func:`moe_apply_a2a` on the rank's experts, returning (y,
+    statistics) with the statistics whole on every rank, as the
+    reference's are (each rank's experts' rows all-gathered; empty
+    without ``stats_on``).  The layer stack calls :func:`moe_apply_a2a`
+    itself and keeps the rank's rows."""
+    st = {} if stats_on else None
+    y = moe_apply_a2a(cfg, p, x, st, prefix, pctx=pctx, kcfg=kcfg)
+    if not stats_on:
+        return y, {}
+    from repro_torch.parallel import comm
+    return y, {k: comm.all_gather(v, pctx, dim=0) for k, v in st.items()}

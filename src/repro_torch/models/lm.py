@@ -20,8 +20,11 @@
 ``pctx`` (a :class:`~repro_torch.parallel.ParallelCtx`) runs every entry
 point on this rank's slice of the parameters and state
 (``parallel/rules.py:shard_params``): attention and MLP blocks under
-Megatron-style tensor parallelism where the layout splits them, the
-embedding and the tied head vocab-parallel (a masked lookup then an
+Megatron-style tensor parallelism where the layout splits them (plain
+and latent attention on heads, the RG-LRU on channels, SSD on heads, the
+MLPs on their hidden width), MoE experts expert-parallel (``moe_impl``:
+each rank's experts over every token, or the all-to-all token dispatch),
+the embedding and the tied head vocab-parallel (a masked lookup then an
 all-reduce; the rank's logits then an all-gather before any argmax).
 Each entry point binds the layout (``rules.bind``) and runs the stack on
 the rank's config (``rules.local_cfg``).
@@ -46,7 +49,8 @@ import torch
 from repro_torch._device import resolve_device
 
 from repro_torch.parallel import comm
-from repro_torch.parallel.rules import bind, block_ctx, local_cfg
+from repro_torch.parallel.rules import (bind, block_ctx, local_cfg,
+                                        state_sharding)
 
 from . import stack as S
 from .common import init_norm, linear, norm, sample_logits, sinusoidal_pos
@@ -111,14 +115,16 @@ def _embed(cfg, params, tokens, pos0: int = 0, pctx=None):
     return x
 
 
-def _encode(cfg, params, frames, stats_on=False):
+def _encode(cfg, params, frames, stats_on=False, pctx=None):
     """The encoder: frames (B,F,D) in bf16 plus sinusoidal positions
     through ``enc_stack`` and ``enc_norm`` → (enc_out (B,F,D), its
-    per-run statistics or None)."""
+    per-run statistics or None).  Under ``pctx`` (``cfg`` the rank's) its
+    attention and MLP split as the decoder's; ``enc_out`` is whole on
+    every rank."""
     x = frames.to(torch.bfloat16) + sinusoidal_pos(
         frames.shape[1], cfg.d_model, frames.device)[None]
     x, stats, _ = S.apply_stack_seq(cfg, params["enc_stack"], S.enc_spec(cfg),
-                                    x, stats_on=stats_on)
+                                    x, stats_on=stats_on, pctx=pctx)
     return norm(x, params["enc_norm"]), stats
 
 
@@ -145,8 +151,8 @@ def forward(cfg: ModelConfig, params, batch, *, collect_stats=False,
     lcfg = local_cfg(cfg, pctx)
     stats, enc_out = {}, None
     if cfg.family == "encdec":
-        enc_out, enc_stats = _encode(cfg, params, batch["frames"],
-                                     collect_stats)
+        enc_out, enc_stats = _encode(lcfg, params, batch["frames"],
+                                     collect_stats, pctx)
         if collect_stats:
             stats["enc_stack"] = enc_stats
     x = _embed(cfg, params, batch["tokens"], pctx=pctx)
@@ -190,11 +196,27 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, kvcfg=None,
     max_len/block_size) int32, each row a slot's logical → physical block
     map; 0 is the sink block for unallocated entries and done-lane
     writes.  The encoder-decoder family's state also holds ``enc_out``
-    (B, n_frames, D) bf16.  Under ``pctx`` the caches hold the rank's KV
-    heads (``parallel/rules.py:state_sharding``)."""
+    (B, n_frames, D) bf16.  Under ``pctx`` each leaf is the rank's slice of
+    the whole state per ``parallel/rules.py:state_sharding`` (KV heads,
+    recurrent channels, SSD heads), allocated at that size: the whole
+    state's shapes are laid out on the meta device first."""
     dev = resolve_device(device)
-    cfg = local_cfg(cfg, bind(pctx, cfg))
+    pctx = bind(pctx, cfg)
     paged = kvcfg is not None and kvcfg.paged
+    if pctx is not None and pctx.world > 1:
+        whole = init_decode_state(cfg, batch, max_len, kvcfg, "meta",
+                                  num_blocks)
+        specs = state_sharding(whole, pctx, paged=paged)
+
+        def local(t, spec):
+            if isinstance(t, dict):
+                return {k: local(v, spec[k]) for k, v in t.items()}
+            if isinstance(t, list):
+                return [local(v, sp) for v, sp in zip(t, spec)]
+            shape = [d // pctx.world if ax == pctx.model_axis else d
+                     for d, ax in zip(t.shape, spec)]
+            return torch.zeros(shape, dtype=t.dtype, device=dev)
+        return local(whole, specs)
     if paged:
         if max_len % kvcfg.block_size:
             raise ValueError(f"max_len={max_len} must divide by "
@@ -234,8 +256,8 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, *,
     lcfg = local_cfg(cfg, pctx)
     stats, enc_out = {}, None
     if cfg.family == "encdec":
-        enc_out, enc_stats = _encode(cfg, params, batch["frames"],
-                                     collect_stats)
+        enc_out, enc_stats = _encode(lcfg, params, batch["frames"],
+                                     collect_stats, pctx)
         if collect_stats:
             stats["enc_stack"] = enc_stats
     x = _embed(cfg, params, batch["tokens"], pos0, pctx)

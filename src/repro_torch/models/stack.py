@@ -189,10 +189,16 @@ def _mlp_apply(cfg, kind, p, x, stats, prefix, kcfg=None, pctx=None):
         return x + mlp(h, p["mlp"], stats, prefix + "mlp", cfg.act, kcfg,
                        pctx=block_ctx(pctx, "mlp"))
     pp = prefix + "mlp."
-    y = L.moe_apply_dense(cfg, p["mlp"], h, stats, pp, kcfg=kcfg)
+    ectx = block_ctx(pctx, "experts")
+    if ectx is not None and ectx.moe_impl == "a2a":
+        y = L.moe_apply_a2a(cfg, p["mlp"], h, stats, pp, pctx=ectx,
+                            kcfg=kcfg)
+    else:
+        y = L.moe_apply_dense(cfg, p["mlp"], h, stats, pp, kcfg=kcfg,
+                              pctx=ectx)
     if cfg.moe.n_shared:
         y = y + glu_mlp(h, p["mlp"]["shared"], stats, pp + "shared",
-                        cfg.act, kcfg)
+                        cfg.act, kcfg, pctx=block_ctx(pctx, "mlp"))
     return x + y
 
 
@@ -245,31 +251,34 @@ def _mix_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
     attends over ``enc_out`` (B,F,D) and keeps its cross k/v."""
     h = norm(x, p["ln1"])
     st = None
+    actx = block_ctx(pctx, "attn")
     if kind in ("rec", "ssd"):
         apply = L.rec_apply if kind == "rec" else L.ssd_apply
+        kw = dict(kcfg=kcfg, pctx=block_ctx(pctx, kind))
         if want_state:
             y, st = apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                          return_state=True, kcfg=kcfg)
+                          return_state=True, **kw)
         else:
-            y = apply(cfg, p["mix"], h, stats, prefix + "mix.", kcfg=kcfg)
+            y = apply(cfg, p["mix"], h, stats, prefix + "mix.", **kw)
         return x + y, st
     if kind == "xdec":
         return _xdec_seq(cfg, p, x, h, stats, prefix, want_state, max_len,
-                         pos0, enc_out, kvcfg, kcfg)
+                         pos0, enc_out, kvcfg, kcfg, actx)
     if kind == "mla":
+        mctx = block_ctx(pctx, "mla")
         if want_state:
             y, cache = L.mla_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                                   pos0=pos0, return_cache=True, kcfg=kcfg)
+                                   pos0=pos0, return_cache=True, kcfg=kcfg,
+                                   pctx=mctx)
             st = L.mla_init_state(cfg, x.shape[0], max_len, x.device)
             for k, c in cache.items():
                 st[k][:, :c.shape[1]] = c.to(st[k].dtype)
         else:
             y = L.mla_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                            pos0=pos0, kcfg=kcfg)
+                            pos0=pos0, kcfg=kcfg, pctx=mctx)
         return x + y, st
     window = cfg.hybrid.window if kind == "lattn" else 0
     causal = kind != "enc"
-    actx = block_ctx(pctx, "attn")
     if want_state:
         y, (k, v) = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
                                  causal=causal, window=window, pos0=pos0,
@@ -294,31 +303,32 @@ def _mix_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
 
 
 def _xdec_seq(cfg, p, x, h, stats, prefix, want_state, max_len, pos0,
-              enc_out, kvcfg, kcfg):
+              enc_out, kvcfg, kcfg, actx=None):
     """An ``xdec`` layer's mixers in sequence mode (``h`` = ln1(x)): causal
     self-attention (its cache a max_len slab), then cross-attention over
     ``enc_out`` from ``lnx``; the caller adds the MLP.  With ``want_state`` the state
     adds the cross k/v in bf16 (the reference's: computed once, never
-    quantized)."""
+    quantized).  ``actx``: both attentions head-parallel (the rank's
+    self and cross k/v heads; ``enc_out`` is whole on every rank)."""
     st = None
+    kw = dict(kcfg=kcfg, pctx=actx)
     if want_state:
         y, (k, v) = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.",
-                                 pos0=pos0, return_kv=True, kvcfg=kvcfg,
-                                 kcfg=kcfg)
+                                 pos0=pos0, return_kv=True, kvcfg=kvcfg, **kw)
         st = L.build_kv_state(cfg, x.shape[0], max_len, k, v, kvcfg)
     else:
         y = L.attn_apply(cfg, p["mix"], h, stats, prefix + "mix.", pos0=pos0,
-                         kcfg=kcfg)
+                         **kw)
     x = x + y
     hx = norm(x, p["lnx"])
     if want_state:
         yx, (xk, xv) = L.attn_apply(cfg, p["xattn"], hx, stats,
                                     prefix + "xattn.", x_cross=enc_out,
-                                    return_kv=True, kcfg=kcfg)
+                                    return_kv=True, **kw)
         st["xk"], st["xv"] = xk.to(L.DTYPE), xv.to(L.DTYPE)
     else:
         yx = L.attn_apply(cfg, p["xattn"], hx, stats, prefix + "xattn.",
-                          x_cross=enc_out, kcfg=kcfg)
+                          x_cross=enc_out, **kw)
     return x + yx, st
 
 
@@ -327,28 +337,32 @@ def apply_layer_decode(cfg: ModelConfig, kind: str, p, x, state, pos, *,
                        pctx=None):
     """One token through one layer; ``state`` is updated in place."""
     h = norm(x, p["ln1"])
+    actx = block_ctx(pctx, "attn")
     if kind == "rec":
-        y, st = L.rec_decode(cfg, p["mix"], h, state, kcfg=kcfg)
+        y, st = L.rec_decode(cfg, p["mix"], h, state, kcfg=kcfg,
+                             pctx=block_ctx(pctx, "rec"))
     elif kind == "ssd":
-        y, st = L.ssd_decode(cfg, p["mix"], h, state, kcfg=kcfg)
+        y, st = L.ssd_decode(cfg, p["mix"], h, state, kcfg=kcfg,
+                             pctx=block_ctx(pctx, "ssd"))
     elif kind == "xdec":
         self_kv = {k: v for k, v in state.items() if k not in ("xk", "xv")}
         y, _ = L.attn_decode(cfg, p["mix"], h, self_kv, pos, kvcfg=kvcfg,
-                             kcfg=kcfg)
+                             kcfg=kcfg, pctx=actx)
         x = x + y
         y, st = L.attn_decode(cfg, p["xattn"], norm(x, p["lnx"]), state,
                               pos, cross_kv=(state["xk"], state["xv"]),
-                              kcfg=kcfg)
+                              kcfg=kcfg, pctx=actx)
     elif kind == "mla":
-        y, st = L.mla_decode(cfg, p["mix"], h, state, pos, kcfg=kcfg)
+        y, st = L.mla_decode(cfg, p["mix"], h, state, pos, kcfg=kcfg,
+                             pctx=block_ctx(pctx, "mla"))
     elif kind == "lattn":
         y, st = L.attn_decode_rolling(cfg, p["mix"], h, state, pos,
                                       cfg.hybrid.window, kvcfg=kvcfg,
-                                      kcfg=kcfg)
+                                      kcfg=kcfg, pctx=actx)
     else:
         y, st = L.attn_decode(cfg, p["mix"], h, state, pos, kvcfg=kvcfg,
                               kcfg=kcfg, block_table=block_table, rows=rows,
-                              pctx=block_ctx(pctx, "attn"))
+                              pctx=actx)
     x = x + y
     return _mlp_apply(cfg, kind, p, x, None, "", kcfg, pctx), st
 

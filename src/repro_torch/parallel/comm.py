@@ -1,11 +1,14 @@
 """The collectives of tensor-parallel serving, over the model axis's group.
 
-``all_reduce`` (a sum, in place) closes every column-parallel linear and
-the vocab-parallel embedding lookup; ``all_gather`` rebuilds the
-vocab-parallel head's logits and, in the requant, the full statistics and
-diagonals of column-split weights; ``agree`` reduces a few host scalars so
-that every rank takes the same decision (the delta gate, the guards, the
-double buffer's swap).
+``all_reduce`` (a sum, in place) closes every column-parallel linear, the
+vocab-parallel embedding lookup, the SSD gated norm's Σy² and the
+expert-parallel MoE's partial sums; ``all_gather`` rebuilds the
+vocab-parallel head's logits, the all-to-all MoE's token chunks and, in
+the requant, the full statistics and diagonals of column-split weights;
+``all_to_all`` carries the all-to-all MoE's tokens to the ranks that own
+their experts and the results back; ``agree`` reduces a few host scalars
+so that every rank takes the same decision (the delta gate, the guards,
+the double buffer's swap).
 
 Under NCCL a collective takes the device's tensors and may be captured in
 a CUDA graph.  gloo takes CPU tensors: a CUDA tensor goes through a pinned
@@ -28,8 +31,8 @@ import time
 import torch
 import torch.distributed as dist
 
-COUNTS = {"all_reduce": 0, "all_gather": 0}
-STAGED_S = {"all_reduce": 0.0, "all_gather": 0.0}
+COUNTS = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
+STAGED_S = {"all_reduce": 0.0, "all_gather": 0.0, "all_to_all": 0.0}
 
 
 def _staged(t: torch.Tensor, op, kind: str):
@@ -77,6 +80,25 @@ def all_gather(t: torch.Tensor, pctx, dim: int = -1) -> torch.Tensor:
         out = out.to(t.device)
     return out.movedim(0, dim).contiguous()   # reductions over it then
                                               # run as over a local tensor
+
+
+def all_to_all(t: torch.Tensor, pctx) -> torch.Tensor:
+    """``t`` (n, ...) exchanged on its leading dim: block r of the result on
+    rank j is block j of rank r's ``t`` (the reference's untiled
+    ``lax.all_to_all`` with split and concat axis 0); a new tensor."""
+    COUNTS["all_to_all"] += 1
+    m = pctx.mesh
+    src = t.contiguous()
+    if m.backend == "nccl" or not src.is_cuda:
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=m.group)
+        return out
+
+    def op(h):
+        out = torch.empty_like(h)
+        dist.all_to_all_single(out, h, group=m.group)
+        return out
+    return _staged(src, op, "all_to_all").to(t.device)
 
 
 def agree(values: Iterable[float], pctx, op: str = "sum") -> List[float]:

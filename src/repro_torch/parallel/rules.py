@@ -15,7 +15,9 @@ explicit collectives.  Two things GSPMD hides must then be decided per
 block, once per model, by :func:`bind` (:class:`TPLayout`):
 
 * attention splits whole heads: q heads and KV heads must both divide the
-  world, since each rank's q heads read its own KV heads;
+  world, since each rank's q heads read its own KV heads; MLA splits its q
+  heads (wq and wkv_b rows), the RG-LRU its width with its 16 gate blocks,
+  SSD its heads, the experts whole experts;
 * a column slice of a weight must keep whole quantization groups and code
   words (``ParallelCtx.align``), so that each rank's codes are the slice
   of the world-1 codes.
@@ -25,6 +27,10 @@ rank (the reference's ``_tp_gemm_ok``/``_tp_attn_ok`` fallback).  Where
 ``Hkv`` does not divide the world, the reference shards the KV cache's
 sequence instead (``state_sharding``); here that cache is replicated
 with its attention block, as the unwrapped call replicates it there.
+The per-channel leaves of a split recurrent or SSD block (conv weights,
+decays, the gated norm's gamma), which the reference's rules replicate
+and GSPMD slices implicitly, are sliced to the rank's channels here
+(:func:`shard_params`).
 """
 from __future__ import annotations
 
@@ -165,58 +171,63 @@ def qt_specs(path_str: str, shapes, model_axis: str = "model", mesh=None):
 
 # ---------------------------------------------------------------- layout
 
-# families whose mixers are plain attention with a GLU or plain MLP
-TP_FAMILIES = ("dense", "vlm")
-
-
 @dataclasses.dataclass(frozen=True)
 class TPLayout:
-    """Which blocks of a model split over the model axis: ``attn`` (whole
-    heads: wq/wk/wv rows, wo columns, the KV cache's heads), ``mlp`` (the
-    hidden width: wg/wu/w1 rows, wd/w2 columns), ``vocab`` (the embedding's
-    and the tied head's rows)."""
+    """Which blocks of a model split over the model axis.  ``attn``: plain
+    attention's whole heads (wq/wk/wv rows, wo columns, the KV cache's
+    heads), the same decision for the encoder's attention and the
+    cross-attention (they have the decoder's heads); ``mlp``: the hidden
+    width of the dense MLP, or of a MoE layer's shared expert
+    (wg/wu/w1 rows, wd/w2 columns); ``vocab``: the embedding's and the tied
+    head's rows.  The blocks a family may lack are None where the model has
+    none: ``rec`` (the RG-LRU width: w_branch/w_in rows, w_out columns, the
+    rank's gate blocks, conv and decay channels, its state's channels),
+    ``ssd`` (SSD heads: w_z/w_x rows, w_out columns, the rank's heads of
+    the conv, the decays and the gated norm, its state's heads), ``mla``
+    (q heads and wkv_b's rows, wo columns) and ``experts`` (whole experts,
+    E/n per rank)."""
     attn: bool = False
     mlp: bool = False
     vocab: bool = False
-
-
-def _unported(cfg) -> Optional[str]:
-    """The ROADMAP item that ports tensor parallelism for ``cfg``'s family,
-    or None for a family served tensor-parallel."""
-    if cfg.mla is not None:
-        return "A10 (b2), MLA"
-    if cfg.moe is not None:
-        return "A10 (c), expert parallelism (moe_a2a)"
-    if cfg.family not in TP_FAMILIES:
-        return f"A10 (b2), the {cfg.family} family"
-    return None
-
-
-def check_family(cfg, world: int):
-    """Raise NotImplementedError naming the ROADMAP item when ``cfg``'s
-    family has no tensor-parallel port and ``world`` > 1."""
-    item = _unported(cfg)
-    if world > 1 and item is not None:
-        raise NotImplementedError(
-            f"tensor-parallel serving of {cfg.name} ({cfg.family}) over "
-            f"{world} ranks is not ported (ROADMAP {item}); run it with "
-            f"world 1")
+    rec: Optional[bool] = None
+    ssd: Optional[bool] = None
+    mla: Optional[bool] = None
+    experts: Optional[bool] = None
 
 
 def tp_layout(cfg, pctx: ParallelCtx) -> TPLayout:
     """The block decisions for ``cfg`` on ``pctx``'s model axis (see the
     module docstring).  Every block splits at world 1, a one-rank slice
-    being the whole; a family not served tensor-parallel splits nothing."""
-    n = pctx.world
-    check_family(cfg, n)
-    if _unported(cfg) is not None:
-        return TPLayout()
+    being the whole.  Above it a block splits when its heads, channels or
+    experts divide the world and each column slice keeps ``align``:
+    attention when q and KV heads both divide; the RG-LRU when its width
+    and its 16 gate blocks do; SSD when its heads do; MLA when its q heads
+    do; the experts when E does."""
+    from repro_torch.models.layers import RG_BLOCKS
+    n, a = pctx.world, pctx.align
+    keeps = lambda width: width > 0 and width % n == 0 \
+        and (width // n) % a == 0                          # noqa: E731
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    e = cfg.moe
+    lay = dict(
+        attn=cfg.mla is None and H > 0 and H % n == 0 and Hkv % n == 0
+        and keeps(H * cfg.hd),
+        mlp=keeps(e.d_ff_expert * e.n_shared if e is not None else cfg.d_ff),
+        vocab=cfg.vocab % n == 0)
+    if cfg.hybrid is not None:
+        dr = cfg.hybrid.d_rnn or cfg.d_model
+        lay["rec"] = RG_BLOCKS % n == 0 and keeps(dr)
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        lay["ssd"] = (di // s.head_dim) % n == 0 and keeps(di)
+    if cfg.mla is not None:
+        lay["mla"] = H % n == 0 and keeps(H * cfg.mla.v_head_dim)
+    if e is not None:
+        lay["experts"] = e.n_experts % n == 0
     if n == 1:
-        return TPLayout(True, True, True)
-    H, Hkv, a = cfg.n_heads, cfg.n_kv_heads, pctx.align
-    attn = H % n == 0 and Hkv % n == 0 and (H * cfg.hd // n) % a == 0
-    mlp = cfg.d_ff % n == 0 and (cfg.d_ff // n) % a == 0
-    return TPLayout(attn, mlp, cfg.vocab % n == 0)
+        lay = {k: True for k in lay}
+    return TPLayout(**lay)
 
 
 def col_align(*policies) -> int:
@@ -256,9 +267,14 @@ def block_ctx(pctx: Optional[ParallelCtx], block: str):
 
 
 def local_cfg(cfg, pctx: Optional[ParallelCtx]):
-    """The config of one rank's slice: q and KV heads per rank where
-    attention splits (head_dim pinned), the MLP width per rank where it
-    splits."""
+    """The config of one rank's slice, where a config field can hold it: q
+    and KV heads per rank where attention splits (head_dim pinned), q heads
+    where MLA splits, the dense MLP's width and the RG-LRU's ``d_rnn`` per
+    rank where they split.  Two local widths no field can hold are read
+    from the slices' shapes by the model code instead: SSD's heads (the
+    rank's ``A_log``; ``SSMCfg.expand`` is an int) and the rank's experts
+    (its expert stack; the router keeps the global ``n_experts`` for its
+    top-k)."""
     if pctx is None or pctx.layout is None or pctx.world == 1:
         return cfg
     n, lay = pctx.world, pctx.layout
@@ -266,30 +282,60 @@ def local_cfg(cfg, pctx: Optional[ParallelCtx]):
     if lay.attn:
         kw.update(n_heads=cfg.n_heads // n, n_kv_heads=cfg.n_kv_heads // n,
                   head_dim=cfg.hd)
-    if lay.mlp:
+    if lay.mla:
+        kw.update(n_heads=cfg.n_heads // n)
+    if lay.mlp and cfg.moe is None:
         kw.update(d_ff=cfg.d_ff // n)
+    if lay.rec:
+        h = cfg.hybrid
+        kw.update(hybrid=dataclasses.replace(
+            h, d_rnn=(h.d_rnn or cfg.d_model) // n))
     return dataclasses.replace(cfg, **kw) if kw else cfg
 
 
-def _block_of(path_str: str) -> Optional[str]:
-    if re.search(r"\.(mix|xattn)\.", path_str):
-        return "attn"
-    if ".mlp." in path_str:
-        return "mlp"
-    if re.search(r"(^|\.)(embed|lm_head)$", path_str):
-        return "vocab"
+# (regex on path, the blocks it may belong to, first present one wins):
+# weight names, not the ``.mix.`` level, decide, since an RG-LRU's w_in
+# and a windowed attention's wq sit at the same level and decide apart
+_BLOCKS = [
+    (r"\.(mix|xattn)\.(wq|wo)$",                  ("mla", "attn")),
+    (r"\.(mix|xattn)\.(wk|wv|qnorm|knorm)(\.|$)", ("attn",)),
+    (r"\.mix\.(wkv_a|wkv_b|kv_norm)(\.|$)",        ("mla",)),
+    (r"\.mix\.(w_branch|w_in|w_gate_[ax]|conv_w|log_lambda)$", ("rec",)),
+    (r"\.mix\.w_out$",                            ("rec", "ssd")),
+    (r"\.mix\.(w_z|w_x|w_B|w_C|w_dt|conv_[xBC]|A_log|Dskip|dt_bias|norm)"
+     r"(\.|$)",                                    ("ssd",)),
+    (r"\.mlp\.experts\.",                         ("experts",)),
+    (r"\.mlp\.router$",                           ()),
+    (r"\.mlp\.",                                  ("mlp",)),
+    (r"(^|\.)(embed|lm_head)$",                    ("vocab",)),
+]
+
+# per-channel leaves of a split block that the reference's rules replicate
+# (``P(None)``, ``P(None, None)``: GSPMD slices them implicitly where they
+# meet the sharded width); here the rank holds its channels explicitly
+_CHANNELS = (r"\.mix\.(conv_w|log_lambda|conv_x|A_log|Dskip|dt_bias)$"
+             r"|\.mix\.norm\.gamma$")
+
+
+def _block_of(path_str: str, layout) -> Optional[str]:
+    for pat, blocks in _BLOCKS:
+        if re.search(pat, path_str):
+            return next((b for b in blocks
+                         if getattr(layout, b) is not None), None)
     return None
 
 
 def split_of(path_str: str, pctx: Optional[ParallelCtx]) -> Optional[str]:
-    """'row' (output features split), 'col' (input features split) or
-    None (replicated) for the weight at ``path_str`` under ``pctx``'s
-    bound layout."""
+    """'row' (output features split), 'col' (input features split),
+    'expert' (whole experts split) or None (replicated) for the weight at
+    ``path_str`` under ``pctx``'s bound layout."""
     if pctx is None or pctx.layout is None:
         return None
-    block = _block_of(path_str)
+    block = _block_of(path_str, pctx.layout)
     if block is None or not getattr(pctx.layout, block):
         return None
+    if block == "experts":
+        return "expert"
     spec = spec_for_path(path_str, 2, pctx.model_axis, stacked=False)
     if len(spec) != 2:
         return None
@@ -302,10 +348,14 @@ def split_of(path_str: str, pctx: Optional[ParallelCtx]) -> Optional[str]:
 def _leaf_spec(ps: str, leaf, pctx: ParallelCtx) -> P:
     in_stack = "stack" in ps
     spec = spec_for_path(ps, leaf.dim(), pctx.model_axis, stacked=in_stack)
-    spec = divisible_spec(spec, tuple(leaf.shape), pctx.mesh)
-    if pctx.layout is not None and split_of(ps, pctx) is None:
-        spec = P(*([None] * leaf.dim()))
-    return spec
+    lay = pctx.layout
+    if lay is not None:
+        block = _block_of(ps, lay)
+        if block is None or not getattr(lay, block):
+            return P(*([None] * leaf.dim()))
+        if re.search(_CHANNELS, ps):        # the rank's channels or heads
+            spec = P(*([None] * (leaf.dim() - 1)), pctx.model_axis)
+    return divisible_spec(spec, tuple(leaf.shape), pctx.mesh)
 
 
 def qt_sharding(path_str: str, qt, pctx: ParallelCtx):
@@ -413,17 +463,22 @@ def shard_params(params, pctx: ParallelCtx):
 def shard_stats(stats, pctx: ParallelCtx):
     """A statistics tree ({'stack': [per-run {key: (L, d)}]}) sliced to the
     rank's inputs: the Σx² of a column-split weight's input is split with
-    it; every other leaf is replicated (the full input)."""
+    it, the per-expert rows (L, E, d) of split experts keep the rank's
+    experts; every other leaf is replicated (the full input)."""
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(v, path + (i,)) for i, v in enumerate(tree))
-        if isinstance(tree, torch.Tensor) and \
-                split_of(_path_str(path), pctx) == "col":
-            return shard_tensor(tree, P(*([None] * (tree.dim() - 1)),
-                                        pctx.model_axis), pctx)
-        return tree
+        if not isinstance(tree, torch.Tensor):
+            return tree
+        sp = split_of(_path_str(path), pctx)
+        dim = {"col": tree.dim() - 1, "expert": tree.dim() - 2}.get(sp)
+        if dim is None:
+            return tree
+        spec = [None] * tree.dim()
+        spec[dim] = pctx.model_axis
+        return shard_tensor(tree, P(*spec), pctx)
     return walk(stats, ())
 
 
@@ -468,11 +523,18 @@ def state_sharding(state, pctx: ParallelCtx, batch_axes=None, seq_axis=None,
     allocator's physical block ids are global); the block tables stay
     replicated.  A cache whose Hkv does not divide the model axis (or,
     with a bound layout, whose attention block is replicated) is
-    replicated, where the reference shards its sequence dim."""
+    replicated, where the reference shards its sequence dim.  Two
+    differences from the reference's spec: SSD's ``conv_B``/``conv_C``
+    histories stay whole (they feed the whole B and C, which every rank
+    computes), where the copied (B, W, ch) rule split every ``conv*``; and
+    under a bound layout a recurrent state splits only with its block
+    (``h`` (B, dr) and ``conv`` with ``rec``, ``h`` (B, H, P, N) and
+    ``conv_x`` with ``ssd``)."""
     mesh, m = pctx.mesh, pctx.model_axis
     dp = pctx.dp if batch_axes is None else batch_axes
     msize = _axis_size(mesh, m)
-    attn_ok = pctx.layout is None or pctx.layout.attn
+    lay = pctx.layout
+    ok = lambda block: lay is None or bool(getattr(lay, block))  # noqa: E731
 
     def per_leaf(ps, leaf):
         nd = leaf.dim()
@@ -481,21 +543,22 @@ def state_sharding(state, pctx: ParallelCtx, batch_axes=None, seq_axis=None,
         if "enc_out" in ps:
             spec = P(dp, None, None)
         elif paged and re.search(r"\.(k|v)(_q|_s)?$", ps) and core == 4:
-            spec = P(None, m if attn_ok else None, None, None)
+            spec = P(None, m if ok("attn") else None, None, None)
         elif re.search(r"\.(k|v|xk|xv)(_q|_s)?$", ps) and core == 4:
             hkv = leaf.shape[lead + 1]
-            if hkv % msize == 0 and attn_ok:
+            if hkv % msize == 0 and ok("attn"):
                 spec = P(dp, m, seq_axis, None)
             else:
                 spec = P(dp, None, seq_axis, None)
         elif re.search(r"\.(latent|k_rope)$", ps) and core == 3:
             spec = P(dp, seq_axis, None)
         elif re.search(r"\.h$", ps) and core == 2:
-            spec = P(dp, m)
+            spec = P(dp, m if ok("rec") else None)
         elif re.search(r"\.h$", ps) and core == 4:
-            spec = P(dp, m, None, None)
-        elif re.search(r"\.conv", ps) and core == 3:
-            spec = P(dp, None, m)
+            spec = P(dp, m if ok("ssd") else None, None, None)
+        elif re.search(r"\.conv(_x)?$", ps) and core == 3:
+            block = "ssd" if ps.endswith("_x") else "rec"
+            spec = P(dp, None, m if ok(block) else None)
         else:
             spec = P(*([None] * core))
         if lead:

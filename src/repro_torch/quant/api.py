@@ -29,6 +29,9 @@ joins projections that share a tapped input), and quantize.
   a column-split weight's statistics (and, for the gate's drift, its last
   D) are gathered whole, D is computed as world 1 computes it, and the
   rank keeps its slice: every child is bit for bit the slice of world 1's.
+  An expert stack split over the ranks (the rank's whole experts) needs
+  nothing from the others: D per expert from the rank's experts' rows of
+  the statistics, and an eager member's inline SVD is of whole experts.
 * :func:`lowrank_tree` — the data-free SVD factors, computed once per model.
 """
 from __future__ import annotations
@@ -268,7 +271,7 @@ class FusedRequantPlan:
                              eff=eff, stat_key=stat_key, stat_tree=parts[0],
                              split=split_of(ps, pctx))
             if not has_ba and _factored(eff, leaf):
-                if self._tp and member.split is not None:
+                if self._tp and member.split in ("row", "col"):
                     raise NotImplementedError(
                         f"{ps}: an inline SVD of a weight slice is not the "
                         f"slice of the weight's SVD; pass factors computed "
@@ -430,7 +433,9 @@ class FusedRequantPlan:
         its snapshot in ``last_D`` ({path: (lead..., d) f32}), the largest
         over the member's layers; members without a snapshot are omitted
         (the gate requantizes them).  Computed on the device, then one
-        host transfer of the per-member scalars."""
+        host transfer of the per-member scalars; under tensor parallelism
+        the largest over the ranks (a split expert stack's drift is its
+        rank's experts'), so every rank's gate takes the same families."""
         tracked = [m for ms in self.families.values() for m in ms
                    if m.path_str in last_D]
         if not tracked:
@@ -450,6 +455,8 @@ class FusedRequantPlan:
             den = torch.linalg.vector_norm(Dp, dim=-1) + 1e-12
             vals.append((num / den).max())
         host = torch.stack(vals).cpu().tolist()        # the one transfer
+        if self._tp:            # split experts' drifts are the rank's own
+            host = comm.agree(host, self.pctx, "max")
         return {m.path_str: v for m, v in zip(tracked, host)}
 
     def gate(self, drifts: Dict[str, float], threshold: float,

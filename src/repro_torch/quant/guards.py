@@ -64,8 +64,8 @@ class GuardConfig:
 def stats_summary(tree: Any, pctx=None) -> Tuple[bool, float]:
     """``(all_finite, mean |leaf|)`` of a statistics tree, on the host.
     One host read of the flag and each leaf's Σ|x|; under ``pctx`` the
-    sums of the column-split leaves are summed over the ranks and the
-    flag min-reduced (without ``pctx`` both agreements are the identity)."""
+    sums of the column-split leaves and of split experts' rows are summed
+    over the ranks and the flag min-reduced (without ``pctx`` both agreements are the identity)."""
     from repro_torch.parallel import comm
     from repro_torch.parallel.rules import split_of
 
@@ -74,7 +74,7 @@ def stats_summary(tree: Any, pctx=None) -> Tuple[bool, float]:
     if not pairs:
         return True, 0.0
     leaves = [t for _, t in pairs]
-    split = [split_of(ps, pctx) == "col" for ps, _ in pairs]
+    split = [split_of(ps, pctx) in ("col", "expert") for ps, _ in pairs]
     finite = torch.stack([torch.isfinite(x).all() for x in leaves]).all()
     host = torch.stack([finite.float()]
                        + [x.abs().float().sum() for x in leaves]).cpu().tolist()
@@ -95,7 +95,7 @@ def qt_health(tree: Any, prev_dinv: Dict[str, torch.Tensor],
     last-good tree's (``prev_dinv``: path → previous dinv) bounded.
     Returns ``(healthy, max drift observed)``.  One host read of the flag
     and each D⁻¹'s two squared norms; under ``pctx`` the norms of a
-    column-split D⁻¹ are summed over the ranks and the flag min-reduced
+    column-split D⁻¹ (or of split experts' D⁻¹) are summed over the ranks and the flag min-reduced
     (without ``pctx`` both agreements are the identity)."""
     from repro_torch.core.ttq import QuantizedTensor
     from repro_torch.parallel import comm
@@ -115,7 +115,7 @@ def qt_health(tree: Any, prev_dinv: Dict[str, torch.Tensor],
                 and prev.shape == leaf.dinv.shape:
             new, old = leaf.dinv.float().ravel(), prev.float().ravel()
             sq += [((new - old) ** 2).sum(), (old ** 2).sum()]
-            split.append(split_of(ps, pctx) == "col")
+            split.append(split_of(ps, pctx) in ("col", "expert"))
     if not arrs:
         return True, 0.0
     finite = torch.stack([torch.isfinite(a).all() for a in arrs]).all()

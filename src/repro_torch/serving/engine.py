@@ -42,8 +42,10 @@ parameters (the same seed everywhere) and runs the same requests; the
 engine binds the layout (``parallel/rules.py:bind``, with the policies'
 column alignment), computes the low-rank factors on the whole weights,
 keeps the rank's slices (``DeviceRunner.place_params``) and from then on
-holds only those.  Families without plain attention raise
-``NotImplementedError`` at a world above 1, naming their ROADMAP item.
+holds only those.  Every family serves this way: a MoE layer takes
+``pctx.moe_impl`` (``"a2a"`` by default, as the reference's: token
+dispatch with capacity, count statistics; ``"dense"``: each rank's
+experts over every token).
 """
 from __future__ import annotations
 

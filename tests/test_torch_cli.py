@@ -90,9 +90,9 @@ def test_port_flags_and_refusals():
         ap.parse_args(["--arch", "llama3_8b"])           # not ported
     with pytest.raises(SystemExit):
         ap.parse_args(BASE + ["--inject", "nonsense"])
-    with pytest.raises(NotImplementedError, match=r"A10 \(b2\)"):
-        serve.main(["--arch", "mamba2_1p3b", "--smoke", "--mesh", "2",
-                    "--device", "cpu"])          # no TP port for SSD yet
+    with pytest.raises(ValueError, match="paged KV cache supports plain"):
+        serve.main(["--arch", "mamba2_1p3b", "--smoke", "--kv-paged",
+                    "--device", "cpu"])          # the reference's refusal
 
 
 def test_main_end_to_end_on_the_cpu(capsys):

@@ -16,8 +16,10 @@ the CPU), held to the reference and to the port's own world 1.
 * (iv) speculation (W = 2) at world 2 against world 1 without it;
 * (v) the default policy (rank 16, gate 0.05, guards on) at world 2: the
   same layers requantized on both ranks and at world 1;
-* (vi) ``launch.serve --mesh 2`` against ``--mesh 1``;
-* (vii) a family outside the slice refuses a world above 1.
+* (vi) ``launch.serve --mesh 2`` against ``--mesh 1``.
+
+The other five families are held the same way in
+``tests/test_torch_parallel_families.py``.
 
 Worlds 2 and 4 run in one spawn of four processes for the whole module
 (``tests/_torch_tp_worker.py:tp_suite``), under a timeout, so a
@@ -371,29 +373,6 @@ def test_serve_cli_mesh2_matches_mesh1(capfd):
     assert {r: list(v) for r, v in two.items()} == \
         {r: list(v) for r, v in one.items()}
     assert "mesh: (1, 2) data×model over 2 rank(s), backend gloo" in out
-
-
-# ---------------------------------------------- (vii) other families
-
-@pytest.mark.parametrize("arch,item", [
-    ("mamba2_1p3b", "A10 (b2)"), ("recurrentgemma_9b", "A10 (b2)"),
-    ("whisper_medium", "A10 (b2)"), ("deepseek_v2_lite_16b", "A10 (b2)"),
-    ("llama4_scout_17b_a16e", "A10 (c)")])
-def test_other_families_refuse_world2(arch, item):
-    """A family outside the slice raises NotImplementedError naming its
-    ROADMAP item at world 2, from the engine and from the model entry
-    points alike (the placement rules need no process group to decide)."""
-    from repro_torch.models import lm
-    from repro_torch.serving import EngineConfig, TTQEngine
-    cfg = t_get(arch, smoke=True)
-    pctx = ParallelCtx(mesh=Mesh(shape={"data": 1, "model": 2}))
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
-                       .replace(")", r"\)")):
-        TTQEngine(cfg, {}, ttq_policy(), EngineConfig(), device="cpu",
-                  pctx=pctx)
-    with pytest.raises(NotImplementedError, match="A10"):
-        lm.decode_step(cfg, {}, {}, torch.zeros((1, 1), dtype=torch.int32),
-                       torch.zeros((1,), dtype=torch.int32), pctx=pctx)
 
 
 # ------------------------------------------------------ on the card

@@ -153,7 +153,6 @@ QUEUED_NAMES = {
     "repro.configs": {"cells": "A12", "skip_reason": "A12"},
     "repro.launch.mesh": {"make_production_mesh": "A12"},
     "repro.models.common": {"opt_level": "§C: one attention path"},
-    "repro.models.layers": {"moe_a2a": "A10 (c)", "moe_apply_a2a": "A10 (c)"},
     "repro.optim": {"compress_state_init": "A10 (d)",
                     "compressed_psum": "A10 (d)"},
     "repro.parallel": {"shard_map": "§C: no PyTorch counterpart"},
