@@ -57,8 +57,8 @@
    checks (a)-(e).
 3e. Self-speculative decoding (``speculate_k=SPEC_W``): (a) [3d]'s policy
    and factors with its int4 rank-0 draft; (b) bf16 weights, int8 KV and
-   an int4 g32 draft (draft-only quantization) at full depth, on the dense
-   slab and on the paged pool; (c) (b) on the first layer.  Every
+   an int4 g32 draft (draft-only quantization) on DEPTH_3E_B layers, on
+   the dense slab and on the paged pool; (c) (b) on the first layer.  Every
    speculative block is a graph replay held bit for bit to an eager
    ``speculate_many``; paged tokens equal dense ones; in (a), (b) and (c)
    each request's first disagreement with the non-speculative run must be
@@ -191,6 +191,21 @@
    TP_DELTA_3M of (a)'s world-1 ``"a2a"`` ones; deepseek-v2-lite's
    ``wkv_b`` expansion per layer at world 1 and on one rank; ms per
    decode step, the staged collectives' ms, peak GB per rank.
+3n. Data- and tensor-parallel training, which launches none of the
+   kernels: gemma-7b at full width on DEPTH_3N layers with [3k] (a)'s
+   batch, microbatches, remat and AdamW for STEPS_3N steps.  (a) A (1,1)
+   mesh over NCCL: losses, grad norms and masters bit for bit the Trainer
+   without a mesh; ms per step and peak GB of both.  Then two processes
+   sharing the card over gloo (collectives staged through pinned host
+   buffers): (b) (2,1) with ZeRO-1 and (c) (1,2): the ranks' losses equal
+   and within DP_RTOL_3N of (a)'s, every rank's master slice within the
+   DP rule of (a)'s, ms per step and the staged collectives' ms, peak GB
+   and optimizer GB per rank ((b)'s below 0.6× (a)'s); (d) on
+   RESTORE_DEPTH_3N layers, a save at (2,1) restored onto (1,2) by
+   ``ElasticController.rescale``, every leaf bit for bit the live state's
+   slice, the next step's loss within the DP rule of the live one's; (e)
+   ``make_compressed_dp_step`` at (2,1) on the 100m preset, its masters
+   within COMPRESSED_REL_3N (relative L2) of the uncompressed step's.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 5. Seconds per phase and for the whole script.
 
@@ -260,8 +275,11 @@ SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clock (time_ms)
 HOST_LAUNCH = re.compile(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)\w*")
 # phase 3d: the reference's default policy.  Exact top-16 SVD (cuSOLVER
 # gesvd) takes 0.8-1.0 s per gemma-7b weight matrix on an H100, ~6 s per
-# layer, so [3d] runs 8 of the 28 layers at full width (PERF.md).
-DEPTH_3D = 8
+# layer, so [3d] runs 4 of the 28 layers at full width (8 before [3n]
+# needed the time; its near-tie checks pass at 4, tools/near_tie_probe.py,
+# PERF.md).  [3e] (b) runs DEPTH_3E_B layers (28 before, likewise).
+DEPTH_3D = 4
+DEPTH_3E_B = 14
 RANK_3D = 16
 THRESHOLD_3D = 0.05
 SVD_TOL = 1e-4                 # relative, against a float64 CPU SVD
@@ -281,15 +299,16 @@ FAMILIES_3G = ("minitron_4b", "starcoder2_15b", "granite_34b")
 # [3g]'s depths at full width: granite-34b a reduced-depth witness of its
 # G = 48 (fit_depth, which would give 57 layers on an 80 GB card, is held
 # by chameleon-34b in [3h]); minitron-4b (32 layers) and starcoder2-15b
-# (40) cut to 16 to pay for [3m], so that the whole script stays under
-# 950 s
-DEPTHS_3G = {"minitron_4b": 16, "starcoder2_15b": 16, "granite_34b": 16}
+# (40) cut to 16 to pay for [3m], then all three to 8 to pay for [3n]
+# (their checks are exact: paged tokens equal dense ones, replays equal
+# eager blocks)
+DEPTHS_3G = {"minitron_4b": 8, "starcoder2_15b": 8, "granite_34b": 8}
 # the other earlier paths cut to pay for [3m] (full width kept):
 # recurrentgemma-9b in [3h] (a) to 4 units of (rec, rec, lattn) of its 38
-# layers, chameleon-34b in [3h] (b) to 16 of fit_depth's 31, gemma-7b to 14
-# of its 28 layers in [3f] and in [3l]
+# layers, chameleon-34b in [3h] (b) to 16 of fit_depth's 31 (8 since
+# [3n]), gemma-7b to 14 of its 28 layers in [3f] and in [3l]
 HYBRID_DEPTH_3H = 12
-VLM_DEPTH_3H = 16
+VLM_DEPTH_3H = 8
 DEPTH_3F = 14
 TP_DEPTH_3L = 14
 FIT_RESERVE_GB = 8             # card memory kept from fit_depth's weights
@@ -367,9 +386,26 @@ RESTORE_DEPTH_3K = 1
 PRESET_100M = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
                    d_ff=2304, vocab=32768, seq=1024, batch=32)
 STEPS_3K_B = 300
-TRAIN_BUDGET_3K_B = 60.0       # seconds of (b)'s training before it stops
-                               # (cut from 120 to leave the script time for [3l])
+TRAIN_BUDGET_3K_B = 20.0       # seconds of (b)'s training before it stops
+                               # (cut from 120 to 60 for [3l], then to 20
+                               # for [3n]; PERF.md)
 DENSE_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 peak
+# [3n]: data- and tensor-parallel training of gemma-7b at full width on
+# DEPTH_3N layers (2 × 276.8M + the 786.4M tied embedding: 16.1 GB of f32
+# masters and moments, ~8 GB per rank under ZeRO-1 at D = 2, so two ranks
+# fit on the card; [3k] (a)'s 9 layers would not) with [3k] (a)'s batch;
+# (d) on RESTORE_DEPTH_3N layers; (e) the 100m preset for STEPS_3N_E
+# steps.  DP_RTOL_3N / DP_ATOL_3N: the reference's microbatch-equivalence
+# tolerance (tests/test_training.py:57,62), the rule a mesh's losses and
+# masters are held to against (a); COMPRESSED_REL_3N the reference's bound
+# for the compressed step (tests/test_training.py:118)
+DEPTH_3N = 2
+STEPS_3N = 3
+RESTORE_DEPTH_3N = 1
+STEPS_3N_E = 5
+DP_RTOL_3N, DP_ATOL_3N = 2e-2, 2e-3
+COMPRESSED_REL_3N = 0.05
+TIMEOUT_3N = 600               # seconds for (b)-(e)'s ranks to finish
 
 
 class CheckFailed(RuntimeError):
@@ -2437,8 +2473,9 @@ def speculation(torch, dev, cfg, params, factors) -> dict:
     (a) the reference's default policy (rank 16 with [3d]'s factors of its
     first DEPTH_3D layers, gate, double buffer) on DEPTH_3D layers with its
     default int4 rank-0 draft;
-    (b) draft-only, bf16 weights with an int4 g32 draft, at full depth on
-    the dense slab and on the paged pool (block 16); (c) (b) on the first
+    (b) draft-only, bf16 weights with an int4 g32 draft, on DEPTH_3E_B
+    layers on the dense slab and on the paged pool (block 16); (c) (b) on
+    the first
     layer alone, the witness that rounding is not amplified there.
     Each through :func:`spec_case`; then the kernel checks over the path."""
     from repro_torch.core import KernelConfig, KVCacheConfig, NO_QUANT
@@ -2468,12 +2505,13 @@ def speculation(torch, dev, cfg, params, factors) -> dict:
     draft = dict(draft_policy=ttq_policy(bits=4, group_size=32, rank=0,
                                          packed=True, kvcache=kv8,
                                          kernel=kern))
-    res["b"], outs["b"] = spec_case(torch, dev, cfg, params, pol_b,
+    cfg_b, params_b = cut(cfg, params, DEPTH_3E_B)
+    res["b"], outs["b"] = spec_case(torch, dev, cfg_b, params_b, pol_b,
                                     "(b) dense", prompts, engine_kw=draft)
-    res["b"]["near_ties"] = near_ties(torch, cfg, outs["b"], prompts,
+    res["b"]["near_ties"] = near_ties(torch, cfg_b, outs["b"], prompts,
                                       "(b) dense", False)
     res["b paged"], outs["b paged"] = spec_case(
-        torch, dev, cfg, params, pol_b, "(b) paged", prompts,
+        torch, dev, cfg_b, params_b, pol_b, "(b) paged", prompts,
         engine_kw=draft, nonspec=False, kv_paged=True, kv_block_size=BLOCK)
     check(outs["b paged"]["spec"] == outs["b"]["spec"],
           f"(b): paged tokens differ from the dense run's: leading tokens "
@@ -5076,6 +5114,398 @@ def training(torch, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 3n
+
+def opt_bytes(opt_state) -> int:
+    """Bytes of the optimizer state's leaves on this rank."""
+    from repro_torch._tree import tree_leaves
+    return sum(t.numel() * t.element_size() for k in ("master", "m", "v")
+               for t in tree_leaves(opt_state[k]))
+
+
+def dp_rule(torch, want, got) -> float:
+    """The largest |got − want| / (DP_ATOL_3N + DP_RTOL_3N·|want|): ≤ 1 is
+    within the reference's microbatch-equivalence tolerance."""
+    want, got = want.float(), got.float()
+    return float(((got - want).abs()
+                  / (DP_ATOL_3N + DP_RTOL_3N * want.abs())).max())
+
+
+def held_masters(torch, tr, masters_dir) -> float:
+    """The worst DP-rule ratio of the rank's master slices against (a)'s
+    whole masters on disk (one .npy per leaf, leaf order)."""
+    from repro_torch._tree import tree_leaves
+    worst = 0.0
+    for i, (t, sh) in enumerate(zip(tree_leaves(tr.opt_state["master"]),
+                                    tree_leaves(tr.oshard["master"]))):
+        whole = np.load(os.path.join(masters_dir, f"{i}.npy"),
+                        mmap_mode="r")
+        want = torch.from_numpy(np.array(whole[sh.index(whole.shape)])).to(
+            t.device)
+        worst = max(worst, dp_rule(torch, want, t))
+        del want
+    return worst
+
+
+def mesh_train_3n(torch, dev, payload, data, model) -> dict:
+    """[3n] (b), (c): the (data, model) mesh's Trainer on the rank's rows,
+    STEPS_3N steps; losses, ms per step and the staged collectives' ms
+    over the warm steps, peak GB, optimizer bytes, and the worst DP-rule
+    ratio of the rank's masters against (a)'s."""
+    from repro_torch.data import token_stream
+    from repro_torch.launch.mesh import make_ctx, make_mesh
+    from repro_torch.parallel import comm
+    from repro_torch.training import Trainer
+    pctx = make_ctx(make_mesh(data, model, device=dev.type))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(payload["cfg"], payload["tc"],
+                 token_stream(payload["dc"], 0, host_id=pctx.dp_rank,
+                              n_hosts=pctx.dp_world, device=dev),
+                 pctx=pctx, device=dev)
+    init_s = time.perf_counter() - t0
+    tr.run(1)
+    s0 = dict(comm.STAGED_S)
+    tr.run(STEPS_3N - 1)
+    warm = [m["time_s"] * 1e3 for m in tr.metrics_log[1:]]
+    staged = {k: (comm.STAGED_S[k] - s0[k]) * 1e3 / len(warm) for k in s0
+              if comm.STAGED_S[k] > s0[k]}
+    out = dict(loss=[m["loss"] for m in tr.metrics_log],
+               grad_norm=[m["grad_norm"] for m in tr.metrics_log],
+               cold_ms=tr.metrics_log[0]["time_s"] * 1e3,
+               ms=statistics.median(warm), staged_ms=staged,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               opt_gb=opt_bytes(tr.opt_state) / 1e9, init_s=init_s,
+               rank=(pctx.dp_rank, pctx.rank), backend=pctx.mesh.backend)
+    out["master_ratio"] = held_masters(torch, tr, payload["masters"])
+    del tr
+    free(torch)
+    return out
+
+
+def mesh_digest(torch, t, sh, shape) -> int:
+    """A 64-bit digest of the whole leaf of global ``shape`` whose slice
+    this rank holds as ``t`` (by ``sh``): Σ wᵢ·bitsᵢ over the slice, wᵢ an
+    odd function of the element's global index, wrapping in int64, summed
+    over the mesh's ranks.  Two partitions of the same bits give the same
+    digest; one element that differs always changes it (w odd)."""
+    from repro_torch.parallel import comm
+    bits = t.contiguous().view({4: torch.int32, 2: torch.int16}[
+        t.element_size()]).long().reshape(t.shape)
+    idx = sh.index(shape)
+    strides = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        strides[d] = strides[d + 1] * shape[d + 1]
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    rows = max(1, (1 << 24) // max(1, bits[0].numel() if bits.dim() else 1))
+    for r0 in range(0, bits.shape[0] if bits.dim() else 1, rows):
+        part = bits[r0:r0 + rows] if bits.dim() else bits
+        g = torch.zeros((), dtype=torch.int64, device=t.device)
+        for d in range(part.dim()):
+            start = idx[d].start + (r0 if d == 0 else 0)
+            ar = torch.arange(start, start + part.shape[d],
+                              dtype=torch.int64, device=t.device)
+            g = g + (ar * strides[d]).view(
+                [-1 if j == d else 1 for j in range(part.dim())])
+        w = g * 0x9E3779B97F4A7C1 * 2 + 1          # odd
+        total += (w * part).sum()
+    for axis in ("model", "data"):
+        if sh.dims(axis):               # a replicated axis holds it whole
+            total = comm.all_reduce(total, sh.pctx, axis=axis)
+    return int(total)
+
+
+def elastic_3n(torch, dev, payload) -> dict:
+    """[3n] (d), on RESTORE_DEPTH_3N layers: a ZeRO-1 Trainer at (2,1)
+    takes a step and writes its own checkpoint (the optimizer state;
+    every rank takes part, rank 0 writes); ``ElasticController.rescale``
+    restores it onto (1,2) (no parameters: the Trainer's are its masters
+    cast), and every restored leaf is held to the live one by
+    :func:`mesh_digest` (the same 64-bit digest of the whole leaf from
+    either partition); then step 2 live at (2,1) and restored at (1,2) on
+    the same global batch."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.data import token_stream
+    from repro_torch.launch.mesh import make_ctx, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import param_sharding
+    from repro_torch.parallel.rules import bind
+    from repro_torch.runtime import ElasticController
+    from repro_torch.training import Trainer
+    from repro_torch.training.trainer import opt_sharding
+    cfg, dc = payload["cfg1"], payload["dc"]
+    tc = dataclasses.replace(payload["tc1"], checkpoint_every=1)
+    p21 = make_ctx(make_mesh(2, 1, device=dev.type))
+    p12 = bind(make_ctx(make_mesh(1, 2, device=dev.type)), cfg)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, token_stream(dc, 0, host_id=p21.dp_rank,
+                                       n_hosts=2, device=dev),
+                 pctx=p21, device=dev)
+    t0 = time.perf_counter()
+    tr.run(1)                           # the step, then its checkpoint
+    save_s = time.perf_counter() - t0 - tr.metrics_log[-1]["time_s"]
+    whole = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    like = tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+                                          device=dev).expand(p.shape),
+                    whole)              # global shapes, no memory
+    del whole
+    opt_like = {"step": torch.zeros((), dtype=torch.int32),
+                "master": like, "m": like, "v": like}
+    mgr, tr.ckpt = tr.ckpt, None        # the live step writes no second
+    t0 = time.perf_counter()
+    _, opt = ElasticController.rescale(
+        mgr, 1, {}, opt_like, p12,
+        lambda o, _, c: opt_sharding(o, param_sharding(like, c), c, True))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    new_sh = opt_sharding(opt_like, param_sharding(like, p12), p12, True)
+    exact, leaves = True, 0
+    for old, osh, got, nsh, shape in zip(
+            tree_leaves(tr.opt_state), tree_leaves(tr.oshard),
+            tree_leaves(opt), tree_leaves(new_sh), tree_leaves(opt_like)):
+        exact &= mesh_digest(torch, old, osh, shape.shape) \
+            == mesh_digest(torch, got, nsh, shape.shape)
+        leaves += 1
+    live_step = tr.run(1)[-1]
+    ckpt_gb = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(mgr.dir) for f in fs) / 1e9
+    del tr
+    free(torch)
+    tr2 = Trainer(cfg, payload["tc"], token_stream(dc, 0, start_step=1,
+                                                   device=dev),
+                  pctx=p12, device=dev)
+    tr2.opt_state, tr2.step = opt, 1
+    del opt
+    again = tr2.run(1)[-1]
+    out = dict(exact=exact, leaves=leaves, save_s=save_s,
+               restore_s=restore_s, loss_live=live_step["loss"],
+               loss_restored=again["loss"], checkpoint_gb=ckpt_gb,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del tr2
+    free(torch)
+    return out
+
+
+def compressed_3n(torch, dev, payload) -> dict:
+    """[3n] (e): ``make_compressed_dp_step`` at (2,1) on the 100m preset
+    for STEPS_3N_E steps on the rank's rows of each batch; rank 0 then runs
+    the uncompressed step at world 1 on the whole batches."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.data import token_stream
+    from repro_torch.launch.mesh import make_ctx, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init, compress_state_init
+    from repro_torch.training import make_train_step
+    from repro_torch.training.trainer import make_compressed_dp_step
+    cfg, dc, tc = payload["cfg_m"], payload["dc_m"], payload["tc_e"]
+    pctx = make_ctx(make_mesh(2, 1, device=dev.type))
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    opt_c, err = adamw_init(params), compress_state_init(params)
+    step = make_compressed_dp_step(cfg, tc, pctx)
+    rows = token_stream(dc, 0, host_id=pctx.dp_rank, n_hosts=2, device=dev)
+    p, losses, ms = params, [], []
+    for _ in range(STEPS_3N_E):
+        t0 = time.perf_counter()
+        p, opt_c, err, m = step(p, opt_c, err, next(rows))
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = dict(loss=losses, ms=statistics.median(ms[1:]), cold_ms=ms[0],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if pctx.dp_rank == 0:
+        opt_u = adamw_init(params)
+        unc = make_train_step(cfg, tc, param_dtypes=tree_map(
+            lambda t: t.dtype, params))
+        whole = token_stream(dc, 0, device=dev)
+        for _ in range(STEPS_3N_E):
+            opt_u, mu = unc(opt_u, next(whole))
+        num = den = 0.0
+        for a, b in zip(tree_leaves(opt_c["master"]),
+                        tree_leaves(opt_u["master"])):
+            num += float(((a - b).double() ** 2).sum())
+            den += float((b.double() ** 2).sum())
+        out["rel_l2"] = (num / den) ** 0.5
+        out["loss_uncompressed"] = float(mu["loss"])
+    del params, p, opt_c, err
+    free(torch)
+    return out
+
+
+def train_rank_3n(payload) -> dict:
+    """One rank of [3n] (b)-(e), in its own process sharing the card over
+    gloo (collectives staged through pinned host buffers)."""
+    import torch
+    dev = torch.device(payload["device"])
+    out, secs = {}, {}
+    for part, fn in (("e", lambda: compressed_3n(torch, dev, payload)),
+                     ("b", lambda: mesh_train_3n(torch, dev, payload, 2, 1)),
+                     ("c", lambda: mesh_train_3n(torch, dev, payload, 1, 2)),
+                     ("d", lambda: elastic_3n(torch, dev, payload))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        secs[part] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+RANK_FN_3N = train_rank_3n
+
+
+def parallel_training(torch, dev) -> dict:
+    """Phase 3n: data- and tensor-parallel training of gemma-7b at full
+    width on DEPTH_3N layers ([3k] (a)'s batch, microbatches, remat and
+    AdamW): (a) a (1,1) mesh over NCCL against the Trainer without a mesh,
+    bit for bit; then two processes sharing the card over gloo: (b) (2,1)
+    with ZeRO-1, (c) (1,2), each held to (a) by the DP rule; (d) a save at
+    (2,1) restored onto (1,2) by ``ElasticController.rescale``; (e) the
+    compressed data-parallel step on the 100m preset against the
+    uncompressed one."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, token_stream
+    from repro_torch.launch.mesh import make_ctx, make_mesh, spawn
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.training import TrainConfig, Trainer
+    t_all = time.perf_counter()
+    full = get("gemma_7b")
+    cfg = dataclasses.replace(full, n_layers=DEPTH_3N)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=SEQ_3K, batch=BATCH_3K,
+                    seed=SEED)
+    tc = TrainConfig(n_microbatches=MB_3K, remat=True, warmup=2,
+                     total_steps=100)
+    runs = {}
+    mesh = make_mesh(1, 1, device=dev.type)
+    check(mesh.backend == "nccl", f"[3n] (a) chose {mesh.backend}, not nccl")
+    for name, pctx in (("none", None), ("(1,1)", make_ctx(mesh))):
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, tc, token_stream(dc, 0, device=dev), pctx=pctx,
+                     device=dev)
+        log = tr.run(STEPS_3N)
+        runs[name] = dict(loss=[m["loss"] for m in log],
+                          grad_norm=[m["grad_norm"] for m in log],
+                          ms=statistics.median(m["time_s"] * 1e3
+                                               for m in log[1:]),
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          opt_gb=opt_bytes(tr.opt_state) / 1e9,
+                          master=tree_leaves(tr.opt_state["master"]))
+        del tr, log
+        free(torch)
+    a, b = runs["none"], runs["(1,1)"]
+    same = (a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+            and all(torch.equal(x, y) for x, y in zip(a["master"],
+                                                       b["master"])))
+    check(same, f"[3n] (a) the (1,1) mesh is not pctx=None bit for bit: "
+          f"losses {a['loss']} vs {b['loss']}")
+    n_params = sum(t.numel() for t in a["master"])
+    print(f"  [3n] (a) {cfg.name} full width, {DEPTH_3N} of {full.n_layers} "
+          f"layers, {n_params / 1e9:.3f} B parameters: the (1,1) mesh over "
+          f"NCCL bit for bit pctx=None (losses {a['loss']}, grad norms, "
+          f"masters); ms per step {b['ms']:.1f} vs {a['ms']:.1f}; peak "
+          f"{b['peak_gb']:.2f} vs {a['peak_gb']:.2f} GB; optimizer state "
+          f"{a['opt_gb']:.2f} GB")
+    out = {"a": dict(loss=a["loss"], grad_norm=a["grad_norm"],
+                     ms={"none": a["ms"], "(1,1)": b["ms"]},
+                     peak_gb={"none": a["peak_gb"], "(1,1)": b["peak_gb"]},
+                     opt_gb=a["opt_gb"], params=n_params, bitwise=same)}
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        for i, t in enumerate(a["master"]):    # what each rank is held to
+            np.save(os.path.join(tmp, f"{i}.npy"), t.cpu().numpy())
+        del runs, a, b
+        free(torch)
+        p = PRESET_100M
+        payload = dict(
+            device=dev.type, cfg=cfg, tc=tc, dc=dc, masters=tmp,
+            cfg1=dataclasses.replace(full, n_layers=RESTORE_DEPTH_3N),
+            tc1=dataclasses.replace(tc, checkpoint_dir=os.path.join(
+                tmp, "ckpt")),
+            cfg_m=ModelConfig(name="ttq-lm-100m", family="dense",
+                              n_layers=p["n_layers"], d_model=p["d_model"],
+                              n_heads=p["n_heads"],
+                              n_kv_heads=p["n_kv_heads"], d_ff=p["d_ff"],
+                              vocab=p["vocab"]),
+            dc_m=DataConfig(vocab=p["vocab"], seq_len=p["seq"],
+                            batch=p["batch"], seed=11),
+            tc_e=TrainConfig(n_microbatches=1, remat=True, warmup=1,
+                             total_steps=100))
+        t0 = time.perf_counter()
+        ranks = spawn(RANK_FN_3N, 2, payload, device=dev.type,
+                      timeout=TIMEOUT_3N)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    la = out["a"]["loss"]
+    for part, mesh_name in (("b", "(2,1) ZeRO-1"), ("c", "(1,2)")):
+        rs = [r[part] for r in ranks]
+        for x in rs:
+            check(x["backend"] == "gloo", f"[3n] ({part}) chose "
+                  f"{x['backend']}, not gloo")
+            check(x["loss"] == rs[0]["loss"], f"[3n] ({part}) the ranks' "
+                  f"losses differ: {[y['loss'] for y in rs]}")
+            check(bool(np.allclose(x["loss"], la, rtol=DP_RTOL_3N, atol=0)),
+                  f"[3n] ({part}) losses {x['loss']} not within rtol "
+                  f"{DP_RTOL_3N} of (a)'s {la}")
+            check(x["master_ratio"] <= 1.0, f"[3n] ({part}) rank "
+                  f"{x['rank']}: masters at {x['master_ratio']:.3f} of the "
+                  f"DP tolerance of (a)'s")
+        out[part] = dict(loss=rs[0]["loss"], grad_norm=rs[0]["grad_norm"],
+                         ms=[x["ms"] for x in rs],
+                         staged_ms=[sum(x["staged_ms"].values()) for x in rs],
+                         staged_by_kind=rs[0]["staged_ms"],
+                         cold_ms=[x["cold_ms"] for x in rs],
+                         peak_gb=[x["peak_gb"] for x in rs],
+                         opt_gb=[x["opt_gb"] for x in rs],
+                         master_ratio=[x["master_ratio"] for x in rs])
+        o = out[part]
+        print(f"  [3n] ({part}) {mesh_name}, 2 processes on the card over "
+              f"gloo: losses {o['loss']} against (a)'s {la} (rtol "
+              f"{DP_RTOL_3N}); masters at most "
+              f"{max(o['master_ratio']):.3f} of the DP tolerance; ms per "
+              f"step {o['ms']} (staged collectives {o['staged_ms']} ms; "
+              f"rank 0 by kind {o['staged_by_kind']}); "
+              f"cold step {o['cold_ms']} ms; peak GB per rank "
+              f"{o['peak_gb']} (a: {out['a']['peak_gb']['none']:.2f}); "
+              f"optimizer GB per rank {o['opt_gb']} (a: "
+              f"{out['a']['opt_gb']:.2f})")
+    check(max(out["b"]["opt_gb"]) < 0.6 * out["a"]["opt_gb"],
+          f"[3n] (b) ZeRO-1 holds {out['b']['opt_gb']} GB of optimizer "
+          f"state per rank against (a)'s {out['a']['opt_gb']:.2f}")
+    d = [r["d"] for r in ranks]
+    check(all(x["exact"] for x in d), "[3n] (d) a restored leaf is not the "
+          "live state's slice bit for bit")
+    check(all(abs(x["loss_restored"] - x["loss_live"])
+              <= DP_RTOL_3N * abs(x["loss_live"]) for x in d),
+          f"[3n] (d) the restored step's loss {d[0]['loss_restored']} is not "
+          f"within rtol {DP_RTOL_3N} of the live one's {d[0]['loss_live']}")
+    out["d"] = d[0]
+    print(f"  [3n] (d) {RESTORE_DEPTH_3N} layer(s): saved at (2,1) "
+          f"({d[0]['checkpoint_gb']:.2f} GB on disk) in "
+          f"{d[0]['save_s']:.1f} s, ElasticController.rescale onto (1,2) in "
+          f"{max(x['restore_s'] for x in d):.1f} s; {d[0]['leaves']} leaves "
+          f"bit for bit the live state (digests of every whole leaf from "
+          f"either mesh equal); step 2 loss live "
+          f"{d[0]['loss_live']!r} restored {d[0]['loss_restored']!r}; peak "
+          f"GB per rank {[x['peak_gb'] for x in d]}")
+    e = ranks[0]["e"]
+    check(e["rel_l2"] < COMPRESSED_REL_3N, f"[3n] (e) the compressed step's "
+          f"masters are {e['rel_l2']:.4f} (relative L2) from the "
+          f"uncompressed step's")
+    out["e"] = dict(e, ms=[r["e"]["ms"] for r in ranks])
+    print(f"  [3n] (e) make_compressed_dp_step at (2,1) on the 100m preset, "
+          f"{STEPS_3N_E} steps: masters {e['rel_l2']:.3g} (relative L2) from "
+          f"the uncompressed step's (bound {COMPRESSED_REL_3N}); losses "
+          f"{e['loss']}; ms per step {out['e']['ms']} (cold {e['cold_ms']:.0f}"
+          f"); peak GB "
+          f"{e['peak_gb']:.2f}")
+    out["seconds"] = dict(ranks[0]["seconds"], spawn=spawn_s,
+                          total=time.perf_counter() - t_all)
+    print("  [3n] seconds per part: "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in out["seconds"].items()))
+    return out
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
@@ -5211,7 +5641,7 @@ def main(argv=None) -> int:
           f"default policy of [3d] (its first {DEPTH_3D} layers' factors) "
           f"with its int4 rank-0 draft, {DEPTH_3D} "
           f"layers; (b) bf16 weights, int8 KV, an int4 g32 draft, "
-          f"{cfg.n_layers} layers, dense and paged; (c) (b) on one layer")
+          f"{DEPTH_3E_B} layers, dense and paged; (c) (b) on one layer")
     spec = speculation(torch, dev, cfg, params, factors)
     print("    speculation: " + json.dumps(spec))
     lap("[3e]")
@@ -5305,6 +5735,18 @@ def main(argv=None) -> int:
     trn = training(torch, dev)
     print("    training: " + json.dumps(trn, default=str))
     lap("[3k]")
+    free(torch)
+
+    print(f"[3n] data- and tensor-parallel training: gemma-7b full width, "
+          f"{DEPTH_3N} layers, batch {BATCH_3K} x {SEQ_3K} in {MB_3K} "
+          f"microbatches, remat, AdamW, {STEPS_3N} steps: (a) a (1,1) mesh "
+          f"over NCCL against no mesh; then 2 processes sharing the card "
+          f"over gloo: (b) (2,1) with ZeRO-1, (c) (1,2), (d) save at (2,1), "
+          f"ElasticController.rescale onto (1,2) ({RESTORE_DEPTH_3N} layer), "
+          f"(e) the compressed DP step on the 100m preset")
+    ptr = parallel_training(torch, dev)
+    print("    parallel training: " + json.dumps(ptr, default=str))
+    lap("[3n]")
 
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "

@@ -1,3 +1,3 @@
-from .manager import CheckpointManager
+from .manager import CheckpointManager, reshard_restore
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "reshard_restore"]

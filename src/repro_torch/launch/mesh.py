@@ -13,7 +13,10 @@ when the world has at most one rank per visible GPU, else gloo with the
 ranks sharing the cards (NCCL refuses two ranks on one device), each
 collective staged through a pinned host buffer
 (:mod:`repro_torch.parallel.comm`).  The kernels launch on the card either
-way.  ``data > 1`` (data parallelism) is not ported (ROADMAP A10 (d)).
+way.  Ranks lie on the (data, model) mesh as ``jax.make_mesh((data,
+model))`` lays out devices: global rank d·model + m is model rank m of
+data row d, so a model group is a run of consecutive ranks (the
+training's data parallelism, ROADMAP A10 (d), adds the data groups).
 """
 from __future__ import annotations
 
@@ -39,13 +42,12 @@ def choose_backend(device: str, world: int) -> str:
 
 def make_mesh(data: int = 1, model: int = 1, *, device=None) -> Mesh:
     """A (data, model) mesh over this process's group.  Inside a larger
-    world (:func:`spawn`'s), ranks below ``data·model`` form a subgroup;
-    every rank of the world must call it, and the others get a mesh with
-    rank -1 that they do not use."""
-    if data > 1:
-        raise NotImplementedError(
-            f"make_mesh(data={data}): data parallelism is not ported "
-            f"(ROADMAP A10 (d)); use data=1")
+    world (:func:`spawn`'s), ranks below ``data·model`` form the mesh;
+    every rank of the world must call it (each creates every group, in
+    the same order), and the others get a mesh with rank -1 that they do
+    not use.  The mesh's ``group`` is this rank's model group (ranks
+    d·model .. d·model + model − 1), its ``dp_group`` its data group
+    (ranks m, model + m, ...; None at ``data == 1``)."""
     world = data * model
     device = device or os.environ.get("TTQ_MESH_DEVICE", "cuda")
     rank = int(os.environ.get("RANK", "0"))
@@ -61,24 +63,32 @@ def make_mesh(data: int = 1, model: int = 1, *, device=None) -> Mesh:
         if path is None:
             if world != 1:
                 raise RuntimeError(
-                    f"make_mesh(model={model}) needs the rendezvous of "
+                    f"make_mesh({data}, {model}) needs the rendezvous of "
                     f"repro_torch.launch.mesh.spawn (TTQ_MESH_STORE unset)")
             path = os.path.join(tempfile.mkdtemp(prefix="ttq_mesh_"), "store")
         size = int(os.environ.get("WORLD_SIZE", world))
         dist.init_process_group(backend, store=dist.FileStore(path, size),
                                 rank=rank, world_size=size)
     size = dist.get_world_size()
-    if world == size:
-        group = dist.group.WORLD
-    elif world < size:
-        group = dist.new_group(ranks=list(range(world)), backend=backend)
-        if rank >= world:
-            rank, group = -1, None
-    else:
+    if world > size:
         raise ValueError(f"a mesh of {world} ranks in a world of {size}")
-    return Mesh(group=group, shape={"data": data, "model": model},
+
+    def group(ranks):
+        return dist.group.WORLD if len(ranks) == size else dist.new_group(
+            ranks=ranks, backend=backend)
+    model_groups = [group([d * model + m for m in range(model)])
+                    for d in range(data)]
+    data_groups = [group([d * model + m for d in range(data)])
+                   for m in range(model)] if data > 1 else [None] * model
+    rank = dist.get_rank()
+    if rank >= world:
+        return Mesh(shape={"data": data, "model": model}, backend=backend,
+                    device=str(dev), rank=-1)
+    d, m = divmod(rank, model)
+    return Mesh(group=model_groups[d], shape={"data": data, "model": model},
                 backend=backend, device=str(dev),
-                stage=backend == "gloo" and dev.type == "cuda", rank=rank)
+                stage=backend == "gloo" and dev.type == "cuda", rank=m,
+                dp_group=data_groups[m], dp_rank=d)
 
 
 def make_ctx(mesh: Mesh, *, moe_impl: str = "a2a") -> ParallelCtx:

@@ -1,18 +1,23 @@
 """Training launcher — the Trainer over the synthetic token stream.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_7b \\
-        --smoke --device cpu --steps 20
+        --smoke --device cpu --steps 20 [--data-parallel 2 --model-parallel 2]
 
 Runs on the card unless ``--device cpu``.  The flags and the printed
-metric lines (the first three and the last three steps) are the reference
-launcher's (``repro.launch.train``).  ``--data-parallel`` or
-``--model-parallel`` above 1 (a mesh) is refused: data- and
-tensor-parallel training wait for ROADMAP A10 (d) (tensor-parallel
-serving is ported: ``launch/serve.py --mesh N``).
+metric lines (the first three and the last three steps, then the
+straggler count) are the reference launcher's (``repro.launch.train``).
+``--data-parallel D --model-parallel M`` above one rank spawns D·M
+processes (``launch/mesh.py:spawn``), each on ``make_ctx(make_mesh(D,
+M))`` with the reference's ``moe_impl`` default, each data row drawing
+its rows of the global batch; rank 0's lines are printed.  ``M > 1``
+trains tensor-parallel, which the plain-attention families (dense, vlm)
+take and the others refuse (ROADMAP A10 (e)).
 """
 from __future__ import annotations
 
 import argparse
+import sys
+import types
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -36,20 +41,13 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if args.data_parallel * args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--data-parallel {args.data_parallel} --model-parallel "
-            f"{args.model_parallel}: data- and tensor-parallel training "
-            f"(ROADMAP A10 (d)) is not ported yet; run with both at 1")
-
-    from repro_torch._device import resolve_device
+def _train(args, pctx=None):
+    """The reference launcher's run on this process (its rank of ``pctx``):
+    (the Trainer, the lines to print)."""
     from repro_torch.configs import get
     from repro_torch.data import DataConfig, token_stream
     from repro_torch.training import TrainConfig, Trainer
 
-    dev = resolve_device(args.device)
     cfg = get(args.arch, smoke=args.smoke)
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
                     seed=0)
@@ -59,15 +57,54 @@ def main(argv=None):
                      checkpoint_every=max(10, args.steps // 3),
                      checkpoint_dir=args.ckpt,
                      step_deadline_s=args.deadline_s)
-    tr = Trainer(cfg, tc, token_stream(dc, 0, device=dev), device=dev)
+    host, hosts = (0, 1) if pctx is None else (pctx.dp_rank, pctx.dp_world)
+    dev = args.device if pctx is None else pctx.mesh.device
+    tr = Trainer(cfg, tc, token_stream(dc, 0, host_id=host, n_hosts=hosts,
+                                       device=dev),
+                 pctx=pctx, device=dev)
     if args.resume:
         tr.restore_if_available()
     log = tr.run(args.steps)
-    for m in log[:3] + log[-3:]:
-        print({k: (round(v, 4) if isinstance(v, float) else v)
-               for k, v in m.items()})
+    lines = [str({k: (round(v, 4) if isinstance(v, float) else v)
+                  for k, v in m.items()}) for m in log[:3] + log[-3:]]
     if tr.skipped_steps:
-        print(f"straggler violations: {len(tr.skipped_steps)}")
+        lines.append(f"straggler violations: {len(tr.skipped_steps)}")
+    return tr, lines
+
+
+def _rank(argv):
+    """One rank of a ``--data-parallel``/``--model-parallel`` run: the
+    Trainer's record (picklable) and the lines."""
+    from repro_torch.launch.mesh import make_ctx, make_mesh
+    args = build_parser().parse_args(argv)
+    pctx = make_ctx(make_mesh(args.data_parallel, args.model_parallel))
+    tr, lines = _train(args, pctx)
+    return dict(step=tr.step, metrics_log=tr.metrics_log,
+                skipped_steps=tr.skipped_steps, device=tr.device,
+                lines=lines)
+
+
+def main(argv=None):
+    """Train; returns the Trainer (above one rank, rank 0's record: its
+    ``step``, ``metrics_log``, ``skipped_steps``, ``device``)."""
+    args = build_parser().parse_args(argv)
+    from repro_torch._device import resolve_device
+    from repro_torch.configs import get
+    from repro_torch.training.trainer import check_tp_training
+
+    dev = resolve_device(args.device)
+    check_tp_training(get(args.arch, smoke=args.smoke), args.model_parallel)
+    world = args.data_parallel * args.model_parallel
+    if world > 1:
+        from repro_torch.launch.mesh import spawn
+        out = spawn(_rank, world, sys.argv[1:] if argv is None else argv,
+                    device=dev.type)[0]
+        for line in out.pop("lines"):
+            print(line)
+        return types.SimpleNamespace(**out)
+    tr, lines = _train(args)
+    for line in lines:
+        print(line)
     return tr
 
 

@@ -32,7 +32,11 @@ def linear(x: torch.Tensor, w, stats: Optional[dict] = None, name: str = "",
     ('row'|'col'): w is the rank's slice under tensor parallelism; a
     'col' slice reads the rank's slice of the input (so the Σx² tap sees
     the features its weight slice needs) and its partial sums are
-    all-reduced over the model axis."""
+    all-reduced over the model axis; a 'row' slice reads the whole ``x``,
+    which enters the split block there (``comm.enter``: in training, its
+    cotangent is all-reduced over the model axis)."""
+    if tp == "row":
+        x = enter(x, pctx)
     if stats is not None:
         xf = x.float()
         s = (xf * xf).sum(dim=tuple(range(x.dim() - 1)))
@@ -46,6 +50,16 @@ def linear(x: torch.Tensor, w, stats: Optional[dict] = None, name: str = "",
         return comm.all_reduce(x @ w.to(x.dtype).T, pctx)
     # f32 partial sums, summed, then rounded once, as world 1 rounds once
     return comm.all_reduce(x.float() @ w.float().T, pctx).to(x.dtype)
+
+
+def enter(x: torch.Tensor, pctx) -> torch.Tensor:
+    """``x`` entering a block split over ``pctx``'s model axis
+    (``parallel.comm.enter``: in training its cotangent is all-reduced
+    there); ``x`` itself without a mesh."""
+    if pctx is None or pctx.mesh is None:
+        return x
+    from repro_torch.parallel import comm
+    return comm.enter(x, pctx)
 
 
 def init_linear(gen, d_out: int, d_in: int, dtype=torch.bfloat16,
@@ -319,7 +333,9 @@ def suffix_attention(q, k_cache, v_cache, pos, *, soft_cap: float = 0.0):
 def glu_mlp(x, p, stats=None, prefix="mlp", act="silu", kcfg=None,
             pctx=None):
     """Gated MLP (SwiGLU/GeGLU): (act(x@Wg) * (x@Wu)) @ Wd; under ``pctx``
-    wg/wu row-split and wd column-split over the hidden width."""
+    wg/wu row-split and wd column-split over the hidden width (one
+    block entry for both)."""
+    x = enter(x, pctx)
     g = linear(x, p["wg"], stats, f"{prefix}.wg", kcfg, pctx=pctx, tp="row")
     u = linear(x, p["wu"], None, kcfg=kcfg, pctx=pctx,
                tp="row")                      # same input as wg — tap once

@@ -35,7 +35,7 @@ import torch
 from repro_torch.core.kvquant import dequantize_kv, quantize_kv
 
 from .common import (ACT, apply_rope, attention, cache_update_batched,
-                     decode_attention, init_norm, linear, rmsnorm,
+                     decode_attention, enter, init_norm, linear, rmsnorm,
                      rope_decode, rope_window, seq_update_batched,
                      suffix_attention)
 from .config import ModelConfig
@@ -78,6 +78,7 @@ def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None, xkv=None,
     ``cfg`` counts its heads (``parallel/rules.py:local_cfg``)."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x = enter(x, pctx)                        # one block entry for q, k, v
     xkv = x if xkv is None else xkv
     q = linear(x, p["wq"], stats, prefix + "wq", kcfg, pctx=pctx,
                tp="row").reshape(B, -1, H, hd)

@@ -2,7 +2,7 @@
 
     init_params(cfg, generator, device)            → params tree
     forward(cfg, params, batch, collect_stats=)    → (logits, stats, states)
-    loss_fn(cfg, params, batch, remat=)            → (loss, aux)
+    loss_fn(cfg, params, batch, pctx=, remat=)     → (loss, aux)
     init_decode_state(cfg, batch, max_len, kvcfg, num_blocks=)
                                                    → decode state
     prefill(cfg, params, batch, max_len, ...)      → (logits, state, stats)
@@ -130,13 +130,14 @@ def _encode(cfg, params, frames, stats_on=False, pctx=None):
 
 def _head(cfg, params, x, kcfg=None, pctx=None):
     """f32 logits over the whole vocab; vocab-parallel under ``pctx`` (the
-    rank's rows of the tied head, then an all-gather of the logits)."""
+    rank's rows of the tied head, then an all-gather of the logits, in
+    their own dtype: widened after it, the same values for half the
+    bytes)."""
     vctx = block_ctx(pctx, "vocab")
-    logits = linear(x, params["embed"], kcfg=kcfg, pctx=vctx,
-                    tp="row").float()
+    logits = linear(x, params["embed"], kcfg=kcfg, pctx=vctx, tp="row")
     if vctx is not None:
         logits = comm.all_gather(logits, vctx, dim=-1)
-    return logits
+    return logits.float()
 
 
 def forward(cfg: ModelConfig, params, batch, *, collect_stats=False,
@@ -166,12 +167,19 @@ def forward(cfg: ModelConfig, params, batch, *, collect_stats=False,
     return logits, (stats if collect_stats else None), states
 
 
-def loss_fn(cfg: ModelConfig, params, batch, *, remat=False):
+def loss_fn(cfg: ModelConfig, params, batch, *, pctx=None, remat=False):
     """Next-token cross-entropy over :func:`forward`'s f32 logits, through
     a logsumexp and a gather.  ``batch['mask']`` (optional, f32, (B,S) or
     (B,S-1)) weights each target.  Returns (loss, {'loss', 'tokens'}),
-    'tokens' the mask's sum (at least 1)."""
-    logits, _, _ = forward(cfg, params, batch, remat=remat)
+    'tokens' the mask's sum (at least 1).  Under ``pctx`` ``params`` are
+    the rank's slices and ``batch`` the rank's rows of the global batch;
+    the loss is the global batch's: the weighted NLL and the mask summed
+    over the data axis, then divided (an all-reduce whose backward is the
+    identity, so each rank's gradient is its rows' share of the global
+    mean's, and the trainer sums the gradients over the data axis).  The
+    vocab-parallel head gathers the f32 logits whole, so the cross-entropy
+    is the same on every model rank."""
+    logits, _, _ = forward(cfg, params, batch, remat=remat, pctx=pctx)
     targets = batch["tokens"][:, 1:].long()
     lg = logits[:, :-1]
     lse = torch.logsumexp(lg, dim=-1)
@@ -183,8 +191,12 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat=False):
     elif mask.shape[1] == batch["tokens"].shape[1]:
         mask = mask[:, 1:]
     nll = (lse - gold) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = nll.sum() / denom
+    num, denom = nll.sum(), mask.sum()
+    if pctx is not None and pctx.mesh is not None and pctx.dp_world > 1:
+        num = comm.all_reduce(num, pctx, axis="data")
+        denom = comm.all_reduce(denom, pctx, axis="data")
+    denom = torch.clamp(denom, min=1.0)
+    loss = num / denom
     return loss, {"loss": loss, "tokens": denom}
 
 

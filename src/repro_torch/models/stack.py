@@ -212,21 +212,23 @@ def apply_layer_seq(cfg: ModelConfig, kind: str, p, x, stats, prefix, *,
     ``torch.utils.checkpoint``: backward recomputes their insides, and what
     is kept per layer is the two halves' outputs, two (B,S,D) tensors as
     the reference keeps ``mix_out`` and ``mlp_out``; it takes neither
-    stats nor a state.  ``pctx``: tensor parallelism (each block under
-    its layout's context, :func:`~repro_torch.parallel.rules.block_ctx`);
-    ``cfg`` is then the rank's (``rules.local_cfg``)."""
+    stats nor a state; the recomputation reruns a block's forward
+    collectives in backward.  ``pctx``: tensor parallelism (each block
+    under its layout's context,
+    :func:`~repro_torch.parallel.rules.block_ctx`); ``cfg`` is then the
+    rank's (``rules.local_cfg``)."""
     if remat:
         if want_state or stats is not None:
             raise ValueError("remat is for training: no stats, no state")
         ckpt = torch.utils.checkpoint.checkpoint
         x = ckpt(lambda x: _mix_seq(cfg, kind, p, x, None, prefix, pos0=pos0,
                                     kv_prefix=kv_prefix, kcfg=kcfg,
-                                    enc_out=enc_out)[0],
+                                    enc_out=enc_out, pctx=pctx)[0],
                  x, use_reentrant=False)
         if mlp_kind(cfg, kind) == "none":
             return x, None
-        return ckpt(lambda x: _mlp_apply(cfg, kind, p, x, None, prefix, kcfg),
-                    x, use_reentrant=False), None
+        return ckpt(lambda x: _mlp_apply(cfg, kind, p, x, None, prefix, kcfg,
+                                         pctx), x, use_reentrant=False), None
     x, st = _mix_seq(cfg, kind, p, x, stats, prefix, want_state=want_state,
                      max_len=max_len, kvcfg=kvcfg, kcfg=kcfg, pos0=pos0,
                      kv_prefix=kv_prefix, compact_state=compact_state,

@@ -59,16 +59,20 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g.float() * scale, grads), gn
 
 
-def adamw_step_(grads, opt_state, cfg: AdamWConfig, lr_t=None) -> dict:
+def adamw_step_(grads, opt_state, cfg: AdamWConfig, lr_t=None,
+                gn=None) -> dict:
     """One AdamW step on ``opt_state``, in place; returns the metrics
     {'grad_norm' (0-d tensor), 'lr' (float)}.  The bias corrections and the
-    lr are f32 host scalars of the step."""
+    lr are f32 host scalars of the step.  ``gn``: the global norm of the
+    whole gradient where ``grads`` are one rank's slices of it (default:
+    theirs, :func:`global_norm`)."""
     step = int(opt_state["step"]) + 1
     lr = cfg.lr if lr_t is None else lr_t
     f = np.float32
     b1c = float(f(1) - f(cfg.b1) ** f(step))
     b2c = float(f(1) - f(cfg.b2) ** f(step))
-    gn = global_norm(grads)
+    if gn is None:
+        gn = global_norm(grads)
     scale = _clip_scale(gn, cfg.grad_clip)
     for g, mst, m, v in zip(*(tree_leaves(t) for t in (
             grads, opt_state["master"], opt_state["m"], opt_state["v"]))):

@@ -1,5 +1,5 @@
-"""Tensor parallelism over ``torch.distributed``: the parallel context, the
-placement rules and the collectives.
+"""Tensor and data parallelism over ``torch.distributed``: the parallel
+context, the placement rules and the collectives.
 
 The exports are the reference's (``repro.parallel``) but for
 ``shard_map``, which has no PyTorch counterpart: a process per rank runs
@@ -8,7 +8,8 @@ the model on its local slices, and the wrappers of
 themselves.
 """
 from .ctx import Mesh, ParallelCtx
-from .rules import param_sharding, shard_params, state_sharding
+from .rules import (NamedSharding, param_sharding, shard_params,
+                    state_sharding)
 
-__all__ = ["Mesh", "ParallelCtx", "param_sharding", "shard_params",
-           "state_sharding"]
+__all__ = ["Mesh", "NamedSharding", "ParallelCtx", "param_sharding",
+           "shard_params", "state_sharding"]

@@ -5,7 +5,9 @@ The reference's ``ParallelCtx`` names a ``jax.sharding.Mesh``; here
 reference mesh's named axis sizes (``shape``), so the spec logic of
 :mod:`repro_torch.parallel.rules` reads ``mesh.shape[axis]`` as the
 reference's does.  Every rank of the group runs the same program (SPMD);
-``rank`` and ``world`` are this process's place on the ``model`` axis.
+``rank`` and ``world`` are this process's place on the ``model`` axis
+(all that serving reads), ``dp_rank`` and ``dp_world`` its place on the
+data axis (what the trainer reads).
 
 ``align`` and ``layout`` have no reference counterpart: GSPMD decides
 per array how to run a sharded product, while here each rank holds a
@@ -31,7 +33,9 @@ class Mesh:
     take the device's tensors itself (gloo with CUDA tensors), so every
     collective goes through a pinned host buffer
     (:mod:`repro_torch.parallel.comm`); ``rank`` is this process's rank in
-    ``group``."""
+    ``group``.  ``dp_group`` and ``dp_rank`` are the same for the data
+    axis: the ranks that hold the same model slice (None and 0 when the
+    data axis has one rank)."""
     group: Any = None
     shape: Any = None                  # {"data": d, "model": m}
     axis_names: Tuple[str, ...] = ("data", "model")
@@ -39,6 +43,8 @@ class Mesh:
     device: str = "cpu"
     stage: bool = False
     rank: int = 0
+    dp_group: Any = None
+    dp_rank: int = 0
 
     def __post_init__(self):
         if self.shape is None:
@@ -68,3 +74,17 @@ class ParallelCtx:
     @property
     def rank(self) -> int:
         return 0 if self.mesh is None else self.mesh.rank
+
+    @property
+    def dp_world(self) -> int:
+        """Ranks on the data axes (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        n = 1
+        for a in self.data_axes:
+            n *= int(self.mesh.shape.get(a, 1))
+        return n
+
+    @property
+    def dp_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.dp_rank

@@ -418,20 +418,92 @@ def param_sharding(params, pctx: ParallelCtx):
     return walk(params, ())
 
 
+def _names(ax) -> tuple:
+    return () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+
+
+def axis_split(ax, pctx: ParallelCtx) -> tuple:
+    """(ranks, this rank's index) that a spec entry splits a dimension
+    over: the model axis, the data axes, or both (data major, as a
+    (data, model) mesh orders its devices); (1, 0) for None."""
+    names = _names(ax)
+    n, r = 1, 0
+    if any(a in pctx.data_axes for a in names):
+        n, r = pctx.dp_world, pctx.dp_rank
+    if pctx.model_axis in names:
+        n, r = n * pctx.world, r * pctx.world + pctx.rank
+    return n, r
+
+
+def rank_slices(spec, shape, pctx: ParallelCtx) -> tuple:
+    """This rank's slice of an array of ``shape`` along every dimension
+    ``spec`` puts on the model or the data axes, one slice per dimension."""
+    out = []
+    for i, d in enumerate(shape):
+        n, r = axis_split(spec[i] if i < len(spec) else None, pctx)
+        out.append(slice(r * (d // n), (r + 1) * (d // n)))
+    return tuple(out)
+
+
 def shard_tensor(t: torch.Tensor, spec, pctx: ParallelCtx) -> torch.Tensor:
-    """This rank's slice of ``t`` along every dimension ``spec`` puts on the
-    model axis (a copy, so the whole can be freed; ``t`` itself where the
-    slice is the whole)."""
+    """This rank's slice of ``t`` (:func:`rank_slices`; a copy, so the
+    whole can be freed; ``t`` itself where the slice is the whole)."""
     if t is None or spec is None:
         return t
-    n, r, m = pctx.world, pctx.rank, pctx.model_axis
-    out = t
-    for i, ax in enumerate(spec):
-        if ax == m or (isinstance(ax, tuple) and m in ax):
-            if n > 1:
-                k = t.shape[i] // n
-                out = out.narrow(i, r * k, k)
-    return out if out is t else out.contiguous().clone()
+    idx = rank_slices(spec, t.shape, pctx)
+    if all(s.stop - s.start == d for s, d in zip(idx, t.shape)):
+        return t
+    return t[idx].contiguous().clone()
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec read on a context: the reference's ``NamedSharding(mesh,
+    spec)``, where a rank holds its slice of the global array.
+    :meth:`local` cuts the rank's slice from the whole; :meth:`gather`
+    rebuilds the whole from every rank's slice (all-gathers over the
+    model axis, then the data axis: every rank of the mesh calls it)."""
+    pctx: ParallelCtx
+    spec: P
+
+    def dims(self, axis: str) -> list:
+        """The dimensions split over ``axis`` ('model' or 'data') by more
+        than one rank."""
+        if axis == "model":
+            hit, n = (lambda a: self.pctx.model_axis in _names(a),
+                      self.pctx.world)
+        else:
+            hit, n = (lambda a: any(x in self.pctx.data_axes
+                                    for x in _names(a)), self.pctx.dp_world)
+        return [i for i, a in enumerate(self.spec) if hit(a)] if n > 1 else []
+
+    def index(self, shape) -> tuple:
+        """The rank's slice of an array of the global ``shape``, one slice
+        per dimension."""
+        return rank_slices(self.spec, shape, self.pctx)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        return shard_tensor(t, self.spec, self.pctx)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        from . import comm
+        with torch.no_grad():
+            for axis in ("model", "data"):
+                for i in self.dims(axis):
+                    t = comm.all_gather(t, self.pctx, dim=i, axis=axis)
+        return t
+
+
+def partial_grad(path_str: str, spec, pctx: Optional[ParallelCtx]) -> bool:
+    """Whether each model rank's gradient of the leaf at ``path_str`` is a
+    partial sum: a leaf the placement keeps whole (``spec`` names no model
+    axis) inside a block the bound layout splits, which each rank reads
+    for its own slice only (a qk-norm's gammas in split attention)."""
+    if pctx is None or pctx.layout is None or pctx.world == 1 \
+            or pctx.model_axis in [a for ax in spec for a in _names(ax)]:
+        return False
+    block = _block_of(path_str, pctx.layout)
+    return block is not None and bool(getattr(pctx.layout, block))
 
 
 def shard_params(params, pctx: ParallelCtx):

@@ -1,3 +1,3 @@
-from .ft import FailureInjector, StepMonitor
+from .ft import ElasticController, FailureInjector, StepMonitor
 
-__all__ = ["FailureInjector", "StepMonitor"]
+__all__ = ["ElasticController", "FailureInjector", "StepMonitor"]

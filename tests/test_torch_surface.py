@@ -144,23 +144,15 @@ REF_MODULES = sorted(
 QUEUED_MODULES = {
     "repro.launch.analysis": "A12", "repro.launch.dryrun": "A12",
     "repro.launch.napkin": "A12", "repro.launch.reanalyze": "A12",
-    "repro.launch.steps": "A12", "repro.optim.compress": "A10 (d)",
+    "repro.launch.steps": "A12",
     "repro.parallel.compat": "§C: shard_map has no PyTorch counterpart",
 }
 QUEUED_NAMES = {
-    "repro.checkpoint": {"reshard_restore": "A10 (d)"},
-    "repro.checkpoint.manager": {"reshard_restore": "A10 (d)"},
     "repro.configs": {"cells": "A12", "skip_reason": "A12"},
     "repro.launch.mesh": {"make_production_mesh": "A12"},
     "repro.models.common": {"opt_level": "§C: one attention path"},
-    "repro.optim": {"compress_state_init": "A10 (d)",
-                    "compressed_psum": "A10 (d)"},
     "repro.parallel": {"shard_map": "§C: no PyTorch counterpart"},
     "repro.quant.guards": {"compiled_programs": "§C: eager guards"},
-    "repro.runtime": {"ElasticController": "A10 (d)"},
-    "repro.runtime.ft": {"ElasticController": "A10 (d)"},
-    "repro.training.trainer": {"opt_sharding": "A10 (d)",
-                               "make_compressed_dp_step": "A10 (d)"},
 }
 
 

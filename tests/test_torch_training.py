@@ -542,7 +542,14 @@ def test_train_cli_trains_saves_and_resumes(tmp_path, capsys):
     assert all(np.isfinite(m["loss"]) for m in tr2.metrics_log)
 
 
-def test_train_cli_refuses_parallelism():
-    with pytest.raises(NotImplementedError, match="A10"):
-        t_train_cli.main(["--arch", "gemma_7b", "--smoke", "--device", "cpu",
-                          "--data-parallel", "2"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_1p3b",
+                                  "deepseek_v2_lite_16b",
+                                  "llama4_scout_17b_a16e", "whisper_medium"])
+def test_train_cli_refuses_parallelism(arch):
+    """Tensor-parallel training of the five families whose split blocks
+    take replicated inputs other than through a row-parallel linear is
+    refused before any rank starts (ROADMAP A10 (e)); data parallelism
+    (tests/test_torch_parallel_training.py) is not."""
+    with pytest.raises(NotImplementedError, match=r"A10 \(e\)"):
+        t_train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                          "--model-parallel", "2"])
