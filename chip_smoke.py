@@ -45,12 +45,13 @@
    ``EngineConfig(kv_paged=True)`` (block 16, default pool): decode
    attention runs ``ttq_paged_decode_attention``, and the greedy tokens
    must equal 3's; the graph checks and readings of 3.
-3c. Prefix cache and preemption at full width: full-precision weights,
+3c. Prefix cache and preemption at full width on DEPTH_3C layers:
+   full-precision weights,
    int8 KV, 8 prompts sharing a 32-token prefix, a pool small enough to
    preempt; then the same traffic on an unconstrained pool without the
    prefix cache, for a reading of how many leading tokens agree; and the
    same pair on the first layer alone, as its witness.  A rerun of the
-   constrained traffic at full depth holds every graph block to the eager
+   constrained traffic at DEPTH_3C layers holds every graph block to the eager
    loop, through preemption and prefix hits.
 3d. The reference's default policy (rank 16, delta gate, double buffer)
    at full width on DEPTH_3D layers (all 28 with ``--full-depth-3d``),
@@ -123,13 +124,13 @@
 3j. The SSM and encoder-decoder families, [3]'s policy with the default
    guards through [3g]'s ``family_engine``, dense slab only (neither
    family admits the pool): (a) mamba2-1.3b (Mamba2's chunked SSD, no
-   attention) at full width and all 48 layers: every kernel of its path
+   attention) at full width and DEPTHS_3J layers: every kernel of its path
    launched (``ttq_gemm``, ``ttq_quantize``), graph blocks and prefill
    replays bit for bit eager (one prefill graph per distinct prompt
    length), compiled programs flat over a warm rerun, a one-layer witness,
    then one prompt of SSM_LONG tokens across two SSD chunks, and the
    three refusals (paged pool, speculation, chunked prefill); (b)
-   whisper-medium (24 encoder and 24 decoder layers, cross-attention,
+   whisper-medium (DEPTHS_3J encoder and decoder layers, cross-attention,
    learned positions) at full width, 8 requests each with its own frames
    from the seed: the same checks with ``ttq_decode_attention`` on the
    self-attention cache, then one prompt admitted twice with different
@@ -164,8 +165,9 @@
    attentions on its heads) against the plain version at [2]'s
    tolerances, then builds the whole tree from the seed and keeps its
    slice; both ranks' tokens equal, and equal to (a)'s or a near-tie (the
-   first disagreement's two logits closer than the teacher-forced world-1
-   and world-2 logits there differ); those teacher-forced logits within
+   first disagreement's two logits within twice the largest gap between
+   the teacher-forced world-1 and world-2 logits there); those
+   teacher-forced logits within
    TP_DELTA_3L of each other at every position; each rank's codes, S, Z
    and D⁻¹ of every layer of every weight bit for bit its slice of (a)'s;
    ms per decode step and launches per step over the counted steps, peak
@@ -206,6 +208,21 @@
    slice, the next step's loss within the DP rule of the live one's; (e)
    ``make_compressed_dp_step`` at (2,1) on the 100m preset, its masters
    within COMPRESSED_REL_3N (relative L2) of the uncompressed step's.
+3o. Tensor-parallel training of the five families beyond plain attention,
+   which launches none of the kernels: recurrentgemma-9b, mamba2-1.3b,
+   whisper-medium, deepseek-v2-lite and llama4-scout at full width and
+   the depths of FAMILIES_3O, BATCH_3O × SEQ_3O tokens in MB_3O
+   microbatches, remat and AdamW for STEPS_3O steps, after a reckoning of
+   each one's training bytes at world 1 (TRAIN_BYTES_PER_PARAM).  Two
+   processes share the card over gloo: per family (a) world 1 on rank 0
+   (no mesh, and for the MoE configs the (1,1) "a2a" context at CF_3M,
+   whose losses are held to no mesh's), then (b) the (1,2) mesh on both
+   ranks (deepseek-v2-lite under "dense" and "a2a", llama4-scout under
+   "a2a"): the ranks' losses equal and within DP_RTOL_3N of (a)'s, every
+   rank's master slice within the DP rule of (a)'s; ms per step, the
+   staged collectives' share by kind, the collectives per step (of the
+   all-reduces, the block entries' backward sums and the partial
+   gradients' sums), peak and optimizer GB per rank.
 4. A ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``.
 5. Seconds per phase and for the whole script.
 
@@ -232,7 +249,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+# the H100 SXM's datasheet rates (the napkin roofline's constants)
+from repro_torch.launch.napkin import (  # noqa: E402
+    H100_SXM_HBM_BW as HBM_BYTES_PER_S,
+    H100_SXM_PEAK_FLOPS as DENSE_BF16_FLOP_PER_S)
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 SEED = 0
 N_REQUESTS, MAX_NEW = 8, 32
@@ -257,6 +277,7 @@ DEPTHS = (1, 7, 28)
 # preempt (tests/test_torch_paged.py::test_smoke_prefix_traffic_preempts).
 BLOCK = 16
 POOL_3C = 18
+DEPTH_3C = 14                  # of gemma-7b's 28 layers (28 before [3o])
 LONG_CUR = [8191, 6143, 4095, 2047]   # phase 2's long-context attention
 # phase 2's attention at [3g]'s groups: (config, kv heads, G), Dh 128
 ATTN_GROUPS = (("minitron_4b", 8, 3), ("starcoder2_15b", 4, 12),
@@ -277,7 +298,9 @@ HOST_LAUNCH = re.compile(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)\w*")
 # gesvd) takes 0.8-1.0 s per gemma-7b weight matrix on an H100, ~6 s per
 # layer, so [3d] runs 4 of the 28 layers at full width (8 before [3n]
 # needed the time; its near-tie checks pass at 4, tools/near_tie_probe.py,
-# PERF.md).  [3e] (b) runs DEPTH_3E_B layers (28 before, likewise).
+# PERF.md).  [3e] (b) runs DEPTH_3E_B layers (28 before, likewise; at 8
+# its paged warm rerun captured one more prefix-tail prefill graph than
+# the first warm run, PERF.md).
 DEPTH_3D = 4
 DEPTH_3E_B = 14
 RANK_3D = 16
@@ -299,18 +322,21 @@ FAMILIES_3G = ("minitron_4b", "starcoder2_15b", "granite_34b")
 # [3g]'s depths at full width: granite-34b a reduced-depth witness of its
 # G = 48 (fit_depth, which would give 57 layers on an 80 GB card, is held
 # by chameleon-34b in [3h]); minitron-4b (32 layers) and starcoder2-15b
-# (40) cut to 16 to pay for [3m], then all three to 8 to pay for [3n]
-# (their checks are exact: paged tokens equal dense ones, replays equal
-# eager blocks)
-DEPTHS_3G = {"minitron_4b": 8, "starcoder2_15b": 8, "granite_34b": 8}
+# (40) cut to 16 to pay for [3m], then all three to 8 to pay for [3n],
+# then to 4 for [3o] (their checks are exact: paged tokens equal dense
+# ones, replays equal eager blocks)
+DEPTHS_3G = {"minitron_4b": 4, "starcoder2_15b": 4, "granite_34b": 4}
 # the other earlier paths cut to pay for [3m] (full width kept):
 # recurrentgemma-9b in [3h] (a) to 4 units of (rec, rec, lattn) of its 38
 # layers, chameleon-34b in [3h] (b) to 16 of fit_depth's 31 (8 since
-# [3n]), gemma-7b to 14 of its 28 layers in [3f] and in [3l]
-HYBRID_DEPTH_3H = 12
-VLM_DEPTH_3H = 8
-DEPTH_3F = 14
-TP_DEPTH_3L = 14
+# [3n]), gemma-7b to 14 of its 28 layers in [3f] and in [3l]; then for
+# [3o] recurrentgemma-9b to 2 units, chameleon-34b to 4 layers, and [3f]
+# and [3l] to 8, once their first disagreements were held to the
+# near-tie rule of [3e] and [3m] (2δ: PERF.md, ROADMAP C9)
+HYBRID_DEPTH_3H = 6
+VLM_DEPTH_3H = 4
+DEPTH_3F = 8
+TP_DEPTH_3L = 8
 FIT_RESERVE_GB = 8             # card memory kept from fit_depth's weights
 # phase 3h: a prompt past recurrentgemma-9b's window of 2,048, and the key
 # count of the long prefill attention (over gemma-7b's 8,192 chunk
@@ -327,9 +353,12 @@ EXPERT_SHAPES = {
     "llama4-scout": (("wg/wu", 16, 8192, 5120, 2),
                      ("wd", 16, 5120, 8192, 1))}
 MOE_3I = ("deepseek_v2_lite_16b", "llama4_scout_17b_a16e")
-# phase 3j: the last two families at full width and depth, and a prompt
-# that crosses two of mamba2-1.3b's SSD chunks of 256
+# phase 3j: the last two families at full width, at half their depth
+# since [3o] (mamba2-1.3b 24 of 48 layers, whisper-medium 12 + 12 of 24 +
+# 24; the checks are exact: replays equal eager blocks and prefills), and
+# a prompt that crosses two of mamba2-1.3b's SSD chunks of 256
 FAMILIES_3J = ("mamba2_1p3b", "whisper_medium")
+DEPTHS_3J = {"mamba2_1p3b": 24, "whisper_medium": 12}
 SSM_LONG = 600
 # phase 3k: training.  (a) gemma-7b at full width, batch 8 × seq 512 in
 # two microbatches, at the depth TRAIN_BYTES_PER_PARAM leaves room for:
@@ -386,10 +415,9 @@ RESTORE_DEPTH_3K = 1
 PRESET_100M = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
                    d_ff=2304, vocab=32768, seq=1024, batch=32)
 STEPS_3K_B = 300
-TRAIN_BUDGET_3K_B = 20.0       # seconds of (b)'s training before it stops
+TRAIN_BUDGET_3K_B = 10.0       # seconds of (b)'s training before it stops
                                # (cut from 120 to 60 for [3l], then to 20
-                               # for [3n]; PERF.md)
-DENSE_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 peak
+                               # for [3n], to 10 for [3o]; PERF.md)
 # [3n]: data- and tensor-parallel training of gemma-7b at full width on
 # DEPTH_3N layers (2 × 276.8M + the 786.4M tied embedding: 16.1 GB of f32
 # masters and moments, ~8 GB per rank under ZeRO-1 at D = 2, so two ranks
@@ -400,12 +428,27 @@ DENSE_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 peak
 # masters are held to against (a); COMPRESSED_REL_3N the reference's bound
 # for the compressed step (tests/test_training.py:118)
 DEPTH_3N = 2
-STEPS_3N = 3
+STEPS_3N = 2                   # 3 before [3o]
 RESTORE_DEPTH_3N = 1
 STEPS_3N_E = 5
 DP_RTOL_3N, DP_ATOL_3N = 2e-2, 2e-3
 COMPRESSED_REL_3N = 0.05
 TIMEOUT_3N = 600               # seconds for (b)-(e)'s ranks to finish
+# [3o]: tensor-parallel training of the five families beyond plain
+# attention at full width and [3m]'s depths, llama4-scout at 1 layer (5.44 B
+# parameters at 2 layers would need 109 GB of training state at world 1,
+# TRAIN_BYTES_PER_PARAM; 3.24 B at 1 layer need 65 GB), on a batch of
+# BATCH_3O × SEQ_3O tokens in MB_3O microbatches (the batch is no width:
+# it holds llama4's f32 logits, 202,048 per token, near 1.7 GB per
+# microbatch), STEPS_3O steps; each (1,2) mesh held to its world 1 by
+# [3n]'s DP rule; the MoE configs also under "a2a" at CF_3M (no drops),
+# held to the (1,1) "a2a" context
+FAMILIES_3O = (("recurrentgemma_9b", 3, (None,)), ("mamba2_1p3b", 4, (None,)),
+               ("whisper_medium", 2, (None,)),
+               ("deepseek_v2_lite_16b", 2, ("dense", "a2a")),
+               ("llama4_scout_17b_a16e", 1, ("a2a",)))
+BATCH_3O, SEQ_3O, MB_3O, STEPS_3O = 4, 256, 2, 2
+TIMEOUT_3O = 600               # more seconds for [3n]'s ranks to finish it
 
 
 class CheckFailed(RuntimeError):
@@ -3002,9 +3045,11 @@ def chunked_prefill(torch, dev, cfg, params, prompts) -> dict:
             margin, delta = chunk_near_tie(torch, cfg, params, tree, kvcfg,
                                            kcfg, batch, k, a[:t], a[t], b[t])
             ties.append(dict(request=i, t=t, margin=margin, delta=delta))
-            check(margin <= delta, f"[3f] (f) {label} request {i}: the "
+            # two sets of logits at most δ apart entry by entry can order
+            # two tokens differently only within 2δ of each other
+            check(margin <= 2 * delta, f"[3f] (f) {label} request {i}: the "
                   f"disagreement at token {t} is no near-tie ({margin} > "
-                  f"{delta})")
+                  f"2 x {delta})")
         res[f"{label} ties"] = ties
         print(f"  (f) {label}: chunked tokens "
               + ("bit for bit the unchunked run's" if not ties else
@@ -3583,8 +3628,10 @@ def tensor_parallel_b(torch, res, held) -> dict:
         print(f"  (b) request {i}: first disagreement with (a) at token {t} "
               f"({a} vs {b}): logits {margin:.4g} apart, world 1 and world "
               f"{TP_WORLD_3L} logits up to {delta[i, t]:.4g} apart")
-        check(margin <= delta[i, t], f"[3l] (b) request {i}: the "
-              f"disagreement at token {t} is no near-tie ({margin} > "
+        # the two worlds' logits at most δ apart entry by entry can swap
+        # two tokens only within 2δ of each other
+        check(margin <= 2 * delta[i, t], f"[3l] (b) request {i}: the "
+              f"disagreement at token {t} is no near-tie ({margin} > 2 x "
               f"{delta[i, t]})")
     res["b"] = dict(
         tokens_equal_a=sum(r0["tokens"][i] == held["payload"]["tokens"][i]
@@ -4280,13 +4327,16 @@ def fit_depth(torch, cfg) -> int:
 
 
 def init_family(torch, dev, arch, depth=None):
-    """Full-width ``arch`` (the first ``depth`` layers, None: all), random
-    weights from seed 0."""
+    """Full-width ``arch`` (the first ``depth`` layers, None: all; an
+    encoder-decoder's encoder too), random weights from seed 0."""
     from repro_torch.configs import get
     from repro_torch.models import lm
     cfg = get(arch)
     if depth is not None:
         cfg = dataclasses.replace(cfg, n_layers=depth)
+        if cfg.encdec is not None:
+            cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+                cfg.encdec, n_enc_layers=depth))
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
@@ -4786,18 +4836,20 @@ def frames_replay(torch, dev, cfg, params) -> dict:
 
 
 def ssm_and_encdec(torch, dev) -> dict:
-    """Phase 3j: (a) mamba2-1.3b at full width and all 48 layers, dense
+    """Phase 3j: (a) mamba2-1.3b at full width and DEPTHS_3J layers, dense
     slab (its SSD state admits no pool), through :func:`family_engine`
     (one prefill graph per distinct prompt length), then one prompt of
     SSM_LONG tokens across two SSD chunks (:func:`long_prompt`) and the
-    three refusals; (b) whisper-medium at full width and 24 + 24 layers,
+    three refusals; (b) whisper-medium at full width and DEPTHS_3J
+    encoder and decoder layers,
     dense slab, 8 requests with their own frames from the seed, then
     :func:`frames_replay` and the three refusals.  Returns the readings,
     each part's seconds and the kernels' launches over the engines."""
     from repro_torch.models.stack import stack_spec
     out, secs, launches = {}, {}, {}
     t = time.perf_counter()
-    cfg, params = init_family(torch, dev, FAMILIES_3J[0])
+    cfg, params = init_family(torch, dev, FAMILIES_3J[0],
+                              DEPTHS_3J[FAMILIES_3J[0]])
     prompts = make_prompts(cfg.vocab)
     dense = family_engine(torch, dev, cfg, params, prompts, False,
                           phase="[3j]")
@@ -4818,7 +4870,8 @@ def ssm_and_encdec(torch, dev) -> dict:
     secs["a"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    cfg, params = init_family(torch, dev, FAMILIES_3J[1])
+    cfg, params = init_family(torch, dev, FAMILIES_3J[1],
+                              DEPTHS_3J[FAMILIES_3J[1]])
     prompts = make_prompts(cfg.vocab)
     frames = np.random.default_rng(SEED + 5).standard_normal(
         (len(prompts), cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
@@ -5334,15 +5387,19 @@ def compressed_3n(torch, dev, payload) -> dict:
 
 
 def train_rank_3n(payload) -> dict:
-    """One rank of [3n] (b)-(e), in its own process sharing the card over
-    gloo (collectives staged through pinned host buffers)."""
+    """One rank of [3n] (b)-(e), then of [3o] (part "o",
+    :func:`train_rank_3o`), in its own process sharing the card over gloo
+    (collectives staged through pinned host buffers): the two phases share
+    the processes, so [3o] pays no process start or first step of its
+    own."""
     import torch
     dev = torch.device(payload["device"])
     out, secs = {}, {}
     for part, fn in (("e", lambda: compressed_3n(torch, dev, payload)),
                      ("b", lambda: mesh_train_3n(torch, dev, payload, 2, 1)),
                      ("c", lambda: mesh_train_3n(torch, dev, payload, 1, 2)),
-                     ("d", lambda: elastic_3n(torch, dev, payload))):
+                     ("d", lambda: elastic_3n(torch, dev, payload)),
+                     ("o", lambda: train_rank_3o(dev))):
         t0 = time.perf_counter()
         out[part] = fn()
         secs[part] = time.perf_counter() - t0
@@ -5361,7 +5418,9 @@ def parallel_training(torch, dev) -> dict:
     with ZeRO-1, (c) (1,2), each held to (a) by the DP rule; (d) a save at
     (2,1) restored onto (1,2) by ``ElasticController.rescale``; (e) the
     compressed data-parallel step on the 100m preset against the
-    uncompressed one."""
+    uncompressed one.  The same processes then run [3o]'s ranks, after its
+    reckoning (:func:`reckon_all_3o`).  Returns ([3n]'s readings, each
+    rank's [3o] results, [3o]'s reckoning)."""
     from repro_torch._tree import tree_leaves
     from repro_torch.configs import get
     from repro_torch.data import DataConfig, token_stream
@@ -5431,9 +5490,10 @@ def parallel_training(torch, dev) -> dict:
                             batch=p["batch"], seed=11),
             tc_e=TrainConfig(n_microbatches=1, remat=True, warmup=1,
                              total_steps=100))
+        reckoning = reckon_all_3o(torch)
         t0 = time.perf_counter()
         ranks = spawn(RANK_FN_3N, 2, payload, device=dev.type,
-                      timeout=TIMEOUT_3N)
+                      timeout=TIMEOUT_3N + TIMEOUT_3O)
         spawn_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5502,8 +5562,266 @@ def parallel_training(torch, dev) -> dict:
           f"{e['peak_gb']:.2f}")
     out["seconds"] = dict(ranks[0]["seconds"], spawn=spawn_s,
                           total=time.perf_counter() - t_all)
-    print("  [3n] seconds per part: "
+    print("  [3n] seconds per part ((o): [3o] in the same processes): "
           + ", ".join(f"({k}) {v:.1f}" for k, v in out["seconds"].items()))
+    return out, [r["o"] for r in ranks], reckoning
+
+
+def cfg_3o(arch, depth, impl):
+    """Full-width ``arch`` at ``depth`` layers (an encoder-decoder's
+    encoder too), under "a2a" at capacity factor CF_3M."""
+    from repro_torch.configs import get
+    cfg = dataclasses.replace(get(arch), n_layers=depth)
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, n_enc_layers=depth))
+    if impl == "a2a":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=CF_3M))
+    return cfg
+
+
+def stream_3o(cfg, dev):
+    """[3o]'s global batch on every rank (a (1,2) mesh has one data row),
+    with frames for the encoder-decoder family."""
+    from repro_torch.data import DataConfig, token_stream
+    dc = DataConfig(vocab=cfg.vocab, seq_len=SEQ_3O, batch=BATCH_3O,
+                    seed=SEED)
+    fr = (cfg.encdec.n_frames, cfg.d_model) if cfg.encdec else None
+    return token_stream(dc, 0, device=dev, frames=fr)
+
+
+def reckon_3o(torch, cfg) -> dict:
+    """Training bytes at world 1 (TRAIN_BYTES_PER_PARAM per parameter and
+    4 × 4 B per f32 logit of a microbatch) against the card's memory less
+    FIT_RESERVE_GB."""
+    n = cfg.param_count()
+    state = n * TRAIN_BYTES_PER_PARAM
+    logits = 16 * BATCH_3O // MB_3O * SEQ_3O * cfg.vocab
+    room = torch.cuda.get_device_properties(0).total_memory \
+        - FIT_RESERVE_GB * 1e9
+    return dict(params=n, state_gb=state / 1e9, logits_gb=logits / 1e9,
+                room_gb=room / 1e9, fits=state + logits <= room)
+
+
+def ref_3o(impl) -> str:
+    """The (a) run a (b) run under ``impl`` is held to."""
+    return "a2a" if impl == "a2a" else "none"
+
+
+def world1_3o(torch, dev, cfg, pctx, keep: bool) -> tuple:
+    """[3o] (a): the Trainer without a mesh (or on the (1,1) "a2a"
+    context), STEPS_3O steps: (its readings, and with ``keep`` its whole
+    masters on the host, leaf order, for (b)'s comparison)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.training import TrainConfig, Trainer
+    tc = TrainConfig(n_microbatches=MB_3O, remat=True, warmup=2,
+                     total_steps=100)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, stream_3o(cfg, dev), pctx=pctx, device=dev)
+    log = tr.run(STEPS_3O)
+    masters = ([t.cpu() for t in tree_leaves(tr.opt_state["master"])]
+               if keep else None)
+    out = dict(loss=[m["loss"] for m in log],
+               grad_norm=[m["grad_norm"] for m in log],
+               ms=[m["time_s"] * 1e3 for m in log],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               opt_gb=opt_bytes(tr.opt_state) / 1e9)
+    del tr
+    free(torch)
+    return out, masters
+
+
+def masters_3o(torch, tr, want):
+    """The worst DP-rule ratio of each model rank's master slices against
+    (a)'s whole masters ``want`` (rank 0's, on the host): rank 1 sends its
+    slices to rank 0 leaf by leaf over the process group, rank 0 holds
+    both against their slices of ``want``.  [ratio of rank 0, of rank 1]
+    on rank 0, None on rank 1."""
+    import torch.distributed as dist
+    from repro_torch._tree import tree_leaves
+    from repro_torch.parallel import NamedSharding
+    pctx = tr.pctx
+    leaves = tree_leaves(tr.opt_state["master"])
+    specs = [sh.spec for sh in tree_leaves(tr.oshard["master"])]
+    if pctx.rank != 0:
+        for t in leaves:
+            dist.send(t.detach().cpu().contiguous(), dst=0)
+        return None
+    other = dataclasses.replace(pctx, mesh=dataclasses.replace(pctx.mesh,
+                                                               rank=1))
+    worst = [0.0, 0.0]
+    for t, spec, w in zip(leaves, specs, want):
+        mine = w[NamedSharding(pctx, spec).index(w.shape)]
+        worst[0] = max(worst[0], dp_rule(torch, mine.to(t.device), t))
+        theirs = w[NamedSharding(other, spec).index(w.shape)]
+        got = torch.empty(theirs.shape, dtype=t.dtype)
+        dist.recv(got, src=1)
+        worst[1] = max(worst[1], dp_rule(torch, theirs.to(t.device),
+                                         got.to(t.device)))
+    return worst
+
+
+def mesh_train_3o(torch, dev, cfg, pctx, want) -> dict:
+    """[3o] (b): the (1,2) mesh's Trainer, STEPS_3O steps; losses, ms per
+    step and the staged collectives' ms per step by kind over the last
+    step, the collectives per step by kind (of the all-reduces: the block
+    entries' backward sums and the partial gradients' sums), peak GB,
+    optimizer GB, and (rank 0) both ranks' worst DP-rule ratio of their
+    masters against (a)'s ``want`` (:func:`masters_3o`)."""
+    from repro_torch.parallel import comm
+    from repro_torch.training import TrainConfig, Trainer
+    from repro_torch.training.trainer import _MeshStep
+    tc = TrainConfig(n_microbatches=MB_3O, remat=True, warmup=2,
+                     total_steps=100)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, stream_3o(cfg, dev), pctx=pctx, device=dev)
+    entries = [0]
+    real = comm._Enter.backward
+
+    def counted(ctx, g):
+        entries[0] += 1
+        return real(ctx, g)
+    comm._Enter.backward = staticmethod(counted)
+    try:
+        tr.run(STEPS_3O - 1)
+        s0, c0, e0 = dict(comm.STAGED_S), dict(comm.COUNTS), entries[0]
+        tr.run(1)
+    finally:
+        comm._Enter.backward = staticmethod(real)
+    log = tr.metrics_log
+    partial = sum(_MeshStep(tr.pctx, tr.oshard["master"]).partial)
+    out = dict(loss=[m["loss"] for m in log],
+               grad_norm=[m["grad_norm"] for m in log],
+               ms=[m["time_s"] * 1e3 for m in log],
+               staged_ms={k: (comm.STAGED_S[k] - s0[k]) * 1e3 for k in s0
+                          if comm.STAGED_S[k] > s0[k]},
+               collectives={k: comm.COUNTS[k] - c0[k] for k in c0
+                            if comm.COUNTS[k] > c0[k]},
+               entries=entries[0] - e0, partial=partial,
+               layout=str(tr.pctx.layout),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               opt_gb=opt_bytes(tr.opt_state) / 1e9,
+               rank=tr.pctx.rank, backend=tr.pctx.mesh.backend)
+    out["master_ratio"] = masters_3o(torch, tr, want)
+    del tr
+    free(torch)
+    return out
+
+
+def train_rank_3o(dev) -> dict:
+    """[3o] on one of the two processes of [3n]: per family, rank 0 runs
+    (a) while rank 1 waits, then both run (b) on the (1,2) mesh under each
+    ``moe_impl``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_ctx, make_mesh
+    solo = make_mesh(1, 1, device=dev.type)
+    pair = make_ctx(make_mesh(1, 2, device=dev.type))
+    out = {}
+    for arch, depth, impls in FAMILIES_3O:
+        t0 = time.perf_counter()
+        fam, want = {"a": {}, "b": {}}, {}
+        held = {ref_3o(i) for i in impls}       # what (b) is held to
+        if pair.rank == 0:
+            for ref in ("none", "a2a") if "a2a" in impls else ("none",):
+                ctx = None if ref == "none" else make_ctx(solo,
+                                                          moe_impl="a2a")
+                fam["a"][ref], want[ref] = world1_3o(
+                    torch, dev, cfg_3o(arch, depth, ref), ctx, ref in held)
+        dist.barrier()
+        for impl in impls:
+            ctx = pair if impl is None else dataclasses.replace(
+                pair, moe_impl=impl)
+            fam["b"][impl] = mesh_train_3o(
+                torch, dev, cfg_3o(arch, depth, impl), ctx,
+                want.get(ref_3o(impl)))
+        del want
+        fam["seconds"] = time.perf_counter() - t0
+        out[arch] = fam
+    return out
+
+
+def reckon_all_3o(torch) -> dict:
+    """[3o]'s reckoning, printed before its first run: each family's
+    training bytes at world 1 must fit the card (:func:`reckon_3o`)."""
+    out = {}
+    for arch, depth, _ in FAMILIES_3O:
+        r = out[arch] = reckon_3o(torch, cfg_3o(arch, depth, None))
+        print(f"  [3o] {arch} at {depth} layer(s): {r['params'] / 1e9:.3f} B "
+              f"parameters, {r['state_gb']:.1f} GB of training state at "
+              f"{TRAIN_BYTES_PER_PARAM} B per parameter + "
+              f"{r['logits_gb']:.2f} GB of f32 logits per microbatch at "
+              f"world 1, against {r['room_gb']:.1f} GB of the card less "
+              f"{FIT_RESERVE_GB} GB")
+        check(r["fits"], f"[3o] {arch} at {depth} layer(s) does not fit "
+              f"the card at world 1")
+    return out
+
+
+def parallel_training_families(torch, ranks, reckoning) -> dict:
+    """Phase 3o: tensor-parallel training of the five families beyond plain
+    attention at full width (FAMILIES_3O), run by [3n]'s two processes
+    sharing the card over gloo (``ranks``: each one's
+    :func:`train_rank_3o`): (a) each family's world 1 without a mesh (and
+    the MoE configs' (1,1) "a2a" context at CF_3M), (b) its (1,2) mesh
+    under each ``moe_impl`` of FAMILIES_3O, the ranks' losses equal and
+    within DP_RTOL_3N of (a)'s, every rank's masters within the DP rule of
+    (a)'s."""
+    out = {"reckoning": reckoning}
+    secs = {}
+    for arch, depth, impls in FAMILIES_3O:
+        a = ranks[0][arch]["a"]
+        for impl in impls:
+            ref = ref_3o(impl)
+            want = a[ref]["loss"]
+            rs = [r[arch]["b"][impl] for r in ranks]
+            what = f"[3o] (b) {arch}" + (f" {impl}" if impl else "")
+            for x in rs:
+                check(x["backend"] == "gloo", f"{what} chose {x['backend']}")
+                check(x["loss"] == rs[0]["loss"], f"{what}: the ranks' "
+                      f"losses differ: {[y['loss'] for y in rs]}")
+                check(bool(np.allclose(x["loss"], want, rtol=DP_RTOL_3N,
+                                       atol=0)),
+                      f"{what}: losses {x['loss']} not within rtol "
+                      f"{DP_RTOL_3N} of (a)'s {want}")
+            x = rs[0]
+            check(max(x["master_ratio"]) <= 1.0, f"{what}: masters at "
+                  f"{x['master_ratio']} (rank 0, rank 1) of the DP "
+                  f"tolerance of (a)'s")
+            warm = x["ms"][-1]
+            share = {k: round(v / warm, 3) for k, v in x["staged_ms"].items()}
+            print(f"  [3o] (b) {arch} ({depth} layer(s))"
+                  + (f", moe_impl {impl!r}" if impl else "")
+                  + f", (1,2) over gloo, {x['layout']}: losses {x['loss']} "
+                  f"against (a)'s {want} ({'the (1,1) a2a context' if ref == 'a2a' else 'no mesh'}; "
+                  f"ms per step {[round(m, 1) for m in a[ref]['ms']]}); "
+                  f"masters at most {max(x['master_ratio']):.3f} of the "
+                  f"DP tolerance; ms per step {[round(m, 1) for m in x['ms']]}, "
+                  f"the last one's staged collectives' share by kind {share}; "
+                  f"collectives per step {x['collectives']} (all-reduces: "
+                  f"{x['entries']} block entries' backward, {x['partial']} "
+                  f"partial gradients); peak GB per rank "
+                  f"{[round(y['peak_gb'], 2) for y in rs]} (a: "
+                  f"{a[ref]['peak_gb']:.2f}); optimizer GB per rank "
+                  f"{[round(y['opt_gb'], 2) for y in rs]} (a: "
+                  f"{a[ref]['opt_gb']:.2f})")
+        if "a2a" in a:
+            check(bool(np.allclose(a["a2a"]["loss"], a["none"]["loss"],
+                                   rtol=DP_RTOL_3N, atol=0)),
+                  f"[3o] (a) {arch}: the (1,1) a2a context's losses "
+                  f"{a['a2a']['loss']} not within rtol {DP_RTOL_3N} of no "
+                  f"mesh's {a['none']['loss']}")
+            print(f"  [3o] (a) {arch}: the (1,1) a2a context's losses "
+                  f"{a['a2a']['loss']} beside no mesh's {a['none']['loss']} "
+                  f"(ms per step {[round(m, 1) for m in a['a2a']['ms']]} vs "
+                  f"{[round(m, 1) for m in a['none']['ms']]})")
+        secs[arch] = ranks[0][arch]["seconds"]
+        out[arch] = dict(a=a, b={str(k): [r[arch]["b"][k] for r in ranks]
+                                 for k in impls})
+    out["seconds"] = dict(secs, total=sum(secs.values()))
+    print("  [3o] seconds per family (in [3n]'s processes): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items()))
     return out
 
 def main(argv=None) -> int:
@@ -5617,8 +5935,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     print(f"[3c] prefix cache and preemption: NO_QUANT weights, int8 KV, "
-          f"pool of {POOL_3C} blocks")
-    pre = prefix_and_preemption(torch, dev, cfg, params)
+          f"pool of {POOL_3C} blocks; gemma-7b full width, {DEPTH_3C} of "
+          f"{cfg.n_layers} layers")
+    pre = prefix_and_preemption(torch, dev, *cut(cfg, params, DEPTH_3C))
     print("    prefix cache and preemption: " + json.dumps(pre))
     lap("[3c]")
     gc.collect()
@@ -5715,10 +6034,12 @@ def main(argv=None) -> int:
     lap("[3i]")
     free(torch)
 
+    d_m, d_w = (DEPTHS_3J[a] for a in FAMILIES_3J)
     print(f"[3j] the SSM and encoder-decoder families: (a) mamba2-1.3b "
-          f"full width and depth, dense slab, then a {SSM_LONG}-token prompt "
-          f"across two SSD chunks; (b) whisper-medium full width, 24 + 24 "
-          f"layers, dense slab, requests with frames from the seed, then one "
+          f"full width, {d_m} layers, dense slab, then a {SSM_LONG}-token "
+          f"prompt across two SSD chunks; (b) whisper-medium full width, "
+          f"{d_w} + {d_w} layers, dense slab, requests with frames from the "
+          f"seed, then one "
           f"prompt on two frames through one prefill graph; [3]'s policy, "
           f"default guards")
     ssm = ssm_and_encdec(torch, dev)
@@ -5744,9 +6065,25 @@ def main(argv=None) -> int:
           f"over gloo: (b) (2,1) with ZeRO-1, (c) (1,2), (d) save at (2,1), "
           f"ElasticController.rescale onto (1,2) ({RESTORE_DEPTH_3N} layer), "
           f"(e) the compressed DP step on the 100m preset")
-    ptr = parallel_training(torch, dev)
+    print(f"[3o] tensor-parallel training of the five families beyond plain "
+          f"attention: full width, "
+          f"{', '.join(f'{a} {d}' for a, d, _ in FAMILIES_3O)} layers, batch "
+          f"{BATCH_3O} x {SEQ_3O} in {MB_3O} microbatches, remat, AdamW, "
+          f"{STEPS_3O} steps; [3n]'s 2 processes sharing the card over gloo "
+          f"run it after [3n] (b)-(e): (a) world 1 (and the MoE configs' "
+          f"(1,1) a2a context, cf {CF_3M:g}), (b) the (1,2) mesh (deepseek "
+          f"under dense and a2a, llama4 under a2a)")
+    ptr, o_ranks, reckoning = parallel_training(torch, dev)
     print("    parallel training: " + json.dumps(ptr, default=str))
     lap("[3n]")
+    free(torch)
+    ptf = parallel_training_families(torch, o_ranks, reckoning)
+    print("    parallel training of the families: "
+          + json.dumps(ptf, default=str))
+    lap("[3o]")
+    # [3o] ran inside [3n]'s spawn: its ranks' seconds are [3o]'s
+    phase_s["[3n]"] -= ptf["seconds"]["total"]
+    phase_s["[3o]"] += ptf["seconds"]["total"]
 
     print("[4] per kernel: ms per decode step (gemm, attention) or per "
           "requant (quantize); launches: the main path's ([3], paged from "

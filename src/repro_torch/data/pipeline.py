@@ -82,18 +82,27 @@ def sample_batch(spec: DomainSpec, generator: torch.Generator, batch: int,
 
 
 def token_stream(cfg: DataConfig, domain_id: int, start_step: int = 0,
-                 host_id: int = 0, n_hosts: int = 1, device="cuda"):
+                 host_id: int = 0, n_hosts: int = 1, device="cuda",
+                 frames=None):
     """Infinite deterministic iterator of {'tokens': (B/H, S) int32}
     batches on ``device`` (the card unless ``device="cpu"``), from step
     ``start_step`` on; host ``host_id`` of ``n_hosts`` gets its rows of
-    each step's batch."""
+    each step's batch.  ``frames`` (n_frames, d_model), for the
+    encoder-decoder family, adds 'frames' (B/H, n_frames, d_model) f32:
+    the stub front end's frame embeddings, standard normal, drawn from
+    the step's generator after its tokens (the reference's stream has
+    none, so its launcher cannot train that family)."""
     dev = resolve_device(device)
     spec = make_domain(cfg, domain_id)
     b_local = cfg.batch // n_hosts
     step = start_step
     while True:
-        full = sample_batch(spec, batch_generator(cfg.seed, step, domain_id),
-                            cfg.batch, cfg.seq_len)
-        rows = full[host_id * b_local:(host_id + 1) * b_local]
-        yield {"tokens": rows.to(dev, non_blocking=True)}
+        gen = batch_generator(cfg.seed, step, domain_id)
+        full = sample_batch(spec, gen, cfg.batch, cfg.seq_len)
+        mine = slice(host_id * b_local, (host_id + 1) * b_local)
+        out = {"tokens": full[mine].to(dev, non_blocking=True)}
+        if frames is not None:
+            f = torch.randn((cfg.batch, *frames), generator=gen)
+            out["frames"] = f[mine].to(dev, non_blocking=True)
+        yield out
         step += 1

@@ -10,8 +10,9 @@ straggler count) are the reference launcher's (``repro.launch.train``).
 processes (``launch/mesh.py:spawn``), each on ``make_ctx(make_mesh(D,
 M))`` with the reference's ``moe_impl`` default, each data row drawing
 its rows of the global batch; rank 0's lines are printed.  ``M > 1``
-trains tensor-parallel, which the plain-attention families (dense, vlm)
-take and the others refuse (ROADMAP A10 (e)).
+trains tensor-parallel, every family.  The encoder-decoder family's
+batches carry the stub front end's frames, drawn from the stream's seed
+(``data.token_stream(frames=)``).
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ def _train(args, pctx=None):
     cfg = get(args.arch, smoke=args.smoke)
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
                     seed=0)
+    frames = (cfg.encdec.n_frames, cfg.d_model) if cfg.encdec else None
     tc = TrainConfig(n_microbatches=args.microbatches, remat=True, zero1=True,
                      total_steps=max(args.steps, 100),
                      warmup=max(5, args.steps // 10),
@@ -60,7 +62,7 @@ def _train(args, pctx=None):
     host, hosts = (0, 1) if pctx is None else (pctx.dp_rank, pctx.dp_world)
     dev = args.device if pctx is None else pctx.mesh.device
     tr = Trainer(cfg, tc, token_stream(dc, 0, host_id=host, n_hosts=hosts,
-                                       device=dev),
+                                       device=dev, frames=frames),
                  pctx=pctx, device=dev)
     if args.resume:
         tr.restore_if_available()
@@ -89,11 +91,8 @@ def main(argv=None):
     ``step``, ``metrics_log``, ``skipped_steps``, ``device``)."""
     args = build_parser().parse_args(argv)
     from repro_torch._device import resolve_device
-    from repro_torch.configs import get
-    from repro_torch.training.trainer import check_tp_training
 
     dev = resolve_device(args.device)
-    check_tp_training(get(args.arch, smoke=args.smoke), args.model_parallel)
     world = args.data_parallel * args.model_parallel
     if world > 1:
         from repro_torch.launch.mesh import spawn

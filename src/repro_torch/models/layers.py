@@ -75,11 +75,15 @@ def _qkv(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None, xkv=None,
     encoder output of cross-attention; default x).  qk-norm (RMSNorm per
     head, before RoPE) here, so prefill, decode, verify and chunked prefill
     all take it.  Under ``pctx`` wq/wk/wv are the rank's row slices and
-    ``cfg`` counts its heads (``parallel/rules.py:local_cfg``)."""
+    ``cfg`` counts its heads (``parallel/rules.py:local_cfg``); ``x``
+    enters the block once for q, k and v, and a cross-attention's
+    ``xkv`` once for k and v (in training each sums its cotangent over
+    the model axis: every rank reads the whole encoder output for its own
+    heads only)."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    x = enter(x, pctx)                        # one block entry for q, k, v
-    xkv = x if xkv is None else xkv
+    x = enter(x, pctx)
+    xkv = x if xkv is None else enter(xkv, pctx)
     q = linear(x, p["wq"], stats, prefix + "wq", kcfg, pctx=pctx,
                tp="row").reshape(B, -1, H, hd)
     k = linear(xkv, p["wk"], None, kcfg=kcfg, pctx=pctx,
@@ -631,7 +635,12 @@ def _ssd_split(p, x, stats, prefix: str, kcfg=None, pctx=None):
     are tapped once, on ``w_x`` (the other four share its input and its
     statistics, ``quant/api.py:STAT_ALIAS``).  ``pctx``: z and x are the
     rank's heads (row slices); B, C and dt are whole on every rank, and dt
-    is cut to the rank's heads."""
+    is cut to the rank's heads.  So every rank reads B, C and dt for its
+    own heads only: ``x`` enters the block once, before all five (in
+    training its cotangent is summed over the model axis there), and the
+    gradients of ``w_B``, ``w_C``, ``w_dt`` and of the B and C convs are
+    partial sums (``parallel/rules.py:partial_grad``)."""
+    x = enter(x, pctx)
     z = linear(x, p["w_z"], None, kcfg=kcfg, pctx=pctx, tp="row")
     xr = linear(x, p["w_x"], stats, prefix + "w_x", kcfg, pctx=pctx,
                 tp="row")
@@ -697,15 +706,18 @@ def _ssd_gate(p, y, z, x_dtype, pctx=None):
     spans the whole inner width di; under ``pctx`` a rank holds di/n of y,
     so the mean square of its channels is all-reduced over the model axis
     and divided by n (one small collective per SSD layer; exact at one
-    rank)."""
+    rank).  Every rank's channels read that whole mean square, so it
+    enters the split block there (in training its cotangent is summed
+    over the model axis, where the all-reduce's own backward is the
+    identity)."""
     gate = ACT["silu"](z.float()).to(x_dtype)
     y = y.to(x_dtype)
     ms = None
     if pctx is not None and pctx.mesh is not None:
         from repro_torch.parallel import comm
         yf = y.float()
-        ms = comm.all_reduce((yf * yf).mean(dim=-1, keepdim=True),
-                             pctx) / pctx.world
+        ms = enter(comm.all_reduce((yf * yf).mean(dim=-1, keepdim=True),
+                                   pctx), pctx) / pctx.world
     return rmsnorm(y, p["norm"]["gamma"], ms=ms) * gate
 
 
@@ -837,7 +849,7 @@ def _mla_q(cfg: ModelConfig, p, x, stats, prefix, kcfg, pctx=None):
     """q (B,H,S,nope+rope) split into its nope and rope parts, and
     ``wkv_a``'s output (B,S,r+rope) (it shares x with ``wq``: one tap).
     ``pctx``: the rank's q heads; ``wkv_a`` is whole on every rank (the
-    latent and the rope key are shared by every head)."""
+    latent and the rope key are shared by every head; :func:`_mla_kv`)."""
     m, H = cfg.mla, cfg.n_heads
     B = x.shape[0]
     qd = m.qk_nope_dim + m.qk_rope_dim
@@ -846,6 +858,19 @@ def _mla_q(cfg: ModelConfig, p, x, stats, prefix, kcfg, pctx=None):
         B, -1, H, qd).transpose(1, 2)
     a = linear(x, p["wkv_a"], None, kcfg=kcfg)
     return q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:], a
+
+
+def _mla_kv(cfg: ModelConfig, p, a, pctx=None):
+    """``wkv_a``'s output (B,S,r+rope) → the normed latent (B,S,r) and the
+    rope key (B,S,rope), before RoPE.  Under ``pctx`` the rank's heads read
+    the whole rope key, so it enters the split block here (in training
+    its cotangent is summed over the model axis).  The latent needs no
+    entry of its own: it enters through ``wkv_b``'s row linear, so its
+    cotangent is already whole on every rank (an entry on all of ``a``
+    would sum it n times)."""
+    r = cfg.mla.kv_lora_rank
+    return (rmsnorm(a[..., :r], p["kv_norm"]["gamma"]),
+            enter(a[..., r:], pctx))
 
 
 def mla_apply(cfg: ModelConfig, p, x, stats, prefix: str, *, pos0: int = 0,
@@ -859,8 +884,8 @@ def mla_apply(cfg: ModelConfig, p, x, stats, prefix: str, *, pos0: int = 0,
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = x.shape
     q_nope, q_rope, a = _mla_q(cfg, p, x, stats, prefix, kcfg, pctx)
-    latent = rmsnorm(a[..., :m.kv_lora_rank], p["kv_norm"]["gamma"])
-    k_rope = a[..., m.kv_lora_rank:][:, None]          # (B,1,S,rope)
+    latent, k_rope = _mla_kv(cfg, p, a, pctx)
+    k_rope = k_rope[:, None]                           # (B,1,S,rope)
     pos = torch.arange(S, device=x.device) + pos0
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
     k_rope = apply_rope(k_rope, pos, cfg.rope_theta)
@@ -897,10 +922,9 @@ def mla_decode(cfg: ModelConfig, p, x, state, pos, *, kcfg=None, pctx=None):
     m, H = cfg.mla, cfg.n_heads
     B = x.shape[0]
     q_nope, q_rope, a = _mla_q(cfg, p, x, None, "", kcfg, pctx)
-    latent_t = rmsnorm(a[..., :m.kv_lora_rank], p["kv_norm"]["gamma"])
+    latent_t, k_rope_t = _mla_kv(cfg, p, a, pctx)
     q_rope = rope_decode(q_rope, pos, cfg.rope_theta)
-    k_rope_t = rope_decode(a[..., m.kv_lora_rank:][:, None], pos,
-                           cfg.rope_theta)[:, 0]
+    k_rope_t = rope_decode(k_rope_t[:, None], pos, cfg.rope_theta)[:, 0]
     latent = seq_update_batched(state["latent"], latent_t, pos)
     k_rope = seq_update_batched(state["k_rope"], k_rope_t, pos)
     k_nope, v = _mla_expand(cfg, p, latent, kcfg=kcfg, pctx=pctx)
@@ -1001,10 +1025,14 @@ def moe_apply_dense(cfg: ModelConfig, p, x, stats, prefix: str, kcfg=None,
     each rank runs its E/n experts over every token with its experts' gate
     columns, and the f32 partial sums are all-reduced, then rounded once;
     the statistics stay gate-weighted, each rank holding its experts'
-    rows."""
+    rows.  Every rank reads the whole tokens and the whole router for its
+    experts' share only: the tokens enter the split block before both (in
+    training their cotangent is summed over the model axis), and the
+    router's gradient is a partial sum (``parallel/rules.py:
+    partial_grad``)."""
     e = cfg.moe
     B, S, D = x.shape
-    x2 = x.reshape(-1, D)
+    x2 = enter(x.reshape(-1, D), pctx)
     top_p, top_i = _router(cfg, p, x2, stats, prefix)
     gate = torch.zeros((x2.shape[0], e.n_experts), dtype=torch.float32,
                        device=x.device).scatter_add_(1, top_i, top_p)
@@ -1056,12 +1084,16 @@ def moe_apply_a2a(cfg: ModelConfig, p, x, stats, prefix: str, *, pctx,
     (T, D).  Everything is on the device at shapes fixed by (T, k, E,
     cf), so a decode block stays one graph replay.  Statistics count each
     slot once (unweighted, as the reference's); the rank keeps its
-    experts' rows, where the reference all-gathers them to every rank."""
+    experts' rows, where the reference all-gathers them to every rank.
+    A rank routes its own chunk only, so the tokens enter the split block
+    before they are cut (in training their cotangent, non-zero in the
+    rank's chunk, is summed over the model axis), and the router's
+    gradient is a partial sum (``parallel/rules.py:partial_grad``)."""
     e = cfg.moe
     from repro_torch.parallel import comm
     n, r = pctx.world, pctx.rank
     B, S, D = x.shape
-    x2 = x.reshape(-1, D)
+    x2 = enter(x.reshape(-1, D), pctx)
     T = x2.shape[0]
     Tc, C = moe_capacity(cfg, T, n)
     if Tc * n != T:

@@ -494,16 +494,33 @@ class NamedSharding:
         return t
 
 
+# the leaves the placement keeps whole inside a split block while each rank
+# reads them for its own share only, so that each rank's gradient is a
+# partial sum, and the block (regex on path, block): a qk-norm's gammas
+# (the rank's heads), SSD's B, C and dt projections and the B and C convs
+# (the rank's heads: ``models/layers.py:_ssd_split``), the MoE router (the
+# rank's experts, or its chunk of the tokens).  MLA's ``wkv_a`` and
+# ``kv_norm`` are whole but not partial: the latent enters through
+# ``wkv_b``'s row linear and the rope key enters on its own
+# (``models/layers.py:_mla_kv``), so both cotangents are whole on every
+# rank before they reach them.
+_PARTIAL = [
+    (r"\.mix\.(qnorm|knorm)\.", "attn"),
+    (r"\.mix\.(w_B|w_C|w_dt|conv_B|conv_C)$", "ssd"),
+    (r"\.mlp\.router$", "experts"),
+]
+
+
 def partial_grad(path_str: str, spec, pctx: Optional[ParallelCtx]) -> bool:
     """Whether each model rank's gradient of the leaf at ``path_str`` is a
-    partial sum: a leaf the placement keeps whole (``spec`` names no model
-    axis) inside a block the bound layout splits, which each rank reads
-    for its own slice only (a qk-norm's gammas in split attention)."""
+    partial sum (:data:`_PARTIAL`, where the layout splits its block and
+    ``spec`` keeps it whole), which the trainer sums over the model
+    axis."""
     if pctx is None or pctx.layout is None or pctx.world == 1 \
             or pctx.model_axis in [a for ax in spec for a in _names(ax)]:
         return False
-    block = _block_of(path_str, pctx.layout)
-    return block is not None and bool(getattr(pctx.layout, block))
+    return any(re.search(pat, path_str) and bool(getattr(pctx.layout, b))
+               for pat, b in _PARTIAL)
 
 
 def shard_params(params, pctx: ParallelCtx):

@@ -21,12 +21,15 @@ data axis (cast first: the same bits, half the bytes); runs forward and
 backward on the rank's rows through the differentiable collectives
 (``parallel/comm.py``; ``lm.loss_fn(pctx=)`` gives the global batch's
 loss); sums over the model axis the gradients of the leaves the layout
-keeps whole inside a split block (a qk-norm's gammas), then sums every
-gradient over the data axis in f32, reduce-scattered onto the ZeRO slice
-(the 1/D is in the global loss); takes the global norm with each element
-counted once over the mesh; and runs AdamW on the rank's slices.
-Tensor-parallel training covers the plain-attention families (dense,
-vlm); the others refuse a model axis above one rank (ROADMAP A10 (e)).
+keeps whole inside a split block while each rank reads them for its own
+share (``parallel/rules.py:partial_grad``: a qk-norm's gammas, SSD's B, C
+and dt projections, the MoE router), then sums every gradient over the
+data axis in f32, reduce-scattered onto the ZeRO slice (the 1/D is in the
+global loss); takes the global norm with each element counted once over
+the mesh; and runs AdamW on the rank's slices.  Every family trains on
+any (data, model) mesh whose layout ``rules.bind`` decides: each
+replicated tensor that a split block reads for its own share enters the
+block through ``comm.enter`` (``models/layers.py``).
 
 ``make_compressed_dp_step`` is the reference's data-parallel variant:
 replicated parameters, the int8 error-feedback sum of
@@ -56,10 +59,6 @@ from repro_torch.parallel import ParallelCtx, comm
 from repro_torch.parallel.rules import (P, NamedSharding, bind,
                                         param_sharding, partial_grad)
 
-# the families whose every entry into a split block is a row-parallel
-# linear or the vocab-parallel head (``comm.enter``)
-TP_TRAIN_FAMILIES = ("dense", "vlm")
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -74,17 +73,6 @@ class TrainConfig:
     checkpoint_every: int = 100
     checkpoint_dir: str = ""
     keep: int = 3
-
-
-def check_tp_training(cfg: ModelConfig, model: int):
-    """Refuse a model axis above one rank for the families whose split
-    blocks take replicated inputs other than through a row-parallel
-    linear (each needs its own backward collective: ROADMAP A10 (e))."""
-    if model > 1 and cfg.family not in TP_TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"tensor-parallel training of {cfg.name} (family "
-            f"{cfg.family!r}) over {model} model ranks is not ported "
-            f"(ROADMAP A10 (e)); train it data-parallel (model axis 1)")
 
 
 def _microbatches(batch, n: int):
@@ -215,7 +203,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     mesh = pctx is not None and pctx.mesh is not None
     if mesh:
         pctx = bind(pctx, cfg)
-        check_tp_training(cfg, pctx.world)
         if opt_shardings is None:
             raise ValueError("make_train_step under a mesh needs "
                              "opt_shardings (opt_sharding's tree)")

@@ -72,9 +72,12 @@ def model_cfg(name, impl=None):
 
 
 def stream(cfg, pctx, start=0):
+    """The rank's rows of the token stream (with the encoder-decoder
+    family's frames)."""
     h, n = (0, 1) if pctx is None else (pctx.dp_rank, pctx.dp_world)
+    fr = (cfg.encdec.n_frames, cfg.d_model) if cfg.encdec else None
     return token_stream(dcfg(cfg), 0, start_step=start, host_id=h,
-                        n_hosts=n, device="cpu")
+                        n_hosts=n, device="cpu", frames=fr)
 
 
 def npy(t):

@@ -3,8 +3,9 @@
 ``DeviceRunner``), ``core.calibrate`` and ``core.qdq``; the engine's
 facade properties, ``QuantPolicy.per_expert_stats`` and the KV helpers;
 and every public name of every reference module, which must have a
-counterpart in the port unless the allow-list names the ROADMAP item that
-ports it or the documented difference (ROADMAP §C) that replaces it.
+counterpart in the port unless the allow-list names the documented
+difference (ROADMAP §C, or README's "The analysis tools") that replaces
+it.
 Inputs come from numpy with a seed."""
 import importlib
 import inspect
@@ -139,17 +140,18 @@ REF_MODULES = sorted(
              else p.relative_to(_SRC).with_suffix("").parts)
     for p in (_SRC / "repro").rglob("*.py"))
 
-# what has no counterpart yet: ROADMAP's queued items, and the documented
-# differences of ROADMAP §C; nothing else
+# what has no counterpart: the documented differences of ROADMAP §C and
+# of README's "The analysis tools" (the reference's HLO walkers and its
+# TPU pod's mesh); nothing else
+_HLO = "README, The analysis tools: walks XLA HLO"
 QUEUED_MODULES = {
-    "repro.launch.analysis": "A12", "repro.launch.dryrun": "A12",
-    "repro.launch.napkin": "A12", "repro.launch.reanalyze": "A12",
-    "repro.launch.steps": "A12",
+    "repro.launch.analysis": _HLO, "repro.launch.dryrun": _HLO,
+    "repro.launch.reanalyze": _HLO, "repro.launch.steps": _HLO,
     "repro.parallel.compat": "§C: shard_map has no PyTorch counterpart",
 }
 QUEUED_NAMES = {
-    "repro.configs": {"cells": "A12", "skip_reason": "A12"},
-    "repro.launch.mesh": {"make_production_mesh": "A12"},
+    "repro.launch.mesh": {"make_production_mesh":
+                          "README, The analysis tools: a TPU pod's mesh"},
     "repro.models.common": {"opt_level": "§C: one attention path"},
     "repro.parallel": {"shard_map": "§C: no PyTorch counterpart"},
     "repro.quant.guards": {"compiled_programs": "§C: eager guards"},

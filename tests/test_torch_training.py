@@ -32,6 +32,7 @@ Tolerances:
   losses to rtol 1e-2 and the updates to a relative L2 of 0.1 (bf16
   rounding of the gradients, amplified as above).
 """
+import ast
 import os
 import types
 
@@ -545,11 +546,17 @@ def test_train_cli_trains_saves_and_resumes(tmp_path, capsys):
 @pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_1p3b",
                                   "deepseek_v2_lite_16b",
                                   "llama4_scout_17b_a16e", "whisper_medium"])
-def test_train_cli_refuses_parallelism(arch):
-    """Tensor-parallel training of the five families whose split blocks
-    take replicated inputs other than through a row-parallel linear is
-    refused before any rank starts (ROADMAP A10 (e)); data parallelism
-    (tests/test_torch_parallel_training.py) is not."""
-    with pytest.raises(NotImplementedError, match=r"A10 \(e\)"):
-        t_train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
-                          "--model-parallel", "2"])
+def test_train_cli_tensor_parallel(arch, capsys):
+    """``--model-parallel 2`` trains every family (two spawned ranks; the
+    encoder-decoder family's batches carry frames): rank 0 prints its
+    steps' lines, with finite losses and grad norms.
+    tests/test_torch_parallel_training_families.py holds the runs to
+    world 1."""
+    out = t_train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                            "--model-parallel", "2", "--steps", "2",
+                            "--seq", "16", "--batch", "4"])
+    lines = [ast.literal_eval(x)
+             for x in capsys.readouterr().out.strip().splitlines()]
+    assert out.step == 2 and [m["step"] for m in lines] == [0, 1, 0, 1]
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+               for m in lines)
