@@ -111,7 +111,8 @@
    ``family_engine``: (a) deepseek-v2-lite (MLA, 64 experts top-6, 2
    shared) at full width and all 27 layers, dense slab only: every kernel
    of its path launched (``ttq_gemm``, the expert-batched
-   ``ttq_gemm_experts`` 3 times per layer and decode step, counted per
+   ``ttq_gemm_experts`` 3 times per layer and decode step, each on the
+   tensor-core tile, counted per
    replay, ``ttq_quantize``), graph blocks and prefill replays bit for bit
    eager, the ms per step of the ``wkv_b`` expansions of the latent
    cache, the three refusals (paged pool, speculation, chunked prefill),
@@ -119,8 +120,12 @@
    path's (each first disagreement of a token a near-tie of router
    probabilities); (b) llama4-scout (16 experts top-1 and a shared one, G
    = 5) at full width and ``fit_depth`` layers, dense then paged (paged
-   tokens equal to dense).  [2] also times ``ttq_gemm_experts`` at both
-   configs' expert shapes.
+   tokens equal to dense).  Every ``ttq_gemm_experts`` launch of both
+   configs must take the tensor-core tile (``build.EXPERTS_TILES``).  [2]
+   also checks and times ``ttq_gemm_experts`` at both configs' expert
+   shapes: the tensor-core tile against the plain version, expert e bit
+   for bit the same in a launch over itself alone and over half the
+   experts, and the batched CUDA-core tile timed beside it in turns.
 3j. The SSM and encoder-decoder families, [3]'s policy with the default
    guards through [3g]'s ``family_engine``, dense slab only (neither
    family admits the pool): (a) mamba2-1.3b (Mamba2's chunked SSD, no
@@ -290,6 +295,9 @@ FAMILY_ATTN = ("attn_kernel<4,1,8,1>", "paged_attn_kernel<4,1,8,1>")
 # the quantize instantiation a requant runs: bits 4, one vector per lane
 # and group of 32 (four lanes), bf16 weights
 MAIN_PATH_QUANT = "quant_kernel<4,1,1,__nv_bfloat16>"
+# the experts' mma tile both MoE configs decode through: one n-tile of 4
+# tokens (T <= 4), one 32-k unit per group (g32)
+MAIN_PATH_EXPERTS = "experts_mma_kernel<1,1,0>"
 SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clock (time_ms)
 # host-side CUDA API calls that put work on a stream, as the profiler
 # names them (with or without CUPTI's version suffix)
@@ -729,23 +737,30 @@ def gemm_at_splits(torch, lib, xb, pk, S, Z, dinv, flush):
 def kernel_gemm_experts(torch, dev, flush, depths) -> dict:
     """``ttq_gemm_experts`` at both MoE configs' expert shapes, int4 g32, T
     = 4 bf16 tokens (shared by every expert for wg/wu, one set per expert
-    for wd), L2 flushed: against the plain version (one bf16 rounding),
-    expert 0 and E-1 bit for bit a 2-D ``ttq_gemm`` launch at the same
-    split, two calls bitwise equal; its time, the bound (packed codes, S,
-    Z, x, D⁻¹ and y over the memory rate, or the f32 operations, the
-    larger), the plain version's and one ``torch.bmm`` on the dequantized
-    bf16 stack.  Per decode step at ``depths`` (config → layers): the
-    kernels-line row is deepseek-v2-lite's; every config's is returned."""
+    for wd), L2 flushed.  The wrapper takes the mma tile
+    (``csrc/ttq_gemm_experts.cu``): held against the plain version (one
+    bf16 rounding), experts 0 and E-1 bit for bit a launch over that
+    expert alone and over the half of the experts that holds it, two calls
+    bitwise equal.  Timed in the same run, in turns (mma, batched, batched,
+    mma; the mean of each tile's two medians): the batched CUDA-core tile
+    through its C entry (``ttq_gemm_experts_launch`` at ``gemm_splits``'
+    split, held to the same tolerance); then the plain version and one
+    ``torch.bmm`` on the dequantized bf16 stack.  The bound: packed codes,
+    S, Z, x, D⁻¹ and y over the memory rate, or the f32 operations, the
+    larger.  Per decode step at ``depths`` (config → layers): the
+    kernels-line row is deepseek-v2-lite's mma tile; every config's totals,
+    the batched tile's beside, are returned."""
     from repro_torch.core.qdq import unpack_bits
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels.ttq_gemm import gemm_splits, ttq_gemm_experts
+    from repro_torch.kernels.ttq_gemm import (experts_tile, gemm_splits,
+                                              ttq_gemm_experts)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows, worst = {}, 0.0
     for cfg_name, shapes in EXPERT_SHAPES.items():
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                   launches=0)
+        tot = dict(ms=0.0, batched_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   library_ms=0.0, launches=0)
         for name, E, dp, d, per_layer in shapes:
             pk = torch.empty((E, dp, d // 8), dtype=torch.int32, device=dev)
             S = torch.empty((E, dp, d // 32), device=dev)
@@ -761,6 +776,8 @@ def kernel_gemm_experts(torch, dev, flush, depths) -> dict:
             shared = name != "wd"
             xb = torch.randn((4, d) if shared else (E, 4, d), generator=gen,
                              device=dev).to(torch.bfloat16)
+            check(experts_tile(d, 32, 4, xb.dtype) == "mma",
+                  f"ttq_gemm_experts {cfg_name} {name}: not the mma tile")
             y = ttq_gemm_experts(xb, pk, S, Z, dinv, bits=4, group_size=32)
             y2 = ttq_gemm_experts(xb, pk, S, Z, dinv, bits=4, group_size=32)
             y_r = ref.ttq_gemm_experts_ref(xb, pk, S, Z, bits=4,
@@ -770,16 +787,29 @@ def kernel_gemm_experts(torch, dev, flush, depths) -> dict:
                                        atol=2e-4 * scale)
             check(torch.equal(y, y2), f"ttq_gemm_experts {cfg_name} {name}: "
                   f"two calls differ")
-            split = gemm_splits(dp, d, 4, 4, 32, n_sm, E)
+            half = E // 2
             for e in (0, E - 1):
-                x2 = (xb if shared else xb[e]).contiguous()
-                y1 = torch.empty((4, dp), dtype=xb.dtype, device=dev)
-                check(build.lib().ttq_gemm_launch(
-                    x2.data_ptr(), 1, pk[e].data_ptr(), S[e].data_ptr(),
-                    Z[e].data_ptr(), dinv[e].data_ptr(), y1.data_ptr(), 4,
-                    dp, d, 4, 32, split, stream) == 0, "2-D launch refused")
-                check(torch.equal(y[e], y1), f"ttq_gemm_experts {cfg_name} "
-                      f"{name}: expert {e} is not the 2-D launch's")
+                for lo, hi in ((e, e + 1), (e // half * half,
+                                            e // half * half + half)):
+                    ys = ttq_gemm_experts(
+                        xb if shared else xb[lo:hi], pk[lo:hi], S[lo:hi],
+                        Z[lo:hi], dinv[lo:hi], bits=4, group_size=32)
+                    check(torch.equal(y[e], ys[e - lo]),
+                          f"ttq_gemm_experts {cfg_name} {name}: expert {e} "
+                          f"of {E} differs from a launch over experts "
+                          f"{lo}..{hi - 1}")
+            split = gemm_splits(dp, d, 4, 4, 32, n_sm, E)
+            y_b = torch.empty_like(y)
+
+            def batched():
+                check(build.lib().ttq_gemm_experts_launch(
+                    xb.data_ptr(), 1, int(shared), pk.data_ptr(),
+                    S.data_ptr(), Z.data_ptr(), dinv.data_ptr(),
+                    y_b.data_ptr(), E, 4, dp, d, 4, 32, split, stream) == 0,
+                    "the batched tile's launch refused")
+            batched()
+            torch.testing.assert_close(y_b.float(), y_r, rtol=2 ** -7,
+                                       atol=2e-4 * scale)
             worst = max(worst, float((y.float() - y_r).abs().max()))
             w_lib = torch.stack([
                 ((unpack_bits(pk[e], d, 4).float()
@@ -787,8 +817,13 @@ def kernel_gemm_experts(torch, dev, flush, depths) -> dict:
                   + Z[e].repeat_interleave(32, 1)) * dinv[e]).to(
                       torch.bfloat16) for e in range(E)])
             xl = xb.expand(E, 4, d) if shared else xb
-            t_k = time_ms(torch, lambda: ttq_gemm_experts(
-                xb, pk, S, Z, dinv, bits=4, group_size=32), flush=flush)
+
+            def mma():
+                return ttq_gemm_experts(xb, pk, S, Z, dinv, bits=4,
+                                        group_size=32)
+            turns = [time_ms(torch, fn, flush=flush)
+                     for fn in (mma, batched, batched, mma)]
+            t_k, t_b = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
             t_p = time_ms(torch, lambda: ref.ttq_gemm_experts_ref(
                 xb, pk, S, Z, bits=4, group_size=32, dinv=dinv), iters=3,
                 warmup=1, flush=flush)
@@ -799,23 +834,30 @@ def kernel_gemm_experts(torch, dev, flush, depths) -> dict:
                     2 * E * 4 * dp * d / F32_FLOP_PER_S) * 1e3
             L = depths[cfg_name]
             n = L * per_layer
-            for k, v in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b),
-                         ("library_ms", t_l)):
+            for k, v in (("ms", t_k), ("batched_ms", t_b), ("plain_ms", t_p),
+                         ("bound_ms", b), ("library_ms", t_l)):
                 tot[k] += n * v
             tot["launches"] += n
             print(f"  ttq_gemm_experts {cfg_name} {name} E={E} {dp}x{d} T=4 "
-                  f"int4: {t_k * 1e3:.1f} us, bound {b * 1e3:.1f} us "
-                  f"({b / t_k:.1%} of it reached), plain {t_p * 1e3:.1f} us, "
-                  f"torch.bmm bf16 {t_l * 1e3:.1f} us; split {split}, "
-                  f"{E * -(-dp // 32) * split} blocks; experts 0 and {E - 1} "
-                  f"bit for bit 2-D launches, two calls bitwise equal")
-            del pk, S, Z, D, dinv, w_lib, xb, xl, y, y2, y_r
+                  f"int4: mma tile {t_k * 1e3:.1f} us ({b / t_k:.1%} of the "
+                  f"bound; turns {turns[0] * 1e3:.1f}, {turns[3] * 1e3:.1f}), "
+                  f"batched tile "
+                  f"{t_b * 1e3:.1f} us ({b / t_b:.1%}; turns "
+                  f"{turns[1] * 1e3:.1f}, {turns[2] * 1e3:.1f}; split "
+                  f"{split}), bound {b * 1e3:.1f} us, plain "
+                  f"{t_p * 1e3:.1f} us, torch.bmm bf16 {t_l * 1e3:.1f} us; "
+                  f"experts 0 and {E - 1} bit for bit launches over "
+                  f"themselves alone and over half the experts, two calls "
+                  f"bitwise equal")
+            del pk, S, Z, D, dinv, w_lib, xb, xl, y, y2, y_r, y_b
             torch.cuda.empty_cache()
         print(f"  ttq_gemm_experts {cfg_name} per decode step "
               f"({depths[cfg_name]} layers, {tot['launches']} launches): "
-              f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
-              f"({tot['bound_ms'] / tot['ms']:.1%}), plain "
-              f"{tot['plain_ms']:.3f} ms, torch.bmm {tot['library_ms']:.3f} ms")
+              f"mma tile {tot['ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.1%}"
+              f" of the bound), batched tile {tot['batched_ms']:.3f} ms "
+              f"({tot['bound_ms'] / tot['batched_ms']:.1%}), bound "
+              f"{tot['bound_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+              f"torch.bmm {tot['library_ms']:.3f} ms")
         rows[cfg_name] = tot
     main = rows["deepseek-v2-lite"]
     return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
@@ -3229,7 +3271,7 @@ def collectives_per_step(eng) -> dict:
     g = next(iter(eng.runner._graphs.values()), None)
     K = eng.ecfg.decode_chunk
     return {} if g is None else {k[1]: n / K for k, n in g.launches.items()
-                                 if isinstance(k, tuple)}
+                                 if isinstance(k, tuple) and k[0] == "comm"}
 
 
 def tp_engine(torch, dev, cfg, params, pctx):
@@ -4374,7 +4416,8 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
     guards on the dense slab or the paged pool (block 16): the cold run
     (every kernel of the path launched, no other: an MLA stack reads its
     latent cache through plain attention, an SSM stack attends nowhere, a
-    MoE stack's experts run the batched GEMM 3 times per layer and decode
+    MoE stack's experts run ``ttq_gemm_experts`` on its tensor-core tile
+    3 times per layer and decode
     step; paged tokens equal ``dense``'s; ``frames``, one per prompt, go
     with each request of an encoder-decoder family),
     greedy tokens printed, the graph readings of [3] (a warm run, every
@@ -4401,11 +4444,16 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
         want.add("ttq_gemm_experts")
     check(all((launches[k] > 0) == (k in want) for k in launches),
           f"{what}: launches {launches}, want {sorted(want)}")
+    tiles = dict(build.EXPERTS_TILES)
     if cfg.moe is not None:
         check(launches["ttq_gemm_experts"] == 3 * cfg.n_layers * steps["n"],
               f"{what}: {launches['ttq_gemm_experts']} ttq_gemm_experts "
               f"launches in {steps['n']} decode steps of {cfg.n_layers} MoE "
               f"layers (want 3 per layer and step)")
+        check(tiles == {"mma": launches["ttq_gemm_experts"], "batched": 0},
+              f"{what}: ttq_gemm_experts took the tiles {tiles} in "
+              f"{launches['ttq_gemm_experts']} launches (want the mma tile "
+              f"every time)")
     outs = [list(o) for o in outs]
     if dense is not None:
         check(outs == dense["outputs"], f"{what}: greedy tokens differ from "
@@ -4414,9 +4462,12 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
     res = dict(outputs=outs, tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
                requants=eng.n_requants, launches=launches,
                host_syncs=eng.host_syncs)
+    if cfg.moe is not None:
+        res["experts_tiles"] = tiles
     print(f"  {what}: served {len(prompts)} requests, {n_tok} tokens in "
           f"{wall:.2f} s cold ({n_tok / wall:.1f} tok/s); requants "
           f"{eng.n_requants}; launches {launches}"
+          + (f", ttq_gemm_experts tiles {tiles}" if cfg.moe else "")
           + ("; greedy tokens equal to the dense run's" if dense else ""))
     for i, o in enumerate(outs):
         print(f"    greedy tokens, request {i}: {o}")
@@ -5864,6 +5915,15 @@ def main(argv=None) -> int:
     gemm_ptx = {n: v for n, v in ptx.items() if n.startswith("gemm_")}
     print("    gemm kernels (registers, spill stores, spill loads): "
           + "; ".join(f"{n} {v}" for n, v in sorted(gemm_ptx.items())))
+    mma_ptx = {n: v for n, v in ptx.items()
+               if n.startswith("experts_mma_kernel") and n.endswith(",0>")}
+    print("    experts mma kernels (registers, spill stores, spill loads): "
+          + "; ".join(f"{n} {v}" for n, v in sorted(mma_ptx.items())))
+    check(len(mma_ptx) == 16 and MAIN_PATH_EXPERTS in mma_ptx
+          and not any(n in spilled for n in mma_ptx),
+          f"the ptxas log lists {len(mma_ptx)} experts mma kernels, not 16, "
+          f"or misses the served one {MAIN_PATH_EXPERTS}, or one spills: "
+          f"{spilled}")
     quant_ptx = {n: v for n, v in ptx.items() if n.startswith("quant_kernel")}
     print("    quantize kernels (registers, spill stores, spill loads): "
           + "; ".join(f"{n} {v}" for n, v in sorted(quant_ptx.items())))
@@ -5909,7 +5969,7 @@ def main(argv=None) -> int:
     experts_row, experts_by_cfg = kernel_gemm_experts(torch, dev, flush,
                                                       moe_depths)
     rows["ttq_gemm_experts"] = (
-        "src/repro_torch/kernels/csrc/ttq_gemm.cu",
+        "src/repro_torch/kernels/csrc/ttq_gemm_experts.cu",
         "src/repro/kernels/ttq_gemm.py:125", experts_row)
     del flush
     torch.cuda.empty_cache()
@@ -6128,7 +6188,8 @@ def main(argv=None) -> int:
                             + moe_n + ssm_n + tp_n + tpf_n, **m))
     for cfg_name, t in experts_by_cfg.items():
         print(f"  ttq_gemm_experts per decode step at {cfg_name} "
-              f"({moe_depths[cfg_name]} layers): {t['ms']:.3f} ms, bound "
+              f"({moe_depths[cfg_name]} layers): {t['ms']:.3f} ms (the "
+              f"batched tile's {t['batched_ms']:.3f}), bound "
               f"{t['bound_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
               f"torch.bmm {t['library_ms']:.3f} ms")
     for (name, G, bits), (t_k, t_p, b_b, b_o, t_l) in groups.items():

@@ -40,6 +40,12 @@ SIGNATURES = {
     # split, stream
     "ttq_gemm_experts_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _P],
+    # x, x_shared, packed, S, Z, dinv, y, E, T, dp, d, g, n_sm, stream
+    "ttq_gemm_experts_mma_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _P],
+    # the same launch's copy ring alone (a measurement: tools/experts_probe)
+    "ttq_gemm_experts_mma_copies_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I,
+                                           _I, _I, _I, _I, _P],
     # q, q_is_bf16, scale, kq, ks, vq, vs, cur_pos, out, B, Hkv, G, Gt, S,
     # Dh, n_groups, bits, soft_cap, splits, stream
     "ttq_decode_attention_launch": [_P, _I, _F, _P, _P, _P, _P, _P, _P, _I,
@@ -54,6 +60,9 @@ SIGNATURES = {
 # launches per kernel, counted by the wrappers where they launch
 LAUNCHES = {"ttq_quantize": 0, "ttq_gemm": 0, "ttq_gemm_experts": 0,
             "ttq_decode_attention": 0, "ttq_paged_decode_attention": 0}
+# the tile each ttq_gemm_experts launch took (kernels/ttq_gemm.py:
+# experts_tile), counted beside LAUNCHES["ttq_gemm_experts"]
+EXPERTS_TILES = {"mma": 0, "batched": 0}
 
 _lib = None
 build_seconds = 0.0
@@ -61,8 +70,9 @@ build_log = ""
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, EXPERTS_TILES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -1,7 +1,9 @@
-"""Wrappers of the ``ttq_gemm`` CUDA kernel (``csrc/ttq_gemm.cu``): one
-2-D weight (:func:`ttq_gemm`), or E expert weights of one shape in one
-launch (:func:`ttq_gemm_experts`, the reference's ``ttq_gemm`` under
-``jax.vmap`` in ``_expert_mm``).
+"""Wrappers of the ``ttq_gemm`` CUDA kernels: one 2-D weight
+(:func:`ttq_gemm`, ``csrc/ttq_gemm.cu``), or E expert weights of one shape
+in one launch (:func:`ttq_gemm_experts`, the reference's ``ttq_gemm`` under
+``jax.vmap`` in ``_expert_mm``): the tensor-core tile of
+``csrc/ttq_gemm_experts.cu`` where :func:`experts_tile` says so, else the
+2-D kernel's tile batched over the experts.
 
 CPU tensors take the plain versions (:func:`repro_torch.kernels.ref.
 ttq_gemm_ref`, :func:`~repro_torch.kernels.ref.ttq_gemm_experts_ref`);
@@ -32,6 +34,19 @@ def fast_shape(d: int, g: int, bits: int) -> bool:
     split 1 (``csrc/ttq_gemm.cu``, "Other group sizes")."""
     per = 32 // bits
     return g >= per and not g & (g - 1) and d % (4 * per) == 0
+
+
+def experts_tile(d: int, g: int, bits: int, dtype: torch.dtype) -> str:
+    """The tile :func:`ttq_gemm_experts` launches: ``"mma"`` (tensor cores,
+    ``csrc/ttq_gemm_experts.cu``) for bf16 x, int4 codes and g a power of
+    two of at least 32 dividing d (both MoE configs' expert shapes at any
+    T, E and d'); ``"batched"`` (the 2-D kernel's tile over the experts,
+    ``csrc/ttq_gemm.cu``) for every other shape: bits 2 and 8, other g, f32
+    x.  Chosen by shape, never by failure."""
+    if (bits == 4 and dtype == torch.bfloat16 and g >= 32 and not g & (g - 1)
+            and d % g == 0):
+        return "mma"
+    return "batched"
 
 
 @functools.lru_cache(maxsize=None)      # called per decode linear: host time
@@ -123,8 +138,11 @@ def ttq_gemm_experts(x: torch.Tensor, packed: torch.Tensor,
                      group_size: int = 32) -> torch.Tensor:
     """E experts in one launch: x (E, T, d), or (T, d) shared by every
     expert; packed (E, d', d·bits/32) int32; scale, zero (E, d', d/g) f32;
-    dinv (E, d) f32 or None → y (E, T, d') in x's dtype.  Expert e's rows
-    equal :func:`ttq_gemm` on expert e bit for bit (the same split)."""
+    dinv (E, d) f32 or None → y (E, T, d') in x's dtype.  The tile is
+    :func:`experts_tile`'s, counted in ``build.EXPERTS_TILES``.  On the mma
+    tile expert e's rows are bit for bit the same whatever E and whichever
+    experts share the launch; on the batched tile they equal
+    :func:`ttq_gemm` on expert e bit for bit (the same split)."""
     E, dp = packed.shape[:2]
     d = x.shape[-1]
     if x.device.type == "cpu":
@@ -153,16 +171,25 @@ def ttq_gemm_experts(x: torch.Tensor, packed: torch.Tensor,
             + ("" if dinv is None else f", dinv {tuple(dinv.shape)}")
             + " disagree")
     _check_dg(NAME_EXPERTS, d, g, per)
-    split = gemm_splits(dp, d, T, bits, g, sm_count(x.device), E)
+    tile = experts_tile(d, g, bits, x.dtype)
+    n_sm = sm_count(x.device)
     x, packed, scale, zero = map(aligned, (x, packed, scale, zero))
     dinv = None if dinv is None else aligned(dinv)
     y = torch.empty((E, T, dp), dtype=x.dtype, device=x.device)
-    err = build.lib().ttq_gemm_experts_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), int(shared),
-        packed.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-        None if dinv is None else dinv.data_ptr(), y.data_ptr(),
-        E, T, dp, d, bits, g, split,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dinv_ptr = None if dinv is None else dinv.data_ptr()
+    if tile == "mma":
+        err = build.lib().ttq_gemm_experts_mma_launch(
+            x.data_ptr(), int(shared), packed.data_ptr(), scale.data_ptr(),
+            zero.data_ptr(), dinv_ptr, y.data_ptr(), E, T, dp, d, g, n_sm,
+            stream)
+    else:
+        err = build.lib().ttq_gemm_experts_launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), int(shared),
+            packed.data_ptr(), scale.data_ptr(), zero.data_ptr(), dinv_ptr,
+            y.data_ptr(), E, T, dp, d, bits, g,
+            gemm_splits(dp, d, T, bits, g, n_sm, E), stream)
     build.check(err, NAME_EXPERTS)
     build.LAUNCHES[NAME_EXPERTS] += 1
+    build.EXPERTS_TILES[tile] += 1
     return y

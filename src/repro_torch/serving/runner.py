@@ -612,14 +612,18 @@ class DeviceRunner:
             graph.register_generator_state(self.generator)
         before = dict(build.LAUNCHES)
         before_c = dict(comm.COUNTS)
+        before_t = dict(build.EXPERTS_TILES)
         with _collector_paused(), torch.cuda.graph(graph, pool=pool,
                                                    stream=self._stream):
             out = fn()
         launches = {k: build.LAUNCHES[k] - n for k, n in before.items()}
         launches.update({("comm", k): comm.COUNTS[k] - n
                          for k, n in before_c.items()})
+        launches.update({("tile", k): build.EXPERTS_TILES[k] - n
+                         for k, n in before_t.items()})
         build.LAUNCHES.update(before)   # captured, not launched
         comm.COUNTS.update(before_c)
+        build.EXPERTS_TILES.update(before_t)
         graphs[key] = _Graph(graph, out, launches, inputs or {})
         return warm, time.perf_counter() - t0
 
@@ -627,8 +631,9 @@ class DeviceRunner:
     def _replay(g: _Graph):
         g.graph.replay()
         for k, n in g.launches.items():
-            if isinstance(k, tuple):        # a captured collective
-                comm.COUNTS[k[1]] += n
+            if isinstance(k, tuple):    # a collective, or an experts' tile
+                counts = comm.COUNTS if k[0] == "comm" else build.EXPERTS_TILES
+                counts[k[1]] += n
             else:
                 build.LAUNCHES[k] += n
         return g.out

@@ -922,6 +922,30 @@ def _launch_2d(x2, pk, S, Z, dinv, bits, g, split):
     return y
 
 
+def _experts_launch_counted(x, pk, S, Z, dinv, bits, g):
+    """One ``ttq_gemm_experts`` call: (y, launches counted, tiles counted)."""
+    before = kbuild.LAUNCHES["ttq_gemm_experts"]
+    tiles = dict(kbuild.EXPERTS_TILES)
+    y = ttq_gemm_experts(x, pk, S, Z, dinv, bits=bits, group_size=g)
+    return (y, kbuild.LAUNCHES["ttq_gemm_experts"] - before,
+            {k: v - tiles[k] for k, v in kbuild.EXPERTS_TILES.items()})
+
+
+def _e_independent(x, pk, S, Z, dinv, bits, g, y, shared):
+    """Expert e of an E-launch (``y``) equals, bit for bit, a launch over
+    expert e alone and over the half of the experts that holds it."""
+    E = pk.shape[0]
+    half = max(E // 2, 1)
+    for e in sorted({0, E // 2, E - 1}):
+        for lo in (e, e // half * half):
+            hi = lo + (1 if lo == e else half)
+            xs = x if shared else x[lo:hi]
+            ys = ttq_gemm_experts(xs, pk[lo:hi], S[lo:hi], Z[lo:hi],
+                                  None if dinv is None else dinv[lo:hi],
+                                  bits=bits, group_size=g)
+            assert torch.equal(y[e], ys[e - lo]), (e, lo, hi)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shared", [True, False], ids=["shared-x", "per-x"])
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -929,22 +953,31 @@ def _launch_2d(x2, pk, S, Z, dinv, bits, g, split):
 @pytest.mark.parametrize("E", [1, 4, 16, 64])
 def test_gemm_experts_is_e_launches(cuda, E, T, bits, shared):
     """One batched launch over E experts (x shared by every expert, or one
-    per expert) is bit for bit E 2-D launches at the split the batched one
-    takes, within the GEMM's tolerance of the plain version, and counts one
-    launch.  d' = 96 (three row tiles) and d = 2048 make the split vary
-    with E and T (4 at E = 1, T <= 8 on 132 SMs; 1 at E = 64)."""
+    per expert), bf16 x, counts one launch and one tile, and is within the
+    GEMM's tolerance of the plain version.  On the batched tile (bits 2 and
+    8) it is bit for bit E 2-D launches at the split the batched one takes;
+    d' = 96 (three row tiles) and d = 2048 make the split vary with E and T
+    (4 at E = 1, T <= 8 on 132 SMs; 1 at E = 64).  On the mma tile (int4)
+    expert e is bit for bit the same whether the launch holds E experts,
+    expert e alone or half of them, and two calls are bitwise equal."""
     dp, d, g = 96, 2048, 32
     x, pk, S, Z, dinv = _experts_case(cuda, E, T, dp, d, bits, g, shared)
-    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    split = gemm_splits(dp, d, T, bits, g, n_sm, E)
-    before = kbuild.LAUNCHES["ttq_gemm_experts"]
-    y = ttq_gemm_experts(x, pk, S, Z, dinv, bits=bits, group_size=g)
-    assert kbuild.LAUNCHES["ttq_gemm_experts"] == before + 1
+    tile = "mma" if bits == 4 else "batched"
+    y, n, tiles = _experts_launch_counted(x, pk, S, Z, dinv, bits, g)
+    assert n == 1 and tiles == {"mma": int(tile == "mma"),
+                                "batched": int(tile == "batched")}
     assert y.shape == (E, T, dp) and y.dtype == torch.bfloat16
-    for e in range(E):
-        x2 = x if shared else x[e]
-        assert torch.equal(y[e], _launch_2d(x2, pk[e], S[e], Z[e], dinv[e],
-                                            bits, g, split)), e
+    if tile == "batched":
+        n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+        split = gemm_splits(dp, d, T, bits, g, n_sm, E)
+        for e in range(E):
+            x2 = x if shared else x[e]
+            assert torch.equal(y[e], _launch_2d(
+                x2, pk[e], S[e], Z[e], dinv[e], bits, g, split)), e
+    else:
+        _e_independent(x, pk, S, Z, dinv, bits, g, y, shared)
+        assert torch.equal(y, ttq_gemm_experts(x, pk, S, Z, dinv, bits=bits,
+                                               group_size=g))
     y_r = tref.ttq_gemm_experts_ref(x, pk, S, Z, bits=bits, group_size=g,
                                     dinv=dinv).to(torch.bfloat16)
     torch.cuda.synchronize()
@@ -953,23 +986,67 @@ def test_gemm_experts_is_e_launches(cuda, E, T, bits, shared):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1408, 2048, 64), (2048, 1408, 64),
-                                   (8192, 5120, 16)],
-                         ids=["deepseek-wg", "deepseek-wd", "llama4-wg"])
-def test_gemm_experts_at_the_configs_shapes(cuda, shape):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1408, 2048, 64, True),
+                                   (2048, 1408, 64, False),
+                                   (8192, 5120, 16, True),
+                                   (5120, 8192, 16, False)],
+                         ids=["deepseek-wg", "deepseek-wd", "llama4-wg",
+                              "llama4-wd"])
+def test_gemm_experts_at_the_configs_shapes(cuda, shape, dtype):
     """The expert shapes of both configs at T = 4 (deepseek's wd at d =
-    1408, which the reference's Pallas tile does not take), f32 x: within
-    the f32 tolerance of the plain version, split 1."""
-    dp, d, E = shape
-    x, pk, S, Z, dinv = _experts_case(cuda, E, 4, dp, d, 4, 32, True)
-    x = x.float()
+    1408, which the reference's Pallas tile does not take), x shared for
+    wg/wu and one per expert for wd.  f32 x takes the batched tile at split
+    1, within the f32 tolerance of the plain version; bf16 x (the served
+    path) the mma tile, within the bf16 tolerance, with expert e bit for
+    bit independent of its launch companions."""
+    dp, d, E, shared = shape
+    x, pk, S, Z, dinv = _experts_case(cuda, E, 4, dp, d, 4, 32, shared)
+    x = x.to(dtype)
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert gemm_splits(dp, d, 4, 4, 32, n_sm, E) == 1
-    y = ttq_gemm_experts(x, pk, S, Z, dinv, bits=4, group_size=32)
+    y, n, tiles = _experts_launch_counted(x, pk, S, Z, dinv, 4, 32)
+    assert n == 1 and tiles["mma" if dtype == torch.bfloat16 else
+                            "batched"] == 1
     y_r = tref.ttq_gemm_experts_ref(x, pk, S, Z, bits=4, group_size=32,
                                     dinv=dinv)
+    if dtype == torch.bfloat16:
+        _e_independent(x, pk, S, Z, dinv, 4, 32, y, shared)
     torch.cuda.synchronize()
-    torch.testing.assert_close(y, y_r, **_gemm_tol(d, torch.float32))
+    torch.testing.assert_close(y.float(), y_r.to(dtype).float(),
+                               **_gemm_tol(d, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (3, 96, 2048, 64, 4, True), (3, 96, 2048, 128, 4, True),
+    (3, 96, 2048, 256, 5, False), (2, 64, 1024, 1024, 4, True),
+    (3, 100, 160, 32, 3, False), (2, 72, 96, 32, 12, True),
+    (2, 130, 1408, 32, 17, False), (2, 40, 512, 32, 37, True),
+    (5, 64, 2048, 32, 16, True), (1, 24, 256, 64, 9, False)],
+    ids=["g64", "g128", "g256-T5", "g1024", "d160-ragged", "d96-T12",
+         "ragged-T17", "T37", "T16", "E1-T9"])
+@pytest.mark.parametrize("with_dinv", [True, False], ids=["dinv", "no-dinv"])
+def test_gemm_experts_mma_cases(cuda, case, with_dinv):
+    """The mma tile off the served shapes: g 64 to 1024 (groups across
+    stages), d not a whole number of 128-k stages (a last stage of one to
+    three 32-k units, S and Z copied 1 or 2 floats at a time), row counts
+    that leave a ragged item, T past 16 (token chunks), and no D⁻¹: within
+    the bf16 tolerance of the plain version, E-independent, repeatable."""
+    E, dp, d, g, T, shared = case
+    x, pk, S, Z, dinv = _experts_case(cuda, E, T, dp, d, 4, g, shared)
+    if not with_dinv:
+        dinv = None
+    y, n, tiles = _experts_launch_counted(x, pk, S, Z, dinv, 4, g)
+    assert n == 1 and tiles["mma"] == 1
+    _e_independent(x, pk, S, Z, dinv, 4, g, y, shared)
+    assert torch.equal(y, ttq_gemm_experts(x, pk, S, Z, dinv, bits=4,
+                                           group_size=g))
+    y_r = tref.ttq_gemm_experts_ref(x, pk, S, Z, bits=4, group_size=g,
+                                    dinv=dinv).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_r.float(),
+                               **_gemm_tol(d, torch.bfloat16))
 
 
 @pytest.mark.gpu

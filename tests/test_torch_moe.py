@@ -376,6 +376,105 @@ def test_gemm_splits_count_the_experts(E):
     assert gemm_splits(1408, 2048, 4, 4, 32, 132, 64) == 1
 
 
+# ------------------------------------ the mma tile's arithmetic (plain model)
+
+def _mma_tile_model(x, pk, S, Z, dinv, *, g):
+    """The arithmetic of ``csrc/ttq_gemm_experts.cu`` in plain torch, f32
+    out: x̃ = x∘D⁻¹ as the bf16 pair hi = bf16(x̃), lo = bf16(x̃ − hi); the
+    int4 codes as exact integers; per group the f32 sums Σ c·hi and Σ c·lo
+    (the mma steps, hi and lo in their own columns) and Σ (hi + lo) (the
+    unit sums, on the hi column only), s and z applied to them after: y =
+    Σ_groups s·Σ c·hi + z·Σ(hi + lo), plus Σ_groups s·Σ c·lo, hi + lo.
+    (The card takes each group's sums in its own fixed order; the model's
+    is torch's.)"""
+    E, dp = pk.shape[:2]
+    d = x.shape[-1]
+    xt = x.float() * dinv[:, None, :] if x.dim() == 3 \
+        else x.float()[None] * dinv[:, None, :]
+    hi = xt.bfloat16().float()
+    lo = (xt - hi).bfloat16().float()
+    codes = torch.stack([unpack_bits(pk[e], d, 4) for e in range(E)]).float()
+    cg = codes.reshape(E, dp, d // g, g)
+
+    def products(part):                                # Σ_{k∈g} c·x̃, then s
+        pg = part.reshape(E, part.shape[1], d // g, g)
+        return (S[:, None] * torch.einsum("epgk,etgk->etpg", cg, pg)).sum(-1)
+    xsum = (hi + lo).reshape(E, hi.shape[1], d // g, g).sum(-1)
+    y_hi = products(hi) + (Z[:, None] * xsum[:, :, None, :]).sum(-1)
+    return y_hi + products(lo)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared-x", "per-x"])
+@pytest.mark.parametrize("T", [1, 4, 5, 12])
+@pytest.mark.parametrize("g", [32, 128])
+def test_mma_tile_model_matches_jax_vmapped(jx, T, g, shared):
+    """The mma tile's arithmetic (:func:`_mma_tile_model`, bf16 x as the
+    port serves it) against the JAX ``ttq_gemm`` vmapped over the experts
+    (interpret mode) and against ``ttq_gemm_experts_ref``, both on the same
+    bf16 x.  The card tests' tolerances: bf16 outputs (the model's output
+    rounded once to bf16) within rtol 2^-7, atol 2e-4·sqrt(d/256) of
+    either.  And before that rounding, within the f32 GEMM tolerance (rtol
+    2e-5, atol 2e-4): the hi/lo pair keeps x̃ to ~16 bits, so the tile adds
+    no error of bf16 size beside the output's own rounding."""
+    E, dp, d = 3, 40, 256
+    x, pk, S, Z, dinv = _expert_case(7 * T + g, E, T, dp, d, 4, g, shared)
+    xb = x.bfloat16()
+    y = _mma_tile_model(xb, pk, S, Z, dinv, g=g)
+    y_r = tref.ttq_gemm_experts_ref(xb, pk, S, Z, bits=4, group_size=g,
+                                    dinv=dinv)
+    jnp = jx.jnp
+    xin = jnp.asarray(xb.float().numpy())
+    xin = jnp.broadcast_to(xin, (E, T, d)) if shared else xin
+    y_j = np.asarray(jx.jax.vmap(lambda xx, p, s, z, dv: jx.ops.ttq_gemm(
+        xx, p, s, z, dv, bits=4, group_size=g))(
+        xin, *(jnp.asarray(t.numpy()) for t in (pk, S, Z, dinv))))
+    atol = 2e-4 * (d / 256) ** 0.5
+    for want in (y_r.numpy(), y_j):
+        np.testing.assert_allclose(y.numpy(), want, rtol=2e-5, atol=2e-4)
+        np.testing.assert_allclose(y.bfloat16().float().numpy(), want,
+                                   rtol=2 ** -7, atol=atol)
+
+
+# the served expert shapes: (config, name) → (E, d', d) at int4 g32
+SERVED_EXPERTS = {("deepseek-v2-lite", "wg/wu"): (64, 1408, 2048),
+                  ("deepseek-v2-lite", "wd"): (64, 2048, 1408),
+                  ("llama4-scout", "wg/wu"): (16, 8192, 5120),
+                  ("llama4-scout", "wd"): (16, 5120, 8192)}
+
+
+@pytest.mark.parametrize("key", SERVED_EXPERTS, ids=lambda k: " ".join(k))
+def test_served_expert_shapes_take_the_mma_tile(key):
+    """Both MoE configs' expert projections (bf16 x, int4 g32) take the
+    tensor-core tile, and the configs agree with the shapes."""
+    from repro_torch.kernels.ttq_gemm import experts_tile
+    E, dp, d = SERVED_EXPERTS[key]
+    cfg = t_get({"deepseek-v2-lite": "deepseek_v2_lite_16b",
+                 "llama4-scout": "llama4_scout_17b_a16e"}[key[0]])
+    F = cfg.moe.d_ff_expert
+    assert (E, dp, d) == ((cfg.moe.n_experts, F, cfg.d_model)
+                          if key[1] == "wg/wu"
+                          else (cfg.moe.n_experts, cfg.d_model, F))
+    assert experts_tile(d, 32, 4, torch.bfloat16) == "mma"
+    assert experts_tile(d, 32, 4, torch.float32) == "batched"
+
+
+@pytest.mark.parametrize("d,g,bits,dtype,want", [
+    (2048, 32, 4, torch.bfloat16, "mma"), (1408, 64, 4, torch.bfloat16, "mma"),
+    (256, 128, 4, torch.bfloat16, "mma"), (512, 256, 4, torch.bfloat16, "mma"),
+    (160, 32, 4, torch.bfloat16, "mma"),
+    (2048, 32, 4, torch.float32, "batched"),
+    (2048, 32, 8, torch.bfloat16, "batched"),
+    (2048, 32, 2, torch.bfloat16, "batched"),
+    (2048, 16, 4, torch.bfloat16, "batched"),
+    (192, 48, 4, torch.bfloat16, "batched"),
+    (256, 8, 4, torch.bfloat16, "batched")])
+def test_experts_tile_by_shape(d, g, bits, dtype, want):
+    """The rule: bf16 x, int4, g a power of two >= 32 → the mma tile; bits 2
+    and 8, g below 32 or not a power of two, f32 x → the batched tile."""
+    from repro_torch.kernels.ttq_gemm import experts_tile
+    assert experts_tile(d, g, bits, dtype) == want
+
+
 # ---------------------------------------------------------- requantization
 
 def _qts(tree):
