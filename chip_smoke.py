@@ -106,7 +106,12 @@
    bit for bit eager, compiled programs flat over a warm rerun, and a
    one-unit (rec, rec, lattn) witness at the wrapped window; (b)
    chameleon-34b (qk-norm, G = 8) at VLM_DEPTH_3H layers, dense then
-   paged, as [3g].
+   paged, as [3g]; (d) (b)'s params with ``tie_embeddings=False``
+   (``untied_head``): ``lm_head := embed`` serves (b)'s dense tokens with
+   its first prefill's logits bit for bit, and an independent seeded
+   ``lm_head`` (1 GiB) gives request 0's first-step logits bit for bit
+   an eager ``lm.prefill``'s and within UNTIED_REL_L2 of an eager
+   ``lm.forward``; its launches count in [3h]'s.
 3i. The MoE family, [3]'s policy with the default guards through [3g]'s
    ``family_engine``: (a) deepseek-v2-lite (MLA, 64 experts top-6, 2
    shared) at full width and all 27 layers, dense slab only: every kernel
@@ -125,7 +130,10 @@
    also checks and times ``ttq_gemm_experts`` at both configs' expert
    shapes: the tensor-core tile against the plain version, expert e bit
    for bit the same in a launch over itself alone and over half the
-   experts, and the batched CUDA-core tile timed beside it in turns.
+   experts, and the batched CUDA-core tile timed beside it in turns.  [2]
+   also holds and times the 2-D ``ttq_gemm`` at deepseek-v2-lite's ``wkv_b``
+   expansion (T = 1,024 latent rows, 4,096 x 512, ``kernel_wkv_b``) beside
+   its bound, ``torch.matmul`` and the tensor-core tile at E = 1.
 3j. The SSM and encoder-decoder families, [3]'s policy with the default
    guards through [3g]'s ``family_engine``, dense slab only (neither
    family admits the pool): (a) mamba2-1.3b (Mamba2's chunked SSD, no
@@ -343,6 +351,13 @@ DEPTHS_3G = {"minitron_4b": 4, "starcoder2_15b": 4, "granite_34b": 4}
 # near-tie rule of [3e] and [3m] (2δ: PERF.md, ROADMAP C9)
 HYBRID_DEPTH_3H = 6
 VLM_DEPTH_3H = 4
+# [3h] (d): an untied head's first-step logits (the engine's prefill graph's
+# eager warm-up, int8 KV) are held bit for bit to the eager lm.prefill of the
+# same prompt with the same KV config, and within this relative L2 of an
+# eager lm.forward (no KV quantization: prefill attends over the int8
+# cache's values, 1.25e-2 on the CPU smoke config;
+# tests/test_torch_models.py's bf16 bound 3e-2)
+UNTIED_REL_L2 = 3e-2
 DEPTH_3F = 8
 TP_DEPTH_3L = 8
 FIT_RESERVE_GB = 8             # card memory kept from fit_depth's weights
@@ -863,6 +878,85 @@ def kernel_gemm_experts(torch, dev, flush, depths) -> dict:
     return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], library_ms=main["library_ms"],
                 bound_by="bytes"), rows
+
+
+def kernel_wkv_b(torch, dev, flush) -> dict:
+    """MLA's latent expansion at deepseek-v2-lite's shape: the 2-D
+    ``ttq_gemm`` over T = 4 slots x 256 rows = 1,024 bf16 latent rows,
+    ``wkv_b`` (d' = 16 heads x (128 + 128) = 4,096, d = 512) int4 g32, L2
+    flushed; held to the plain version (one bf16 rounding, [2]'s
+    tolerance).  Timed in the same run: the plain version, one
+    ``torch.matmul`` on the dequantized bf16 weight, and PR 30's tensor-core
+    tile at E = 1 (``ttq_gemm_experts``, which ``experts_tile`` sends there;
+    held to the same tolerance).  The bound: codes, S, Z, D⁻¹, x and y over
+    the memory rate, or the operations 2·T·d'·d over the bf16 tensor-core
+    rate (the operands are bf16 activations and int4 codes, and
+    ``torch.matmul`` runs them there), the larger.  Per decode step: 27
+    launches, one per layer.  Not counted as launches: the main path's
+    come from [3i]."""
+    from repro_torch.configs import get
+    from repro_torch.core.qdq import unpack_bits
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ttq_gemm import (experts_tile, ttq_gemm,
+                                              ttq_gemm_experts)
+    cfg = get(MOE_3I[0])
+    m = cfg.mla
+    dp, d = cfg.n_heads * (m.qk_nope_dim + m.v_head_dim), m.kv_lora_rank
+    T, per_step = 4 * 256, cfg.n_layers
+    check((dp, d, per_step) == (4096, 512, 27), f"wkv_b: shape {(dp, d)} "
+          f"and {per_step} layers, not deepseek-v2-lite's (4096, 512), 27")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    W = torch.randn((dp, d), generator=gen, device=dev) * d ** -0.5
+    D = torch.exp(0.3 * torch.randn((d,), generator=gen, device=dev))
+    dinv = 1.0 / D
+    pk, S, Z = ref.ttq_quantize_ref(W, D, bits=4, group_size=32)
+    xb = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
+    scale = (d / 256) ** 0.5
+    y_r = ref.ttq_gemm_ref(xb, pk, S, Z, bits=4, group_size=32, dinv=dinv)
+    y = ttq_gemm(xb, pk, S, Z, dinv, bits=4, group_size=32)
+    torch.testing.assert_close(y.float(), y_r, rtol=2 ** -7,
+                               atol=2e-4 * scale)
+    check(experts_tile(d, 32, 4, xb.dtype) == "mma",
+          "wkv_b: experts_tile does not take the tensor-core tile")
+    one = (pk[None], S[None], Z[None], dinv[None])
+    y_m = ttq_gemm_experts(xb, *one, bits=4, group_size=32)
+    torch.testing.assert_close(y_m[0].float(), y_r, rtol=2 ** -7,
+                               atol=2e-4 * scale)
+    err = max(float((y.float() - y_r).abs().max()),
+              float((y_m[0].float() - y_r).abs().max()))
+    w_lib = ((unpack_bits(pk, d, 4).float() * S.repeat_interleave(32, 1)
+              + Z.repeat_interleave(32, 1)) * dinv).to(torch.bfloat16)
+    t_k = time_ms(torch, lambda: ttq_gemm(xb, pk, S, Z, dinv, bits=4,
+                                          group_size=32), flush=flush)
+    t_m = time_ms(torch, lambda: ttq_gemm_experts(xb, *one, bits=4,
+                                                  group_size=32), flush=flush)
+    t_p = time_ms(torch, lambda: ref.ttq_gemm_ref(
+        xb, pk, S, Z, bits=4, group_size=32, dinv=dinv), flush=flush)
+    t_l = time_ms(torch, lambda: torch.matmul(xb, w_lib.T), flush=flush)
+    moved = nbytes(pk, S, Z, dinv, xb) + T * dp * 2
+    flops = 2 * T * dp * d
+    b_bytes, b_ops = (moved / HBM_BYTES_PER_S * 1e3,
+                      flops / DENSE_BF16_FLOP_PER_S * 1e3)
+    b = max(b_bytes, b_ops)
+    res = dict(T=T, dp=dp, d=d, launches_per_step=per_step, ms=t_k,
+               mma_ms=t_m, plain_ms=t_p, library_ms=t_l, bound_ms=b,
+               bytes_bound_ms=b_bytes, ops_bound_ms=b_ops, max_abs_err=err,
+               bound_by="operations" if b_ops > b_bytes else "bytes")
+    print(f"  ttq_gemm wkv_b (MLA's latent expansion, deepseek-v2-lite) "
+          f"T={T} {dp}x{d} int4 g32: {t_k * 1e3:.1f} us, the mma tile at "
+          f"E = 1 {t_m * 1e3:.1f} us, torch.matmul bf16 {t_l * 1e3:.1f} us, "
+          f"plain {t_p * 1e3:.1f} us; bound {b * 1e3:.2f} us "
+          f"({res['bound_by']}; bytes {b_bytes * 1e3:.2f} us, bf16 "
+          f"tensor-core operations {b_ops * 1e3:.2f} us), {b / t_k:.2%} of "
+          f"it reached; ttq_gemm / "
+          f"torch.matmul {t_k / t_l:.1f}x; both tiles within one bf16 "
+          f"rounding of the plain version (max |diff| {err:.3g}); per decode "
+          f"step ({per_step} launches): ttq_gemm {t_k * per_step:.3f} ms, "
+          f"mma tile {t_m * per_step:.3f} ms, torch.matmul "
+          f"{t_l * per_step:.3f} ms, bound {b * per_step:.3f} ms")
+    del W, pk, S, Z, w_lib, xb, y, y_m, y_r
+    torch.cuda.empty_cache()
+    return res
 
 
 def attn_bounds_ms(Hkv, G, Dh, bits, cur, *small) -> tuple:
@@ -4770,12 +4864,138 @@ def long_prompt(torch, dev, cfg, params, length, phase) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def first_prefill_logits():
+    """Keep the logits the runner's first prefill samples its first tokens
+    from, in ``[0]`` ((n, V) f32, the admission group's last rows): at a
+    new group shape that prefill is the graph's eager warm-up run, so the
+    tensor is its own and no replay overwrites it."""
+    from repro_torch.serving import runner
+    seen, real = [], runner.sample_logits
+
+    def keep(logits, *a, **kw):
+        if not seen:
+            seen.append(logits)
+        return real(logits, *a, **kw)
+    runner.sample_logits = keep
+    try:
+        yield seen
+    finally:
+        runner.sample_logits = real
+
+
+def untied_head(torch, dev, cfg, params, prompts, dense, first_tied) -> dict:
+    """[3h] (d): chameleon-34b with ``tie_embeddings=False`` on (b)'s
+    params, [3]'s policy under the default guards, dense slab, CUDA graphs.
+    The control ``lm_head := embed`` serves (b)'s traffic with (b)'s dense
+    engine's tokens, and its first prefill's logits are bit for bit that
+    engine's (``first_tied``, from :func:`first_prefill_logits`).  An
+    independent seeded ``lm_head`` (V, D) ~ N(0, 1/D), 1 GiB in bf16:
+    request 0 admitted alone first, its first-step logits (the engine's
+    prefill) bit for bit an eager ``lm.prefill``'s and within UNTIED_REL_L2
+    of an eager ``lm.forward`` on the same params; then the rest of the
+    traffic, whose tokens differ from (b)'s.
+    Returns both runs' readings and their kernel launches."""
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    ucfg = dataclasses.replace(cfg, tie_embeddings=False)
+    want = {"ttq_quantize", "ttq_gemm", "ttq_decode_attention"}
+    res, launches = {}, {}
+
+    def run(params_u, what, alone_first):
+        with first_prefill_logits() as seen:
+            _, _, eng = build_engine(torch, dev, ucfg, params_u, guards=True)
+            build.reset_launches()
+            t0 = time.perf_counter()
+            rids = []
+            if alone_first:                # a group of one: request 0
+                rids.append(eng.submit(prompts[0], max_new=MAX_NEW))
+                eng.admit()
+            rids += [eng.submit(p, max_new=MAX_NEW)
+                     for p in prompts[len(rids):]]
+            done = eng.run_all()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = dict(build.LAUNCHES)
+        outs = [done[r] for r in rids]
+        check_outputs(ucfg, outs, what)
+        check(all((got[k] > 0) == (k in want) for k in got),
+              f"{what}: launches {got}, want {sorted(want)}")
+        check(len(eng.runner._graphs) > 0 and len(eng.runner._prefills) > 0,
+              f"{what}: decode graphs {len(eng.runner._graphs)}, prefill "
+              f"graphs {len(eng.runner._prefills)} (want CUDA graphs)")
+        check(eng.decode_params["lm_head"] is params_u["lm_head"],
+              f"{what}: the decode tree's head is not the fp lm_head")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return eng, [list(o) for o in outs], seen[0], wall, got
+
+    what = "[3h] (d) chameleon-34b untied, lm_head := embed"
+    eng, outs, first, wall, got = run(dict(params, lm_head=params["embed"]),
+                                      what, False)
+    check(outs == dense["outputs"], f"{what}: greedy tokens differ from (b)'s "
+          f"dense engine's: leading tokens equal per request "
+          f"{[leading_equal(o, d) for o, d in zip(outs, dense['outputs'])]}")
+    check(torch.equal(first, first_tied), f"{what}: first prefill's logits "
+          f"differ from (b)'s dense engine's (max |diff| "
+          f"{float((first - first_tied).abs().max()):.3g})")
+    res["control"] = dict(wall_s=wall, launches=got, outputs=outs)
+    print(f"  {what}: served {len(prompts)} requests in {wall:.2f} s cold; "
+          f"tokens equal to (b)'s dense engine's, first prefill's logits "
+          f"({tuple(first.shape)}) bit for bit; launches {got}")
+    del eng, first
+    free(torch)
+
+    what = "[3h] (d) chameleon-34b untied, an independent lm_head"
+    head = lm.draw_table(cfg.vocab, cfg.d_model, cfg.d_model ** -0.5,
+                         torch.Generator(device=dev).manual_seed(SEED + 31),
+                         dev)
+    pu = dict(params, lm_head=head)
+    eng, outs, first, wall, got = run(pu, what, True)
+    tok0 = torch.tensor([prompts[0]], device=dev)
+    with torch.no_grad():
+        fwd = lm.forward(ucfg, pu, {"tokens": tok0})[0][0, -1]
+        pre = lm.prefill(ucfg, pu, {"tokens": tok0}, eng.ecfg.max_len,
+                         collect_stats=False, kvcfg=eng.kvcfg)[0][0]
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+    rel, rel_pre = rel_l2(first[0], fwd), rel_l2(first[0], pre)
+    diff = float((first[0] - fwd).abs().max())
+    check(torch.equal(first[0], pre.to(first.dtype)) and rel <= UNTIED_REL_L2,
+          f"{what}: request 0's first-step logits {rel_pre:.3g} (relative "
+          f"L2) from the eager prefill's (want bit for bit), {rel:.3g} from "
+          f"lm.forward's (bound {UNTIED_REL_L2})")
+    differ = sum(o != d for o, d in zip(outs, dense["outputs"]))
+    check(differ > 0, f"{what}: every request's tokens equal the tied "
+          f"engine's")
+    res["independent"] = dict(wall_s=wall, launches=got, outputs=outs,
+                              first_rel_l2=rel, first_max_abs=diff,
+                              first_rel_l2_prefill=rel_pre,
+                              requests_differing=differ)
+    print(f"  {what} ({head.numel() * 2 / 2 ** 30:.2f} GiB bf16): served "
+          f"{len(prompts)} requests in {wall:.2f} s cold, request 0 first, "
+          f"alone; its first-step logits {rel_pre:.3g} relative L2 from the "
+          f"eager lm.prefill (int8 KV), {rel:.3g} (max |diff| {diff:.3g}) "
+          f"from an eager lm.forward; {differ} of "
+          f"{len(prompts)} requests' tokens differ from the tied engine's; "
+          f"launches {got}")
+    for i, o in enumerate(outs):
+        print(f"    greedy tokens, request {i}: {o}")
+    del eng, first, head, pu, fwd, pre
+    free(torch)
+    res["launches"] = launches
+    return res
+
+
 def hybrid_and_vlm(torch, dev) -> dict:
     """Phase 3h: (c) long prefill attention; (a) recurrentgemma-9b at full
     width and HYBRID_DEPTH_3H layers, [3g]'s engine readings on the dense
     slab plus :func:`long_prompt`; (b) chameleon-34b at VLM_DEPTH_3H
-    layers, dense then paged.  Returns the readings, each part's seconds and the
-    kernels' launches over (a) and (b)'s engines."""
+    layers, dense then paged; (d) (b)'s params untied
+    (:func:`untied_head`).  Returns the readings, each part's seconds and
+    the kernels' launches over (a), (b) and (d)'s engines."""
     from repro_torch.configs import get
     from repro_torch.models.stack import stack_spec
     out, secs, launches = {}, {}, {}
@@ -4810,16 +5030,23 @@ def hybrid_and_vlm(torch, dev) -> dict:
           f"{fit_depth(torch, get('chameleon_34b'))})")
     cfg, params = init_family(torch, dev, "chameleon_34b", depth)
     prompts = make_prompts(cfg.vocab)
-    dense_v = family_engine(torch, dev, cfg, params, prompts, False,
-                            phase="[3h]")
+    with first_prefill_logits() as first_tied:
+        dense_v = family_engine(torch, dev, cfg, params, prompts, False,
+                                phase="[3h]")
     free(torch)
     paged_v = family_engine(torch, dev, cfg, params, prompts, True, dense_v,
                             phase="[3h]")
-    del params
     free(torch)
     out["b"] = dict(layers=cfg.n_layers, dense=dense_v, paged=paged_v)
     secs["b"] = time.perf_counter() - t
-    for r in (dense, long, dense_v, paged_v):
+
+    t = time.perf_counter()
+    out["d"] = untied_head(torch, dev, cfg, params, prompts, dense_v,
+                           first_tied[0])
+    del params, first_tied
+    free(torch)
+    secs["d"] = time.perf_counter() - t
+    for r in (dense, long, dense_v, paged_v, out["d"]):
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
     out["launches"], out["seconds"] = launches, secs
@@ -5971,6 +6198,7 @@ def main(argv=None) -> int:
     rows["ttq_gemm_experts"] = (
         "src/repro_torch/kernels/csrc/ttq_gemm_experts.cu",
         "src/repro/kernels/ttq_gemm.py:125", experts_row)
+    print("    wkv_b: " + json.dumps(kernel_wkv_b(torch, dev, flush)))
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6078,8 +6306,8 @@ def main(argv=None) -> int:
           f"{LONG_ATTN_S} keys, chunked against full; (a) recurrentgemma-9b "
           f"full width, {HYBRID_DEPTH_3H} layers, dense slab, then a "
           f"{HYBRID_LONG}-token prompt past its window; (b) chameleon-34b "
-          f"at {VLM_DEPTH_3H} layers, dense slab and paged pool; [3]'s "
-          f"policy, default guards")
+          f"at {VLM_DEPTH_3H} layers, dense slab and paged pool; (d) (b) "
+          f"with an untied head, dense slab; [3]'s policy, default guards")
     hyb = hybrid_and_vlm(torch, dev)
     print("    hybrid and vlm: " + json.dumps(hyb, default=str))
     lap("[3h]")

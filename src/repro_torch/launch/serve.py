@@ -28,8 +28,10 @@ encoder-decoder arch's requests carry frames drawn from the same seed.
 whole seeded parameters, keeping its slice and serving the same requests;
 rank 0 prints the summary and the mesh line, with the backend
 ``make_mesh`` chose (gloo on the CPU; NCCL with a card per rank, else
-gloo sharing the card).  Families without plain attention refuse a mesh
-above 1, naming their ROADMAP item.
+gloo sharing the card).  Every arch takes it; a MoE arch's experts go
+expert-parallel under the all-to-all dispatch (``make_ctx``'s default
+``moe_impl``), whose capacity depends on the world, so its ``--mesh 2``
+tokens need not be ``--mesh 1``'s.
 """
 from __future__ import annotations
 

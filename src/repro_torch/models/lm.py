@@ -1,4 +1,5 @@
-"""Language model entry points — embed → stack → norm → tied vocab head.
+"""Language model entry points — embed → stack → norm → vocab head (the
+embedding, tied, or ``lm_head`` where ``cfg.tie_embeddings`` is False).
 
     init_params(cfg, generator, device)            → params tree
     forward(cfg, params, batch, collect_stats=)    → (logits, stats, states)
@@ -24,7 +25,7 @@ Megatron-style tensor parallelism where the layout splits them (plain
 and latent attention on heads, the RG-LRU on channels, SSD on heads, the
 MLPs on their hidden width), MoE experts expert-parallel (``moe_impl``:
 each rank's experts over every token, or the all-to-all token dispatch),
-the embedding and the tied head vocab-parallel (a masked lookup then an
+the embedding and the vocab head vocab-parallel (a masked lookup then an
 all-reduce; the rank's logits then an all-gather before any argmax).
 Each entry point binds the layout (``rules.bind``) and runs the stack on
 the rank's config (``rules.local_cfg``).
@@ -57,37 +58,45 @@ from .common import init_norm, linear, norm, sample_logits, sinusoidal_pos
 from .config import ModelConfig
 
 
+def draw_table(n: int, D: int, sd: float, generator: torch.Generator,
+               device) -> torch.Tensor:
+    """An (n, D) bf16 table ~ N(0, sd²) from ``generator``, drawn at most
+    256 MB of f32 at a time (a full-width vocabulary's f32 draw would be
+    several GB)."""
+    t = torch.empty((n, D), dtype=torch.bfloat16, device=device)
+    rows = max(1, (1 << 26) // D)
+    for r0 in range(0, n, rows):
+        k = min(rows, n - r0)
+        t[r0:r0 + k] = (torch.randn((k, D), generator=generator,
+                                    device=device) * sd).to(t.dtype)
+    return t
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device="cuda") -> dict:
     """Seeded random init at the config's shapes (bf16 weights, f32 norms):
     the reference's tree, with ``pos_embed`` (max_seq, D) ~ N(0, 0.02²)
-    for learned positions and the encoder's ``enc_stack`` and ``enc_norm``
-    for the encoder-decoder family.  Runs on the card unless
+    for learned positions, the encoder's ``enc_stack`` and ``enc_norm``
+    for the encoder-decoder family, and an untied head ``lm_head`` (V, D)
+    ~ N(0, 1/D), the embedding's scale, where ``cfg.tie_embeddings`` is
+    False.  ``lm_head`` is drawn last, so every other leaf is the tied
+    config's on the same generator.  Runs on the card unless
     ``device="cpu"``."""
     dev = resolve_device(device)
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("an untied vocab head: no config has one")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     D = cfg.d_model
     nk = "rms" if cfg.norm == "rms" else "layer"
-
-    def table(n, sd):
-        t = torch.empty((n, D), dtype=torch.bfloat16, device=dev)
-        rows = max(1, (1 << 26) // D)       # draw ≤ 256 MB of f32 at a time
-        for r0 in range(0, n, rows):
-            k = min(rows, n - r0)
-            t[r0:r0 + k] = (torch.randn((k, D), generator=generator,
-                                        device=dev) * sd).to(t.dtype)
-        return t
-    p = {"embed": table(cfg.vocab, D ** -0.5),
+    p = {"embed": draw_table(cfg.vocab, D, D ** -0.5, generator, dev),
          "stack": S.init_stack(generator, cfg, S.stack_spec(cfg), dev),
          "final_norm": init_norm(D, nk, device=dev)}
     if cfg.pos == "learned":
-        p["pos_embed"] = table(cfg.max_seq, 0.02)
+        p["pos_embed"] = draw_table(cfg.max_seq, D, 0.02, generator, dev)
     if cfg.family == "encdec":
         p["enc_stack"] = S.init_stack(generator, cfg, S.enc_spec(cfg), dev)
         p["enc_norm"] = init_norm(D, nk, device=dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = draw_table(cfg.vocab, D, D ** -0.5, generator, dev)
     return p
 
 
@@ -129,12 +138,13 @@ def _encode(cfg, params, frames, stats_on=False, pctx=None):
 
 
 def _head(cfg, params, x, kcfg=None, pctx=None):
-    """f32 logits over the whole vocab; vocab-parallel under ``pctx`` (the
-    rank's rows of the tied head, then an all-gather of the logits, in
-    their own dtype: widened after it, the same values for half the
-    bytes)."""
+    """f32 logits over the whole vocab through the embedding (tied) or
+    ``lm_head``; vocab-parallel under ``pctx`` (the rank's rows of the
+    head, then an all-gather of the logits, in their own dtype: widened
+    after it, the same values for half the bytes)."""
     vctx = block_ctx(pctx, "vocab")
-    logits = linear(x, params["embed"], kcfg=kcfg, pctx=vctx, tp="row")
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = linear(x, w, kcfg=kcfg, pctx=vctx, tp="row")
     if vctx is not None:
         logits = comm.all_gather(logits, vctx, dim=-1)
     return logits.float()

@@ -32,6 +32,11 @@ joins projections that share a tapped input), and quantize.
   An expert stack split over the ranks (the rank's whole experts) needs
   nothing from the others: D per expert from the rank's experts' rows of
   the statistics, and an eager member's inline SVD is of whole experts.
+  A weight split by rows or columns with no factors (``lowrank=None``
+  under a mesh) gathers each layer's whole weight once, when the plan is
+  built, takes its SVD as world 1 does and keeps the rank's slice of B
+  (rows) or A (columns): the SVD of a slice is not the slice of the SVD.
+  From then on it is a member with factors, quantized like any other.
 * :func:`lowrank_tree` — the data-free SVD factors, computed once per model.
 """
 from __future__ import annotations
@@ -133,9 +138,9 @@ def _eligible(base: QuantPolicy, ps: str, leaf) -> Optional[QuantPolicy]:
     return eff
 
 
-def _factored(eff: QuantPolicy, leaf) -> bool:
-    """Whether the policy gives this weight low-rank factors."""
-    return eff.rank > 0 and min(leaf.shape[-2:]) > eff.rank
+def _factored(eff: QuantPolicy, shape) -> bool:
+    """Whether the policy gives a (d′, d) weight low-rank factors."""
+    return eff.rank > 0 and min(shape) > eff.rank
 
 
 def lowrank_tree(params, policy: QuantPolicy):
@@ -152,7 +157,7 @@ def lowrank_tree(params, policy: QuantPolicy):
         eff = policy.resolve(ps)
         if not (isinstance(leaf, torch.Tensor) and leaf.dim() in (2, 3)
                 and eff.quantizes(ps.split(".")[-1]) and eff.quantizes(ps)
-                and _factored(eff, leaf)):
+                and _factored(eff, leaf.shape[-2:])):
             return None
         found = True
         fs = [svd_factors(w, eff.rank)
@@ -199,7 +204,7 @@ def quantize_params(params, stats, policy: QuantPolicy, *, count=1.0,
         if ba is not None:
             fs = list(zip(*(ba[k].reshape(-1, *ba[k].shape[-2:])
                             for k in ("B", "A"))))
-        elif _factored(eff, leaf):
+        elif _factored(eff, leaf.shape[-2:]):
             fs = [svd_factors(w, eff.rank) for w in Ws]
         else:
             fs = [(None, None)] * Ws.shape[0]
@@ -239,7 +244,9 @@ class FusedRequantPlan:
     passed to :meth:`run`); one that has none there is an eager family
     ``("eager", path)`` that runs the SVD inline at every requant.
     ``pctx``: ``params``, ``stats`` and the factors are the rank's slices
-    (see the module docstring)."""
+    (see the module docstring); a row- or column-split weight with none
+    there takes the rank's slice of its whole weight's factors, computed
+    here once, and joins its family as a member with factors."""
 
     def __init__(self, params, stats, policy: QuantPolicy, *,
                  acfg: Optional[AWQConfig] = None, lowrank_tree=None,
@@ -249,6 +256,7 @@ class FusedRequantPlan:
         self.pctx = pctx
         self._tp = pctx is not None and pctx.world > 1
         self.families: Dict[tuple, List[_Member]] = {}
+        self._split_ba: Dict[str, dict] = {}   # split members' own factors
         for path, leaf in _walk(params):
             ps = _path_str(path)
             eff = _eligible(base, ps, leaf)
@@ -270,14 +278,15 @@ class FusedRequantPlan:
                              lead=tuple(leaf.shape[:-2]), dp=dp, d=d,
                              eff=eff, stat_key=stat_key, stat_tree=parts[0],
                              split=split_of(ps, pctx))
-            if not has_ba and _factored(eff, leaf):
-                if self._tp and member.split in ("row", "col"):
-                    raise NotImplementedError(
-                        f"{ps}: an inline SVD of a weight slice is not the "
-                        f"slice of the weight's SVD; pass factors computed "
-                        f"on the whole weight (lowrank_tree)")
-                self.families[("eager", ps)] = [member]
-                continue
+            n = pctx.world if self._tp else 1      # the whole weight's shape
+            whole = {"row": (dp * n, d), "col": (dp, d * n)}.get(
+                member.split, (dp, d))
+            if not has_ba and _factored(eff, whole):
+                if not (self._tp and member.split in ("row", "col")):
+                    self.families[("eager", ps)] = [member]
+                    continue
+                self._split_ba[ps] = self._whole_factors(member, leaf)
+                has_ba = True
             key = (dp, d, _row_qcfg(eff), eff.acfg, eff.method, eff.packed,
                    has_ba, eff.rank)
             self.families.setdefault(key, []).append(member)
@@ -373,6 +382,24 @@ class FusedRequantPlan:
             constrain_qt(m.path_str, qt, self.pctx, (dp, d))
         return qt
 
+    def _whole_factors(self, m: _Member, W) -> dict:
+        """The rank's slice of the factors of a row- or column-split
+        member's whole weights: each layer's slice gathered over the model
+        axis, its SVD taken as world 1 takes it, B's rows (a row split) or
+        A's columns (a column split) kept."""
+        r, dim = self.pctx.rank, -2 if m.split == "row" else -1
+        fs = []
+        for w in W.reshape(-1, m.dp, m.d):
+            B, A = svd_factors(comm.all_gather(w, self.pctx, dim=dim),
+                               m.eff.rank)
+            if m.split == "row":
+                B = B[r * m.dp:(r + 1) * m.dp]
+            else:
+                A = A[:, r * m.d:(r + 1) * m.d]
+            fs.append((B.contiguous(), A.contiguous()))
+        return {k: torch.stack([f[i] for f in fs]).reshape(
+            *m.lead, *fs[0][i].shape) for i, k in enumerate(("B", "A"))}
+
     def _run_eager(self, m: _Member, W, stat, count, into=None):
         """An eager member: each (d′, d) weight of the stack quantized by
         its quantizer with factors from an inline SVD (the reference's
@@ -419,9 +446,11 @@ class FusedRequantPlan:
                 continue
             has_ba = key[6]
             for m in members:
+                ba = (self._split_ba.get(m.path_str)
+                      or _tree_get(lowrank_tree, m.path)) if has_ba else None
                 results[m.path_str] = self._run_member(
                     key, m, _tree_get(params, m.path), self._stat(stats, m),
-                    count, _tree_get(lowrank_tree, m.path) if has_ba else None,
+                    count, ba,
                     None if into is None else _tree_get(into, m.path))
         return into if into is not None else _replace(params, results)
 

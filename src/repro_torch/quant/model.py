@@ -50,11 +50,13 @@ the quantized tree(s).
   sees each candidate before the gate and returns a tree built of new
   tensors.
 * **Tensor parallelism** (``pctx``): ``params`` and the factors are the
-  rank's slices; every plan (the live tree, the spare of the double
-  buffer, the draft tree) quantizes them in place, and every decision that
-  reads the trees or the device's progress (the gate's drift, the health
-  gate, the double buffer's swap) is agreed over the ranks, so the ranks'
-  trees never differ in layout.
+  rank's slices (``lowrank=`` and, for a rank > 0 draft tree,
+  ``draft_lowrank=``: the slices of the whole weights' factors, since the
+  SVD of a slice is not the slice of the SVD); every plan (the live tree,
+  the spare of the double buffer, the draft tree) quantizes them in
+  place, and every decision that reads the trees or the device's progress
+  (the gate's drift, the health gate, the double buffer's swap) is agreed
+  over the ranks, so the ranks' trees never differ in layout.
 """
 from __future__ import annotations
 
@@ -136,6 +138,7 @@ class QuantizedModel:
                  lowrank: Any = _AUTO, fused: bool = True,
                  double_buffer: bool = False,
                  draft_policy: Optional[QuantPolicy] = None,
+                 draft_lowrank: Any = _AUTO,
                  health_gate: Optional[GuardConfig] = None, pctx=None):
         self.params = params
         self.pctx = pctx
@@ -157,9 +160,10 @@ class QuantizedModel:
                              "the fused requant plan; construct "
                              "QuantizedModel(fused=True) (the default)")
         self._v = _Tree(policy, self.lowrank_tree)
-        self._d = _Tree(draft_policy, lowrank_tree(params, draft_policy)
-                        if draft_policy.rank > 0 else None) \
-            if drafting else None
+        if drafting and draft_lowrank is _AUTO:
+            draft_lowrank = lowrank_tree(params, draft_policy) \
+                if draft_policy.rank > 0 else None
+        self._d = _Tree(draft_policy, draft_lowrank) if drafting else None
         self.n_requants = 0
         self._plan_key = _AUTO           # no plan built yet
         self._stream = None              # the requant's side stream
@@ -406,13 +410,15 @@ class QuantizedModel:
         return t.qparams if t.qparams is not None else self.params
 
     def fork(self) -> "QuantizedModel":
-        """An independent calibration stream sharing params and the verify
-        tree's low-rank factors."""
+        """An independent calibration stream sharing params and both
+        trees' low-rank factors."""
         return QuantizedModel(self.params, self.policy, acfg=self.acfg,
                               session=self.session.fork(),
                               lowrank=self.lowrank_tree, fused=self.fused,
                               double_buffer=self.double_buffer,
                               draft_policy=self.draft_policy,
+                              draft_lowrank=(_AUTO if self._d is None
+                                             else self._d.lowrank),
                               health_gate=self.health_gate, pctx=self.pctx)
 
     def adopt(self, session: CalibrationSession) -> "QuantizedModel":

@@ -40,9 +40,10 @@ Tensor parallelism: ``pctx=`` (``launch/mesh.py:make_ctx``) serves on one
 rank of a model axis.  Every rank constructs the engine with the whole
 parameters (the same seed everywhere) and runs the same requests; the
 engine binds the layout (``parallel/rules.py:bind``, with the policies'
-column alignment), computes the low-rank factors on the whole weights,
-keeps the rank's slices (``DeviceRunner.place_params``) and from then on
-holds only those.  Every family serves this way: a MoE layer takes
+column alignment), computes the low-rank factors on the whole weights
+(the verify tree's and a rank > 0 draft tree's), keeps the rank's slices
+(``DeviceRunner.place_params``, ``rules.shard_lowrank``) and from then
+on holds only those.  Every family serves this way: a MoE layer takes
 ``pctx.moe_impl`` (``"a2a"`` by default, as the reference's: token
 dispatch with capacity, count statistics; ``"dense"``: each rank's
 experts over every token).
@@ -59,7 +60,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.stack import mixer_kinds
-from repro_torch.parallel.rules import bind, col_align
+from repro_torch.parallel.rules import bind, col_align, shard_lowrank
 from repro_torch.quant import CalibrationSession, QuantizedModel
 from repro_torch.quant.api import lowrank_tree
 from repro_torch.quant.guards import GuardConfig
@@ -185,15 +186,15 @@ class TTQEngine:
         self.runner = DeviceRunner(cfg, ecfg, self.kvcfg, kncfg=self.kncfg,
                                    device=self.device, generator=generator,
                                    num_blocks=self.num_blocks, pctx=self.pctx)
-        if self.pctx is not None:
-            if (self.pctx.world > 1 and self.draft_policy is not None
-                    and self.draft_policy.rank > 0):
-                raise NotImplementedError(
-                    "a rank > 0 draft tree under tensor parallelism (its "
-                    "factors would be computed on weight slices)")
-            if lowrank is _AUTO:         # factors of the whole weights
+        draft_lowrank = _AUTO
+        if self.pctx is not None:       # factors of the whole weights
+            if lowrank is _AUTO:
                 lowrank = lowrank_tree(params, policy) \
                     if policy.any_enabled else None
+            dp = self.draft_policy
+            if dp is not None and dp.any_enabled and dp.rank > 0:
+                draft_lowrank = shard_lowrank(lowrank_tree(params, dp),
+                                              self.pctx)
             params, lowrank = self.runner.place_params(params, lowrank)
             self.params = params
         # one GuardConfig drives the session's validation, the model's
@@ -204,7 +205,8 @@ class TTQEngine:
             session=CalibrationSession(halflife=ecfg.stats_halflife,
                                        guard=guard, pctx=self.pctx),
             double_buffer=ecfg.double_buffer, draft_policy=self.draft_policy,
-            lowrank=lowrank, health_gate=guard, pctx=self.pctx)
+            lowrank=lowrank, draft_lowrank=draft_lowrank, health_gate=guard,
+            pctx=self.pctx)
         self.scheduler = Scheduler(
             ecfg, self.kvcfg, self.num_blocks,
             exact_buckets=cfg.family in ("hybrid", "ssm"))
