@@ -5,9 +5,9 @@
 
 1. Device: the card's name and power limit; builds the CUDA kernels of
    ``src/repro_torch/kernels/csrc/`` with nvcc (sm_90a) into ``build/``;
-   prints each attention and quantize instantiation's registers and
-   spills, and fails if an attention one that the main path runs, or any
-   quantize one, spills.
+   prints each attention, quantize, experts and wide GEMM instantiation's
+   registers and spills, and fails if an attention one that the main path
+   runs, or any quantize, experts or wide GEMM one, spills.
 2. Each kernel against its plain PyTorch version at gemma-7b's main-path
    shapes (``ttq_quantize`` bit for bit on whole 28-layer stacks, with its
    grid and the share of its bound per family), with its median time, its
@@ -27,7 +27,8 @@
 3. The main path: ``TTQEngine`` on full-width gemma-7b (random weights from
    a seed) serves 8 requests through the three kernels of the dense slab,
    each decode block one replay of a captured CUDA graph; every kernel
-   must have launched (counted per replay), and ``compiled_programs`` must
+   must have launched (counted per replay), every ``ttq_gemm`` launch on
+   the split tile (``build.GEMM_TILES``), and ``compiled_programs`` must
    not change over a warm rerun of the traffic.  A third run holds every
    graph block to an eager ``lm.decode_many`` on clones of the state it
    started from (tokens bit for bit) and times both, eager and graph
@@ -119,9 +120,10 @@
    ``ttq_gemm_experts`` 3 times per layer and decode step, each on the
    tensor-core tile, counted per
    replay, ``ttq_quantize``), graph blocks and prefill replays bit for bit
-   eager, the ms per step of the ``wkv_b`` expansions of the latent
-   cache, the three refusals (paged pool, speculation, chunked prefill),
-   and a one-layer witness whose routing choices are held to the plain
+   eager, every ``wkv_b`` expansion of the latent cache on the wide tile
+   and every other ``ttq_gemm`` launch on the split tile, the ms per step
+   of the expansions on either tile, the three refusals (paged pool,
+   speculation, chunked prefill), and a one-layer witness whose routing choices are held to the plain
    path's (each first disagreement of a token a near-tie of router
    probabilities); (b) llama4-scout (16 experts top-1 and a shared one, G
    = 5) at full width and ``fit_depth`` layers, dense then paged (paged
@@ -132,8 +134,11 @@
    for bit the same in a launch over itself alone and over half the
    experts, and the batched CUDA-core tile timed beside it in turns.  [2]
    also holds and times the 2-D ``ttq_gemm`` at deepseek-v2-lite's ``wkv_b``
-   expansion (T = 1,024 latent rows, 4,096 x 512, ``kernel_wkv_b``) beside
-   its bound, ``torch.matmul`` and the tensor-core tile at E = 1.
+   expansion (T = 1,024 latent rows, 4,096 x 512, ``kernel_wkv_b``): the
+   wide tile ``gemm_tile`` must choose, bitwise repeatable and row- and
+   token-independent, beside the split tile forced at the same shape, its
+   bound, ``torch.matmul``, the experts' tensor-core tile at E = 1 and the
+   plain version, and both tiles at T = 64, 256 and 1,024.
 3j. The SSM and encoder-decoder families, [3]'s policy with the default
    guards through [3g]'s ``family_engine``, dense slab only (neither
    family admits the pool): (a) mamba2-1.3b (Mamba2's chunked SSD, no
@@ -192,8 +197,10 @@
    a full-precision prefill: (a) world 1 over NCCL with CUDA graphs
    against ``pctx=None`` (MoE under ``moe_impl="dense"``): tokens, every
    block and the tree bit for bit; a MoE engine under ``"a2a"`` with its
-   graph replays bit for bit its own eager run; collectives per decode
-   step by kind; ms per decode step against ``pctx=None``.  (b) World
+   graph replays bit for bit its own eager run; deepseek-v2-lite's
+   ``wkv_b`` expansions on the wide tile, every other ``ttq_gemm`` on the
+   split tile; collectives per decode step by kind; ms per decode step
+   against ``pctx=None``.  (b) World
    TP_WORLD_3L over gloo on the one card: ``ttq_gemm_tp`` at the RG-LRU,
    SSD and ``wkv_b`` shard shapes, the decode attentions at
    whisper-medium's rank heads and ``ttq_gemm_experts`` at E/n experts
@@ -306,6 +313,9 @@ MAIN_PATH_QUANT = "quant_kernel<4,1,1,__nv_bfloat16>"
 # the experts' mma tile both MoE configs decode through: one n-tile of 4
 # tokens (T <= 4), one 32-k unit per group (g32)
 MAIN_PATH_EXPERTS = "experts_mma_kernel<1,1,0>"
+# the wide tile's instantiations (csrc/ttq_gemm_wide.cu's served
+# <WG, N, KC, STG, MULTI>): g = 32 (MLA's wkv_b expansion) and g > 32
+MAIN_PATH_WIDE = ("wide_kernel<4,64,64,4,0>", "wide_kernel<4,64,64,4,1>")
 SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clock (time_ms)
 # host-side CUDA API calls that put work on a stream, as the profiler
 # names them (with or without CUPTI's version suffix)
@@ -884,20 +894,25 @@ def kernel_wkv_b(torch, dev, flush) -> dict:
     """MLA's latent expansion at deepseek-v2-lite's shape: the 2-D
     ``ttq_gemm`` over T = 4 slots x 256 rows = 1,024 bf16 latent rows,
     ``wkv_b`` (d' = 16 heads x (128 + 128) = 4,096, d = 512) int4 g32, L2
-    flushed; held to the plain version (one bf16 rounding, [2]'s
-    tolerance).  Timed in the same run: the plain version, one
-    ``torch.matmul`` on the dequantized bf16 weight, and PR 30's tensor-core
-    tile at E = 1 (``ttq_gemm_experts``, which ``experts_tile`` sends there;
-    held to the same tolerance).  The bound: codes, S, Z, D⁻¹, x and y over
-    the memory rate, or the operations 2·T·d'·d over the bf16 tensor-core
-    rate (the operands are bf16 activations and int4 codes, and
-    ``torch.matmul`` runs them there), the larger.  Per decode step: 27
-    launches, one per layer.  Not counted as launches: the main path's
-    come from [3i]."""
+    flushed.  ``gemm_tile`` must send it to the wide tile
+    (``csrc/ttq_gemm_wide.cu``), held to the plain version (one bf16
+    rounding, [2]'s tolerance), two calls bitwise equal, a world-2 rank's
+    rows (2,048 of them) and the first 515 tokens bit for bit the whole
+    launch's.  Timed in the same run: the split tile forced at the same
+    shape (``ttq_gemm._launch``, held to the same tolerance), the experts'
+    tensor-core tile at E = 1 (``ttq_gemm_experts``), one ``torch.matmul``
+    on the dequantized bf16 weight and the plain version; then T = 64, 256
+    and 1,024 on both tiles and ``torch.matmul``.  The bound: codes, S, Z,
+    D⁻¹, x and y over the memory rate, or the operations 2·T·d'·d over the
+    bf16 tensor-core rate (the operands are bf16 activations and int4
+    codes, and ``torch.matmul`` runs them there), the larger.  Per decode
+    step: 27 launches, one per layer.  Not counted as launches: the main
+    path's come from [3i]."""
     from repro_torch.configs import get
     from repro_torch.core.qdq import unpack_bits
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ttq_gemm import (experts_tile, ttq_gemm,
+    from repro_torch.kernels.ttq_gemm import (_launch, experts_tile,
+                                              gemm_tile, ttq_gemm,
                                               ttq_gemm_experts)
     cfg = get(MOE_3I[0])
     m = cfg.mla
@@ -905,6 +920,8 @@ def kernel_wkv_b(torch, dev, flush) -> dict:
     T, per_step = 4 * 256, cfg.n_layers
     check((dp, d, per_step) == (4096, 512, 27), f"wkv_b: shape {(dp, d)} "
           f"and {per_step} layers, not deepseek-v2-lite's (4096, 512), 27")
+    check(gemm_tile(T, dp, d, 32, 4, torch.bfloat16) == "wide",
+          "wkv_b: gemm_tile does not take the wide tile")
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     W = torch.randn((dp, d), generator=gen, device=dev) * d ** -0.5
     D = torch.exp(0.3 * torch.randn((d,), generator=gen, device=dev))
@@ -912,49 +929,76 @@ def kernel_wkv_b(torch, dev, flush) -> dict:
     pk, S, Z = ref.ttq_quantize_ref(W, D, bits=4, group_size=32)
     xb = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
     scale = (d / 256) ** 0.5
+    tol = dict(rtol=2 ** -7, atol=2e-4 * scale)
     y_r = ref.ttq_gemm_ref(xb, pk, S, Z, bits=4, group_size=32, dinv=dinv)
     y = ttq_gemm(xb, pk, S, Z, dinv, bits=4, group_size=32)
-    torch.testing.assert_close(y.float(), y_r, rtol=2 ** -7,
-                               atol=2e-4 * scale)
+    torch.testing.assert_close(y.float(), y_r, **tol)
+    check(torch.equal(y, ttq_gemm(xb, pk, S, Z, dinv, bits=4,
+                                  group_size=32)),
+          "wkv_b: two calls of the wide tile differ")
+    half = dp // 2
+    check(torch.equal(y[:, half:], ttq_gemm(
+        xb, pk[half:], S[half:], Z[half:], dinv, bits=4, group_size=32)),
+        "wkv_b: a world-2 rank's rows differ from the whole launch's")
+    check(torch.equal(y[:515], ttq_gemm(xb[:515], pk, S, Z, dinv, bits=4,
+                                        group_size=32)),
+          "wkv_b: the first 515 tokens differ from the whole launch's")
+    y_s = _launch(xb, pk, S, Z, dinv, 4, 32, "split")
+    torch.testing.assert_close(y_s.float(), y_r, **tol)
     check(experts_tile(d, 32, 4, xb.dtype) == "mma",
           "wkv_b: experts_tile does not take the tensor-core tile")
     one = (pk[None], S[None], Z[None], dinv[None])
     y_m = ttq_gemm_experts(xb, *one, bits=4, group_size=32)
-    torch.testing.assert_close(y_m[0].float(), y_r, rtol=2 ** -7,
-                               atol=2e-4 * scale)
-    err = max(float((y.float() - y_r).abs().max()),
-              float((y_m[0].float() - y_r).abs().max()))
+    torch.testing.assert_close(y_m[0].float(), y_r, **tol)
+    err = float((y.float() - y_r).abs().max())
     w_lib = ((unpack_bits(pk, d, 4).float() * S.repeat_interleave(32, 1)
               + Z.repeat_interleave(32, 1)) * dinv).to(torch.bfloat16)
-    t_k = time_ms(torch, lambda: ttq_gemm(xb, pk, S, Z, dinv, bits=4,
-                                          group_size=32), flush=flush)
+
+    def tiles_at(x):
+        return (time_ms(torch, lambda: ttq_gemm(x, pk, S, Z, dinv, bits=4,
+                                                group_size=32), flush=flush),
+                time_ms(torch, lambda: _launch(x, pk, S, Z, dinv, 4, 32,
+                                               "split"), flush=flush),
+                time_ms(torch, lambda: torch.matmul(x, w_lib.T),
+                        flush=flush))
+    t_k, t_s, t_l = tiles_at(xb)
     t_m = time_ms(torch, lambda: ttq_gemm_experts(xb, *one, bits=4,
                                                   group_size=32), flush=flush)
     t_p = time_ms(torch, lambda: ref.ttq_gemm_ref(
         xb, pk, S, Z, bits=4, group_size=32, dinv=dinv), flush=flush)
-    t_l = time_ms(torch, lambda: torch.matmul(xb, w_lib.T), flush=flush)
+    sweep = {n: tiles_at(xb[:n].clone()) for n in (64, 256)}
+    sweep[T] = (t_k, t_s, t_l)
     moved = nbytes(pk, S, Z, dinv, xb) + T * dp * 2
     flops = 2 * T * dp * d
     b_bytes, b_ops = (moved / HBM_BYTES_PER_S * 1e3,
                       flops / DENSE_BF16_FLOP_PER_S * 1e3)
     b = max(b_bytes, b_ops)
     res = dict(T=T, dp=dp, d=d, launches_per_step=per_step, ms=t_k,
-               mma_ms=t_m, plain_ms=t_p, library_ms=t_l, bound_ms=b,
-               bytes_bound_ms=b_bytes, ops_bound_ms=b_ops, max_abs_err=err,
+               split_ms=t_s, mma_ms=t_m, plain_ms=t_p, library_ms=t_l,
+               bound_ms=b, bytes_bound_ms=b_bytes, ops_bound_ms=b_ops,
+               max_abs_err=err, sweep_ms={n: dict(wide=v[0], split=v[1],
+                                                  matmul=v[2])
+                                          for n, v in sweep.items()},
                bound_by="operations" if b_ops > b_bytes else "bytes")
     print(f"  ttq_gemm wkv_b (MLA's latent expansion, deepseek-v2-lite) "
-          f"T={T} {dp}x{d} int4 g32: {t_k * 1e3:.1f} us, the mma tile at "
-          f"E = 1 {t_m * 1e3:.1f} us, torch.matmul bf16 {t_l * 1e3:.1f} us, "
-          f"plain {t_p * 1e3:.1f} us; bound {b * 1e3:.2f} us "
-          f"({res['bound_by']}; bytes {b_bytes * 1e3:.2f} us, bf16 "
-          f"tensor-core operations {b_ops * 1e3:.2f} us), {b / t_k:.2%} of "
-          f"it reached; ttq_gemm / "
-          f"torch.matmul {t_k / t_l:.1f}x; both tiles within one bf16 "
-          f"rounding of the plain version (max |diff| {err:.3g}); per decode "
-          f"step ({per_step} launches): ttq_gemm {t_k * per_step:.3f} ms, "
-          f"mma tile {t_m * per_step:.3f} ms, torch.matmul "
-          f"{t_l * per_step:.3f} ms, bound {b * per_step:.3f} ms")
-    del W, pk, S, Z, w_lib, xb, y, y_m, y_r
+          f"T={T} {dp}x{d} int4 g32, gemm_tile 'wide': {t_k * 1e3:.1f} us "
+          f"(the split tile {t_s * 1e3:.1f} us, {t_s / t_k:.1f}x), the "
+          f"experts' mma tile at E = 1 {t_m * 1e3:.1f} us, torch.matmul bf16 "
+          f"{t_l * 1e3:.1f} us, plain {t_p * 1e3:.1f} us; bound "
+          f"{b * 1e3:.2f} us ({res['bound_by']}; bytes {b_bytes * 1e3:.2f} "
+          f"us, bf16 tensor-core operations {b_ops * 1e3:.2f} us), "
+          f"{b / t_k:.2%} of it reached; wide / torch.matmul "
+          f"{t_k / t_l:.2f}x; every tile within one bf16 rounding of the "
+          f"plain version (wide max |diff| {err:.3g}), two wide calls "
+          f"bitwise equal, a world-2 rank's rows and the first 515 tokens "
+          f"bit for bit the whole launch's; per decode step ({per_step} "
+          f"launches): wide {t_k * per_step:.3f} ms, split "
+          f"{t_s * per_step:.3f} ms, torch.matmul {t_l * per_step:.3f} ms, "
+          f"bound {b * per_step:.3f} ms; by T (us, wide / split / "
+          f"torch.matmul): " + ", ".join(
+              f"{n} {v[0] * 1e3:.1f} / {v[1] * 1e3:.1f} / {v[2] * 1e3:.1f}"
+              for n, v in sweep.items()))
+    del W, pk, S, Z, w_lib, xb, y, y_s, y_m, y_r
     torch.cuda.empty_cache()
     return res
 
@@ -1880,28 +1924,75 @@ def requant_split(torch, eng):
                 requant_rest_s=wall - kern, requant_fresh_tree_s=fresh_s)
 
 
+@contextlib.contextmanager
+def recorded_gemm_tiles():
+    """Every 2-D ``ttq_gemm`` launch made from Python inside the block (an
+    eager call, or one a graph's capture records: each replay repeats it)
+    as (T, d', d, tile)."""
+    import importlib
+    # the module, not the function repro_torch.kernels re-exports by its name
+    tg = importlib.import_module("repro_torch.kernels.ttq_gemm")
+    real, rec = tg._launch, []
+
+    def launch(x2, packed, scale, zero, dinv, bits, g, tile):
+        rec.append((x2.shape[0], packed.shape[0], x2.shape[1], tile))
+        return real(x2, packed, scale, zero, dinv, bits, g, tile)
+    tg._launch = launch
+    try:
+        yield rec
+    finally:
+        tg._launch = real
+
+
+def gemm_tiles_checked(cfg, rec, launches, what) -> dict:
+    """The 2-D ``ttq_gemm``'s tiles in a run: the tiles counted
+    (``build.GEMM_TILES``, replays included) add up to its launches; every
+    recorded launch (:func:`recorded_gemm_tiles`) at an MLA config's
+    ``wkv_b`` expansion (its d' x kv_lora_rank, T >= WIDE_MIN_T) took the
+    wide tile, at least one did, and every other launch took the split
+    tile."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ttq_gemm import WIDE_MIN_T
+    tiles = dict(build.GEMM_TILES)
+    wkv_b = None
+    if cfg.mla is not None:
+        m = cfg.mla
+        wkv_b = (cfg.n_heads * (m.qk_nope_dim + m.v_head_dim), m.kv_lora_rank)
+    bad = sorted({r for r in rec if (r[3] == "wide")
+                  != (r[1:3] == wkv_b and r[0] >= WIDE_MIN_T)})
+    check(sum(tiles.values()) == launches["ttq_gemm"] and not bad
+          and (tiles["wide"] > 0) == (wkv_b is not None),
+          f"{what}: ttq_gemm tiles {tiles} in {launches['ttq_gemm']} "
+          f"launches; launches (T, d', d, tile) on the wrong tile: {bad}")
+    return tiles
+
+
 def main_path(torch, dev, prompts, cfg, params):
     from repro_torch.kernels import build
 
     cfg, ecfg, eng = build_engine(torch, dev, cfg, params)
     build.reset_launches()
-    outs, wall = serve(torch, eng, prompts)
+    with recorded_gemm_tiles() as rec:
+        outs, wall = serve(torch, eng, prompts)
     launches = dict(build.LAUNCHES)
     n_tok = sum(len(o) for o in outs)
     check_outputs(cfg, outs, "dense main path")
     on_path = ("ttq_quantize", "ttq_gemm", "ttq_decode_attention")
     check(all(launches[k] > 0 for k in on_path),
           f"a kernel of the main path never launched: {launches}")
+    tiles = gemm_tiles_checked(cfg, rec, launches, "dense main path")
     res = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
                requants=eng.n_requants, requant_dispatch_s=eng.requant_wall_s,
                host_syncs=eng.host_syncs,
                syncs_per_token=eng.host_syncs / n_tok, launches=launches,
+               gemm_tiles=tiles,
                decode_chunk=eng.ecfg.decode_chunk,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"  served {len(prompts)} requests, {n_tok} tokens in {wall:.2f} s: "
           f"{n_tok / wall:.1f} tok/s; requants {eng.n_requants} (dispatch "
           f"{eng.requant_wall_s * 1e3:.1f} ms); host syncs {eng.host_syncs} "
-          f"({res['syncs_per_token']:.4f}/token); launches {launches}")
+          f"({res['syncs_per_token']:.4f}/token); launches {launches}, "
+          f"ttq_gemm tiles {tiles}")
 
     res.update(graph_phases(torch, cfg, eng, prompts, n_tok))
     res["warm_repeats"] = warm_repeats(torch, eng, prompts, n_tok)
@@ -1936,7 +2027,8 @@ def paged_path(torch, dev, prompts, cfg, params, dense):
     cfg, ecfg, eng = build_engine(torch, dev, cfg, params, kv_paged=True,
                                   kv_block_size=BLOCK)
     build.reset_launches()
-    outs, wall = serve(torch, eng, prompts)
+    with recorded_gemm_tiles() as rec:
+        outs, wall = serve(torch, eng, prompts)
     launches = dict(build.LAUNCHES)
     n_tok = sum(len(o) for o in outs)
     check_outputs(cfg, outs, "paged main path")
@@ -1944,6 +2036,7 @@ def paged_path(torch, dev, prompts, cfg, params, dense):
     check(all(launches[k] > 0 for k in on_path)
           and launches["ttq_decode_attention"] == 0,
           f"paged path launches {launches}")
+    tiles = gemm_tiles_checked(cfg, rec, launches, "paged main path")
     check([list(o) for o in outs] == dense["outputs"],
           f"paged greedy tokens differ from the dense run's: leading tokens "
           f"equal per request "
@@ -1954,11 +2047,12 @@ def paged_path(torch, dev, prompts, cfg, params, dense):
                num_blocks=eng.num_blocks, host_syncs=eng.host_syncs,
                syncs_per_token=eng.host_syncs / n_tok, launches=launches,
                requants=eng.n_requants, preemptions=eng.preemptions,
-               kv_pool_utilization=eng.kv_pool_utilization)
+               kv_pool_utilization=eng.kv_pool_utilization, gemm_tiles=tiles)
     print(f"  served {len(prompts)} requests, {n_tok} tokens in {wall:.2f} s: "
           f"{n_tok / wall:.1f} tok/s; greedy tokens equal to the dense run's; "
           f"{eng.num_blocks} blocks, pool use {eng.kv_pool_utilization:.3f}; "
-          f"host syncs {eng.host_syncs}; launches {launches}")
+          f"host syncs {eng.host_syncs}; launches {launches}, ttq_gemm tiles "
+          f"{tiles}")
     res.update(graph_phases(torch, cfg, eng, prompts, n_tok))
     eng.allocator.assert_quiescent()
     _, res["traced"] = block_syncs_nothing(torch, cfg, eng, prompts)
@@ -4021,9 +4115,13 @@ def tp_family_a(torch, dev, arch, depth, mesh) -> tuple:
         if name == "a2a eager":
             eng.runner.graphs = False
         blocks = record_blocks(eng)
-        outs, _ = serve(torch, eng, prompts)
+        with recorded_gemm_tiles() as rec:
+            outs, _ = serve(torch, eng, prompts)
         del eng.runner.decode_block
         check_outputs(cfg, outs, f"[3m] (a) {cfg.name} {name}")
+        if cfg.mla is not None:     # the wkv_b expansions wide, the rest split
+            gemm_tiles_checked(cfg, rec, build.LAUNCHES,
+                               f"[3m] (a) {cfg.name} {name}")
         runs[name] = dict(eng=eng, tokens=[list(o) for o in outs],
                           blocks=blocks)
         if name in ("world 1", "a2a"):
@@ -4093,7 +4191,9 @@ def tp_family_a(torch, dev, arch, depth, mesh) -> tuple:
           + (f"; a2a graph replays bit for bit its eager run"
              if cfg.moe is not None else "")
           + (f"; wkv_b expansion over {res['expansion']['rows']} latent "
-             f"rows {res['expansion']['ms_per_layer']:.4f} ms per layer"
+             f"rows {res['expansion']['ms_per_layer']:.4f} ms per layer "
+             f"(the split tile {res['expansion']['split_ms_per_layer']:.4f}), "
+             f"every launch at wkv_b on the wide tile, every other split"
              if cfg.mla is not None else "")
           + f"; world-2 layout {shape_ctx.layout}")
     held = dict(cfg=cfg, stats={k: [{kk: vv.cpu().numpy()
@@ -4525,11 +4625,13 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
     _, _, eng = build_engine(torch, dev, cfg, params, guards=True, **kw)
     with_frames(eng, prompts, frames)
     build.reset_launches()
-    with counted_steps(eng) as steps:
+    with counted_steps(eng) as steps, recorded_gemm_tiles() as rec:
         outs, wall = serve(torch, eng, prompts)
     launches = dict(build.LAUNCHES)
     n_tok = sum(len(o) for o in outs)
     check_outputs(cfg, outs, what)
+    if cfg.mla is not None:     # the wkv_b expansions wide, the rest split
+        gemm_tiles = gemm_tiles_checked(cfg, rec, launches, what)
     want = {"ttq_quantize", "ttq_gemm"}
     if attends(cfg):
         want.add("ttq_paged_decode_attention" if paged
@@ -4558,10 +4660,14 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
                host_syncs=eng.host_syncs)
     if cfg.moe is not None:
         res["experts_tiles"] = tiles
+    if cfg.mla is not None:
+        res["gemm_tiles"] = gemm_tiles
     print(f"  {what}: served {len(prompts)} requests, {n_tok} tokens in "
           f"{wall:.2f} s cold ({n_tok / wall:.1f} tok/s); requants "
           f"{eng.n_requants}; launches {launches}"
           + (f", ttq_gemm_experts tiles {tiles}" if cfg.moe else "")
+          + (f", ttq_gemm tiles {gemm_tiles} (the wkv_b expansions wide, "
+             f"the rest split)" if cfg.mla else "")
           + ("; greedy tokens equal to the dense run's" if dense else ""))
     for i, o in enumerate(outs):
         print(f"    greedy tokens, request {i}: {o}")
@@ -4584,9 +4690,12 @@ def family_engine(torch, dev, cfg, params, prompts, paged, dense=None,
         exp = res["wkv_b_expansion"] = expansion_ms(torch, cfg, eng)
         print(f"  {what}: the {cfg.n_layers} wkv_b expansions of the latent "
               f"cache ({exp['rows']} rows each) take {exp['ms_per_step']:.3f}"
-              f" ms per decode step ({exp['ms_per_layer'] * 1e3:.1f} us "
-              f"each), {exp['ms_per_step'] / res['decode_ms_per_step']:.1%} "
-              f"of the warm step's {res['decode_ms_per_step']:.2f} ms")
+              f" ms per decode step on the wide tile "
+              f"({exp['ms_per_layer'] * 1e3:.1f} us each), "
+              f"{exp['ms_per_step'] / res['decode_ms_per_step']:.1%} of the "
+              f"warm step's {res['decode_ms_per_step']:.2f} ms; the split "
+              f"tile on the same cache {exp['split_ms_per_step']:.3f} ms "
+              f"({exp['split_ms_per_layer'] * 1e3:.1f} us each)")
     res.update(unit_witness(torch, cfg, eng, what))
     return res
 
@@ -4648,16 +4757,21 @@ def expansion_ms(torch, cfg, eng) -> dict:
     step (the reference's math): one ``ttq_gemm`` over the B·max_len latent
     rows per layer, timed alone (CUDA events, median) on the served tree
     and the live cache, times the layer count, beside the warm decode step
-    it is part of."""
+    it is part of; on the wide tile the wrapper takes, and on the split
+    tile forced (``ttq_gemm._launch``) at the same shape."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ttq_gemm import _launch
     qt = eng.decode_params["stack"][0]["u0"]["mix"]["wkv_b"]
     lat = eng.runner.state["stack"][0]["u0"]["latent"][0]
     x = lat.reshape(-1, lat.shape[-1])
-    one = time_ms(torch, lambda: ops.ttq_gemm(
-        x, qt.packed[0], qt.scale[0], qt.zero[0], qt.dinv[0], bits=qt.bits,
-        group_size=qt.group_size), iters=20)
-    return dict(rows=x.shape[0], ms_per_layer=one,
-                ms_per_step=one * cfg.n_layers)
+    one = (x, qt.packed[0], qt.scale[0], qt.zero[0], qt.dinv[0])
+    wide = time_ms(torch, lambda: ops.ttq_gemm(
+        *one, bits=qt.bits, group_size=qt.group_size), iters=20)
+    split = time_ms(torch, lambda: _launch(*one, qt.bits, qt.group_size,
+                                           "split"), iters=20)
+    return dict(rows=x.shape[0], ms_per_layer=wide,
+                ms_per_step=wide * cfg.n_layers, split_ms_per_layer=split,
+                split_ms_per_step=split * cfg.n_layers)
 
 
 def moe_family(torch, dev) -> dict:
@@ -6151,6 +6265,12 @@ def main(argv=None) -> int:
           f"the ptxas log lists {len(mma_ptx)} experts mma kernels, not 16, "
           f"or misses the served one {MAIN_PATH_EXPERTS}, or one spills: "
           f"{spilled}")
+    wide_ptx = {n: v for n, v in ptx.items() if n.startswith("wide_kernel")}
+    print("    wide gemm kernels (registers, spill stores, spill loads): "
+          + "; ".join(f"{n} {v}" for n, v in sorted(wide_ptx.items())))
+    check(all(n in wide_ptx and n not in spilled for n in MAIN_PATH_WIDE),
+          f"the ptxas log misses a wide gemm tile {MAIN_PATH_WIDE}, or one "
+          f"spills: {spilled}")
     quant_ptx = {n: v for n, v in ptx.items() if n.startswith("quant_kernel")}
     print("    quantize kernels (registers, spill stores, spill loads): "
           + "; ".join(f"{n} {v}" for n, v in sorted(quant_ptx.items())))
@@ -6177,7 +6297,8 @@ def main(argv=None) -> int:
         "ttq_quantize": ("src/repro_torch/kernels/csrc/ttq_quantize.cu",
                          "src/repro/kernels/ttq_quantize.py:66",
                          kernel_quantize(torch, dev, flush)),
-        "ttq_gemm": ("src/repro_torch/kernels/csrc/ttq_gemm.cu",
+        "ttq_gemm": ("src/repro_torch/kernels/csrc/ttq_gemm.cu, "
+                     "src/repro_torch/kernels/csrc/ttq_gemm_wide.cu",
                      "src/repro/kernels/ttq_gemm.py:125",
                      kernel_gemm(torch, dev, flush)),
     }

@@ -36,6 +36,8 @@ SIGNATURES = {
     # x, x_is_bf16, packed, S, Z, dinv, y, T, dp, d, bits, g, split, stream
     "ttq_gemm_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
+    # x, packed, S, Z, dinv, y, T, dp, d, bits, g, stream (the wide tile)
+    "ttq_gemm_wide_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, x_is_bf16, x_shared, packed, S, Z, dinv, y, E, T, dp, d, bits, g,
     # split, stream
     "ttq_gemm_experts_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -63,6 +65,9 @@ LAUNCHES = {"ttq_quantize": 0, "ttq_gemm": 0, "ttq_gemm_experts": 0,
 # the tile each ttq_gemm_experts launch took (kernels/ttq_gemm.py:
 # experts_tile), counted beside LAUNCHES["ttq_gemm_experts"]
 EXPERTS_TILES = {"mma": 0, "batched": 0}
+# the tile each ttq_gemm launch took (kernels/ttq_gemm.py:gemm_tile), counted
+# beside LAUNCHES["ttq_gemm"]
+GEMM_TILES = {"split": 0, "wide": 0}
 
 _lib = None
 build_seconds = 0.0
@@ -70,7 +75,7 @@ build_log = ""
 
 
 def reset_launches():
-    for counts in (LAUNCHES, EXPERTS_TILES):
+    for counts in (LAUNCHES, EXPERTS_TILES, GEMM_TILES):
         for k in counts:
             counts[k] = 0
 

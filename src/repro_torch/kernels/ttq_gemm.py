@@ -1,6 +1,8 @@
 """Wrappers of the ``ttq_gemm`` CUDA kernels: one 2-D weight
-(:func:`ttq_gemm`, ``csrc/ttq_gemm.cu``), or E expert weights of one shape
-in one launch (:func:`ttq_gemm_experts`, the reference's ``ttq_gemm`` under
+(:func:`ttq_gemm`: the split tile of ``csrc/ttq_gemm.cu``, or at large T the
+tensor-core tile of ``csrc/ttq_gemm_wide.cu`` where :func:`gemm_tile` says
+so), or E expert weights of one shape in one launch
+(:func:`ttq_gemm_experts`, the reference's ``ttq_gemm`` under
 ``jax.vmap`` in ``_expert_mm``): the tensor-core tile of
 ``csrc/ttq_gemm_experts.cu`` where :func:`experts_tile` says so, else the
 2-D kernel's tile batched over the experts.
@@ -25,6 +27,10 @@ TOKEN_TILE = 8          # tokens per block at most (the kernel's largest TT)
 SPLITS = (1, 2, 4, 8)   # blocks per cluster; 8 is the portable cluster limit
 MIN_SLICE = 512         # fewest K elements a split block takes
 BLOCKS_PER_SM = 1       # blocks to aim for on each SM
+WIDE_MIN_T = 64         # fewest tokens gemm_tile sends to the wide tile
+WIDE_MAX_D = 1024       # widest input gemm_tile sends to the wide tile
+WIDE_ROWS, WIDE_TOKENS = 256, 64    # the wide tile (csrc/ttq_gemm_wide.cu)
+WIDE_MIN_TILES = 8      # fewest wide tiles gemm_tile launches
 
 
 def fast_shape(d: int, g: int, bits: int) -> bool:
@@ -36,17 +42,48 @@ def fast_shape(d: int, g: int, bits: int) -> bool:
     return g >= per and not g & (g - 1) and d % (4 * per) == 0
 
 
+def int4_tensor_core_shape(d: int, g: int, bits: int,
+                           dtype: torch.dtype) -> bool:
+    """Whether both tensor-core tiles (``csrc/ttq_gemm_experts.cu``,
+    ``csrc/ttq_gemm_wide.cu``) can take (d, g, bits, x's dtype): bf16 x,
+    int4 codes (their nibbles are dequantized in registers) and g a power of
+    two of at least 32 (one 32-k unit) dividing d."""
+    return (bits == 4 and dtype == torch.bfloat16 and g >= 32
+            and not g & (g - 1) and d % g == 0)
+
+
 def experts_tile(d: int, g: int, bits: int, dtype: torch.dtype) -> str:
     """The tile :func:`ttq_gemm_experts` launches: ``"mma"`` (tensor cores,
-    ``csrc/ttq_gemm_experts.cu``) for bf16 x, int4 codes and g a power of
-    two of at least 32 dividing d (both MoE configs' expert shapes at any
-    T, E and d'); ``"batched"`` (the 2-D kernel's tile over the experts,
+    ``csrc/ttq_gemm_experts.cu``) where :func:`int4_tensor_core_shape`
+    holds (both MoE configs' expert shapes at any T, E and d');
+    ``"batched"`` (the 2-D kernel's tile over the experts,
     ``csrc/ttq_gemm.cu``) for every other shape: bits 2 and 8, other g, f32
     x.  Chosen by shape, never by failure."""
-    if (bits == 4 and dtype == torch.bfloat16 and g >= 32 and not g & (g - 1)
-            and d % g == 0):
-        return "mma"
-    return "batched"
+    return "mma" if int4_tensor_core_shape(d, g, bits, dtype) else "batched"
+
+
+def gemm_tile(T: int, dp: int, d: int, g: int, bits: int,
+              dtype: torch.dtype) -> str:
+    """The tile :func:`ttq_gemm` launches at T tokens, d' = dp rows and d
+    inputs: ``"wide"`` (tensor cores, WIDE_ROWS × WIDE_TOKENS a block over
+    the whole K, ``csrc/ttq_gemm_wide.cu``) where
+    :func:`int4_tensor_core_shape` holds, T >= WIDE_MIN_T, d <= WIDE_MAX_D
+    and the grid has WIDE_MIN_TILES tiles (MLA's latent expansion through
+    ``wkv_b``: T = slots × max_len, d = kv_lora_rank, and a row-split
+    rank's share of its rows); ``"split"`` (the decode tile of
+    ``csrc/ttq_gemm.cu``) for every other shape: every decode step (T =
+    slots) and speculative verify (T = slots × (W + 1)), bits 2 and 8,
+    other g, f32 x (a column-split linear at world > 1), wider inputs and
+    small grids.  Chosen by shape, never by failure.  The bounds come from
+    ``tools/wide_probe.py`` on an H100 (PERF.md §6): the wide tile walks all
+    of K in each block, so it loses at T = 64 from d = 2,048 on (the split
+    tile shares K among a cluster's blocks) and on 4 tiles (d' = 1,024),
+    and wins at d <= 1,024 on 8 tiles or more."""
+    tiles = -(-dp // WIDE_ROWS) * -(-T // WIDE_TOKENS)
+    if (T >= WIDE_MIN_T and d <= WIDE_MAX_D and tiles >= WIDE_MIN_TILES
+            and int4_tensor_core_shape(d, g, bits, dtype)):
+        return "wide"
+    return "split"
 
 
 @functools.lru_cache(maxsize=None)      # called per decode linear: host time
@@ -86,7 +123,8 @@ def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
              bits: int = 4, group_size: int = 32) -> torch.Tensor:
     """x (..., d) → (..., d') in x's dtype.  packed (d', d·bits/32) int32;
     scale, zero (d', d/g) f32; dinv (d,) f32 or None.  g and 32/bits must
-    divide d."""
+    divide d.  The tile is :func:`gemm_tile`'s, counted in
+    ``build.GEMM_TILES``."""
     lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)
     if x.device.type == "cpu":
@@ -110,20 +148,43 @@ def ttq_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
             f"{NAME}: shapes x {tuple(x.shape)}, packed {tuple(packed.shape)},"
             f" scale {tuple(scale.shape)}, zero {tuple(zero.shape)} disagree")
     _check_dg(NAME, d, g, per)
-    T = x2.shape[0]
-    split = gemm_splits(dp, d, T, bits, g, sm_count(x.device))
+    tile = gemm_tile(x2.shape[0], dp, d, g, bits, x.dtype)
+    return _launch(x2, packed, scale, zero, dinv, bits, g,
+                   tile).reshape(*lead, dp)
+
+
+def _launch(x2, packed, scale, zero, dinv, bits, g, tile):
+    """One launch of ``tile`` ("split" or "wide") on checked arguments, x2
+    (T, d).  :func:`ttq_gemm` always passes :func:`gemm_tile`'s choice; a
+    measurement may force the other at the same shape."""
+    T, d = x2.shape
+    dp = packed.shape[0]
+    if tile == "wide" and not (d <= WIDE_MAX_D and int4_tensor_core_shape(
+            d, g, bits, x2.dtype)):
+        raise ValueError(f"{NAME}: the wide tile takes bf16 x, int4, g a "
+                         f"power of two >= 32 dividing d and d <= "
+                         f"{WIDE_MAX_D}, not {x2.dtype}, bits={bits}, g={g}, "
+                         f"d={d}")
     x2, packed, scale, zero = map(aligned, (x2, packed, scale, zero))
-    dinv = None if dinv is None else aligned(dinv)
-    y = torch.empty((T, dp), dtype=x.dtype, device=x.device)
-    err = build.lib().ttq_gemm_launch(
-        x2.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
-        scale.data_ptr(), zero.data_ptr(),
-        None if dinv is None else dinv.data_ptr(), y.data_ptr(),
-        T, dp, d, bits, g, split,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    dinv = None if dinv is None else aligned(dinv)   # alive past the launch
+    dinv_ptr = None if dinv is None else dinv.data_ptr()
+    y = torch.empty((T, dp), dtype=x2.dtype, device=x2.device)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    if tile == "wide":
+        err = build.lib().ttq_gemm_wide_launch(
+            x2.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+            zero.data_ptr(), dinv_ptr, y.data_ptr(), T, dp, d, bits, g,
+            stream)
+    else:
+        err = build.lib().ttq_gemm_launch(
+            x2.data_ptr(), int(x2.dtype == torch.bfloat16), packed.data_ptr(),
+            scale.data_ptr(), zero.data_ptr(), dinv_ptr, y.data_ptr(),
+            T, dp, d, bits, g, gemm_splits(dp, d, T, bits, g,
+                                           sm_count(x2.device)), stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
-    return y.reshape(*lead, dp)
+    build.GEMM_TILES[tile] += 1
+    return y
 
 
 def _check_dg(name, d, g, per):

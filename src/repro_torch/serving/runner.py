@@ -204,6 +204,14 @@ def _layout(tree):
     return tree
 
 
+def _counters() -> dict:
+    """The counts besides ``build.LAUNCHES`` that a graph's capture records
+    and each replay adds again: collectives, and the tile of each GEMM
+    launch."""
+    return {"comm": comm.COUNTS, "tile": build.EXPERTS_TILES,
+            "gemm_tile": build.GEMM_TILES}
+
+
 @contextlib.contextmanager
 def _collector_paused():
     """Python's cycle collector off for the block.  A graph capture runs
@@ -611,29 +619,26 @@ class DeviceRunner:
         if self.generator is not None and self.ecfg.temperature > 0:
             graph.register_generator_state(self.generator)
         before = dict(build.LAUNCHES)
-        before_c = dict(comm.COUNTS)
-        before_t = dict(build.EXPERTS_TILES)
+        before_t = {kind: dict(c) for kind, c in _counters().items()}
         with _collector_paused(), torch.cuda.graph(graph, pool=pool,
                                                    stream=self._stream):
             out = fn()
         launches = {k: build.LAUNCHES[k] - n for k, n in before.items()}
-        launches.update({("comm", k): comm.COUNTS[k] - n
-                         for k, n in before_c.items()})
-        launches.update({("tile", k): build.EXPERTS_TILES[k] - n
-                         for k, n in before_t.items()})
-        build.LAUNCHES.update(before)   # captured, not launched
-        comm.COUNTS.update(before_c)
-        build.EXPERTS_TILES.update(before_t)
+        for kind, c in _counters().items():
+            launches.update({(kind, k): c[k] - n
+                             for k, n in before_t[kind].items()})
+            c.update(before_t[kind])    # captured, not launched
+        build.LAUNCHES.update(before)
         graphs[key] = _Graph(graph, out, launches, inputs or {})
         return warm, time.perf_counter() - t0
 
     @staticmethod
     def _replay(g: _Graph):
         g.graph.replay()
+        counters = _counters()
         for k, n in g.launches.items():
-            if isinstance(k, tuple):    # a collective, or an experts' tile
-                counts = comm.COUNTS if k[0] == "comm" else build.EXPERTS_TILES
-                counts[k[1]] += n
+            if isinstance(k, tuple):    # a collective, or a GEMM's tile
+                counters[k[0]][k[1]] += n
             else:
                 build.LAUNCHES[k] += n
         return g.out

@@ -1,6 +1,6 @@
 """Where a decode step's time goes in the PyTorch/CUDA port, on one card.
 
-    python3 tools/port_profile.py
+    python3 tools/port_profile.py [--arch deepseek_v2_lite_16b]
 
 Builds the engine of ``chip_smoke.py``'s main path (full-width gemma-7b,
 random weights, int4 g32 packed weights, int8 KV, 4 slots x 256) with that
@@ -19,6 +19,10 @@ take the most device time with their mean time per call.
 Then one admission group's prefill (the first group of those 4 prompts, its
 graph captured at admission) the same way: the eager prefill body on a copy
 of the state, and one replay of the group's prefill graph.
+
+``--arch`` another config: the same at its full width and depth
+(``chip_smoke.init_family``) with [3i]'s engine (the default guards), on
+the dense slab only (deepseek-v2-lite's MLA has no paged pool).
 """
 from __future__ import annotations
 
@@ -106,20 +110,32 @@ def profile_prefill(torch, eng, params, group, what):
                   f"{key[:80]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gemma_7b",
+                    help="config to trace (default: the main path's)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA card", file=sys.stderr)
         return 1
-    from chip_smoke import BLOCK, build_engine, card_line, init_gemma, make_prompts
+    from chip_smoke import (BLOCK, build_engine, card_line, init_family,
+                            init_gemma, make_prompts)
 
     dev = torch.device("cuda")
     print(f"card: {card_line()}")
-    cfg, params = init_gemma(torch, dev)
-    prompts = make_prompts()
-    for what, kw in (("dense", {}),
-                     ("paged", dict(kv_paged=True, kv_block_size=BLOCK))):
+    if args.arch == "gemma_7b":
+        cfg, params = init_gemma(torch, dev)
+        variants = (("dense", {}),
+                    ("paged", dict(kv_paged=True, kv_block_size=BLOCK)))
+    else:
+        cfg, params = init_family(torch, dev, args.arch)
+        variants = ((f"{cfg.name} dense", dict(guards=True)),)
+    prompts = make_prompts(cfg.vocab)
+    for what, kw in variants:
         _, _, eng = build_engine(torch, dev, cfg, params, **kw)
         groups = []
         real = eng.runner.admit_group
